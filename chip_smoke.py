@@ -1,0 +1,423 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port (paimon_tpu_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, one JSON line each on stdout:
+
+1. card     - `nvidia-smi --query-gpu=name,power.limit` (also printed raw).
+2. build    - nvcc builds both kernels from paimon_tpu_torch/csrc (seconds).
+3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
+              PyTorch versions on the card: exact integer equality at every
+              listed shape, heavy key ties, mixed u8/u16/u32 lane widths.
+4. main     - the bench.py table (1M rows, id BIGINT NOT NULL + 7 value
+              columns, 4 key-overlapping sorted runs of a seed-7
+              permutation) plus a fifth commit upserting 100k ids with new
+              values, written and merge-read through the port's Table API
+              with sort-engine=pallas at the default merge.read-batch-rows
+              (K2 tier) and at 131072 (K1 tier). Every read must return
+              1,000,000 rows equal row for row to a sort-engine=numpy read,
+              with the upserted values; each kernel's launch count must rise.
+              Launch counts are zeroed just before the writes and read just
+              after the last pallas read.
+5. layers   - the keys-only merge-read pipeline timed stage by stage, and
+              one read of each tier under torch.profiler (device busy time
+              against wall time).
+6. timing   - each kernel at its main-path shape against its plain version,
+              one PyTorch library computation of the same function, and its
+              bound, all with CUDA events.
+
+Then one JSON line with every kernel's numbers, the card line, and last
+`{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
+is not 0 and no result line is printed; without a CUDA device the script
+exits 2 before doing anything.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+N_ROWS = 1_000_000
+N_RUNS = 4
+N_UPSERT = 100_000
+K1_TILE_ROWS = 131072
+READ_REPEATS = 5
+DEVICE = "cuda:0"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+SCALAR32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores, NVIDIA data sheet
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# kernel inputs
+# ---------------------------------------------------------------------------
+
+
+def _lane(rng, n: int, width: str) -> np.ndarray:
+    """Random lane values with heavy ties in a u8/u16/u32 range."""
+    hi = {"u8": 4, "u8w": 256, "u16": 1 << 16, "u32": 1 << 32}[width]
+    return rng.integers(0, hi, n, dtype=np.uint64).astype(np.uint32)
+
+
+def k1_input(hk, rng, m: int, nl: int, dev):
+    """(nl, m) flipped int32: pad flag, key/seq lanes of mixed widths, iota."""
+    pad = np.zeros(m, dtype=np.uint32)
+    pad[m - max(1, m // 10) :] = 1
+    widths = ["u8", "u16", "u32", "u8w", "u8", "u16"]
+    rows = [hk.flip_np(pad)] + [hk.flip_np(_lane(rng, m, widths[i % len(widths)])) for i in range(nl - 2)]
+    rows.append(np.arange(m, dtype=np.int32))
+    num_boundary = nl - 1 - (1 if nl > 3 else 0)  # one sequence lane once there is room
+    return torch.from_numpy(np.stack(rows)).to(dev).contiguous(), num_boundary
+
+
+def k2_input(rng, lanes: int, m: int, dev):
+    """(lanes, m) int32 bit patterns of sorted uint32 lanes: pad flag first
+    (pad rows last), then key lanes with heavy ties, rows sorted."""
+    n_pad = m // 20
+    pad = np.zeros(m, dtype=np.uint32)
+    pad[m - n_pad :] = 1
+    keys = [_lane(rng, m, w) for w in ("u8w", "u32")[: lanes - 1]]
+    order = np.lexsort(keys[::-1] + [pad])
+    rows = [pad[order]] + [k[order] for k in keys]
+    return torch.from_numpy(np.stack(rows).view(np.int32)).to(dev).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+
+def table_values(ids: np.ndarray, upsert: bool) -> dict:
+    if not upsert:  # bench.py:74-94
+        return {
+            "id": ids,
+            "c1": ids * 3,
+            "c2": ids % 97,
+            "c3": ids // 7,
+            "d1": ids.astype(np.float64) * 0.5,
+            "d2": ids.astype(np.float64) + 0.25,
+            "s1": np.array([f"val-{int(x) % 1000:04d}" for x in ids], dtype=object),
+            "s2": np.array([f"tag-{int(x) % 10}" for x in ids], dtype=object),
+        }
+    return {
+        "id": ids,
+        "c1": ids * 3 + 1,
+        "c2": ids % 97 + 1000,
+        "c3": -(ids // 7),
+        "d1": ids.astype(np.float64) * 0.5 + 0.125,
+        "d2": -(ids.astype(np.float64) + 0.25),
+        "s1": np.array([f"upd-{int(x) % 1000:04d}" for x in ids], dtype=object),
+        "s2": np.array(["tag-upd"] * len(ids), dtype=object),
+    }
+
+
+def build_table(pt, warehouse: str):
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    schema = pt.RowType.of(
+        ("id", pt.BIGINT(False)),
+        ("c1", pt.BIGINT()),
+        ("c2", pt.BIGINT()),
+        ("c3", pt.BIGINT()),
+        ("d1", pt.DOUBLE()),
+        ("d2", pt.DOUBLE()),
+        ("s1", pt.STRING()),
+        ("s2", pt.STRING()),
+    )
+    table = cat.create_table(
+        "bench.t",
+        schema,
+        primary_keys=["id"],
+        options={
+            "bucket": "1",
+            "file.format": "parquet",
+            "write-only": "true",
+            "file.compression": "none",
+            "manifest.compression": "none",
+            "sort-engine": "pallas",
+        },
+    )
+    rng = np.random.default_rng(7)
+    ids = rng.permutation(N_ROWS).astype(np.int64)
+    per = N_ROWS // N_RUNS
+    t0 = time.perf_counter()
+    for r in range(N_RUNS):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(table_values(np.sort(ids[r * per : (r + 1) * per]), upsert=False))
+        wb.new_commit().commit(w.prepare_commit())
+    # the upsert batch arrives unsorted: its flush dedups on the device too
+    up = np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(table_values(up, upsert=True))
+    wb.new_commit().commit(w.prepare_commit())
+    return table, up, time.perf_counter() - t0
+
+
+def read_all(table):
+    rb = table.new_read_builder()
+    out = rb.new_read().read_all(rb.new_scan().plan())
+    torch.cuda.synchronize()
+    return out
+
+
+def timed_reads(table, repeats: int):
+    samples, out = [], None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = read_all(table)
+        samples.append(time.perf_counter() - t0)
+    return out, samples
+
+
+def check_output(out, reference, up: np.ndarray, what: str) -> None:
+    assert out.num_rows == N_ROWS, f"{what}: {out.num_rows} rows"
+    for name in out.schema.field_names:
+        a, b = out.column(name), reference.column(name)
+        assert np.array_equal(a.values, b.values), f"{what}: column {name} differs from the numpy engine"
+        assert np.array_equal(a.valid_mask(), b.valid_mask()), f"{what}: validity of {name} differs"
+    ids = out.column("id").values
+    assert np.array_equal(ids, np.arange(N_ROWS)), f"{what}: ids are not the sorted key range"
+    new = table_values(np.sort(up), upsert=True)
+    old_ids = np.setdiff1d(np.arange(N_ROWS), up)
+    old = table_values(old_ids, upsert=False)
+    for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+        vals = out.column(name).values
+        assert np.array_equal(vals[np.sort(up)], new[name]), f"{what}: upserted {name} lost"
+        assert np.array_equal(vals[old_ids], old[name]), f"{what}: untouched {name} changed"
+
+
+def layer_breakdown(table, tile_rows: int) -> dict:
+    """One keys-only merge read, timed stage by stage (host clock, device
+    synchronised at each boundary)."""
+    from paimon_tpu_torch.core.kv import KVBatch
+    from paimon_tpu_torch.core.levels import IntervalPartition
+    from paimon_tpu_torch.core.read import order_runs_for_merge
+    from paimon_tpu_torch.data.keys import encode_key_lanes
+    from paimon_tpu_torch.ops.merge import deduplicate_resolve_tiled, deduplicate_tiled_dispatch
+
+    t = table.copy({"merge.read-batch-rows": str(tile_rows)})
+    store = t.store
+    (split,) = t.new_read_builder().new_scan().plan()
+    rf = store.reader_factory(split.partition, split.bucket)
+    (section,) = IntervalPartition(split.files).partition()
+    runs, seq_ascending = order_runs_for_merge(section)
+    files = [f for run in runs for f in run.files]
+    ms = {}
+    t0 = time.perf_counter()
+    heads = [rf.read(f, fields=["id"], system_columns="kind") for f in files]
+    kv_keys = KVBatch.concat(heads)
+    ms["decode_keys"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    lanes = encode_key_lanes(kv_keys.data, ["id"])
+    ms["encode_lanes"] = (time.perf_counter() - t0) * 1e3
+    offsets = np.cumsum([0] + [h.num_rows for h in heads]).tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    take = deduplicate_resolve_tiled(deduplicate_tiled_dispatch(lanes, offsets, tile_rows, "pallas", True, DEVICE))
+    ms["plan_upload_kernel_download"] = (time.perf_counter() - t0) * 1e3
+    rest = [n for n in rf.read_schema.field_names if n != "id"]
+    t0 = time.perf_counter()
+    tails = [rf.read(f, fields=rest, system_columns=False) for f in files]
+    ms["decode_values"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tail = KVBatch.concat(tails).take(take)
+    kv_keys.take(take)
+    ms["gather"] = (time.perf_counter() - t0) * 1e3
+    assert tail.num_rows == N_ROWS
+    return {"tile_rows": tile_rows, "seq_ascending": seq_ascending, "ms": {k: round(v, 3) for k, v in ms.items()}}
+
+
+def device_busy(table) -> dict:
+    """One read under torch.profiler: device time summed over the CUDA
+    events it recorded, against the read's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        read_all(table)
+    wall_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events)
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+    return {
+        "wall_s_traced": round(wall_s, 4),
+        "device_busy_s": round(device_us / 1e6, 6),
+        "device_idle_share": round(1 - device_us / 1e6 / wall_s, 4) if device_us else "not measured",
+        "top_device_kernels": [[e.key[:60], round(getattr(e, "self_device_time_total", 0) / 1e3, 3)] for e in top[:6]],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paimon_tpu_torch as pt
+    from paimon_tpu_torch.ops import hopper_kernels as hk
+
+    dev = torch.device(DEVICE)
+
+    # 1. card
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    # 2. build
+    t0 = time.perf_counter()
+    hk.build_kernels()
+    for name in hk.KERNEL_SOURCES:
+        hk._lib(name)
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "kernels": list(hk.KERNEL_SOURCES)})
+
+    # 3. kernel vs plain, exact
+    rng = np.random.default_rng(2026)
+    checks = 0
+    for m in (128, 4096, 1 << 17, 1 << 18):
+        for nl in range(2, 9):
+            x, nb = k1_input(hk, rng, m, nl, dev)
+            got = hk.sort_segments(x, nb)
+            torch.cuda.synchronize()
+            want = hk.sort_segments_plain(x, nb)
+            assert torch.equal(got, want), f"K1 differs from its plain version at m={m}, lanes={nl}"
+            checks += 1
+    for m in (1, 127, 128, 2048, 2049, (1 << 20) + 3):
+        for mask_pad in (True, False):
+            x = k2_input(rng, 3, m, dev)
+            got = hk.keep_last_mask(x, mask_pad)
+            torch.cuda.synchronize()
+            want = hk.keep_last_mask_plain(x, mask_pad)
+            assert torch.equal(got, want), f"K2 differs from its plain version at m={m}, mask_pad={mask_pad}"
+            checks += 1
+    emit({"phase": "kernels", "exact_checks": checks, "max_abs_err": 0})
+
+    # 4. main path
+    with tempfile.TemporaryDirectory(prefix="paimon_tpu_torch_smoke_") as warehouse:
+        hk.reset_launches()
+        table, up, write_s = build_table(pt, warehouse)
+        write_launches = dict(hk.launches)
+        emit({"phase": "write", "rows": N_ROWS + N_UPSERT, "commits": N_RUNS + 1, "seconds": round(write_s, 3),
+              "launches": write_launches})
+        reference, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
+        reads = {}
+        for label, opts in (
+            ("pallas_default_tile", {}),
+            (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)}),
+        ):
+            before = dict(hk.launches)
+            out, samples = timed_reads(table.copy(opts), READ_REPEATS)
+            delta = {k: hk.launches[k] - before[k] for k in hk.launches}
+            check_output(out, reference, up, label)
+            reads[label] = {"samples_s": [round(s, 4) for s in samples], "median_s": round(float(np.median(samples)), 4),
+                            "output_rows_per_s_median": round(N_ROWS / float(np.median(samples)), 1),
+                            "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / float(np.median(samples)), 1),
+                            "launches": delta}
+        main_launches = dict(hk.launches)
+        assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched on the default tile"
+        assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched on small tiles"
+        assert all(v > 0 for v in main_launches.values()), main_launches
+        main_shapes = dict(hk.last_shape)
+        plain_out, plain_samples = timed_reads(table.copy({"sort-engine": "xla-segmented"}), READ_REPEATS)
+        check_output(plain_out, reference, up, "xla-segmented")
+        reads["xla_segmented_plain_torch"] = {"samples_s": [round(s, 4) for s in plain_samples],
+                                              "median_s": round(float(np.median(plain_samples)), 4),
+                                              "output_rows_per_s_median": round(N_ROWS / float(np.median(plain_samples)), 1)}
+        reads["numpy_host_oracle"] = {"samples_s": [round(s, 4) for s in numpy_s]}
+        emit({"phase": "main", "output_rows": N_ROWS, "input_rows": N_ROWS + N_UPSERT, "reads": reads,
+              "launches": main_launches, "kernel_shapes": {k: list(v) for k, v in main_shapes.items()},
+              "equal_to_numpy_engine": True, "upserts_visible": True})
+
+        # 5. layers, and the device's busy share under the profiler
+        emit({"phase": "layers", "default_tile": layer_breakdown(table, 8 << 20),
+              f"tile_{K1_TILE_ROWS}": layer_breakdown(table, K1_TILE_ROWS)})
+        device_busy(table)  # the profiler's first use initialises its tracer: not counted
+        emit({"phase": "trace", "default_tile": device_busy(table),
+              f"tile_{K1_TILE_ROWS}": device_busy(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}))})
+
+    # 6. timing at the main path's shapes
+    kernels = []
+    nl, m, nb = main_shapes["sort_segments"]
+    x, _ = k1_input(hk, rng, m, nl, dev)
+    err = (hk.sort_segments(x, nb) - hk.sort_segments_plain(x, nb)).abs().max().item()
+
+    def k1_library():
+        s = x[:, hk.lexsort_lanes(list(x[: nl - 1]))]
+        return (s[:nb, 1:] != s[:nb, :-1]).any(0)
+
+    k1_bytes = nl * m * 4 + 3 * m * 4
+    k1_ops = nl * m * max(1, m.bit_length() - 1)  # comparison-sort lower bound, lane compares
+    kernels.append(kernel_row(
+        "sort_segments (K1)", "paimon_tpu_torch/csrc/sort_segments.cu", "paimon_tpu/ops/pallas_kernels.py:198",
+        main_launches["sort_segments"], err,
+        cuda_ms(lambda: hk.sort_segments(x, nb)), cuda_ms(lambda: hk.sort_segments_plain(x, nb)),
+        k1_bytes, k1_ops, cuda_ms(k1_library), [nl, m, nb],
+    ))
+    lanes, m2 = main_shapes["keep_last_mask"]
+    y = k2_input(rng, lanes, m2, dev)
+    err2 = (hk.keep_last_mask(y, False) - hk.keep_last_mask_plain(y, False)).abs().max().item()
+    kernels.append(kernel_row(
+        "keep_last_mask (K2)", "paimon_tpu_torch/csrc/keep_last.cu", "paimon_tpu/ops/pallas_kernels.py:265",
+        main_launches["keep_last_mask"], err2,
+        cuda_ms(lambda: hk.keep_last_mask(y, False)), cuda_ms(lambda: hk.keep_last_mask_plain(y, False)),
+        lanes * m2 * 4 + m2 * 4, lanes * m2, cuda_ms(lambda: (y[:, 1:] != y[:, :-1]).any(0)), [lanes, m2],
+    ))
+    assert err == 0 and err2 == 0
+    emit({"phase": "timing", "card": card, "note": "CUDA events, 3 warm-up + 20 timed launches each"})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms, shape) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR32_OPS_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": round(ms, 5),
+        "plain_ms": round(plain_ms, 5),
+        "bound_ms": round(max(t_bytes, t_ops), 5),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": round(library_ms, 5),
+        "shape": shape,
+    }
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""paimon_tpu_torch: the PyTorch/CUDA port of paimon_tpu for one NVIDIA
+H100 (Hopper, sm_90a).
+
+This slice writes, commits and merge-reads primary-key tables under the
+deduplicate merge engine through the Table API. With sort-engine=pallas
+the merge runs on two hand-written CUDA kernels (ops/hopper_kernels.py).
+The warehouse layout, schema, snapshot, manifest and data-file formats are
+the JAX package's, so each package reads the other's tables. The package
+imports torch and numpy and nothing of JAX, pyarrow or paimon_tpu.
+
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    cat = FileSystemCatalog(warehouse)            # device="cuda" by default
+    cat = FileSystemCatalog(warehouse, device="cpu")  # plain torch kernels
+"""
+
+from .data.batch import Column, ColumnBatch
+from .options import CoreOptions, SortEngine
+from .types import BIGINT, BOOLEAN, BYTES, DOUBLE, FLOAT, INT, SMALLINT, STRING, TINYINT, DataField, RowKind, RowType
+
+__all__ = [
+    "Column",
+    "ColumnBatch",
+    "CoreOptions",
+    "SortEngine",
+    "RowType",
+    "DataField",
+    "RowKind",
+    "TINYINT",
+    "SMALLINT",
+    "INT",
+    "BIGINT",
+    "FLOAT",
+    "DOUBLE",
+    "BOOLEAN",
+    "STRING",
+    "BYTES",
+]

@@ -1,0 +1,88 @@
+"""Catalog: databases and tables in a warehouse directory (port of
+paimon_tpu/catalog/__init__.py, FileSystemCatalog create/get).
+
+Layout: warehouse/<db>.db/<table>/{schema,snapshot,manifest,bucket-N}, the
+JAX package's. The catalog's `device` ("cuda" by default) threads through
+every table it opens down to the merge kernels; without a CUDA device the
+default raises RuntimeError, and device="cpu" runs the plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..core.schema import SchemaManager
+from ..fs import LocalFileIO
+from ..table import FileStoreTable
+from ..types import RowType
+from ..utils import resolve_device
+
+__all__ = ["FileSystemCatalog", "Identifier"]
+
+
+class Identifier:
+    def __init__(self, database: str, table: str):
+        self.database = database
+        self.table = table
+
+    @staticmethod
+    def parse(full: str) -> "Identifier":
+        db, _, tbl = full.partition(".")
+        if not tbl:
+            raise ValueError(f"expected db.table, got {full!r}")
+        return Identifier(db, tbl)
+
+    def __repr__(self) -> str:
+        return f"{self.database}.{self.table}"
+
+
+class FileSystemCatalog:
+    DB_SUFFIX = ".db"
+
+    def __init__(self, warehouse: str, commit_user: str = "anonymous", device: "str | torch.device" = "cuda"):
+        self.device = resolve_device(device)
+        self.warehouse = warehouse.rstrip("/")
+        self.file_io = LocalFileIO()
+        self.commit_user = commit_user
+
+    def _db_path(self, name: str) -> str:
+        return f"{self.warehouse}/{name}{self.DB_SUFFIX}"
+
+    def create_database(self, name: str, ignore_if_exists: bool = True) -> None:
+        path = self._db_path(name)
+        if self.file_io.exists(path):
+            if not ignore_if_exists:
+                raise ValueError(f"database {name} exists")
+            return
+        self.file_io.mkdirs(path)
+
+    def table_path(self, identifier: "Identifier | str") -> str:
+        ident = Identifier.parse(identifier) if isinstance(identifier, str) else identifier
+        return f"{self._db_path(ident.database)}/{ident.table}"
+
+    def create_table(
+        self,
+        identifier: "Identifier | str",
+        row_type: RowType,
+        partition_keys: Sequence[str] = (),
+        primary_keys: Sequence[str] = (),
+        options: dict | None = None,
+        ignore_if_exists: bool = False,
+    ) -> FileStoreTable:
+        ident = Identifier.parse(identifier) if isinstance(identifier, str) else identifier
+        self.create_database(ident.database)
+        path = self.table_path(ident)
+        sm = SchemaManager(self.file_io, path)
+        if sm.latest() is not None and not ignore_if_exists:
+            raise ValueError(f"table {ident} exists")
+        schema = sm.create_table(row_type, partition_keys, primary_keys, options)
+        return FileStoreTable(self.file_io, path, schema, self.commit_user, self.device)
+
+    def get_table(self, identifier: "Identifier | str") -> FileStoreTable:
+        path = self.table_path(identifier)
+        schema = SchemaManager(self.file_io, path).latest()
+        if schema is None:
+            raise FileNotFoundError(f"table {identifier} does not exist")
+        return FileStoreTable(self.file_io, path, schema, self.commit_user, self.device)

@@ -1,0 +1,218 @@
+"""Data file metadata and the key-value file writer/reader factories (port
+of paimon_tpu/core/datafile.py).
+
+DataFileMeta serializes to the JAX package's JSON fields. Files are
+parquet through format/parquet.py; the reader maps each read field to the
+file's write schema by field id (a missing field reads as nulls).
+"""
+
+from __future__ import annotations
+
+import base64
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+from ..data.batch import Column, ColumnBatch, concat_batches
+from ..format import FieldStats, collect_stats, stats_from_json, stats_to_json
+from ..format.parquet import read_parquet, write_parquet
+from ..fs import LocalFileIO
+from ..types import DataField, RowKind, RowType
+from ..utils import new_file_name, now_millis
+from .kv import SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME, KVBatch, kv_disk_schema
+
+__all__ = ["DataFileMeta", "KeyValueFileWriterFactory", "KeyValueFileReaderFactory"]
+
+
+@dataclass(frozen=True)
+class DataFileMeta:
+    file_name: str
+    file_size: int
+    row_count: int
+    min_key: tuple
+    max_key: tuple
+    key_stats: dict[str, FieldStats]
+    value_stats: dict[str, FieldStats]
+    min_sequence_number: int
+    max_sequence_number: int
+    schema_id: int
+    level: int
+    delete_row_count: int = 0
+    creation_time_millis: int = 0
+    file_source: str = "append"
+    extra_files: tuple[str, ...] = ()
+    embedded_index: bytes | None = None
+
+    def to_dict(self) -> dict:
+        return {
+            "fileName": self.file_name,
+            "fileSize": self.file_size,
+            "rowCount": self.row_count,
+            "minKey": list(self.min_key),
+            "maxKey": list(self.max_key),
+            "keyStats": stats_to_json(self.key_stats),
+            "valueStats": stats_to_json(self.value_stats),
+            "minSequenceNumber": self.min_sequence_number,
+            "maxSequenceNumber": self.max_sequence_number,
+            "schemaId": self.schema_id,
+            "level": self.level,
+            "deleteRowCount": self.delete_row_count,
+            "creationTimeMillis": self.creation_time_millis,
+            "fileSource": self.file_source,
+            "extraFiles": list(self.extra_files),
+            "embeddedIndex": None if self.embedded_index is None else base64.b64encode(self.embedded_index).decode(),
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "DataFileMeta":
+        return DataFileMeta(
+            d["fileName"],
+            d["fileSize"],
+            d["rowCount"],
+            tuple(d["minKey"]),
+            tuple(d["maxKey"]),
+            stats_from_json(d["keyStats"]),
+            stats_from_json(d["valueStats"]),
+            d["minSequenceNumber"],
+            d["maxSequenceNumber"],
+            d["schemaId"],
+            d["level"],
+            d.get("deleteRowCount", 0),
+            d.get("creationTimeMillis", 0),
+            d.get("fileSource", "append"),
+            tuple(d.get("extraFiles", ())),
+            None if d.get("embeddedIndex") is None else base64.b64decode(d["embeddedIndex"]),
+        )
+
+
+def _py(x):
+    return x.item() if hasattr(x, "item") else x
+
+
+class KeyValueFileWriterFactory:
+    """Writes key-sorted KVBatches as parquet data files with stats,
+    rolling at the target file size."""
+
+    def __init__(
+        self,
+        file_io: LocalFileIO,
+        bucket_dir: str,
+        value_schema: RowType,
+        key_names: Sequence[str],
+        schema_id: int,
+        file_format: str = "parquet",
+        compression: str = "zstd",
+        target_file_size: int = 128 << 20,
+    ):
+        if file_format != "parquet":
+            raise NotImplementedError(f"file.format={file_format} is not supported by the torch port yet")
+        self.file_io = file_io
+        self.bucket_dir = bucket_dir
+        self.value_schema = value_schema
+        self.key_names = list(key_names)
+        self.schema_id = schema_id
+        self.compression = compression
+        self.target_file_size = target_file_size
+
+    def _estimate_row_bytes(self, batch: ColumnBatch) -> int:
+        total = 0
+        for f in batch.schema.fields:
+            dt = f.type.numpy_dtype()
+            total += 16 if dt == np.dtype(object) else dt.itemsize
+        return max(total, 1)
+
+    def write(self, kv: KVBatch, level: int, file_source: str = "append") -> list[DataFileMeta]:
+        """Input must be key-sorted; rolls into several files at target size."""
+        n = kv.num_rows
+        if n == 0:
+            return []
+        rows_per_file = max(1, int(self.target_file_size / self._estimate_row_bytes(kv.data)))
+        return [
+            self._write_one(kv.slice(s, min(s + rows_per_file, n)), level, file_source)
+            for s in range(0, n, rows_per_file)
+        ]
+
+    def _write_one(self, kv: KVBatch, level: int, file_source: str) -> DataFileMeta:
+        name = new_file_name("data", "parquet")
+        path = f"{self.bucket_dir}/{name}"
+        self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch(), self.compression))
+        value_stats = collect_stats(kv.data)
+        return DataFileMeta(
+            file_name=name,
+            file_size=self.file_io.get_status(path).size,
+            row_count=kv.num_rows,
+            min_key=tuple(_py(kv.data.column(k).value_at(0)) for k in self.key_names),
+            max_key=tuple(_py(kv.data.column(k).value_at(kv.num_rows - 1)) for k in self.key_names),
+            key_stats={k: value_stats[k] for k in self.key_names},
+            value_stats=value_stats,
+            min_sequence_number=int(kv.seq.min()),
+            max_sequence_number=int(kv.seq.max()),
+            schema_id=self.schema_id,
+            level=level,
+            delete_row_count=int((kv.kind == int(RowKind.DELETE)).sum()),
+            creation_time_millis=now_millis(),
+            file_source=file_source,
+        )
+
+
+class KeyValueFileReaderFactory:
+    """Reads data files back into KVBatches, mapping each read field to the
+    file's write schema by field id."""
+
+    def __init__(
+        self,
+        file_io: LocalFileIO,
+        bucket_dir: str,
+        read_schema: RowType,
+        schemas_by_id: dict[int, RowType],
+    ):
+        self.file_io = file_io
+        self.bucket_dir = bucket_dir
+        self.read_schema = read_schema
+        self.schemas_by_id = schemas_by_id
+
+    def read(
+        self, meta: DataFileMeta, fields: Sequence[str] | None = None, system_columns: bool | str = True
+    ) -> KVBatch:
+        """fields: subset of read-schema fields to decode. system_columns:
+        True reads _SEQUENCE_NUMBER + _VALUE_KIND, "kind" only _VALUE_KIND
+        (seq zeros), False neither (the caller holds them already)."""
+        ext = meta.file_name.rsplit(".", 1)[-1]
+        if ext != "parquet":
+            raise NotImplementedError(f"file.format={ext} is not supported by the torch port yet")
+        data_schema = self.schemas_by_id[meta.schema_id]
+        read_fields = self.read_schema.fields if fields is None else tuple(self.read_schema.field(n) for n in fields)
+        by_id = {f.id: f for f in data_schema.fields}
+        wanted = {True: [SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME], "kind": [VALUE_KIND_FIELD_NAME]}.get(
+            system_columns, []
+        )
+        mapping: list[tuple[DataField, DataField | None]] = []
+        for f in read_fields:
+            src = by_id.get(f.id)
+            if src is not None and src.type.root != f.type.root:
+                raise NotImplementedError(f"type evolution of field {f.name!r} is not supported by the torch port yet")
+            mapping.append((f, src))
+            if src is not None:
+                wanted.append(src.name)
+        disk_schema = kv_disk_schema(data_schema)
+        raw = self.file_io.read_bytes(f"{self.bucket_dir}/{meta.file_name}")
+        parts = read_parquet(raw, disk_schema, wanted)
+        disk = concat_batches(parts) if parts else ColumnBatch.empty(disk_schema.project(wanted))
+        n = disk.num_rows
+        cols: dict[str, Column] = {}
+        for f, src in mapping:
+            if src is None:
+                dt = f.type.numpy_dtype()
+                vals = np.full(n, None, dtype=object) if dt == np.dtype(object) else np.zeros(n, dtype=dt)
+                cols[f.name] = Column(vals, np.zeros(n, dtype=np.bool_))
+            else:
+                cols[f.name] = disk.column(src.name)
+        data = ColumnBatch(RowType(read_fields), cols)
+        seq = np.zeros(n, dtype=np.int64)
+        kind = np.zeros(n, dtype=np.uint8)
+        if system_columns is True:
+            seq = disk.column(SEQUENCE_FIELD_NAME).values.astype(np.int64, copy=False)
+        if system_columns in (True, "kind"):
+            kind = disk.column(VALUE_KIND_FIELD_NAME).values.astype(np.uint8)
+        return KVBatch(data, seq, kind)

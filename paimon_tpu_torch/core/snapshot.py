@@ -1,0 +1,138 @@
+"""Snapshots: the versioned root of a table (port of
+paimon_tpu/core/snapshot.py; expiry and changelog snapshots are not ported
+yet). A snapshot file is immutable JSON published with the atomic-rename
+CAS; the LATEST/EARLIEST hints are an optimization, listing is the truth.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+from ..fs import LocalFileIO
+from ..utils import dumps, loads
+
+__all__ = ["CommitKind", "Snapshot", "SnapshotManager"]
+
+
+class CommitKind(str, enum.Enum):
+    APPEND = "APPEND"
+    COMPACT = "COMPACT"
+    OVERWRITE = "OVERWRITE"
+    ANALYZE = "ANALYZE"
+
+
+@dataclass
+class Snapshot:
+    id: int
+    schema_id: int
+    base_manifest_list: str
+    delta_manifest_list: str
+    changelog_manifest_list: str | None
+    commit_user: str
+    commit_identifier: int
+    commit_kind: CommitKind
+    time_millis: int
+    index_manifest: str | None = None
+    log_offsets: dict = field(default_factory=dict)
+    total_record_count: int | None = None
+    delta_record_count: int | None = None
+    changelog_record_count: int | None = None
+    watermark: int | None = None
+    statistics: str | None = None
+
+    def to_json(self) -> str:
+        return dumps(
+            {
+                "version": 3,
+                "id": self.id,
+                "schemaId": self.schema_id,
+                "baseManifestList": self.base_manifest_list,
+                "deltaManifestList": self.delta_manifest_list,
+                "changelogManifestList": self.changelog_manifest_list,
+                "indexManifest": self.index_manifest,
+                "commitUser": self.commit_user,
+                "commitIdentifier": self.commit_identifier,
+                "commitKind": self.commit_kind.value,
+                "timeMillis": self.time_millis,
+                "logOffsets": self.log_offsets,
+                "totalRecordCount": self.total_record_count,
+                "deltaRecordCount": self.delta_record_count,
+                "changelogRecordCount": self.changelog_record_count,
+                "watermark": self.watermark,
+                "statistics": self.statistics,
+            }
+        )
+
+    @staticmethod
+    def from_json(s: str | bytes) -> "Snapshot":
+        d = loads(s)
+        return Snapshot(
+            id=d["id"],
+            schema_id=d["schemaId"],
+            base_manifest_list=d["baseManifestList"],
+            delta_manifest_list=d["deltaManifestList"],
+            changelog_manifest_list=d.get("changelogManifestList"),
+            commit_user=d["commitUser"],
+            commit_identifier=d["commitIdentifier"],
+            commit_kind=CommitKind(d["commitKind"]),
+            time_millis=d["timeMillis"],
+            index_manifest=d.get("indexManifest"),
+            log_offsets={int(k): v for k, v in (d.get("logOffsets") or {}).items()},
+            total_record_count=d.get("totalRecordCount"),
+            delta_record_count=d.get("deltaRecordCount"),
+            changelog_record_count=d.get("changelogRecordCount"),
+            watermark=d.get("watermark"),
+            statistics=d.get("statistics"),
+        )
+
+
+class SnapshotManager:
+    LATEST = "LATEST"
+    EARLIEST = "EARLIEST"
+
+    def __init__(self, file_io: LocalFileIO, table_path: str):
+        self.file_io = file_io
+        self.table_path = table_path
+        self.snapshot_dir = f"{table_path}/snapshot"
+
+    def snapshot_path(self, snapshot_id: int) -> str:
+        return f"{self.snapshot_dir}/snapshot-{snapshot_id}"
+
+    def snapshot(self, snapshot_id: int) -> Snapshot:
+        return Snapshot.from_json(self.file_io.read_bytes(self.snapshot_path(snapshot_id)))
+
+    def snapshot_exists(self, snapshot_id: int) -> bool:
+        return self.file_io.exists(self.snapshot_path(snapshot_id))
+
+    def _listed_ids(self) -> list[int]:
+        out = []
+        for st in self.file_io.list_files(self.snapshot_dir):
+            base = st.path.rsplit("/", 1)[-1]
+            if base.startswith("snapshot-") and base[len("snapshot-") :].isdigit():
+                out.append(int(base[len("snapshot-") :]))
+        return sorted(out)
+
+    def latest_snapshot_id(self) -> int | None:
+        try:
+            hint = int(self.file_io.read_text(f"{self.snapshot_dir}/{self.LATEST}"))
+        except (OSError, ValueError):
+            hint = None
+        if hint is not None:
+            # the hint may lag: walk forward
+            while self.snapshot_exists(hint + 1):
+                hint += 1
+            if self.snapshot_exists(hint):
+                return hint
+        ids = self._listed_ids()
+        return ids[-1] if ids else None
+
+    def latest_snapshot(self) -> Snapshot | None:
+        sid = self.latest_snapshot_id()
+        return self.snapshot(sid) if sid is not None else None
+
+    def commit_latest_hint(self, snapshot_id: int) -> None:
+        self.file_io.try_overwrite(f"{self.snapshot_dir}/{self.LATEST}", str(snapshot_id).encode())
+
+    def commit_earliest_hint(self, snapshot_id: int) -> None:
+        self.file_io.try_overwrite(f"{self.snapshot_dir}/{self.EARLIEST}", str(snapshot_id).encode())

@@ -1,0 +1,100 @@
+"""The key-value file store: one table's components wired from its schema
+and options (port of paimon_tpu/core/store.py, primary-key tables)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..fs import LocalFileIO
+from ..types import RowType
+from .commit import FileStoreCommit
+from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
+from .mergefn import MergeExecutor
+from .read import MergeFileSplitRead
+from .scan import FileStoreScan
+from .schema import SchemaManager, TableSchema
+from .writer import MergeTreeWriter
+
+__all__ = ["KeyValueFileStore"]
+
+
+class KeyValueFileStore:
+    def __init__(
+        self,
+        file_io: LocalFileIO,
+        table_path: str,
+        schema: TableSchema,
+        commit_user: str = "anonymous",
+        device: "str | torch.device" = "cuda",
+    ):
+        self.file_io = file_io
+        self.table_path = table_path
+        self.schema = schema
+        self.commit_user = commit_user
+        self.device = torch.device(device)
+        self.options = schema.core_options()
+        self.value_schema = RowType(schema.fields)
+        self.key_names = schema.trimmed_primary_keys
+        self.partition_keys = list(schema.partition_keys)
+        self.schema_manager = SchemaManager(file_io, table_path)
+
+    def bucket_dir(self, partition: tuple, bucket: int) -> str:
+        if partition:
+            raise NotImplementedError("partitioned tables are not supported by the torch port yet")
+        return f"{self.table_path}/bucket-{bucket}"
+
+    def schemas_by_id(self) -> dict[int, RowType]:
+        out = {sid: RowType(ts.fields) for sid, ts in self.schema_manager.all_schemas().items()}
+        out.setdefault(self.schema.id, self.value_schema)
+        return out
+
+    def merge_executor(self) -> MergeExecutor:
+        return MergeExecutor(self.value_schema, self.key_names, self.options.merge_engine, self.options, self.device)
+
+    def writer_factory(self, partition: tuple, bucket: int) -> KeyValueFileWriterFactory:
+        co = self.options
+        return KeyValueFileWriterFactory(
+            self.file_io,
+            self.bucket_dir(partition, bucket),
+            self.value_schema,
+            self.key_names,
+            self.schema.id,
+            file_format=co.file_format,
+            compression=co.file_compression,
+            target_file_size=co.target_file_size,
+        )
+
+    def reader_factory(self, partition: tuple, bucket: int) -> KeyValueFileReaderFactory:
+        return KeyValueFileReaderFactory(
+            self.file_io, self.bucket_dir(partition, bucket), self.value_schema, self.schemas_by_id()
+        )
+
+    def new_scan(self) -> FileStoreScan:
+        return FileStoreScan(self.file_io, self.table_path, self.options.manifest_compression)
+
+    def new_commit(self) -> FileStoreCommit:
+        return FileStoreCommit(self.file_io, self.table_path, self.commit_user, self.schema.id, self.options)
+
+    def restore_files(self, partition: tuple, bucket: int) -> list[DataFileMeta]:
+        plan = self.new_scan().with_bucket(bucket).with_partition_filter(lambda p: p == partition).plan()
+        return [e.file for e in plan.entries]
+
+    def new_writer(self, partition: tuple, bucket: int, total_buckets: int) -> MergeTreeWriter:
+        existing = self.restore_files(partition, bucket)
+        return MergeTreeWriter(
+            partition,
+            bucket,
+            total_buckets,
+            self.writer_factory(partition, bucket),
+            self.merge_executor(),
+            self.options,
+            restored_max_seq=max((f.max_sequence_number for f in existing), default=-1),
+        )
+
+    def read_bucket(
+        self, partition: tuple, bucket: int, files: list[DataFileMeta], projection: Sequence[str] | None = None
+    ):
+        read = MergeFileSplitRead(self.reader_factory(partition, bucket), self.merge_executor(), self.key_names)
+        return read.read_split(files, projection)

@@ -1,0 +1,139 @@
+"""The port's two Hopper kernels, through their plain PyTorch versions on the
+CPU, against the JAX package's Pallas kernels run in interpret mode.
+
+Tolerance: exact. Every output is an integer (permutation, 0/1 masks,
+sorted lane values), so equality is bit for bit.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import paimon_tpu.ops.pallas_kernels as pk
+import paimon_tpu_torch.ops.hopper_kernels as hk
+
+_WIDTHS = (1 << 2, 1 << 8, 1 << 16, 1 << 32)  # heavy ties through full u32 range
+
+
+def _uint_lanes(rng, m: int, num_lanes: int):
+    """Pad flag (pad rows last) plus num_lanes - 1 lanes of mixed u8/u16/u32
+    dtypes and ranges."""
+    pad = np.zeros(m, dtype=np.uint8)
+    pad[m - max(1, m // 8) :] = 1
+    lanes = [pad]
+    for i in range(num_lanes - 1):
+        hi = _WIDTHS[int(rng.integers(0, len(_WIDTHS)))]
+        dt = np.uint8 if hi <= 256 else (np.uint16 if hi <= 1 << 16 else np.uint32)
+        lanes.append(rng.integers(0, hi, m, dtype=np.uint64).astype(dt))
+    return lanes
+
+
+def _unflip(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32) ^ np.uint32(0x80000000)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("m", [128, 1024])
+@pytest.mark.parametrize("num_lanes", [2, 3, 4, 5, 6, 7])
+def test_sort_segments_plain_matches_pallas_fused(seed, m, num_lanes):
+    """K1's plain version == JAX fused_sort_segments (interpret): perm,
+    seg_start, keep_last, seg_id and the sorted pad lane, exactly."""
+    rng = np.random.default_rng(1000 * seed + 10 * num_lanes + m)
+    lanes = _uint_lanes(rng, m, num_lanes)
+    num_order = int(rng.integers(0, num_lanes))  # trailing lanes order only
+    nb = num_lanes - num_order
+    assert pk.fusable(m, num_lanes) and hk.fusable(m, num_lanes)
+    want = [np.asarray(x) for x in pk.fused_sort_segments([jax.numpy.asarray(x) for x in lanes[:nb]],
+                                                          [jax.numpy.asarray(x) for x in lanes[nb:]])]
+    tl = [torch.from_numpy(hk.flip_np(x)) for x in lanes]
+    pad_sorted, perm, seg_start, keep_last, seg_id = hk.fused_sort_segments(tl[:nb], tl[nb:])
+    assert (_unflip(pad_sorted) == want[0]).all()
+    assert (perm.numpy() == want[1]).all()
+    assert (seg_start.numpy() == want[2]).all()
+    assert (keep_last.numpy() == want[3]).all()
+    assert (seg_id.numpy() == want[4]).all()
+
+
+@pytest.mark.parametrize("m", [1, 3, 127, 129, 200, 2047, 2049, 5000])
+@pytest.mark.parametrize("mask_pad", [True, False])
+def test_keep_last_mask_plain_matches_pallas(m, mask_pad):
+    """K2's plain version == JAX keep_last_mask(interpret=True) at every m,
+    including the synthetic-pad and last-row rules, in both modes."""
+    rng = np.random.default_rng(m)
+    keys = np.sort(rng.integers(0, max(2, m // 3), m)).astype(np.uint32)
+    pad = np.zeros(m, dtype=np.uint32)
+    pad[m - m // 5 :] = 1
+    stacked = np.stack([pad, keys, rng.integers(0, 2, m).astype(np.uint32)])
+    want = np.asarray(pk.keep_last_mask(stacked, interpret=True, mask_pad=mask_pad))
+    got = hk.keep_last_mask(torch.from_numpy(stacked.view(np.int32)), mask_pad=mask_pad)
+    assert got.dtype == torch.int32
+    assert (got.numpy().astype(np.uint32) == want).all()
+
+
+def test_keep_last_mask_pad_contract():
+    keys = np.array([1, 1, 2, 0, 0], dtype=np.uint32)
+    pad = np.array([0, 0, 0, 1, 1], dtype=np.uint32)
+    x = torch.from_numpy(np.stack([pad, keys]).view(np.int32))
+    assert hk.keep_last_mask(x, mask_pad=True).tolist() == [0, 1, 1, 0, 0]
+    assert hk.keep_last_mask(x, mask_pad=False).tolist() == [0, 1, 1, 0, 1]
+
+
+@pytest.mark.parametrize("m", [2, 128, 4096, 1 << 18, 1 << 19, 4097])
+@pytest.mark.parametrize("num_lanes", [1, 3, 7, 8])
+def test_fusable_admission_matches_jax(m, num_lanes):
+    """Both packages pick the same tier for the same batch."""
+    assert hk.fusable(m, num_lanes) == pk.fusable(m, num_lanes)
+
+
+def test_plain_versions_do_not_count_launches():
+    hk.reset_launches()
+    x = torch.from_numpy(np.stack([hk.flip_np(np.zeros(128, np.uint32)), np.arange(128, dtype=np.int32)]))
+    hk.sort_segments(x, 1)
+    hk.keep_last_mask(x, mask_pad=False)
+    assert hk.launches == {"sort_segments": 0, "keep_last_mask": 0}
+
+
+class _CudaTensorStandIn:
+    """Duck-types a contiguous int32 CUDA tensor, so the wrappers' device
+    routing is exercised on a machine without a GPU."""
+
+    dtype = torch.int32
+    device = torch.device("cuda", 0)
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+
+@pytest.mark.parametrize("kernel", ["sort_segments", "keep_last_mask"])
+def test_cuda_tensor_without_gpu_raises_instead_of_falling_back(monkeypatch, kernel):
+    """A CUDA tensor never reaches a plain version: without the toolkit or a
+    card the wrapper raises."""
+    monkeypatch.setattr(hk, "_LIBS", {})
+    monkeypatch.setattr(hk, "_BUILD", "/nonexistent-paimon-build-dir")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda-home")
+    monkeypatch.setattr(hk.shutil, "which", lambda name: None)
+    monkeypatch.setattr(hk, "sort_segments_plain", lambda *a: pytest.fail("fell back to the plain version"))
+    monkeypatch.setattr(hk, "keep_last_mask_plain", lambda *a: pytest.fail("fell back to the plain version"))
+    x = _CudaTensorStandIn((3, 128))
+    before = dict(hk.launches)
+    with pytest.raises(RuntimeError):
+        if kernel == "sort_segments":
+            hk.sort_segments(x, 2)
+        else:
+            hk.keep_last_mask(x, mask_pad=False)
+    assert hk.launches == before  # a refused launch never counts
+
+
+@pytest.mark.parametrize("bad", [torch.zeros((2, 8), dtype=torch.int64), torch.zeros(8, dtype=torch.int32)])
+def test_wrappers_reject_bad_inputs(bad):
+    with pytest.raises(ValueError):
+        hk.keep_last_mask(bad)
+    with pytest.raises(ValueError):
+        hk.sort_segments(bad, 1)
