@@ -6,10 +6,16 @@
 Phases, one JSON line each on stdout:
 
 1. card     - `nvidia-smi --query-gpu=name,power.limit` (also printed raw).
-2. build    - nvcc builds both kernels from paimon_tpu_torch/csrc (seconds).
+2. build    - nvcc builds both kernels from paimon_tpu_torch/csrc (seconds),
+              and each K1 kernel's registers, shared memory and spills as
+              `-Xptxas -v` reports them (no spills allowed).
 3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
-              PyTorch versions on the card: exact integer equality at every
-              listed shape, heavy key ties, mixed u8/u16/u32 lane widths.
+              PyTorch versions on the card, exact integer equality. K1: m in
+              {2, 4, 64, T/2, T, 2T, 4096, 2^17, 2^18} (T its block-sort
+              tile) x 2..8 lanes x 1 and nl-1 boundary lanes x four key
+              patterns (mixed u8/u16/u32 widths with heavy ties, all keys
+              equal, keys sorted, keys reverse-sorted). K2: ragged sizes,
+              both pad modes.
 4. main     - the bench.py table (1M rows, id BIGINT NOT NULL + 7 value
               columns, 4 key-overlapping sorted runs of a seed-7
               permutation) plus a fifth commit upserting 100k ids with new
@@ -25,7 +31,10 @@ Phases, one JSON line each on stdout:
               against wall time).
 6. timing   - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
-              bound, all with CUDA events.
+              bound, all with CUDA events. K1 also at the write-flush shape
+              and at (8, 2^18), and its device time at the read-tile and
+              widest shapes split between the block sort and the merge
+              rounds (torch.profiler).
 
 Then one JSON line with every kernel's numbers, the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,7 +69,7 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -83,15 +93,50 @@ def _lane(rng, n: int, width: str) -> np.ndarray:
     return rng.integers(0, hi, n, dtype=np.uint64).astype(np.uint32)
 
 
-def k1_input(hk, rng, m: int, nl: int, dev):
-    """(nl, m) flipped int32: pad flag, key/seq lanes of mixed widths, iota."""
+K1_PATTERNS = ("mixed", "equal", "sorted", "reverse")
+
+
+def _k1_lane(rng, m: int, i: int, pattern: str) -> np.ndarray:
+    if pattern == "mixed":
+        return _lane(rng, m, ["u8", "u16", "u32", "u8w", "u8", "u16"][i % 6])
+    if pattern == "equal":
+        return np.full(m, 7, dtype=np.uint32)
+    ramp = np.arange(m, dtype=np.uint32) >> np.uint32(i)  # ties grow with the lane
+    return ramp if pattern == "sorted" else ramp[::-1].copy()
+
+
+def k1_input(hk, rng, m: int, nl: int, dev, pattern: str = "mixed"):
+    """(nl, m) flipped int32: pad flag (pad rows last), nl - 2 key/seq lanes
+    of the pattern, iota. Also returns the main path's boundary count."""
     pad = np.zeros(m, dtype=np.uint32)
     pad[m - max(1, m // 10) :] = 1
-    widths = ["u8", "u16", "u32", "u8w", "u8", "u16"]
-    rows = [hk.flip_np(pad)] + [hk.flip_np(_lane(rng, m, widths[i % len(widths)])) for i in range(nl - 2)]
+    rows = [hk.flip_np(pad)] + [hk.flip_np(_k1_lane(rng, m, i, pattern)) for i in range(nl - 2)]
     rows.append(np.arange(m, dtype=np.int32))
     num_boundary = nl - 1 - (1 if nl > 3 else 0)  # one sequence lane once there is room
     return torch.from_numpy(np.stack(rows)).to(dev).contiguous(), num_boundary
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel<template args>: [registers, static shared bytes, spill stores,
+    spill loads]} from nvcc's `-Xptxas -v` output."""
+    rows, cur = {}, None
+    for line in log.splitlines():
+        mt = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if mt:
+            mangled = mt.group(1)
+            base = re.search(r"\d+([a-z_]+)I", mangled)
+            args = ",".join(re.findall(r"Li(\d+)E", mangled))
+            cur = rows.setdefault(f"{base.group(1)}<{args}>" if base else mangled, [0, 0, 0, 0])
+            continue
+        mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if mt and cur is not None:
+            cur[2], cur[3] = int(mt.group(1)), int(mt.group(2))
+        mt = re.search(r"Used (\d+) registers", line)
+        if mt and cur is not None:
+            cur[0] = int(mt.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur[1] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def k2_input(rng, lanes: int, m: int, dev):
@@ -298,19 +343,32 @@ def main() -> int:
     hk.build_kernels()
     for name in hk.KERNEL_SOURCES:
         hk._lib(name)
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "kernels": list(hk.KERNEL_SOURCES)})
+    build_s = time.perf_counter() - t0
+    k1_usage = ptxas_usage(hk.build_log("sort_segments"))
+    tile = hk.K1_TILE
+    instances = [f"{kernel}<{nl}>" for kernel in ("block_sort", "merge_round") for nl in range(2, 9)]
+    missing = [k for k in instances if k not in k1_usage]
+    assert not missing, f"ptxas reported no usage for {missing}"
+    spilled = {k: k1_usage[k] for k in instances if k1_usage[k][2] or k1_usage[k][3]}
+    emit({"phase": "build", "seconds": round(build_s, 3), "kernels": list(hk.KERNEL_SOURCES), "k1_tile": tile,
+          "k1_ptxas": {"columns": ["registers", "static_smem_bytes", "spill_store_bytes", "spill_load_bytes"],
+                       **k1_usage}})
+    assert not spilled, f"K1 instances spill: {spilled}"
 
     # 3. kernel vs plain, exact
     rng = np.random.default_rng(2026)
-    checks = 0
-    for m in (128, 4096, 1 << 17, 1 << 18):
+    checks = k1_checks = 0
+    for m in sorted({2, 4, 64, tile // 2, tile, 2 * tile, 4096, 1 << 17, 1 << 18}):
         for nl in range(2, 9):
-            x, nb = k1_input(hk, rng, m, nl, dev)
-            got = hk.sort_segments(x, nb)
-            torch.cuda.synchronize()
-            want = hk.sort_segments_plain(x, nb)
-            assert torch.equal(got, want), f"K1 differs from its plain version at m={m}, lanes={nl}"
-            checks += 1
+            for pattern in K1_PATTERNS:
+                x, _ = k1_input(hk, rng, m, nl, dev, pattern)
+                for nb in sorted({1, nl - 1}):
+                    got = hk.sort_segments(x, nb)
+                    torch.cuda.synchronize()
+                    want = hk.sort_segments_plain(x, nb)
+                    assert torch.equal(got, want), f"K1 differs from its plain version at {(nl, m, nb)}, {pattern}"
+                    k1_checks += 1
+    checks += k1_checks
     for m in (1, 127, 128, 2048, 2049, (1 << 20) + 3):
         for mask_pad in (True, False):
             x = k2_input(rng, 3, m, dev)
@@ -319,15 +377,18 @@ def main() -> int:
             want = hk.keep_last_mask_plain(x, mask_pad)
             assert torch.equal(got, want), f"K2 differs from its plain version at m={m}, mask_pad={mask_pad}"
             checks += 1
-    emit({"phase": "kernels", "exact_checks": checks, "max_abs_err": 0})
+    emit({"phase": "kernels", "exact_checks": checks, "k1_exact_checks": k1_checks,
+          "k2_exact_checks": checks - k1_checks, "max_abs_err": 0})
 
     # 4. main path
     with tempfile.TemporaryDirectory(prefix="paimon_tpu_torch_smoke_") as warehouse:
         hk.reset_launches()
         table, up, write_s = build_table(pt, warehouse)
         write_launches = dict(hk.launches)
+        write_shape = hk.last_shape.get("sort_segments")
+        assert write_launches["sort_segments"] > 0 and write_shape is not None, "the write flushes never launched K1"
         emit({"phase": "write", "rows": N_ROWS + N_UPSERT, "commits": N_RUNS + 1, "seconds": round(write_s, 3),
-              "launches": write_launches})
+              "launches": write_launches, "k1_shape": list(write_shape)})
         reference, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
         reads = {}
         for label, opts in (
@@ -364,24 +425,24 @@ def main() -> int:
         emit({"phase": "trace", "default_tile": device_busy(table),
               f"tile_{K1_TILE_ROWS}": device_busy(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}))})
 
-    # 6. timing at the main path's shapes
+    # 6. timing at the main path's shapes, after 0.2 s of K1 calls so that
+    # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
-    nl, m, nb = main_shapes["sort_segments"]
-    x, _ = k1_input(hk, rng, m, nl, dev)
-    err = (hk.sort_segments(x, nb) - hk.sort_segments_plain(x, nb)).abs().max().item()
-
-    def k1_library():
-        s = x[:, hk.lexsort_lanes(list(x[: nl - 1]))]
-        return (s[:nb, 1:] != s[:nb, :-1]).any(0)
-
-    k1_bytes = nl * m * 4 + 3 * m * 4
-    k1_ops = nl * m * max(1, m.bit_length() - 1)  # comparison-sort lower bound, lane compares
-    kernels.append(kernel_row(
-        "sort_segments (K1)", "paimon_tpu_torch/csrc/sort_segments.cu", "paimon_tpu/ops/pallas_kernels.py:198",
-        main_launches["sort_segments"], err,
-        cuda_ms(lambda: hk.sort_segments(x, nb)), cuda_ms(lambda: hk.sort_segments_plain(x, nb)),
-        k1_bytes, k1_ops, cuda_ms(k1_library), [nl, m, nb],
-    ))
+    read_shape = main_shapes["sort_segments"]
+    x, _ = k1_input(hk, rng, read_shape[1], read_shape[0], dev)
+    warm_until = time.perf_counter() + 0.2
+    while time.perf_counter() < warm_until:
+        hk.sort_segments(x, read_shape[2])
+    torch.cuda.synchronize()
+    widest = (8, 1 << 18, 6)
+    k1_rows = [k1_timing(hk, rng, dev, main_launches["sort_segments"], shape)
+               for shape in (read_shape, write_shape, widest)]
+    at_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "host_ms_per_call")
+    kernels.append({**k1_rows[0], "at_shapes": [
+        {"at": at, **{k: row[k] for k in at_keys}} for at, row in zip(("write flush", "widest admitted"), k1_rows[1:])]})
+    split = {}
+    for nl, m, nb in (read_shape, widest):
+        split[str([nl, m, nb])] = k1_split(hk, k1_input(hk, rng, m, nl, dev)[0], nb)
     lanes, m2 = main_shapes["keep_last_mask"]
     y = k2_input(rng, lanes, m2, dev)
     err2 = (hk.keep_last_mask(y, False) - hk.keep_last_mask_plain(y, False)).abs().max().item()
@@ -391,13 +452,70 @@ def main() -> int:
         cuda_ms(lambda: hk.keep_last_mask(y, False)), cuda_ms(lambda: hk.keep_last_mask_plain(y, False)),
         lanes * m2 * 4 + m2 * 4, lanes * m2, cuda_ms(lambda: (y[:, 1:] != y[:, :-1]).any(0)), [lanes, m2],
     ))
-    assert err == 0 and err2 == 0
-    emit({"phase": "timing", "card": card, "note": "CUDA events, 3 warm-up + 20 timed launches each"})
+    assert err2 == 0 and all(r["max_abs_err"] == 0 for r in k1_rows)
+    emit({"phase": "timing", "card": card, "note": "CUDA events, 10 warm-up + 100 timed calls each",
+          "k1_device_split": split})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k1_timing(hk, rng, dev, launches: int, shape) -> dict:
+    """K1's row at one (nl, m, nb) shape: kernel, plain and library times,
+    bound, and the error against the plain version."""
+    nl, m, nb = shape
+    x, _ = k1_input(hk, rng, m, nl, dev)
+    err = (hk.sort_segments(x, nb) - hk.sort_segments_plain(x, nb)).abs().max().item()
+
+    def k1_library():
+        s = x[:, hk.lexsort_lanes(list(x[: nl - 1]))]
+        return (s[:nb, 1:] != s[:nb, :-1]).any(0)
+
+    k1_bytes = nl * m * 4 + 3 * m * 4
+    k1_ops = nl * m * max(1, m.bit_length() - 1)  # comparison-sort lower bound, lane compares
+    row = kernel_row(
+        "sort_segments (K1)", "paimon_tpu_torch/csrc/sort_segments.cu", "paimon_tpu/ops/pallas_kernels.py:198",
+        launches, err, cuda_ms(lambda: hk.sort_segments(x, nb)), cuda_ms(lambda: hk.sort_segments_plain(x, nb)),
+        k1_bytes, k1_ops, cuda_ms(k1_library), [nl, m, nb],
+    )
+    # the wrapper's host time per call: where it exceeds the device time,
+    # back-to-back calls (and so `ms`) are bound by the host
+    t0 = time.perf_counter()
+    for _ in range(100):
+        hk.sort_segments(x, nb)
+    row["host_ms_per_call"] = round((time.perf_counter() - t0) / 100 * 1e3, 5)
+    torch.cuda.synchronize()
+    return row
+
+
+def k1_split(hk, x, nb: int, calls: int = 20, tries: int = 3) -> dict:
+    """Device ms per K1 call in the block sort and in the merge rounds, from
+    torch.profiler over `calls` calls. A session that records no kernel
+    (the tracer now and then returns none) is repeated, up to `tries`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    hk.sort_segments(x, nb)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                hk.sort_segments(x, nb)
+            torch.cuda.synchronize()
+        split = {"block_sort_ms": 0.0, "merge_rounds_ms": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            if "block_sort" in e.key:
+                split["block_sort_ms"] += us / 1e3 / calls
+            elif "merge_round" in e.key:
+                split["merge_rounds_ms"] += us / 1e3 / calls
+        if all(split.values()):
+            break
+    return {k: round(v, 5) if v else "not measured" for k, v in split.items()}
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms, shape) -> dict:

@@ -4,7 +4,9 @@ of paimon_tpu/ops/pallas_kernels.py).
 K1 `sort_segments` (csrc/sort_segments.cu) replaces the Pallas kernel of
 `fused_sort_segments`: a stable lexicographic sort of the stacked
 (pad, [OVC], key, seq, iota) lanes plus the keep-last boundary mask, for
-batches that pass the `fusable` admission test. K2 `keep_last_mask`
+batches that pass the `fusable` admission test. It runs as one block sort
+(registers and warp shuffles, K1_TILE columns per block) and log2(m/K1_TILE)
+merge-path rounds, the last of which writes the output. K2 `keep_last_mask`
 (csrc/keep_last.cu) replaces the Pallas boundary sweep that runs after the
 stock stable sort on larger batches.
 
@@ -44,7 +46,9 @@ __all__ = [
     "fused_sort_segments",
     "keep_last_mask",
     "keep_last_mask_plain",
+    "K1_TILE",
     "build_kernels",
+    "build_log",
     "launches",
     "reset_launches",
     "KERNEL_SOURCES",
@@ -58,11 +62,16 @@ _FUSE_VMEM_BUDGET = 12 * 1024 * 1024
 
 FLIP_ZERO = -(1 << 31)  # flip of the uint lane value 0
 
+# columns per K1 block-sort tile (TILE in csrc/sort_segments.cu): sets the
+# number of merge rounds, and so of scratch lane matrices, for a given m
+K1_TILE = 512
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = {"sort_segments": "sort_segments.cu", "keep_last_mask": "keep_last.cu"}
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC"]
 
 launches = {name: 0 for name in KERNEL_SOURCES}
 last_shape: dict[str, tuple] = {}
@@ -72,6 +81,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    last_shape.clear()
 
 
 def fusable(m: int, num_lanes: int) -> bool:
@@ -129,10 +139,19 @@ def build_kernels() -> dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            with open(f"{out}.log", "w") as f:
+                f.write(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with `-Xptxas -v`: registers, shared memory and spills
+    of every kernel) from the build of `name`'s library."""
+    with open(f"{build_kernels()[name]}.log") as f:
+        return f.read()
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -140,8 +159,12 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_kernels()[name]
         lib = ctypes.CDLL(path)
-        fn = lib.paimon_sort_segments if name == "sort_segments" else lib.paimon_keep_last
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        if name == "sort_segments":
+            fn = lib.paimon_sort_segments
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        else:
+            fn = lib.paimon_keep_last
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
@@ -187,21 +210,25 @@ def sort_segments_plain(stacked: torch.Tensor, num_boundary: int) -> torch.Tenso
 
 def sort_segments(stacked: torch.Tensor, num_boundary: int) -> torch.Tensor:
     """K1 wrapper. stacked: (nl, m) int32, flipped lanes with the boundary
-    lanes first and a distinct (iota) lane last; m a power of two, nl <= 8."""
+    lanes first and a distinct (iota) lane last; m a power of two in
+    [2, 2^18], nl <= 8."""
     _check(stacked, "sort_segments")
     nl, m = stacked.shape
     if not 1 <= num_boundary < nl:
         raise ValueError(f"sort_segments: num_boundary {num_boundary} outside [1, {nl})")
     if stacked.device.type == "cpu":
         return sort_segments_plain(stacked, num_boundary)
-    if m < 2 or m & (m - 1) or nl > _FUSE_MAX_LANES:
-        raise ValueError(f"sort_segments: needs m a power of two >= 2 and <= 8 lanes, got {tuple(stacked.shape)}")
+    if m < 2 or m & (m - 1) or m > _FUSE_MAX_ROWS or nl > _FUSE_MAX_LANES:
+        raise ValueError(
+            f"sort_segments: needs m a power of two in [2, 2^18] and <= 8 lanes, got {tuple(stacked.shape)}"
+        )
+    rounds = (m // K1_TILE).bit_length() - 1 if m > K1_TILE else 0  # merge rounds after the block sort
     dev = stacked.device
     fn = _lib("sort_segments").paimon_sort_segments
     with torch.cuda.device(dev):
-        work = stacked.clone()  # sorted in place by the kernel
         out = torch.empty((3, m), dtype=torch.int32, device=dev)
-        rc = fn(work.data_ptr(), out.data_ptr(), m, nl, num_boundary, _stream(dev))
+        scratch = torch.empty((min(rounds, 2), nl, m), dtype=torch.int32, device=dev)  # the rounds' ping-pong
+        rc = fn(stacked.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, nl, num_boundary, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sort_segments kernel launch failed with CUDA error {rc}")
     launches["sort_segments"] += 1

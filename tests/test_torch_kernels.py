@@ -137,3 +137,71 @@ def test_wrappers_reject_bad_inputs(bad):
         hk.keep_last_mask(bad)
     with pytest.raises(ValueError):
         hk.sort_segments(bad, 1)
+
+
+# ---------------------------------------------------------------------------
+# K1: the sizes and key patterns its block sort and merge rounds treat apart,
+# and its tile
+# ---------------------------------------------------------------------------
+
+_K1_PATTERNS = ("mixed", "equal", "sorted", "reverse")
+
+
+def _pattern_lanes(rng, m: int, num_lanes: int, pattern: str):
+    """Pad flag (pad rows last) plus num_lanes - 1 uint32 lanes: mixed
+    widths with heavy ties, all equal (only pad and iota differ), sorted or
+    reverse-sorted (ties grow with the lane)."""
+    if pattern == "mixed":
+        return _uint_lanes(rng, m, num_lanes)
+    pad = np.zeros(m, dtype=np.uint32)
+    pad[m - max(1, m // 8) :] = 1
+    lanes = [pad]
+    for i in range(num_lanes - 1):
+        ramp = np.arange(m, dtype=np.uint32) >> np.uint32(i)
+        lanes.append({"equal": np.full(m, 7, np.uint32), "sorted": ramp, "reverse": ramp[::-1].copy()}[pattern])
+    return lanes
+
+
+@pytest.mark.parametrize("pattern", _K1_PATTERNS)
+@pytest.mark.parametrize("m, num_boundary", [(2, 1), (4, 3), (32, 1), (32, 3)])
+def test_sort_segments_plain_matches_pallas_patterns(pattern, m, num_boundary):
+    """K1's plain version == JAX fused_sort_segments (interpret) at the
+    sizes the block sort treats apart (m under one thread's columns, m one
+    warp's shuffle span), for each key pattern, with one boundary lane and
+    with every lane but the iota one (nl - 1) splitting segments."""
+    num_lanes = 3
+    lanes = _pattern_lanes(np.random.default_rng(m), m, num_lanes, pattern)
+    nb = num_boundary
+    want = [np.asarray(x) for x in pk.fused_sort_segments([jax.numpy.asarray(x) for x in lanes[:nb]],
+                                                          [jax.numpy.asarray(x) for x in lanes[nb:]])]
+    tl = [torch.from_numpy(hk.flip_np(x)) for x in lanes]
+    got = hk.fused_sort_segments(tl[:nb], tl[nb:])
+    assert (_unflip(got[0]) == want[0]).all()
+    for g, w in zip(got[1:], want[1:]):
+        assert (g.numpy() == w).all()
+
+
+def test_k1_tile_matches_the_cuda_source():
+    """The wrapper sizes K1's scratch from the same tile the kernel sorts."""
+    import re
+
+    with open(hk.os.path.join(hk._CSRC, hk.KERNEL_SOURCES["sort_segments"])) as f:
+        src = f.read()
+    assert int(re.search(r"constexpr int TILE = (\d+);", src).group(1)) == hk.K1_TILE
+
+
+def test_k1_tile_fills_the_card_at_the_read_shape():
+    """At the read-tile shape (3, 2^17) the block sort puts at least one
+    block on each of the H100's 132 SMs."""
+    assert (1 << 17) // hk.K1_TILE >= 132
+
+
+@pytest.mark.parametrize("shape", [(3, 1 << 19), (9, 128), (3, 96)])
+def test_sort_segments_refuses_unadmitted_cuda_shapes(monkeypatch, shape):
+    """A CUDA tensor outside K1's contract (m over 2^18, more than 8 lanes,
+    m not a power of two) is refused before any build or launch."""
+    monkeypatch.setattr(hk, "_lib", lambda name: pytest.fail("reached the kernel"))
+    before = dict(hk.launches)
+    with pytest.raises(ValueError):
+        hk.sort_segments(_CudaTensorStandIn(shape), 2)
+    assert hk.launches == before
