@@ -7,15 +7,19 @@ Phases, one JSON line each on stdout:
 
 1. card     - `nvidia-smi --query-gpu=name,power.limit` (also printed raw).
 2. build    - nvcc builds both kernels from paimon_tpu_torch/csrc (seconds),
-              and each K1 kernel's registers, shared memory and spills as
+              and each kernel's registers, shared memory and spills as
               `-Xptxas -v` reports them (no spills allowed).
 3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
               PyTorch versions on the card, exact integer equality. K1: m in
               {2, 4, 64, T/2, T, 2T, 4096, 2^17, 2^18} (T its block-sort
               tile) x 2..8 lanes x 1 and nl-1 boundary lanes x four key
               patterns (mixed u8/u16/u32 widths with heavy ties, all keys
-              equal, keys sorted, keys reverse-sorted). K2: ragged sizes,
-              both pad modes.
+              equal, keys sorted, keys reverse-sorted). K2: L in
+              {1, 2, 3, 8, 9, 12} lanes x m in {1..8 ragged, 127..129,
+              1023..1025, 2^21, 2^21 + 3} x both pad modes x five patterns
+              (all columns equal, all distinct, segments ending at every
+              4th and every 128th column, sorted pad-tail lanes), plus
+              contiguous views one column off a flat buffer's start.
 4. main     - the bench.py table (1M rows, id BIGINT NOT NULL + 7 value
               columns, 4 key-overlapping sorted runs of a seed-7
               permutation) plus a fifth commit upserting 100k ids with new
@@ -31,10 +35,13 @@ Phases, one JSON line each on stdout:
               against wall time).
 6. timing   - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
-              bound, all with CUDA events. K1 also at the write-flush shape
-              and at (8, 2^18), and its device time at the read-tile and
-              widest shapes split between the block sort and the merge
-              rounds (torch.profiler).
+              bound, all with CUDA events, and the wrapper's host time per
+              call. K1 also at the write-flush shape and at (8, 2^18), and
+              its device time at the read-tile and widest shapes split
+              between the block sort and the merge rounds (torch.profiler).
+              K2's device time and the library call's, by torch.profiler,
+              with the input warm in L2 (as the main path hands it over)
+              and cold (cycling over copies that exceed the L2).
 
 Then one JSON line with every kernel's numbers, the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
@@ -44,6 +51,7 @@ exits 2 before doing anything.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -62,6 +70,7 @@ K1_TILE_ROWS = 131072
 READ_REPEATS = 5
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50 << 20  # H100 SXM L2 cache
 SCALAR32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores, NVIDIA data sheet
 
 
@@ -124,9 +133,12 @@ def ptxas_usage(log: str) -> dict:
         mt = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if mt:
             mangled = mt.group(1)
-            base = re.search(r"\d+([a-z_]+)I", mangled)
+            name, pos = mangled, 3 if mangled.startswith("_ZN") else 2
+            while (num := re.match(r"\d+", mangled[pos:])) is not None:  # the nested name's last part
+                start = pos + num.end()
+                name, pos = mangled[start : start + int(num.group())], start + int(num.group())
             args = ",".join(re.findall(r"Li(\d+)E", mangled))
-            cur = rows.setdefault(f"{base.group(1)}<{args}>" if base else mangled, [0, 0, 0, 0])
+            cur = rows.setdefault(f"{name}<{args}>" if args else name, [0, 0, 0, 0])
             continue
         mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if mt and cur is not None:
@@ -139,16 +151,70 @@ def ptxas_usage(log: str) -> dict:
     return rows
 
 
-def k2_input(rng, lanes: int, m: int, dev):
-    """(lanes, m) int32 bit patterns of sorted uint32 lanes: pad flag first
-    (pad rows last), then key lanes with heavy ties, rows sorted."""
-    n_pad = m // 20
-    pad = np.zeros(m, dtype=np.uint32)
-    pad[m - n_pad :] = 1
-    keys = [_lane(rng, m, w) for w in ("u8w", "u32")[: lanes - 1]]
-    order = np.lexsort(keys[::-1] + [pad])
-    rows = [pad[order]] + [k[order] for k in keys]
-    return torch.from_numpy(np.stack(rows).view(np.int32)).to(dev).contiguous()
+K2_LANES = (1, 2, 3, 8, 9, 12)
+K2_COLUMNS = (1, 2, 3, 4, 5, 7, 8, 127, 128, 129, 1023, 1024, 1025, 1 << 21, (1 << 21) + 3)
+K2_PATTERNS = ("equal", "distinct", "ends_every_4", "ends_every_128", "pad_tail")
+K2_MISALIGNED = ((2, 1 << 21), (3, 129))
+_K2_WIDTHS = (256, 1 << 32, 4, 1 << 16)  # key-lane value ranges, cycled
+
+
+def k2_input(hk, lanes: int, m: int, dev, pattern: str = "pad_tail", seed: int = 0):
+    """(lanes, m) int32 bit patterns of sorted lanes, lane 0 the pad flag,
+    made on the device. `equal`: every column the same, so only the last
+    closes. `distinct`, `ends_every_4`, `ends_every_128`: segment c, c // 4
+    or c // 128 at column c, each step between segments changing exactly
+    one lane, cycling over the key lanes (over lane 0 when it is the only
+    lane). `pad_tail`: the main path's shape, m // 20 pad rows last and key
+    lanes of heavy ties, sorted."""
+    col = torch.arange(m, device=dev, dtype=torch.int64)
+    if pattern == "pad_tail":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rows = [(col >= m - m // 20).to(torch.int32)]
+        for i in range(lanes - 1):
+            hi = _K2_WIDTHS[i % len(_K2_WIDTHS)]
+            rows.append(torch.randint(0, hi, (m,), generator=gen, device=dev, dtype=torch.int64).to(torch.int32))
+        perm = hk.lexsort_lanes(rows)
+        return torch.stack([r[perm] for r in rows]).contiguous()
+    seg = {"equal": col * 0, "distinct": col, "ends_every_4": col // 4, "ends_every_128": col // 128}[pattern]
+    stepping = list(range(1, lanes)) or [0]
+    rows = [torch.zeros(m, device=dev, dtype=torch.int64) for _ in range(lanes)]
+    for i, lane in enumerate(stepping):  # lane i changes at the steps s -> s + 1 with s % n == i
+        rows[lane] = (seg + len(stepping) - 1 - i) // len(stepping)
+    return torch.stack(rows).to(torch.int32).contiguous()
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x that starts one int32 past a fresh buffer's
+    start, so its rows are not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def k2_checks(hk, dev) -> tuple[int, int]:
+    """K2 against its plain version, exactly, over the K2 grid; returns
+    (aligned checks, misaligned-view checks)."""
+    aligned = unaligned = 0
+    for lanes in K2_LANES:
+        for m in K2_COLUMNS:
+            for pattern in K2_PATTERNS:
+                x = k2_input(hk, lanes, m, dev, pattern, seed=m + lanes)
+                views = [x] + ([misaligned(x)] if (lanes, m) in K2_MISALIGNED else [])
+                for v in views:
+                    for mask_pad in (True, False):
+                        got = hk.keep_last_mask(v, mask_pad)
+                        torch.cuda.synchronize()
+                        want = hk.keep_last_mask_plain(x, mask_pad)
+                        assert torch.equal(got, want), (
+                            f"K2 differs from its plain version at L={lanes}, m={m}, {pattern}, "
+                            f"mask_pad={mask_pad}, data_ptr % 16 = {v.data_ptr() % 16}")
+                        if v is x:
+                            aligned += 1
+                        else:
+                            unaligned += 1
+    return aligned, unaligned
 
 
 # ---------------------------------------------------------------------------
@@ -341,19 +407,20 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     hk.build_kernels()
-    for name in hk.KERNEL_SOURCES:
-        hk._lib(name)
     build_s = time.perf_counter() - t0
     k1_usage = ptxas_usage(hk.build_log("sort_segments"))
+    k2_usage = ptxas_usage(hk.build_log("keep_last_mask"))
     tile = hk.K1_TILE
     instances = [f"{kernel}<{nl}>" for kernel in ("block_sort", "merge_round") for nl in range(2, 9)]
     missing = [k for k in instances if k not in k1_usage]
     assert not missing, f"ptxas reported no usage for {missing}"
-    spilled = {k: k1_usage[k] for k in instances if k1_usage[k][2] or k1_usage[k][3]}
+    assert k2_usage, "ptxas reported no usage for K2"
+    usage = {**{k: k1_usage[k] for k in instances}, **k2_usage}
+    spilled = {k: v for k, v in usage.items() if v[2] or v[3]}
+    columns = ["registers", "static_smem_bytes", "spill_store_bytes", "spill_load_bytes"]
     emit({"phase": "build", "seconds": round(build_s, 3), "kernels": list(hk.KERNEL_SOURCES), "k1_tile": tile,
-          "k1_ptxas": {"columns": ["registers", "static_smem_bytes", "spill_store_bytes", "spill_load_bytes"],
-                       **k1_usage}})
-    assert not spilled, f"K1 instances spill: {spilled}"
+          "k1_ptxas": {"columns": columns, **k1_usage}, "k2_ptxas": {"columns": columns, **k2_usage}})
+    assert not spilled, f"kernels spill: {spilled}"
 
     # 3. kernel vs plain, exact
     rng = np.random.default_rng(2026)
@@ -369,16 +436,12 @@ def main() -> int:
                     assert torch.equal(got, want), f"K1 differs from its plain version at {(nl, m, nb)}, {pattern}"
                     k1_checks += 1
     checks += k1_checks
-    for m in (1, 127, 128, 2048, 2049, (1 << 20) + 3):
-        for mask_pad in (True, False):
-            x = k2_input(rng, 3, m, dev)
-            got = hk.keep_last_mask(x, mask_pad)
-            torch.cuda.synchronize()
-            want = hk.keep_last_mask_plain(x, mask_pad)
-            assert torch.equal(got, want), f"K2 differs from its plain version at m={m}, mask_pad={mask_pad}"
-            checks += 1
+    t0 = time.perf_counter()
+    k2_aligned, k2_misaligned = k2_checks(hk, dev)
+    checks += k2_aligned + k2_misaligned
     emit({"phase": "kernels", "exact_checks": checks, "k1_exact_checks": k1_checks,
-          "k2_exact_checks": checks - k1_checks, "max_abs_err": 0})
+          "k2_exact_checks": k2_aligned + k2_misaligned, "k2_misaligned_view_checks": k2_misaligned,
+          "k2_seconds": round(time.perf_counter() - t0, 3), "max_abs_err": 0})
 
     # 4. main path
     with tempfile.TemporaryDirectory(prefix="paimon_tpu_torch_smoke_") as warehouse:
@@ -442,19 +505,40 @@ def main() -> int:
         {"at": at, **{k: row[k] for k in at_keys}} for at, row in zip(("write flush", "widest admitted"), k1_rows[1:])]})
     split = {}
     for nl, m, nb in (read_shape, widest):
-        split[str([nl, m, nb])] = k1_split(hk, k1_input(hk, rng, m, nl, dev)[0], nb)
+        x = k1_input(hk, rng, m, nl, dev)[0]
+        split[str([nl, m, nb])] = device_ms(lambda: hk.sort_segments(x, nb),
+                                            {"block_sort_ms": "block_sort", "merge_rounds_ms": "merge_round"})
     lanes, m2 = main_shapes["keep_last_mask"]
-    y = k2_input(rng, lanes, m2, dev)
+    y = k2_input(hk, lanes, m2, dev)
     err2 = (hk.keep_last_mask(y, False) - hk.keep_last_mask_plain(y, False)).abs().max().item()
-    kernels.append(kernel_row(
+
+    def k2_library():
+        return (y[:, 1:] != y[:, :-1]).any(0)
+
+    k2_row = kernel_row(
         "keep_last_mask (K2)", "paimon_tpu_torch/csrc/keep_last.cu", "paimon_tpu/ops/pallas_kernels.py:265",
         main_launches["keep_last_mask"], err2,
         cuda_ms(lambda: hk.keep_last_mask(y, False)), cuda_ms(lambda: hk.keep_last_mask_plain(y, False)),
-        lanes * m2 * 4 + m2 * 4, lanes * m2, cuda_ms(lambda: (y[:, 1:] != y[:, :-1]).any(0)), [lanes, m2],
-    ))
+        lanes * m2 * 4 + m2 * 4, lanes * m2, cuda_ms(k2_library), [lanes, m2],
+    )
+    k2_row["host_ms_per_call"] = host_ms(lambda: hk.keep_last_mask(y, False))
+    # warm: the input is in L2, as the main path hands it over right after
+    # writing it; cold: it comes from device memory, as the bound assumes
+    ys = l2_evicting_copies(y)
+    k2_row["device_ms"] = device_ms(lambda: hk.keep_last_mask(y, False), {"ms": "keep_last"})["ms"]
+    k2_row["device_ms_cold"] = device_ms(rotating(lambda t: hk.keep_last_mask(t, False), ys), {"ms": "keep_last"})["ms"]
+    k2_row["library_device_ms"] = device_ms(k2_library, {"ms": ""})["ms"]
+    k2_row["library_device_ms_cold"] = device_ms(rotating(lambda t: (t[:, 1:] != t[:, :-1]).any(0), ys), {"ms": ""})["ms"]
+    del ys
+    kernels.append(k2_row)
     assert err2 == 0 and all(r["max_abs_err"] == 0 for r in k1_rows)
-    emit({"phase": "timing", "card": card, "note": "CUDA events, 10 warm-up + 100 timed calls each",
-          "k1_device_split": split})
+    emit({"phase": "timing", "card": card,
+          "note": "ms: CUDA events, 10 warm-up + 100 timed calls; host_ms_per_call: host clock over 100 calls "
+                  "without a synchronise; device_ms: torch.profiler kernel time per call over 20 calls on one "
+                  "input (warm in L2); device_ms_cold: the same, cycling over copies that exceed the L2",
+          "k1_device_split": split,
+          "k2": {k: k2_row[k] for k in ("ms", "device_ms", "device_ms_cold", "host_ms_per_call", "bound_ms",
+                                        "plain_ms", "library_ms", "library_device_ms", "library_device_ms_cold")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -480,39 +564,60 @@ def k1_timing(hk, rng, dev, launches: int, shape) -> dict:
         launches, err, cuda_ms(lambda: hk.sort_segments(x, nb)), cuda_ms(lambda: hk.sort_segments_plain(x, nb)),
         k1_bytes, k1_ops, cuda_ms(k1_library), [nl, m, nb],
     )
-    # the wrapper's host time per call: where it exceeds the device time,
-    # back-to-back calls (and so `ms`) are bound by the host
-    t0 = time.perf_counter()
-    for _ in range(100):
-        hk.sort_segments(x, nb)
-    row["host_ms_per_call"] = round((time.perf_counter() - t0) / 100 * 1e3, 5)
-    torch.cuda.synchronize()
+    row["host_ms_per_call"] = host_ms(lambda: hk.sort_segments(x, nb))
     return row
 
 
-def k1_split(hk, x, nb: int, calls: int = 20, tries: int = 3) -> dict:
-    """Device ms per K1 call in the block sort and in the merge rounds, from
-    torch.profiler over `calls` calls. A session that records no kernel
-    (the tracer now and then returns none) is repeated, up to `tries`."""
+def host_ms(fn, calls: int = 100) -> float:
+    """The host's time per call of fn, without a synchronise: where it
+    exceeds the device time, back-to-back calls (and so `ms`) are bound by
+    the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return round(ms, 5)
+
+
+def l2_evicting_copies(x: torch.Tensor) -> list:
+    """Copies of x that together exceed the L2 cache twice over: cycling
+    through them, each call finds its input evicted by the calls between."""
+    return [x.clone() for _ in range(max(3, -(-2 * L2_BYTES // (x.numel() * 4)) + 1))]
+
+
+def rotating(fn, inputs: list):
+    """A callable that applies fn to the next of inputs, in turn."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(next(it))
+
+
+def device_ms(fn, labels: dict, calls: int = 20, tries: int = 3) -> dict:
+    """Device ms per call of fn, from torch.profiler over `calls` calls: for
+    each label, the kernels whose name holds its substring ("" takes every
+    kernel). A session that records none of them (the tracer now and then
+    returns no kernel) is repeated, up to `tries`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    hk.sort_segments(x, nb)
+    fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                hk.sort_segments(x, nb)
+                fn()
             torch.cuda.synchronize()
-        split = {"block_sort_ms": 0.0, "merge_rounds_ms": 0.0}
+        split = dict.fromkeys(labels, 0.0)
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
             us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-            if "block_sort" in e.key:
-                split["block_sort_ms"] += us / 1e3 / calls
-            elif "merge_round" in e.key:
-                split["merge_rounds_ms"] += us / 1e3 / calls
+            for label, part in labels.items():
+                if part in e.key:
+                    split[label] += us / 1e3 / calls
+                    break
         if all(split.values()):
             break
     return {k: round(v, 5) if v else "not measured" for k, v in split.items()}

@@ -8,7 +8,8 @@ batches that pass the `fusable` admission test. It runs as one block sort
 (registers and warp shuffles, K1_TILE columns per block) and log2(m/K1_TILE)
 merge-path rounds, the last of which writes the output. K2 `keep_last_mask`
 (csrc/keep_last.cu) replaces the Pallas boundary sweep that runs after the
-stock stable sort on larger batches.
+stock stable sort on larger batches: 16-byte loads of four columns a thread,
+the next column by warp shuffle, a grid the size of what the card holds.
 
 Beside each kernel sits its plain PyTorch version. A wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
@@ -23,11 +24,14 @@ unsigned order of the lanes, and equality is unchanged.
 The kernels build at first use with nvcc for sm_90a into
 paimon_tpu_torch/_build/ (one shared library per source, all sources
 compiled in parallel, rebuilt when a source's hash changes) and load via
-ctypes with a plain C interface.
+ctypes with a plain C interface, each entry bound once. A launch makes the
+tensor's device current only when it is not, and takes the current stream
+as a raw pointer, so a call costs the host little more than the launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -75,7 +79,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", 
 
 launches = {name: 0 for name in KERNEL_SOURCES}
 last_shape: dict[str, tuple] = {}
-_LIBS: dict[str, ctypes.CDLL] = {}
+_KERNELS: dict[str, ctypes._CFuncPtr] = {}  # kernel -> its bound C entry
 
 
 def reset_launches() -> None:
@@ -154,11 +158,11 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = build_kernels()[name]
-        lib = ctypes.CDLL(path)
+def _kernel(name: str):
+    """The C entry of `name`'s library, built, loaded and bound on first use."""
+    fn = _KERNELS.get(name)
+    if fn is None:
+        lib = ctypes.CDLL(build_kernels()[name])
         if name == "sort_segments":
             fn = lib.paimon_sort_segments
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -166,8 +170,8 @@ def _lib(name: str) -> ctypes.CDLL:
             fn = lib.paimon_keep_last
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+        _KERNELS[name] = fn
+    return fn
 
 
 def _check(x: torch.Tensor, what: str) -> None:
@@ -177,8 +181,16 @@ def _check(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _on_device(dev: torch.device):
+    """The CUDA runtime launches on the calling thread's current device:
+    make dev current for the launch, unless it already is."""
+    return contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+
+
+def _stream(dev: torch.device) -> int:
+    """The current stream on dev as a raw pointer, without building a
+    torch.cuda.Stream."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +235,11 @@ def sort_segments(stacked: torch.Tensor, num_boundary: int) -> torch.Tensor:
             f"sort_segments: needs m a power of two in [2, 2^18] and <= 8 lanes, got {tuple(stacked.shape)}"
         )
     rounds = (m // K1_TILE).bit_length() - 1 if m > K1_TILE else 0  # merge rounds after the block sort
+    fn = _kernel("sort_segments")
     dev = stacked.device
-    fn = _lib("sort_segments").paimon_sort_segments
-    with torch.cuda.device(dev):
-        out = torch.empty((3, m), dtype=torch.int32, device=dev)
-        scratch = torch.empty((min(rounds, 2), nl, m), dtype=torch.int32, device=dev)  # the rounds' ping-pong
+    out = torch.empty((3, m), dtype=torch.int32, device=dev)
+    scratch = torch.empty((min(rounds, 2), nl, m), dtype=torch.int32, device=dev)  # the rounds' ping-pong
+    with _on_device(dev):
         rc = fn(stacked.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, nl, num_boundary, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sort_segments kernel launch failed with CUDA error {rc}")
@@ -273,18 +285,20 @@ def keep_last_mask_plain(stacked: torch.Tensor, mask_pad: bool = True) -> torch.
 
 def keep_last_mask(stacked: torch.Tensor, mask_pad: bool = True) -> torch.Tensor:
     """K2 wrapper. stacked: (L, m) int32 bit patterns of sorted uint32
-    lanes, lane 0 the pad flag; any m >= 1."""
+    lanes, lane 0 the pad flag; any L >= 1, any m >= 1. The kernel takes
+    its vector path where the rows are 16-byte aligned (m % 4 == 0 and an
+    aligned start) and its scalar path otherwise."""
     _check(stacked, "keep_last_mask")
     lanes, m = stacked.shape
     if lanes < 1 or m < 1:
         raise ValueError(f"keep_last_mask: empty input {tuple(stacked.shape)}")
     if stacked.device.type == "cpu":
         return keep_last_mask_plain(stacked, mask_pad)
+    fn = _kernel("keep_last_mask")
     dev = stacked.device
-    fn = _lib("keep_last_mask").paimon_keep_last
-    with torch.cuda.device(dev):
-        out = torch.empty(m, dtype=torch.int32, device=dev)
-        rc = fn(stacked.data_ptr(), out.data_ptr(), lanes, m, int(bool(mask_pad)), _stream(dev))
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    with _on_device(dev):
+        rc = fn(stacked.data_ptr(), out.data_ptr(), lanes, m, 1 if mask_pad else 0, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"keep_last_mask kernel launch failed with CUDA error {rc}")
     launches["keep_last_mask"] += 1

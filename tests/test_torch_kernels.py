@@ -71,6 +71,52 @@ def test_keep_last_mask_plain_matches_pallas(m, mask_pad):
     assert (got.numpy().astype(np.uint32) == want).all()
 
 
+def _k2_lanes(rng, num_lanes: int, m: int, pattern: str) -> np.ndarray:
+    """(num_lanes, m) uint32 sorted lanes, lane 0 the pad flag.
+    `ends_every_4`: a segment ends at every 4th column (the edge of the
+    CUDA kernel's 4-column groups), each step changing one lane, cycling
+    over the key lanes. `pad_tail`: m // 5 pad rows last, key lanes of
+    heavy ties, sorted."""
+    if pattern == "ends_every_4":
+        seg = np.arange(m) // 4
+        stepping = list(range(1, num_lanes)) or [0]
+        rows = np.zeros((num_lanes, m), dtype=np.uint32)
+        for i, lane in enumerate(stepping):
+            rows[lane] = (seg + len(stepping) - 1 - i) // len(stepping)
+        return rows
+    pad = (np.arange(m) >= m - m // 5).astype(np.uint32)
+    keys = [rng.integers(0, 2, m).astype(np.uint32) for _ in range(num_lanes - 1)]
+    order = np.lexsort(keys[::-1] + [pad])
+    return np.stack([pad[order]] + [k[order] for k in keys])
+
+
+@pytest.mark.parametrize("pattern", ["ends_every_4", "pad_tail"])
+@pytest.mark.parametrize("m", [4, 5, 132, 4099])
+@pytest.mark.parametrize("num_lanes", [1, 9])
+def test_keep_last_mask_plain_matches_pallas_at_group_edges(num_lanes, m, pattern):
+    """K2's plain version == JAX keep_last_mask(interpret=True) at one lane
+    and at more lanes than the fused tier admits, at m around the CUDA
+    kernel's 4-column groups, in both modes."""
+    stacked = _k2_lanes(np.random.default_rng(m + num_lanes), num_lanes, m, pattern)
+    for mask_pad in (True, False):
+        want = np.asarray(pk.keep_last_mask(stacked, interpret=True, mask_pad=mask_pad))
+        got = hk.keep_last_mask(torch.from_numpy(stacked.view(np.int32)), mask_pad=mask_pad)
+        assert (got.numpy().astype(np.uint32) == want).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 4096), (3, 129)])
+def test_keep_last_mask_misaligned_view_matches_aligned_copy(shape):
+    """A contiguous view one column past a buffer's start (rows not 16-byte
+    aligned, the CUDA kernel's scalar path) gives the aligned copy's mask."""
+    x = torch.from_numpy(_k2_lanes(np.random.default_rng(7), shape[0], shape[1], "pad_tail").view(np.int32))
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32)
+    view = buf[1:].view(shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    for mask_pad in (True, False):
+        assert torch.equal(hk.keep_last_mask(view, mask_pad), hk.keep_last_mask(x.clone(), mask_pad))
+
+
 def test_keep_last_mask_pad_contract():
     keys = np.array([1, 1, 2, 0, 0], dtype=np.uint32)
     pad = np.array([0, 0, 0, 1, 1], dtype=np.uint32)
@@ -115,7 +161,7 @@ class _CudaTensorStandIn:
 def test_cuda_tensor_without_gpu_raises_instead_of_falling_back(monkeypatch, kernel):
     """A CUDA tensor never reaches a plain version: without the toolkit or a
     card the wrapper raises."""
-    monkeypatch.setattr(hk, "_LIBS", {})
+    monkeypatch.setattr(hk, "_KERNELS", {})
     monkeypatch.setattr(hk, "_BUILD", "/nonexistent-paimon-build-dir")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda-home")
     monkeypatch.setattr(hk.shutil, "which", lambda name: None)
@@ -200,7 +246,7 @@ def test_k1_tile_fills_the_card_at_the_read_shape():
 def test_sort_segments_refuses_unadmitted_cuda_shapes(monkeypatch, shape):
     """A CUDA tensor outside K1's contract (m over 2^18, more than 8 lanes,
     m not a power of two) is refused before any build or launch."""
-    monkeypatch.setattr(hk, "_lib", lambda name: pytest.fail("reached the kernel"))
+    monkeypatch.setattr(hk, "_kernel", lambda name: pytest.fail("reached the kernel"))
     before = dict(hk.launches)
     with pytest.raises(ValueError):
         hk.sort_segments(_CudaTensorStandIn(shape), 2)
