@@ -8,7 +8,8 @@ Phases, one JSON line each on stdout:
 1. card     - `nvidia-smi --query-gpu=name,power.limit` (also printed raw).
 2. build    - nvcc builds both kernels from paimon_tpu_torch/csrc (seconds),
               and each kernel's registers, shared memory and spills as
-              `-Xptxas -v` reports them (no spills allowed).
+              `-Xptxas -v` reports them (no spills allowed); cc builds the
+              zstd codec from paimon_tpu_torch/native/zstd.c (seconds).
 3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
               PyTorch versions on the card, exact integer equality. K1: m in
               {2, 4, 64, T/2, T, 2T, 4096, 2^17, 2^18} (T its block-sort
@@ -20,19 +21,27 @@ Phases, one JSON line each on stdout:
               (all columns equal, all distinct, segments ending at every
               4th and every 128th column, sorted pad-tail lanes), plus
               contiguous views one column off a flat buffer's start.
-4. main     - the bench.py table (1M rows, id BIGINT NOT NULL + 7 value
+4. main     - the bench.py table at bench.py's own options (bucket 1,
+              parquet, write-only; no codec keys, so zstd data pages and
+              zstd manifests), 1M rows, id BIGINT NOT NULL + 7 value
               columns, 4 key-overlapping sorted runs of a seed-7
-              permutation) plus a fifth commit upserting 100k ids with new
+              permutation, plus a fifth commit upserting 100k ids with new
               values, written and merge-read through the port's Table API
               with sort-engine=pallas at the default merge.read-batch-rows
               (K2 tier) and at 131072 (K1 tier). Every read must return
               1,000,000 rows equal row for row to a sort-engine=numpy read,
               with the upserted values; each kernel's launch count must rise.
               Launch counts are zeroed just before the writes and read just
-              after the last pallas read.
-5. layers   - the keys-only merge-read pipeline timed stage by stage, and
-              one read of each tier under torch.profiler (device busy time
-              against wall time).
+              after the last pallas read. Then the same table with
+              file.compression=none and manifest.compression=none (what
+              earlier runs measured), its own launch counts zeroed before
+              its writes, read at the default tile only.
+5. layers   - the keys-only merge-read pipeline timed stage by stage, for
+              both tables; `decompress_pages` times the zstd decompression
+              of every page those reads decode (a part of the two decode
+              stages) and gives its output MB/s; and the bytes of each table
+              on disk. Then one read of each tier under torch.profiler
+              (device busy time against wall time).
 6. timing   - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
@@ -246,7 +255,13 @@ def table_values(ids: np.ndarray, upsert: bool) -> dict:
     }
 
 
-def build_table(pt, warehouse: str):
+BENCH_OPTIONS = {"bucket": "1", "file.format": "parquet", "write-only": "true", "sort-engine": "pallas"}
+UNCOMPRESSED = {"file.compression": "none", "manifest.compression": "none"}
+
+
+def build_table(pt, warehouse: str, name: str, extra_options: dict):
+    """bench.py's table (bench.py:54-96) with bench.py's options plus
+    sort-engine=pallas and extra_options, and the upsert commit."""
     from paimon_tpu_torch.catalog import FileSystemCatalog
 
     cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
@@ -260,19 +275,7 @@ def build_table(pt, warehouse: str):
         ("s1", pt.STRING()),
         ("s2", pt.STRING()),
     )
-    table = cat.create_table(
-        "bench.t",
-        schema,
-        primary_keys=["id"],
-        options={
-            "bucket": "1",
-            "file.format": "parquet",
-            "write-only": "true",
-            "file.compression": "none",
-            "manifest.compression": "none",
-            "sort-engine": "pallas",
-        },
-    )
+    table = cat.create_table(f"bench.{name}", schema, primary_keys=["id"], options={**BENCH_OPTIONS, **extra_options})
     rng = np.random.default_rng(7)
     ids = rng.permutation(N_ROWS).astype(np.int64)
     per = N_ROWS // N_RUNS
@@ -307,6 +310,14 @@ def timed_reads(table, repeats: int):
     return out, samples
 
 
+def read_stats(samples: list, launches: dict | None = None) -> dict:
+    median = float(np.median(samples))
+    out = {"samples_s": [round(s, 4) for s in samples], "median_s": round(median, 4),
+           "output_rows_per_s_median": round(N_ROWS / median, 1),
+           "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / median, 1)}
+    return out if launches is None else {**out, "launches": launches}
+
+
 def check_output(out, reference, up: np.ndarray, what: str) -> None:
     assert out.num_rows == N_ROWS, f"{what}: {out.num_rows} rows"
     for name in out.schema.field_names:
@@ -326,8 +337,9 @@ def check_output(out, reference, up: np.ndarray, what: str) -> None:
 
 def layer_breakdown(table, tile_rows: int) -> dict:
     """One keys-only merge read, timed stage by stage (host clock, device
-    synchronised at each boundary)."""
-    from paimon_tpu_torch.core.kv import KVBatch
+    synchronised at each boundary), and the zstd decompression of every page
+    its two decode stages decode, timed apart."""
+    from paimon_tpu_torch.core.kv import VALUE_KIND_FIELD_NAME, KVBatch
     from paimon_tpu_torch.core.levels import IntervalPartition
     from paimon_tpu_torch.core.read import order_runs_for_merge
     from paimon_tpu_torch.data.keys import encode_key_lanes
@@ -362,7 +374,34 @@ def layer_breakdown(table, tile_rows: int) -> dict:
     kv_keys.take(take)
     ms["gather"] = (time.perf_counter() - t0) * 1e3
     assert tail.num_rows == N_ROWS
-    return {"tile_rows": tile_rows, "seq_ascending": seq_ascending, "ms": {k: round(v, 3) for k, v in ms.items()}}
+    raws = [store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}") for f in files]
+    decompress = {"keys": decompress_pages(raws, ["id", VALUE_KIND_FIELD_NAME]), "values": decompress_pages(raws, rest)}
+    return {"tile_rows": tile_rows, "seq_ascending": seq_ascending, "ms": {k: round(v, 3) for k, v in ms.items()},
+            "decompress_pages": decompress}
+
+
+def decompress_pages(raws: list, columns: list) -> dict:
+    """Every page of `columns` in the data files `raws`, taken apart and
+    decompressed as the reader does it, without decoding the values."""
+    from paimon_tpu_torch.format import parquet
+
+    out_bytes = 0
+    t0 = time.perf_counter()
+    for raw in raws:
+        for _, chunks in parquet._parse_footer(raw):
+            for name in columns:
+                out_bytes += sum(len(page) for _, _, page in parquet._iter_pages(raw, chunks[name]))
+    s = time.perf_counter() - t0
+    return {"ms": round(s * 1e3, 3), "out_mb": round(out_bytes / 1e6, 3), "out_mb_per_s": round(out_bytes / 1e6 / s, 1)}
+
+
+def table_bytes(table) -> dict:
+    """Bytes on disk of a table's data files and of its manifests."""
+    def total(directory, prefix):
+        return sum(os.path.getsize(os.path.join(directory, n)) for n in os.listdir(directory) if n.startswith(prefix))
+
+    return {"data_bytes": total(f"{table.path}/bucket-0", "data-"),
+            "manifest_bytes": total(f"{table.path}/manifest", "manifest")}
 
 
 def device_busy(table) -> dict:
@@ -392,6 +431,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paimon_tpu_torch as pt
+    from paimon_tpu_torch.native import build_zstd
     from paimon_tpu_torch.ops import hopper_kernels as hk
 
     dev = torch.device(DEVICE)
@@ -408,6 +448,9 @@ def main() -> int:
     t0 = time.perf_counter()
     hk.build_kernels()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_zstd()
+    codec_build_s = time.perf_counter() - t0
     k1_usage = ptxas_usage(hk.build_log("sort_segments"))
     k2_usage = ptxas_usage(hk.build_log("keep_last_mask"))
     tile = hk.K1_TILE
@@ -418,7 +461,8 @@ def main() -> int:
     usage = {**{k: k1_usage[k] for k in instances}, **k2_usage}
     spilled = {k: v for k, v in usage.items() if v[2] or v[3]}
     columns = ["registers", "static_smem_bytes", "spill_store_bytes", "spill_load_bytes"]
-    emit({"phase": "build", "seconds": round(build_s, 3), "kernels": list(hk.KERNEL_SOURCES), "k1_tile": tile,
+    emit({"phase": "build", "seconds": round(build_s, 3), "kernels": list(hk.KERNEL_SOURCES),
+          "zstd_codec_seconds": round(codec_build_s, 3), "k1_tile": tile,
           "k1_ptxas": {"columns": columns, **k1_usage}, "k2_ptxas": {"columns": columns, **k2_usage}})
     assert not spilled, f"kernels spill: {spilled}"
 
@@ -446,7 +490,7 @@ def main() -> int:
     # 4. main path
     with tempfile.TemporaryDirectory(prefix="paimon_tpu_torch_smoke_") as warehouse:
         hk.reset_launches()
-        table, up, write_s = build_table(pt, warehouse)
+        table, up, write_s = build_table(pt, warehouse, "t", {})
         write_launches = dict(hk.launches)
         write_shape = hk.last_shape.get("sort_segments")
         assert write_launches["sort_segments"] > 0 and write_shape is not None, "the write flushes never launched K1"
@@ -460,12 +504,8 @@ def main() -> int:
         ):
             before = dict(hk.launches)
             out, samples = timed_reads(table.copy(opts), READ_REPEATS)
-            delta = {k: hk.launches[k] - before[k] for k in hk.launches}
             check_output(out, reference, up, label)
-            reads[label] = {"samples_s": [round(s, 4) for s in samples], "median_s": round(float(np.median(samples)), 4),
-                            "output_rows_per_s_median": round(N_ROWS / float(np.median(samples)), 1),
-                            "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / float(np.median(samples)), 1),
-                            "launches": delta}
+            reads[label] = read_stats(samples, {k: hk.launches[k] - before[k] for k in hk.launches})
         main_launches = dict(hk.launches)
         assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched on the default tile"
         assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched on small tiles"
@@ -473,17 +513,28 @@ def main() -> int:
         main_shapes = dict(hk.last_shape)
         plain_out, plain_samples = timed_reads(table.copy({"sort-engine": "xla-segmented"}), READ_REPEATS)
         check_output(plain_out, reference, up, "xla-segmented")
-        reads["xla_segmented_plain_torch"] = {"samples_s": [round(s, 4) for s in plain_samples],
-                                              "median_s": round(float(np.median(plain_samples)), 4),
-                                              "output_rows_per_s_median": round(N_ROWS / float(np.median(plain_samples)), 1)}
+        reads["xla_segmented_plain_torch"] = read_stats(plain_samples)
         reads["numpy_host_oracle"] = {"samples_s": [round(s, 4) for s in numpy_s]}
-        emit({"phase": "main", "output_rows": N_ROWS, "input_rows": N_ROWS + N_UPSERT, "reads": reads,
-              "launches": main_launches, "kernel_shapes": {k: list(v) for k, v in main_shapes.items()},
-              "equal_to_numpy_engine": True, "upserts_visible": True})
+
+        # the uncompressed variant, at the default tile
+        hk.reset_launches()
+        plain_table, plain_up, plain_write_s = build_table(pt, warehouse, "t_uncompressed", UNCOMPRESSED)
+        out, samples = timed_reads(plain_table, READ_REPEATS)
+        uncompressed_launches = dict(hk.launches)
+        assert uncompressed_launches["keep_last_mask"] > 0, "K2 never launched on the uncompressed table"
+        check_output(out, timed_reads(plain_table.copy({"sort-engine": "numpy"}), 1)[0], plain_up, "uncompressed")
+        reads["uncompressed_pallas_default_tile"] = read_stats(samples, uncompressed_launches)
+        emit({"phase": "main", "output_rows": N_ROWS, "input_rows": N_ROWS + N_UPSERT,
+              "options": BENCH_OPTIONS, "reads": reads, "launches": main_launches,
+              "kernel_shapes": {k: list(v) for k, v in main_shapes.items()},
+              "uncompressed_write_seconds": round(plain_write_s, 3), "equal_to_numpy_engine": True,
+              "upserts_visible": True})
 
         # 5. layers, and the device's busy share under the profiler
         emit({"phase": "layers", "default_tile": layer_breakdown(table, 8 << 20),
-              f"tile_{K1_TILE_ROWS}": layer_breakdown(table, K1_TILE_ROWS)})
+              f"tile_{K1_TILE_ROWS}": layer_breakdown(table, K1_TILE_ROWS),
+              "uncompressed_default_tile": layer_breakdown(plain_table, 8 << 20),
+              "on_disk": {"zstd": table_bytes(table), "uncompressed": table_bytes(plain_table)}})
         device_busy(table)  # the profiler's first use initialises its tracer: not counted
         emit({"phase": "trace", "default_tile": device_busy(table),
               f"tile_{K1_TILE_ROWS}": device_busy(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}))})

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..data.batch import Column, ColumnBatch, concat_batches
 from ..format import FieldStats, collect_stats, stats_from_json, stats_to_json
-from ..format.parquet import read_parquet, write_parquet
+from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
 from ..fs import LocalFileIO
 from ..types import DataField, RowKind, RowType
 from ..utils import new_file_name, now_millis
@@ -103,10 +103,17 @@ class KeyValueFileWriterFactory:
         schema_id: int,
         file_format: str = "parquet",
         compression: str = "zstd",
+        per_level_compression: dict[int, str] | None = None,
         target_file_size: int = 128 << 20,
     ):
         if file_format != "parquet":
             raise NotImplementedError(f"file.format={file_format} is not supported by the torch port yet")
+        self.per_level_compression = dict(per_level_compression or {})
+        lacking = {lv: c for lv, c in self.per_level_compression.items() if c.lower() not in WRITE_CODECS}
+        if lacking:
+            raise NotImplementedError(
+                f"file.compression.per.level names {lacking}: the torch port writes {', '.join(WRITE_CODECS)}"
+            )
         self.file_io = file_io
         self.bucket_dir = bucket_dir
         self.value_schema = value_schema
@@ -136,7 +143,8 @@ class KeyValueFileWriterFactory:
     def _write_one(self, kv: KVBatch, level: int, file_source: str) -> DataFileMeta:
         name = new_file_name("data", "parquet")
         path = f"{self.bucket_dir}/{name}"
-        self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch(), self.compression))
+        compression = self.per_level_compression.get(level, self.compression)
+        self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch(), compression))
         value_stats = collect_stats(kv.data)
         return DataFileMeta(
             file_name=name,

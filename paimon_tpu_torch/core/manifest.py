@@ -1,12 +1,12 @@
 """The manifest metadata tree (port of paimon_tpu/core/manifest.py: the
-JSON-lines container with manifest.compression=none).
+JSON-lines container).
 
 A manifest file holds ManifestEntry lines (ADD/DELETE of a DataFileMeta at
-a partition and bucket); a manifest list holds ManifestFileMeta lines. The
-JAX package's default container is zstd-compressed JSON-lines; the port
-carries no zstd codec, so reading or writing it raises NotImplementedError
-naming manifest.compression, and the Avro container (manifest.format=avro)
-is not ported yet.
+a partition and bucket); a manifest list holds ManifestFileMeta lines. As
+in the JAX package, each file is one zstd frame of JSON lines unless
+manifest.compression=none, and readers sniff the zstd magic. The Avro
+container (manifest.format=avro) is not ported yet and raises
+NotImplementedError naming manifest.format.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Iterable, Sequence
 
 from ..fs import LocalFileIO
 from ..utils import dumps, loads, new_file_name
+from ..utils.compression import ZSTD_MAGIC, zstd_compress, zstd_decompress
 from .datafile import DataFileMeta
 
 __all__ = [
@@ -30,7 +31,6 @@ __all__ = [
     "merge_entries",
 ]
 
-_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 _AVRO_MAGIC = b"Obj\x01"
 
 
@@ -98,12 +98,9 @@ class _JsonLines:
     def _write_lines(self, name: str, dicts: Iterable[dict], track: list[str] | None) -> int:
         if self.format != "jsonl":
             raise NotImplementedError(f"manifest.format={self.format} is not supported by the torch port yet")
-        if self.compression != "none":
-            raise NotImplementedError(
-                f"manifest.compression={self.compression} (zstd) cannot be written by the torch port; "
-                "set manifest.compression=none"
-            )
         data = "\n".join(dumps(d) for d in dicts).encode()
+        if self.compression != "none":  # every other value means zstd, as in the JAX package
+            data = zstd_compress(data)
         if track is not None:
             track.append(name)
         if not self.file_io.try_atomic_write(f"{self.directory}/{name}", data):
@@ -112,12 +109,9 @@ class _JsonLines:
 
     def _read_lines(self, name: str) -> list[dict]:
         data = self.file_io.read_bytes(f"{self.directory}/{name}")
-        if data[:4] == _ZSTD_MAGIC:
-            raise NotImplementedError(
-                f"manifest {name} is zstd-compressed (manifest.compression=default), which the torch port "
-                "cannot decode; tables for the port use manifest.compression=none"
-            )
-        if data[:4] == _AVRO_MAGIC:
+        if data[:4] == ZSTD_MAGIC:
+            data = bytes(zstd_decompress(data))
+        elif data[:4] == _AVRO_MAGIC:
             raise NotImplementedError(f"manifest {name} is Avro (manifest.format=avro), not supported by the torch port yet")
         return [loads(line) for line in data.decode().splitlines() if line]
 

@@ -1,6 +1,12 @@
 """Snapshot scan planning: snapshot -> manifest lists -> live file entries
 (port of paimon_tpu/core/scan.py; delta/changelog scans and stats/index
-filters are not ported yet)."""
+filters are not ported yet).
+
+The port plans the latest snapshot on main only, and reads no deletion
+vectors: options that select another snapshot, branch or set of rows, and
+tables that hold deletion vectors, raise NotImplementedError naming the
+option instead of returning other rows.
+"""
 
 from __future__ import annotations
 
@@ -8,8 +14,25 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 from ..fs import LocalFileIO
+from ..options import ConfigOption, CoreOptions
+from ..utils import loads
 from .manifest import ManifestEntry, ManifestFile, ManifestList, merge_entries
 from .snapshot import Snapshot, SnapshotManager
+
+# batch-scan options of the JAX package (paimon_tpu/options.py:966-988 and
+# its incremental-between pair) that read another snapshot or other rows
+_TIME_TRAVEL_KEYS = (
+    "scan.timestamp-millis",
+    "log.scan.timestamp-millis",
+    "scan.timestamp",
+    "scan.tag-name",
+    "scan.version",
+    "scan.watermark",
+    "scan.file-creation-time-millis",
+    "incremental-between",
+    "incremental-between-timestamp",
+)
+_LATEST_SCAN_MODES = ("default", "latest-full", "full", "latest")
 
 __all__ = ["ScanPlan", "FileStoreScan"]
 
@@ -28,12 +51,13 @@ class ScanPlan:
 
 
 class FileStoreScan:
-    def __init__(self, file_io: LocalFileIO, table_path: str, manifest_compression: str = "default"):
+    def __init__(self, file_io: LocalFileIO, table_path: str, options: CoreOptions):
         self.file_io = file_io
         self.table_path = table_path
+        self.options = options
         self.snapshot_manager = SnapshotManager(file_io, table_path)
-        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", manifest_compression)
-        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", manifest_compression)
+        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", options.manifest_compression)
+        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression)
         self._partition_filter: Callable[[tuple], bool] | None = None
         self._bucket: int | None = None
 
@@ -45,10 +69,41 @@ class FileStoreScan:
         self._bucket = bucket
         return self
 
+    def _check_reads_latest_on_main(self, latest: Snapshot | None) -> None:
+        opts = self.options.options
+        chosen = [f"{k}={opts.get(ConfigOption.string(k))}" for k in _TIME_TRAVEL_KEYS if opts.contains(k)]
+        snapshot_id = opts.get(CoreOptions.SCAN_SNAPSHOT_ID)
+        if snapshot_id is not None and (latest is None or snapshot_id != latest.id):
+            chosen.append(f"scan.snapshot-id={snapshot_id}")
+        mode = opts.get(CoreOptions.SCAN_MODE)
+        if str(mode).lower() not in _LATEST_SCAN_MODES:
+            chosen.append(f"scan.mode={mode}")
+        branch = opts.get(CoreOptions.BRANCH)
+        if branch != "main":
+            chosen.append(f"branch={branch}")
+        if chosen:
+            raise NotImplementedError(
+                f"{', '.join(chosen)}: the torch port reads only the latest snapshot on main (time travel, "
+                "branches and incremental scans are not ported yet)"
+            )
+
+    def _check_no_deletion_vectors(self, snapshot: Snapshot) -> None:
+        if self.options.options.get(CoreOptions.DELETION_VECTORS_ENABLED):
+            raise NotImplementedError("deletion-vectors.enabled=true: deletion vectors are not ported to the torch port yet")
+        if snapshot.index_manifest:
+            data = self.file_io.read_bytes(f"{self.table_path}/manifest/{snapshot.index_manifest}")
+            if any(loads(line)["kind"] == "DELETION_VECTORS" for line in data.decode().splitlines() if line):
+                raise NotImplementedError(
+                    f"snapshot {snapshot.id} holds deletion vectors (deletion-vectors.enabled), which the torch "
+                    "port cannot apply yet"
+                )
+
     def plan(self) -> ScanPlan:
         snapshot = self.snapshot_manager.latest_snapshot()
+        self._check_reads_latest_on_main(snapshot)
         if snapshot is None:
             return ScanPlan(None, [])
+        self._check_no_deletion_vectors(snapshot)
         metas = self.manifest_list.read(snapshot.base_manifest_list) + self.manifest_list.read(
             snapshot.delta_manifest_list
         )

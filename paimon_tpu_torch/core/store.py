@@ -63,6 +63,7 @@ class KeyValueFileStore:
             self.schema.id,
             file_format=co.file_format,
             compression=co.file_compression,
+            per_level_compression=co.file_compression_per_level,
             target_file_size=co.target_file_size,
         )
 
@@ -72,7 +73,7 @@ class KeyValueFileStore:
         )
 
     def new_scan(self) -> FileStoreScan:
-        return FileStoreScan(self.file_io, self.table_path, self.options.manifest_compression)
+        return FileStoreScan(self.file_io, self.table_path, self.options)
 
     def new_commit(self) -> FileStoreCommit:
         return FileStoreCommit(self.file_io, self.table_path, self.commit_user, self.schema.id, self.options)

@@ -8,11 +8,11 @@ INT64, FLOAT, DOUBLE and BYTE_ARRAY (UTF8 or raw); REQUIRED or OPTIONAL
 leaves; PLAIN and dictionary (PLAIN dictionary page + RLE/bit-packed
 codes) encodings, and on read also DELTA_BINARY_PACKED integers (the JAX
 package's native encoder writes sorted integer columns so); data pages
-v1 (v2 is read too); codec UNCOMPRESSED; chunk min/max/null-count
-statistics. It reads files pyarrow writes uncompressed,
-and pyarrow reads the files it writes. A compressed file or a compression
-option other than none raises NotImplementedError naming file.compression:
-the port carries no codec library.
+v1 (v2 is read too); codecs UNCOMPRESSED and ZSTD (the port's own codec,
+utils/compression.py); chunk min/max/null-count statistics. It reads the
+files pyarrow writes with those codecs, and pyarrow reads the files it
+writes. Any other codec, on read or as file.compression on write, raises
+NotImplementedError naming file.compression.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 
 from ..data.batch import Column, ColumnBatch
 from ..types import STRING_ROOTS, DataType, RowType, TypeRoot
+from ..utils.compression import zstd_compress, zstd_decompress
 from .thrift import ThriftError, append_uvarint, build_struct, read_struct, read_varint, zigzag
 
 __all__ = ["read_parquet", "write_parquet", "ParquetFormatError"]
@@ -35,7 +36,10 @@ T_BOOLEAN, T_INT32, T_INT64, T_INT96, T_FLOAT, T_DOUBLE, T_BYTE_ARRAY, T_FLBA = 
 ENC_PLAIN, ENC_PLAIN_DICTIONARY, ENC_RLE, ENC_DELTA_BINARY_PACKED, ENC_RLE_DICTIONARY = 0, 2, 3, 5, 8
 PAGE_DATA, PAGE_INDEX, PAGE_DICTIONARY, PAGE_DATA_V2 = 0, 1, 2, 3
 _REQUIRED, _OPTIONAL, _REPEATED = 0, 1, 2
+CODEC_NONE, CODEC_ZSTD = 0, 6
 _CODEC_NAMES = {1: "snappy", 2: "gzip", 3: "lzo", 4: "brotli", 5: "lz4", 6: "zstd", 7: "lz4_raw"}
+# file.compression values the writer takes -> parquet codec
+WRITE_CODECS = {"none": CODEC_NONE, "uncompressed": CODEC_NONE, "zstd": CODEC_ZSTD}
 
 # thrift compact type nibbles used by the writer
 _BOOL, _I32, _I64, _BINARY, _LIST, _STRUCT = 1, 5, 6, 8, 9, 12
@@ -58,7 +62,7 @@ def _codec_error(codec: int) -> NotImplementedError:
     name = _CODEC_NAMES.get(codec, f"codec {codec}")
     return NotImplementedError(
         f"parquet {name} compression cannot be decoded by the torch port "
-        f"(file.compression={name}); write tables with file.compression=none"
+        f"(file.compression={name}); it reads file.compression=zstd or none"
     )
 
 
@@ -251,8 +255,34 @@ def _parse_footer(data: bytes):
     return groups
 
 
+def _decompress_page(chunk: _Chunk, kind: int, hdr: dict, payload: memoryview) -> memoryview:
+    """A page's payload as the encodings see it. zstd compresses a v1 data
+    page or a dictionary page whole; a v2 data page keeps its level bytes
+    raw and compresses the rest only when is_compressed (default true)."""
+    if chunk.codec == CODEC_NONE:
+        return payload
+    size, levels = hdr[2], 0
+    if kind == PAGE_DATA_V2:
+        dh = hdr[8]
+        if not dh.get(7, True):
+            return payload
+        levels = dh.get(5, 0) + dh.get(6, 0)
+        if not 0 <= levels <= min(len(payload), size):
+            raise ParquetFormatError(f"column {chunk.name}: v2 page levels of {levels} bytes")
+    try:
+        values = zstd_decompress(payload[levels:], size - levels)
+    except ValueError as e:
+        raise ParquetFormatError(f"column {chunk.name}: zstd page: {e}") from e
+    if not levels:
+        return values
+    out = np.empty(size, dtype=np.uint8)
+    out[:levels] = np.frombuffer(payload[:levels], dtype=np.uint8)
+    out[levels:] = np.frombuffer(values, dtype=np.uint8)
+    return memoryview(out)
+
+
 def _iter_pages(data: bytes, chunk: _Chunk):
-    """(kind, header dict, payload memoryview) for each page of a chunk."""
+    """(kind, header dict, decompressed payload) for each page of a chunk."""
     mv = memoryview(data)
     pos = chunk.start
     end = chunk.start + chunk.size
@@ -274,13 +304,13 @@ def _iter_pages(data: bytes, chunk: _Chunk):
             continue
         elif kind != PAGE_DICTIONARY:
             raise ParquetFormatError(f"page type {kind}")
-        yield kind, hdr, payload
+        yield kind, hdr, _decompress_page(chunk, kind, hdr, payload)
 
 
 def _decode_chunk(data: bytes, chunk: _Chunk, dtype: DataType, num_rows: int):
     """One column chunk -> (values, validity or None) over num_rows rows;
     nulls fill with 0 / None."""
-    if chunk.codec != 0:
+    if chunk.codec not in (CODEC_NONE, CODEC_ZSTD):
         raise _codec_error(chunk.codec)
     np_dtype = dtype.numpy_dtype()
     values = np.empty(num_rows, dtype=object) if np_dtype == np.dtype(object) else np.zeros(num_rows, dtype=np_dtype)
@@ -446,21 +476,17 @@ def _chunk_stats(compact: np.ndarray, physical: int, null_count: int) -> bytes:
     return build_struct([(3, _I64, null_count), (5, _BINARY, hi), (6, _BINARY, lo)])
 
 
-def _page(levels: bytes, body: bytes, n: int, enc: int) -> bytes:
-    raw = struct.pack("<I", len(levels)) + levels + body
-    header = build_struct(
-        [
-            (1, _I32, PAGE_DATA),
-            (2, _I32, len(raw)),
-            (3, _I32, len(raw)),
-            (5, _STRUCT, build_struct([(1, _I32, n), (2, _I32, enc), (3, _I32, ENC_RLE), (4, _I32, ENC_RLE)])),
-        ]
-    )
-    return header + raw
+def _page(kind: int, raw: bytes, page_header: tuple, codec: int) -> tuple[bytes, int]:
+    """One page (thrift header + payload compressed by codec) -> (its bytes,
+    its size with the payload uncompressed)."""
+    payload = zstd_compress(raw) if codec == CODEC_ZSTD else raw
+    header = build_struct([(1, _I32, kind), (2, _I32, len(raw)), (3, _I32, len(payload)), page_header])
+    return header + payload, len(header) + len(raw)
 
 
-def _encode_chunk(col: Column, dtype: DataType, physical: int):
-    """-> (pages bytes, dict page length, encodings, stats struct)."""
+def _encode_chunk(col: Column, dtype: DataType, physical: int, codec: int):
+    """-> (pages bytes, dict page length, encodings, stats struct, size of
+    the pages uncompressed)."""
     n = len(col)
     validity = col.validity
     compact = col.values if validity is None else col.values[validity]
@@ -471,22 +497,15 @@ def _encode_chunk(col: Column, dtype: DataType, physical: int):
         np.cumsum(validity, out=cidx[1:])
     stats = _chunk_stats(compact, physical, n - n_valid)
     pages = bytearray()
-    dict_len = 0
+    dict_len = uncompressed = 0
     codes = None
     if physical == T_BYTE_ARRAY and n_valid:
         pool, inv = np.unique(compact, return_inverse=True)
         if len(pool) * _DICT_RATIO_DEN <= n_valid * _DICT_RATIO_NUM:
-            body = _byte_array_plain(pool)
-            header = build_struct(
-                [
-                    (1, _I32, PAGE_DICTIONARY),
-                    (2, _I32, len(body)),
-                    (3, _I32, len(body)),
-                    (7, _STRUCT, build_struct([(1, _I32, len(pool)), (2, _I32, ENC_PLAIN), (3, _BOOL, True)])),
-                ]
-            )
-            pages += header + body
-            dict_len = len(header) + len(body)
+            dict_header = build_struct([(1, _I32, len(pool)), (2, _I32, ENC_PLAIN), (3, _BOOL, True)])
+            page, uncompressed = _page(PAGE_DICTIONARY, _byte_array_plain(pool), (7, _STRUCT, dict_header), codec)
+            pages += page
+            dict_len = len(page)
             codes = inv.reshape(-1).astype(np.int64)
             width = max(int(len(pool) - 1).bit_length(), 1)
     if codes is not None:
@@ -510,8 +529,12 @@ def _encode_chunk(col: Column, dtype: DataType, physical: int):
             body = bytes([width]) + encode_rle_hybrid(codes[vs:ve], width)
         else:
             body = _plain(compact[vs:ve], physical)
-        pages += _page(_levels(validity, start, stop), body, stop - start, enc)
-    return bytes(pages), dict_len, encodings, stats
+        levels = _levels(validity, start, stop)
+        data_header = build_struct([(1, _I32, stop - start), (2, _I32, enc), (3, _I32, ENC_RLE), (4, _I32, ENC_RLE)])
+        page, size = _page(PAGE_DATA, struct.pack("<I", len(levels)) + levels + body, (5, _STRUCT, data_header), codec)
+        pages += page
+        uncompressed += size
+    return bytes(pages), dict_len, encodings, stats, uncompressed
 
 
 def _converted_type(root: TypeRoot) -> int | None:
@@ -525,12 +548,14 @@ def _converted_type(root: TypeRoot) -> int | None:
 
 
 def write_parquet(batch: ColumnBatch, compression: str = "none") -> bytes:
-    """One ColumnBatch -> complete parquet file bytes. Every leaf is
-    OPTIONAL, as the JAX package's writers make them."""
-    if str(compression).lower() not in ("none", "uncompressed"):
+    """One ColumnBatch -> complete parquet file bytes, every page compressed
+    by `compression` (a key of WRITE_CODECS). Every leaf is OPTIONAL, as the
+    JAX package's writers make them."""
+    codec = WRITE_CODECS.get(str(compression).lower())
+    if codec is None:
         raise NotImplementedError(
-            f"file.compression={compression} cannot be written by the torch port "
-            f"(it carries no codec library); set file.compression=none"
+            f"file.compression={compression} cannot be written by the torch port; "
+            f"it writes {', '.join(WRITE_CODECS)}"
         )
     physicals = {f.name: physical_type(f.type) for f in batch.schema.fields}
     schema_elems = [build_struct([(4, _BINARY, b"schema"), (5, _I32, len(batch.schema.fields))])]
@@ -553,7 +578,9 @@ def write_parquet(batch: ColumnBatch, compression: str = "none") -> bytes:
         chunks = []
         total = 0
         for f in rg.schema.fields:
-            pages, dict_len, encodings, stats = _encode_chunk(rg.column(f.name), f.type, physicals[f.name])
+            pages, dict_len, encodings, stats, uncompressed = _encode_chunk(
+                rg.column(f.name), f.type, physicals[f.name], codec
+            )
             start = len(body)
             body += pages
             meta = build_struct(
@@ -561,9 +588,9 @@ def write_parquet(batch: ColumnBatch, compression: str = "none") -> bytes:
                     (1, _I32, physicals[f.name]),
                     (2, _LIST, (_I32, list(encodings))),
                     (3, _LIST, (_BINARY, [f.name])),
-                    (4, _I32, 0),
+                    (4, _I32, codec),
                     (5, _I64, rg.num_rows),
-                    (6, _I64, len(pages)),
+                    (6, _I64, uncompressed),
                     (7, _I64, len(pages)),
                     (9, _I64, start + dict_len),
                     (11, _I64, start if dict_len else None),
@@ -571,7 +598,7 @@ def write_parquet(batch: ColumnBatch, compression: str = "none") -> bytes:
                 ]
             )
             chunks.append(build_struct([(2, _I64, start), (3, _STRUCT, meta)]))
-            total += len(pages)
+            total += uncompressed
         row_groups.append(build_struct([(1, _LIST, (_STRUCT, chunks)), (2, _I64, total), (3, _I64, rg.num_rows)]))
     type_order = build_struct([(1, _STRUCT, build_struct([]))])
     footer = build_struct(

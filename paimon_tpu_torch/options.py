@@ -98,6 +98,11 @@ class CoreOptions:
     BUCKET = ConfigOption.int_("bucket", -1)
     FILE_FORMAT = ConfigOption.string("file.format", "parquet")
     FILE_COMPRESSION = ConfigOption.string("file.compression", "zstd")
+    # the port's zstd encoder has one strength and reads this key nowhere:
+    # a level changes the size of the files the JAX package writes, never
+    # the rows, and nothing the port writes
+    FILE_COMPRESSION_ZSTD_LEVEL = ConfigOption.int_("file.compression.zstd-level", 1)
+    FILE_COMPRESSION_PER_LEVEL = ConfigOption.string("file.compression.per.level", None)
     MANIFEST_FORMAT = ConfigOption.string("manifest.format", "jsonl")
     MANIFEST_COMPRESSION = ConfigOption.string("manifest.compression", "default")
     TARGET_FILE_SIZE = ConfigOption.memory("target-file-size", "128 mb")
@@ -118,6 +123,11 @@ class CoreOptions:
     MERGE_LANE_COMPRESSION = ConfigOption.bool_("merge.lane-compression", True)
     MERGE_READ_BATCH_ROWS = ConfigOption.int_("merge.read-batch-rows", 8 << 20)
     SEQUENCE_FIELD = ConfigOption.string("sequence.field", None)
+    ROWKIND_FIELD = ConfigOption.string("rowkind.field", None)
+    DELETION_VECTORS_ENABLED = ConfigOption.bool_("deletion-vectors.enabled", False)
+    BRANCH = ConfigOption.string("branch", "main")
+    SCAN_MODE = ConfigOption("scan.mode", "default", str, ("log.scan",))
+    SCAN_SNAPSHOT_ID = ConfigOption.int_("scan.snapshot-id", None)
     SOURCE_SPLIT_TARGET_SIZE = ConfigOption.memory("source.split.target-size", "128 mb")
     SOURCE_SPLIT_OPEN_FILE_COST = ConfigOption.memory("source.split.open-file-cost", "4 mb")
     COMMIT_MAX_RETRIES = ConfigOption.int_("commit.max-retries", 10)
@@ -136,6 +146,20 @@ class CoreOptions:
     @property
     def file_compression(self) -> str:
         return self.options.get(CoreOptions.FILE_COMPRESSION)
+
+    @property
+    def file_compression_per_level(self) -> dict[int, str]:
+        """'0:zstd,5:none' -> {0: 'zstd', 5: 'none'}."""
+        spec = self.options.get(CoreOptions.FILE_COMPRESSION_PER_LEVEL)
+        out: dict[int, str] = {}
+        for part in (spec or "").split(","):
+            if not part.strip():
+                continue
+            level, _, codec = part.strip().partition(":")
+            if not codec:
+                raise ValueError(f"file.compression.per.level needs 'level:codec' pairs, got {part!r}")
+            out[int(level)] = codec.strip()
+        return out
 
     @property
     def manifest_compression(self) -> str:

@@ -16,6 +16,7 @@ import numpy as np
 from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.manifest import CommitMessage, ManifestCommittable
 from ..data.batch import ColumnBatch
+from ..options import CoreOptions
 from ..types import RowKind
 
 if TYPE_CHECKING:
@@ -38,6 +39,11 @@ class TableWrite:
             )
         if store.partition_keys:
             raise NotImplementedError("partitioned tables are not supported by the torch port yet")
+        rowkind_field = store.options.options.get(CoreOptions.ROWKIND_FIELD)
+        if rowkind_field:
+            raise NotImplementedError(
+                f"rowkind.field={rowkind_field}: the torch port takes row kinds only from write()'s kinds argument yet"
+            )
         self._writer = None
 
     def write(self, data: "ColumnBatch | dict", kinds: "np.ndarray | Sequence[str] | None" = None) -> None:

@@ -8,8 +8,11 @@ use merge.read-batch-rows=4096 so the merge cuts several key-range tiles.
 Directions: the JAX package writes and the port reads; the port writes and
 the JAX package reads; the port writes and reads. Every read is compared
 row for row, in order, with an oracle computed here in numpy and with the
-other package's read. Also: the Parquet container against pyarrow in both
-directions, and the guards for what the port does not support.
+other package's read. The same three directions at the JAX package's
+default codecs (zstd pages, written by either of its Parquet encoders, and
+zstd manifests). Also: the Parquet container against pyarrow in both
+directions, with and without zstd, and the guards for what the port does
+not support (those on read, each on a table the JAX package built).
 
 Tolerance: exact. Rows hold integers, booleans, strings and doubles copied
 untouched from the written values, so equality is bit for bit.
@@ -79,7 +82,8 @@ def _upsert_ids() -> np.ndarray:
 
 
 def _build(pkg, catalog, ident: str, extra_options=None):
-    options = {**OPTIONS, **(extra_options or {})}
+    """extra_options override OPTIONS; a None value drops the key."""
+    options = {k: v for k, v in {**OPTIONS, **(extra_options or {})}.items() if v is not None}
     table = catalog.create_table(ident, _row_type(pkg), primary_keys=["id"], options=options)
     ids = np.random.default_rng(7).permutation(N).astype(np.int64)
     per = N // RUNS
@@ -263,6 +267,44 @@ def test_port_reads_pyarrow_parquet(use_dictionary, page_version, page_size):
         assert got == batch.column(name).to_pylist(), name
 
 
+@pytest.mark.parametrize("use_dictionary", [True, False])
+@pytest.mark.parametrize("page_version", ["1.0", "2.0"])
+def test_port_reads_pyarrow_zstd_parquet(use_dictionary, page_version):
+    """zstd pages at the JAX package's level 1: v1 pages and dictionary
+    pages compressed whole, v2 pages after their raw level bytes."""
+    batch, schema = _port_batch(30_000, 6)
+    arrow = pa.table({name: batch.column(name).to_pylist() for name in ("i32", "i64", "f64", "low", "high")})
+    buf = io.BytesIO()
+    pq.write_table(arrow, buf, compression="zstd", compression_level=1, use_dictionary=use_dictionary,
+                   data_page_version=page_version, data_page_size=8192, row_group_size=12_000)
+    names = ["i32", "i64", "f64", "low", "high"]
+    parts = read_parquet(buf.getvalue(), schema, names)
+    for name in names:
+        assert [v for p in parts for v in p.column(name).to_pylist()] == batch.column(name).to_pylist(), name
+
+
+@pytest.mark.parametrize("n", [1, 70_000])
+def test_pyarrow_reads_port_zstd_parquet(n):
+    batch, _ = _port_batch(n, n + 1)
+    data = write_parquet(batch, "zstd")
+    meta = pq.ParquetFile(io.BytesIO(data)).metadata
+    assert {meta.row_group(0).column(c).compression for c in range(meta.num_columns)} == {"ZSTD"}
+    table = pq.read_table(io.BytesIO(data))
+    for name in batch.schema.field_names:
+        assert table.column(name).to_pylist() == batch.column(name).to_pylist(), name
+    assert len(data) < len(write_parquet(batch, "none")) or n == 1
+
+
+def test_corrupt_zstd_page_raises_parquet_format_error():
+    from paimon_tpu_torch.format.parquet import ParquetFormatError
+
+    batch, schema = _port_batch(5000, 9)
+    data = bytearray(write_parquet(batch, "zstd"))
+    data[data.index(b"\x28\xb5\x2f\xfd")] ^= 0xFF  # the first page's frame magic
+    with pytest.raises(ParquetFormatError, match="zstd page"):
+        read_parquet(bytes(data), schema, schema.field_names)
+
+
 # ---------------------------------------------------------------------------
 # what the port refuses, loudly
 # ---------------------------------------------------------------------------
@@ -287,11 +329,25 @@ def _build_small(pkg, catalog, ident, opts):
 
 @pytest.mark.parametrize("option", ["file.compression", "manifest.compression"])
 def test_compressed_tables_raise_naming_the_option(warehouse, option):
-    """The JAX package's default zstd codecs cannot be decoded by the port."""
-    _small_jax_table(warehouse, f"db.zstd_{option.split('.')[0]}", **{option: None})
-    table = PortCatalog(warehouse, device="cpu").get_table(f"db.zstd_{option.split('.')[0]}")
+    """A table the JAX package writes with `option` at its default (zstd)
+    and the other codec off: the port reads the same rows as the JAX
+    package does."""
+    ident = f"db.zstd_{option.split('.')[0]}"
+    jax_table = _small_jax_table(warehouse, ident, **{option: None})
+    want = [tuple(_py(v) for v in row) for row in zip(*[list(c) for c in _values(np.arange(150), False).values()])]
+    assert _read(PortCatalog(warehouse, device="cpu").get_table(ident)) == want == _jax_read(jax_table)
+
+
+@pytest.mark.parametrize(
+    "option, value", [("file.compression", "snappy"), ("file.compression", "lz4"), ("manifest.format", "avro")]
+)
+def test_unported_codecs_raise_naming_the_option(warehouse, option, value):
+    """Codecs and containers the port lacks raise on read, naming the option
+    the JAX package wrote them under."""
+    ident = f"db.unported_{value}"
+    _small_jax_table(warehouse, ident, **{option: value, "manifest.compression": None})
     with pytest.raises(NotImplementedError, match=option.replace(".", r"\.")):
-        _read(table)
+        _read(PortCatalog(warehouse, device="cpu").get_table(ident))
 
 
 def test_write_requires_write_only(warehouse):
@@ -304,12 +360,212 @@ def test_write_requires_write_only(warehouse):
 
 def test_compressed_write_option_raises(warehouse):
     cat = PortCatalog(warehouse, device="cpu")
-    table = cat.create_table("db.zstd_write", _row_type(tt), primary_keys=["id"],
-                             options={**OPTIONS, "file.compression": "zstd"})
+    table = cat.create_table("db.lz4_write", _row_type(tt), primary_keys=["id"],
+                             options={**OPTIONS, "file.compression": "lz4"})
     w = table.new_batch_write_builder().new_write()
     w.write(_values(np.arange(10, dtype=np.int64), False))
     with pytest.raises(NotImplementedError, match=r"file\.compression"):
         w.prepare_commit()
+
+
+def test_per_level_codec_the_port_lacks_raises(warehouse):
+    cat = PortCatalog(warehouse, device="cpu")
+    table = cat.create_table("db.per_level_lz4", _row_type(tt), primary_keys=["id"],
+                             options={**OPTIONS, "file.compression.per.level": "0:lz4"})
+    w = table.new_batch_write_builder().new_write()
+    with pytest.raises(NotImplementedError, match=r"file\.compression\.per\.level"):
+        w.write(_values(np.arange(10, dtype=np.int64), False))
+
+
+# ---------------------------------------------------------------------------
+# tables at the JAX package's default options: zstd pages, zstd manifests
+# ---------------------------------------------------------------------------
+
+DEFAULTS = {k: v for k, v in OPTIONS.items() if k not in ("file.compression", "manifest.compression")}
+DEFAULT_WRITERS = ["jax-arrow", "jax-native", "port"]
+
+
+@pytest.fixture(scope="module")
+def default_tables(warehouse):
+    """The 20,000-row table at default codec options, written by each
+    package (the JAX package with each of its Parquet encoders)."""
+    out = {}
+    for writer in DEFAULT_WRITERS:
+        ident = f"db.defaults_{writer.replace('-', '_')}"
+        if writer == "port":
+            _build(tt, PortCatalog(warehouse, commit_user="port", device="cpu"), ident, _defaults())
+        else:
+            _build(jt, JaxCatalog(warehouse, commit_user="jax"), ident,
+                   _defaults(**{"format.parquet.encoder": writer.split("-")[1]}))
+        out[writer] = ident
+    return out
+
+
+def _defaults(**extra):
+    return {k: None for k in ("file.compression", "manifest.compression")} | extra
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("writer", DEFAULT_WRITERS)
+def test_default_options_read_the_same_rows(warehouse, default_tables, expected, writer, engine):
+    """zstd tables, written by either package, read the same rows in both."""
+    ident = default_tables[writer]
+    got = _read(PortCatalog(warehouse, device="cpu").get_table(ident).copy({"sort-engine": engine}))
+    assert got == expected
+    assert _jax_read(JaxCatalog(warehouse).get_table(ident).copy({"sort-engine": engine})) == expected
+
+
+@pytest.mark.parametrize("writer", DEFAULT_WRITERS)
+def test_default_options_files_are_zstd(warehouse, default_tables, writer):
+    """Every manifest and manifest list is one zstd frame, and every data
+    file's column chunks are ZSTD, whichever package wrote them."""
+    path = PortCatalog(warehouse, device="cpu").get_table(default_tables[writer]).path
+    manifests = [n for n in os.listdir(f"{path}/manifest") if n.startswith("manifest")]
+    assert manifests
+    for name in manifests:
+        with open(f"{path}/manifest/{name}", "rb") as f:
+            assert f.read(4) == b"\x28\xb5\x2f\xfd", name
+    data_files = [n for n in os.listdir(f"{path}/bucket-0") if n.endswith(".parquet")]
+    assert len(data_files) == RUNS + 1
+    for name in data_files:
+        meta = pq.ParquetFile(f"{path}/bucket-0/{name}").metadata
+        codecs = {meta.row_group(g).column(c).compression for g in range(meta.num_row_groups)
+                  for c in range(meta.num_columns)}
+        assert codecs == {"ZSTD"}, name
+
+
+def test_default_options_metadata_matches_across_packages(warehouse, default_tables):
+    """At default options, too, snapshots, manifests and DataFileMeta are
+    the same across packages, read back by either package."""
+    port_written = _metadata(JaxCatalog(warehouse).get_table(default_tables["port"]).store)
+    jax_written = _metadata(PortCatalog(warehouse, device="cpu").get_table(default_tables["jax-arrow"]).store)
+    jax_own = _metadata(JaxCatalog(warehouse).get_table(default_tables["jax-arrow"]).store)
+    assert port_written[:3] == jax_written[:3] == jax_own[:3] == (RUNS + 1, N + N_UP, "APPEND")
+    strip = lambda rows: [tuple(r[1:]) for r in rows]  # noqa: E731 - FileKind enums differ per package
+    assert strip(port_written[3]) == strip(jax_written[3]) == strip(jax_own[3])
+
+
+def test_port_zstd_files_are_smaller_than_uncompressed(warehouse, default_tables, port_table):
+    """The same rows written by the port take fewer bytes under zstd."""
+    def data_bytes(ident):
+        path = PortCatalog(warehouse, device="cpu").get_table(ident).path
+        return sum(os.path.getsize(f"{path}/bucket-0/{n}") for n in os.listdir(f"{path}/bucket-0"))
+
+    assert data_bytes(default_tables["port"]) < data_bytes("db.port_written")
+
+
+# ---------------------------------------------------------------------------
+# tables the port would read wrongly: guarded until ported
+# ---------------------------------------------------------------------------
+
+
+def test_deletion_vectors_raise_naming_the_option(warehouse):
+    """The JAX package deletes id 1 through a deletion vector: the port,
+    which cannot apply one, raises instead of returning the row."""
+    from paimon_tpu.data.predicate import equal
+
+    ident = "db.deletion_vectors"
+    table = JaxCatalog(warehouse).create_table(ident, _row_type(jt), primary_keys=["id"],
+                                               options={"bucket": "1", "deletion-vectors.enabled": "true"})
+    for ids, upsert in ((np.array([1, 2, 3]), False), (np.array([2]), True)):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(_values(ids.astype(np.int64), upsert))
+        wb.new_commit().commit(w.prepare_commit())
+    assert table.delete_where(equal("id", 1)) == 1
+    assert [r[0] for r in _jax_read(table)] == [2, 3]
+    port_table = PortCatalog(warehouse, device="cpu").get_table(ident)
+    with pytest.raises(NotImplementedError, match=r"deletion-vectors\.enabled"):
+        _read(port_table)
+    # the snapshot's index manifest alone is enough to refuse
+    with pytest.raises(NotImplementedError, match="deletion vectors"):
+        _read(port_table.copy({"deletion-vectors.enabled": "false"}))
+
+
+@pytest.fixture(scope="module")
+def travel_table(warehouse):
+    """Two commits by the JAX package, 50 ms apart; tag t1 and branch b1 at
+    snapshot 1."""
+    import time
+
+    from paimon_tpu.table.branch import BranchManager
+
+    table = JaxCatalog(warehouse).create_table("db.travel", _row_type(jt), primary_keys=["id"], options=dict(DEFAULTS))
+    for ids, upsert in ((np.arange(0, 100), False), (np.arange(50, 150), True)):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(_values(ids.astype(np.int64), upsert))
+        wb.new_commit().commit(w.prepare_commit())
+        time.sleep(0.05)
+    table.create_tag("t1", 1)
+    BranchManager(table.file_io, table.path).create("b1", from_snapshot=1)
+    return table
+
+
+def _travel_options(table) -> dict:
+    import datetime
+
+    t1 = table.store.snapshot_manager.snapshot(1).time_millis + 10
+    return {
+        "scan.snapshot-id": "1",
+        "scan.timestamp-millis": str(t1),
+        "scan.timestamp": datetime.datetime.fromtimestamp(t1 / 1000).isoformat(sep=" "),
+        "scan.tag-name": "t1",
+        "scan.version": "t1",
+        "scan.watermark": "0",
+        "scan.file-creation-time-millis": str(t1),
+        "scan.mode": "from-snapshot",
+        "branch": "b1",
+    }
+
+
+# the JAX package reads snapshot 1 (or only its later files) under these;
+# scan.watermark (no snapshot has one here) and scan.mode do not move a
+# batch read of the JAX package, but the port refuses them all the same
+_TRAVELS = {"scan.snapshot-id", "scan.timestamp-millis", "scan.timestamp", "scan.tag-name", "scan.version",
+            "scan.file-creation-time-millis", "branch"}
+
+
+@pytest.mark.parametrize("key", ["scan.snapshot-id", "scan.timestamp-millis", "scan.timestamp", "scan.tag-name",
+                                 "scan.version", "scan.watermark", "scan.file-creation-time-millis", "scan.mode",
+                                 "branch"])
+def test_time_travel_options_raise_naming_the_option(warehouse, travel_table, key):
+    """Each option that selects another snapshot, branch or file set raises
+    in the port, which plans only the latest snapshot on main."""
+    from paimon_tpu.table.branch import branch_table
+
+    value = _travel_options(travel_table)[key]
+    latest = _jax_read(travel_table)
+    if key in _TRAVELS:
+        view = branch_table(travel_table, value) if key == "branch" else travel_table.copy({key: value})
+        assert _jax_read(view) != latest
+    port_view = PortCatalog(warehouse, device="cpu").get_table("db.travel").copy({key: value})
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        _read(port_view)
+
+
+def test_scan_snapshot_id_of_the_latest_snapshot_reads(warehouse, travel_table):
+    port_view = PortCatalog(warehouse, device="cpu").get_table("db.travel").copy({"scan.snapshot-id": "2"})
+    assert _read(port_view) == _jax_read(travel_table)
+
+
+def test_rowkind_field_raises_naming_the_option(warehouse):
+    """With rowkind.field the JAX package takes each row's kind from a
+    column; the port, which would store a -D row as an insert, refuses to
+    write."""
+    ident = "db.rowkind"
+    row_type = jt.RowType.of(("id", jt.BIGINT(False)), ("v", jt.BIGINT()), ("op", jt.STRING()))
+    table = JaxCatalog(warehouse).create_table(ident, row_type, primary_keys=["id"],
+                                               options={**DEFAULTS, "rowkind.field": "op"})
+    for data in ({"id": [1, 2], "v": [10, 20], "op": ["+I", "+I"]}, {"id": [1], "v": [10], "op": ["-D"]}):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(data)
+        wb.new_commit().commit(w.prepare_commit())
+    assert [r[0] for r in _jax_read(table)] == [2]
+    port_table = PortCatalog(warehouse, device="cpu").get_table(ident)
+    with pytest.raises(NotImplementedError, match=r"rowkind\.field"):
+        port_table.new_batch_write_builder().new_write()
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
