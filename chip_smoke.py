@@ -42,7 +42,18 @@ Phases, one JSON line each on stdout:
               stages) and gives its output MB/s; and the bytes of each table
               on disk. Then one read of each tier under torch.profiler
               (device busy time against wall time).
-6. timing   - each kernel at its main-path shape against its plain version,
+6. compact  - BASELINE config 4 at full size (1M rows in 20 streaming commits
+              of 50,000, trigger 4, not write-only, default codecs) through
+              the port's StreamWriteBuilder with identifiers 1..20, then one
+              batch commit of compact(full=True). Commits, snapshots by kind,
+              compactions, files rewritten and upgraded, the level layout
+              after each step, K1 and K2 launches (zeroed before the writes,
+              read after the last read; split between flushes, compactions
+              and reads), write seconds and ingest rows/s, and compaction
+              seconds split into input decode, merge and encode + write. The
+              read after each step must equal a sort-engine=numpy read and a
+              numpy oracle (each id's last value).
+7. timing   - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -52,7 +63,8 @@ Phases, one JSON line each on stdout:
               with the input warm in L2 (as the main path hands it over)
               and cold (cycling over copies that exceed the L2).
 
-Then one JSON line with every kernel's numbers, the card line, and last
+Then one JSON line with every kernel's numbers (its launches summed over
+the main and compact paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -76,6 +88,12 @@ N_ROWS = 1_000_000
 N_RUNS = 4
 N_UPSERT = 100_000
 K1_TILE_ROWS = 131072
+# BASELINE config 4 (benchmarks/baseline_configs.py config4, scale 1): a
+# Flink CDC upsert stream, 20 streaming commits of 50,000 rows over ids
+# 0..499,999, universal compaction at trigger 4, default codecs
+C4_ROWS = 1_000_000
+C4_COMMITS = 20
+C4_OPTIONS = {"bucket": "1", "num-sorted-run.compaction-trigger": "4", "sort-engine": "pallas"}
 READ_REPEATS = 5
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -539,7 +557,11 @@ def main() -> int:
         emit({"phase": "trace", "default_tile": device_busy(table),
               f"tile_{K1_TILE_ROWS}": device_busy(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}))})
 
-    # 6. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 6. the compaction path
+        compact = compact_phase(pt, hk, warehouse)
+        emit({"phase": "compact", **compact})
+
+    # 7. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -549,10 +571,11 @@ def main() -> int:
         hk.sort_segments(x, read_shape[2])
     torch.cuda.synchronize()
     widest = (8, 1 << 18, 6)
-    k1_rows = [k1_timing(hk, rng, dev, main_launches["sort_segments"], shape)
+    by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name]} for name in hk.launches}
+    k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
     at_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "host_ms_per_call")
-    kernels.append({**k1_rows[0], "at_shapes": [
+    kernels.append({**k1_rows[0], "launches_by_path": by_path["sort_segments"], "at_shapes": [
         {"at": at, **{k: row[k] for k in at_keys}} for at, row in zip(("write flush", "widest admitted"), k1_rows[1:])]})
     split = {}
     for nl, m, nb in (read_shape, widest):
@@ -568,10 +591,11 @@ def main() -> int:
 
     k2_row = kernel_row(
         "keep_last_mask (K2)", "paimon_tpu_torch/csrc/keep_last.cu", "paimon_tpu/ops/pallas_kernels.py:265",
-        main_launches["keep_last_mask"], err2,
+        sum(by_path["keep_last_mask"].values()), err2,
         cuda_ms(lambda: hk.keep_last_mask(y, False)), cuda_ms(lambda: hk.keep_last_mask_plain(y, False)),
         lanes * m2 * 4 + m2 * 4, lanes * m2, cuda_ms(k2_library), [lanes, m2],
     )
+    k2_row["launches_by_path"] = by_path["keep_last_mask"]
     k2_row["host_ms_per_call"] = host_ms(lambda: hk.keep_last_mask(y, False))
     # warm: the input is in L2, as the main path hands it over right after
     # writing it; cold: it comes from device memory, as the bound assumes
@@ -595,6 +619,162 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def c4_batch(rng, b: int) -> dict:
+    """Commit b of config 4 (baseline_configs.py:160-164): ids drawn with
+    repeats from one generator, so each flush dedups too."""
+    per = C4_ROWS // C4_COMMITS
+    ids = rng.integers(0, C4_ROWS // 2, per)
+    return {"id": ids, "v": ids * 0.5 + b, "tag": np.array([f"t{b}"] * per, dtype=object)}
+
+
+def check_c4_read(table, last_commit: np.ndarray, what: str) -> dict:
+    """The table's read (sort-engine=pallas) against a sort-engine=numpy read
+    and the oracle: each written id with the value of its last commit."""
+    t0 = time.perf_counter()
+    out = read_all(table)
+    read_s = time.perf_counter() - t0
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    ids = np.flatnonzero(last_commit >= 0)
+    assert out.num_rows == len(ids), f"{what}: {out.num_rows} rows, the oracle has {len(ids)}"
+    for name in out.schema.field_names:
+        a, b = out.column(name), reference.column(name)
+        assert np.array_equal(a.values, b.values), f"{what}: column {name} differs from the numpy engine"
+        assert np.array_equal(a.valid_mask(), b.valid_mask()), f"{what}: validity of {name} differs"
+    assert np.array_equal(out.column("id").values, ids), f"{what}: ids differ from the oracle"
+    assert np.array_equal(out.column("v").values, ids * 0.5 + last_commit[ids]), f"{what}: v differs from the oracle"
+    tags = np.array([f"t{b}" for b in last_commit[ids]], dtype=object)
+    assert np.array_equal(out.column("tag").values, tags), f"{what}: tag differs from the oracle"
+    return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def level_layout(table) -> dict:
+    """{level: [files, rows]} of the table's live files."""
+    out: dict = {}
+    for f in table.store.restore_files((), 0):
+        files, rows = out.get(f.level, (0, 0))
+        out[f.level] = (files + 1, rows + f.row_count)
+    return {str(lv): list(v) for lv, v in sorted(out.items())}
+
+
+class CompactionProbe:
+    """Times the compaction manager and its rewriter's three stages and
+    counts compactions, rewritten and upgraded files and the kernel launches
+    made inside compactions, by wrapping their methods while installed."""
+
+    def __init__(self, hk):
+        from paimon_tpu_torch.core.compact import MergeTreeCompactManager, MergeTreeCompactRewriter
+
+        self.hk = hk
+        self.targets = [(MergeTreeCompactManager, "trigger_compaction", "compaction"),
+                        (MergeTreeCompactRewriter, "_read_section", "decode"),
+                        (MergeTreeCompactRewriter, "_merge_section", "merge"),
+                        (MergeTreeCompactRewriter, "_write_section", "encode_write")]
+        self.seconds = dict.fromkeys([t[2] for t in self.targets], 0.0)
+        self.compactions = self.rewritten = self.upgraded = 0
+        self.merge_rows: list = []
+        self.launches = dict.fromkeys(hk.launches, 0)
+        self._saved: list = []
+
+    def __enter__(self):
+        for cls, name, stage in self.targets:
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self._wrap(fn, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self._saved.clear()
+
+    def _wrap(self, fn, stage):
+        def timed(obj, *args, **kwargs):
+            if stage == "merge":
+                self.merge_rows.append(args[0].num_rows)
+            before = dict(self.hk.launches)
+            t0 = time.perf_counter()
+            out = fn(obj, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[stage] += time.perf_counter() - t0
+            if stage == "compaction" and out is not None and not out.is_empty():
+                after_names = {f.file_name for f in out.after}
+                self.compactions += 1
+                self.upgraded += sum(f.file_name in after_names for f in out.before)
+                self.rewritten += sum(f.file_name not in after_names for f in out.before)
+                for k in self.launches:
+                    self.launches[k] += self.hk.launches[k] - before[k]
+            return out
+
+        return timed
+
+    def report(self) -> dict:
+        return {"compactions": self.compactions, "files_rewritten": self.rewritten, "files_upgraded": self.upgraded,
+                "seconds": {k: round(v, 4) for k, v in self.seconds.items()},
+                "merge_input_rows": self.merge_rows, "launches_in_compactions": dict(self.launches)}
+
+
+def compact_phase(pt, hk, warehouse: str) -> dict:
+    """Config 4 at full size through StreamWriteBuilder, then a full
+    compaction in one batch commit; each step's read checked."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()))
+    table = cat.create_table("c4.stream", schema, primary_keys=["id"], options=dict(C4_OPTIONS))
+    snapshots = SnapshotManager(table.file_io, table.path)
+    rng = np.random.default_rng(2)
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    batches = []
+    for b in range(C4_COMMITS):
+        batches.append(c4_batch(rng, b))
+        last_commit[batches[-1]["id"]] = b
+    out: dict = {"config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1",
+                 "options": C4_OPTIONS, "rows_written": C4_ROWS, "k1_max_rows": hk._FUSE_MAX_ROWS}
+    hk.reset_launches()
+    with CompactionProbe(hk) as stream_probe:
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        kinds = []
+        t0 = time.perf_counter()
+        for b, batch in enumerate(batches):
+            w.write(batch)
+            kinds += [snapshots.snapshot(i).commit_kind.value for i in c.commit_messages(b + 1, w.prepare_commit())]
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    out["stream"] = {"commits": C4_COMMITS, "snapshots": {k: kinds.count(k) for k in sorted(set(kinds))},
+                     "write_s": round(write_s, 4), "ingest_rows_per_s": round(C4_ROWS / write_s, 1),
+                     **stream_probe.report(), "launches": write_launches,
+                     "levels_after": level_layout(table)}
+    assert kinds.count("COMPACT") >= 1, f"no COMPACT snapshot in {C4_COMMITS} commits: {kinds}"
+    out["stream"]["read"] = check_c4_read(table, last_commit, "after 20 commits")
+
+    with CompactionProbe(hk) as full_probe:
+        t0 = time.perf_counter()
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.compact(full=True)
+        full_kinds = [snapshots.snapshot(i).commit_kind.value for i in wb.new_commit().commit(w.prepare_commit())]
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+    layout = level_layout(table)
+    out["full"] = {"snapshots": full_kinds, "step_s": round(full_s, 4), **full_probe.report(),
+                   "levels_after": layout}
+    assert full_kinds == ["COMPACT"], full_kinds
+    assert list(layout) == [str(table.store.options.num_levels - 1)], f"not all at the max level: {layout}"
+    out["full"]["read"] = check_c4_read(table, last_commit, "after the full compaction")
+    phase = dict(hk.launches)
+    full = {k: full_probe.launches[k] for k in phase}
+    out["launches"] = {"phase": phase, "streaming_writes": write_launches, "full_compaction": full,
+                       "reads": {k: phase[k] - write_launches[k] - full[k] for k in phase}}
+    assert phase["sort_segments"] > 0, f"K1 never launched on the compaction path: {out['launches']}"
+    assert phase["keep_last_mask"] > 0, (
+        f"K2 never launched on the compaction path (largest merge {max(stream_probe.merge_rows, default=0)} rows, "
+        f"K1 admits up to {out['k1_max_rows']}): {out['launches']}")
+    return out
 
 
 def k1_timing(hk, rng, dev, launches: int, shape) -> dict:

@@ -1,8 +1,9 @@
 """paimon_tpu_torch: the PyTorch/CUDA port of paimon_tpu for one NVIDIA
 H100 (Hopper, sm_90a).
 
-This slice writes, commits and merge-reads primary-key tables under the
-deduplicate merge engine through the Table API. With sort-engine=pallas
+It writes (compacting the LSM levels), commits (batch or streaming) and
+merge-reads primary-key tables under the deduplicate merge engine through
+the Table API. With sort-engine=pallas
 the merge runs on two hand-written CUDA kernels (ops/hopper_kernels.py).
 The warehouse layout, schema, snapshot, manifest and data-file formats are
 the JAX package's, so each package reads the other's tables. The package

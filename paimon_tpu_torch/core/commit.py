@@ -1,26 +1,38 @@
-"""The snapshot-CAS commit protocol (port of paimon_tpu/core/commit.py,
-append commits).
+"""The snapshot-CAS commit protocol (port of paimon_tpu/core/commit.py:
+append and compact commits, and the replay filter).
 
 A commit writes a delta manifest, a base manifest list (the previous
 snapshot's base + delta) and a delta manifest list, then publishes
 snapshot-(latest+1) with the atomic-rename CAS. A lost race cleans this
 round's manifests and retries against the new latest, up to
-commit.max-retries. Overwrite, compaction, changelog and index manifests
-and manifest merging are not ported yet.
+commit.max-retries. One committable gives up to two snapshots: APPEND (the
+writers' new level-0 files) then COMPACT (compaction's removed and written
+files), so a crashed commit replayed after its APPEND snapshot applies only
+the missing COMPACT half (filter_committed). A COMPACT commit whose removed
+files are no longer live raises CommitConflictError. Overwrite, changelog
+and index manifests and manifest merging are not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
+from typing import Sequence
+
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..utils import now_millis
-from .manifest import FileKind, ManifestCommittable, ManifestEntry, ManifestFile, ManifestList
+from .manifest import FileKind, ManifestCommittable, ManifestEntry, ManifestFile, ManifestList, merge_entries
 from .snapshot import CommitKind, Snapshot, SnapshotManager
 
 # batch jobs commit once with this identifier (reference Long.MAX_VALUE)
 BATCH_COMMIT_IDENTIFIER = (1 << 63) - 1
 
-__all__ = ["FileStoreCommit", "CommitGiveUpError", "BATCH_COMMIT_IDENTIFIER"]
+__all__ = ["FileStoreCommit", "CommitConflictError", "CommitGiveUpError", "BATCH_COMMIT_IDENTIFIER"]
+
+
+class CommitConflictError(RuntimeError):
+    """A compaction's input files were removed by a concurrent commit; its
+    COMPACT snapshot is abandoned."""
 
 
 class CommitGiveUpError(RuntimeError):
@@ -42,21 +54,90 @@ class FileStoreCommit:
         self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", options.manifest_compression, fmt)
         self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression, fmt)
 
-    def commit(self, committable: ManifestCommittable) -> list[int]:
-        """One APPEND snapshot for the committable's new files; returns the
-        snapshot ids written."""
-        entries = [
-            ManifestEntry(FileKind.ADD, msg.partition, msg.bucket, msg.total_buckets, f)
-            for msg in committable.messages
-            for f in msg.new_files
-        ]
-        return [self._try_commit(CommitKind.APPEND, entries, committable)]
+    def filter_committed(self, committables: Sequence[ManifestCommittable]) -> list[ManifestCommittable]:
+        """Drop the committables whose identifier this user already committed
+        (crash replay). Only streaming identifiers come here; the user's
+        latest snapshot with another identifier than the batch one marks
+        what is done. A committable at that identifier whose COMPACT half
+        is missing comes back flagged to skip its APPEND half."""
+        done = next(
+            (
+                s.commit_identifier
+                for s in self.snapshot_manager.snapshots_of_user(self.commit_user)
+                if s.commit_identifier != BATCH_COMMIT_IDENTIFIER
+            ),
+            None,
+        )
+        if done is None:
+            return list(committables)
+        out: list[ManifestCommittable] = []
+        for c in committables:
+            if c.commit_identifier > done:
+                out.append(c)
+            elif c.commit_identifier == done and any(m.compact_before or m.compact_after for m in c.messages):
+                kinds = {
+                    s.commit_kind
+                    for s in self.snapshot_manager.snapshots_of_user_with_identifier(self.commit_user, done)
+                }
+                if CommitKind.COMPACT not in kinds:
+                    out.append(replace(c, skip_append=True))
+        return out
 
-    def _try_commit(self, kind: CommitKind, entries: list[ManifestEntry], committable: ManifestCommittable) -> int:
+    def commit(self, committable: ManifestCommittable) -> list[int]:
+        """An APPEND snapshot for the new files (also for an empty
+        committable), then a COMPACT snapshot when there are compacted
+        files; returns the snapshot ids written (0, 1 or 2)."""
+        append_entries: list[ManifestEntry] = []
+        compact_entries: list[ManifestEntry] = []
+        for msg in committable.messages:
+            where = (msg.partition, msg.bucket, msg.total_buckets)
+            append_entries += [ManifestEntry(FileKind.ADD, *where, f) for f in msg.new_files]
+            compact_entries += [ManifestEntry(FileKind.DELETE, *where, f) for f in msg.compact_before]
+            compact_entries += [ManifestEntry(FileKind.ADD, *where, f) for f in msg.compact_after]
+        written: list[int] = []
+        if not committable.skip_append and (append_entries or not compact_entries):
+            written.append(self._try_commit(CommitKind.APPEND, append_entries, committable))
+            # the APPEND snapshot is durable: a retry of this committable
+            # must not apply it twice if the COMPACT half fails below
+            committable.skip_append = True
+        if compact_entries:
+            written.append(self._try_commit(CommitKind.COMPACT, compact_entries, committable, check_conflicts=True))
+        return written
+
+    def _conflicted_buckets(self, latest: Snapshot, entries: list[ManifestEntry]) -> set[tuple]:
+        """(partition, bucket) slots where a file this commit deletes is no
+        longer live: a concurrent compaction removed it."""
+        deletes = [e for e in entries if e.kind == FileKind.DELETE]
+        if not deletes:
+            return set()
+        metas = self.manifest_list.read(latest.base_manifest_list) + self.manifest_list.read(
+            latest.delta_manifest_list
+        )
+        live_entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
+        live = {(e.partition, e.bucket, e.file.file_name) for e in live_entries}
+        return {(e.partition, e.bucket) for e in deletes if (e.partition, e.bucket, e.file.file_name) not in live}
+
+    def _try_commit(
+        self,
+        kind: CommitKind,
+        entries: list[ManifestEntry],
+        committable: ManifestCommittable,
+        check_conflicts: bool = False,
+    ) -> int:
         max_retries = self.options.options.get(CoreOptions.COMMIT_MAX_RETRIES)
         retries = 0
         while True:
             latest = self.snapshot_manager.latest_snapshot()
+            if check_conflicts and latest is not None:
+                conflicted = self._conflicted_buckets(latest, entries)
+                if conflicted == {(e.partition, e.bucket) for e in entries}:
+                    raise CommitConflictError(
+                        f"files of bucket(s) {sorted(conflicted)} were removed by a concurrent commit; "
+                        f"giving up this {kind.value} commit"
+                    )
+                # the buckets that lost their inputs are abandoned (their
+                # rewritten files become orphans); the others commit
+                entries = [e for e in entries if (e.partition, e.bucket) not in conflicted]
             tmp_files: list[str] = []
             try:
                 snapshot_id = latest.id + 1 if latest else 1

@@ -9,7 +9,7 @@ file's write schema by field id (a missing field reads as nulls).
 from __future__ import annotations
 
 import base64
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
@@ -43,6 +43,10 @@ class DataFileMeta:
     file_source: str = "append"
     extra_files: tuple[str, ...] = ()
     embedded_index: bytes | None = None
+
+    def upgrade(self, level: int) -> "DataFileMeta":
+        """The same file moved to another level (compaction upgrade)."""
+        return replace(self, level=level)
 
     def to_dict(self) -> dict:
         return {

@@ -154,15 +154,18 @@ def merge_entries(*entry_lists: Iterable[ManifestEntry]) -> list[ManifestEntry]:
 
 @dataclass
 class CommitMessage:
-    """Per-(partition, bucket) new files from one writer."""
+    """Per-(partition, bucket) new files from one writer, and the files its
+    compactions removed (compact_before) and wrote (compact_after)."""
 
     partition: tuple
     bucket: int
     total_buckets: int
     new_files: list[DataFileMeta] = field(default_factory=list)
+    compact_before: list[DataFileMeta] = field(default_factory=list)
+    compact_after: list[DataFileMeta] = field(default_factory=list)
 
     def is_empty(self) -> bool:
-        return not self.new_files
+        return not self.new_files and not self.compact_before and not self.compact_after
 
 
 @dataclass
@@ -171,3 +174,6 @@ class ManifestCommittable:
     watermark: int | None = None
     log_offsets: dict[int, int] = field(default_factory=dict)
     messages: list[CommitMessage] = field(default_factory=list)
+    # the APPEND snapshot of this committable has landed: commit only its
+    # COMPACT half (set by a commit and by filter_committed on replay)
+    skip_append: bool = False

@@ -1,7 +1,8 @@
 """Snapshots: the versioned root of a table (port of
-paimon_tpu/core/snapshot.py; expiry and changelog snapshots are not ported
-yet). A snapshot file is immutable JSON published with the atomic-rename
-CAS; the LATEST/EARLIEST hints are an optimization, listing is the truth.
+paimon_tpu/core/snapshot.py; expiry, time travel and changelog snapshots
+are not ported yet). A snapshot file is immutable JSON published with the
+atomic-rename CAS; the LATEST/EARLIEST hints are an optimization, listing
+is the truth.
 """
 
 from __future__ import annotations
@@ -127,9 +128,43 @@ class SnapshotManager:
         ids = self._listed_ids()
         return ids[-1] if ids else None
 
+    def earliest_snapshot_id(self) -> int | None:
+        try:
+            hint = int(self.file_io.read_text(f"{self.snapshot_dir}/{self.EARLIEST}"))
+        except (OSError, ValueError):
+            hint = None
+        if hint is not None and self.snapshot_exists(hint):
+            return hint
+        ids = self._listed_ids()
+        return ids[0] if ids else None
+
     def latest_snapshot(self) -> Snapshot | None:
         sid = self.latest_snapshot_id()
         return self.snapshot(sid) if sid is not None else None
+
+    def snapshots_of_user(self, user: str):
+        """This user's snapshots, newest first (a lazy backward walk, so a
+        caller that stops at the first it wants reads only the gap)."""
+        latest = self.latest_snapshot_id()
+        earliest = self.earliest_snapshot_id()
+        if latest is None or earliest is None:
+            return
+        for sid in range(latest, earliest - 1, -1):
+            if self.snapshot_exists(sid):
+                snap = self.snapshot(sid)
+                if snap.commit_user == user:
+                    yield snap
+
+    def snapshots_of_user_with_identifier(self, user: str, identifier: int) -> list[Snapshot]:
+        """This user's snapshots carrying `identifier`; the walk stops once
+        the user's identifiers fall below it (they ascend per user)."""
+        out: list[Snapshot] = []
+        for snap in self.snapshots_of_user(user):
+            if snap.commit_identifier == identifier:
+                out.append(snap)
+            elif snap.commit_identifier < identifier:
+                break
+        return out
 
     def commit_latest_hint(self, snapshot_id: int) -> None:
         self.file_io.try_overwrite(f"{self.snapshot_dir}/{self.LATEST}", str(snapshot_id).encode())

@@ -8,9 +8,12 @@ from typing import Sequence
 import torch
 
 from ..fs import LocalFileIO
+from ..options import CoreOptions
 from ..types import RowType
 from .commit import FileStoreCommit
+from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
+from .levels import Levels
 from .mergefn import MergeExecutor
 from .read import MergeFileSplitRead
 from .scan import FileStoreScan
@@ -82,16 +85,33 @@ class KeyValueFileStore:
         plan = self.new_scan().with_bucket(bucket).with_partition_filter(lambda p: p == partition).plan()
         return [e.file for e in plan.entries]
 
-    def new_writer(self, partition: tuple, bucket: int, total_buckets: int) -> MergeTreeWriter:
+    def new_writer(self, partition: tuple, bucket: int, total_buckets: int | None = None) -> MergeTreeWriter:
+        """A writer restored from the bucket's live files; it compacts unless
+        the table is write-only."""
         existing = self.restore_files(partition, bucket)
+        co = self.options
+        merge = self.merge_executor()
+        wf = self.writer_factory(partition, bucket)
+        compact_manager = None
+        if not co.write_only:
+            strategy = UniversalCompaction(
+                co.max_size_amplification_percent,
+                co.size_ratio,
+                co.num_sorted_runs_compaction_trigger,
+                co.options.get(CoreOptions.COMPACTION_OPTIMIZATION_INTERVAL),
+                max_file_num=co.options.get(CoreOptions.COMPACTION_MAX_FILE_NUM),
+            )
+            rewriter = MergeTreeCompactRewriter(self.reader_factory(partition, bucket), wf, merge)
+            compact_manager = MergeTreeCompactManager(Levels(existing, co.num_levels), strategy, rewriter, co)
         return MergeTreeWriter(
             partition,
             bucket,
-            total_buckets,
-            self.writer_factory(partition, bucket),
-            self.merge_executor(),
-            self.options,
+            total_buckets if total_buckets is not None else max(co.bucket, 1),
+            wf,
+            merge,
+            co,
             restored_max_seq=max((f.max_sequence_number for f in existing), default=-1),
+            compact_manager=compact_manager,
         )
 
     def read_bucket(

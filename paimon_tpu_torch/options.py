@@ -44,8 +44,8 @@ class ConfigOption(Generic[T]):
         return ConfigOption(key, default, lambda v: None if v is None else str(v))
 
     @staticmethod
-    def int_(key: str, default: int | None = None):
-        return ConfigOption(key, default, lambda v: None if v is None else int(v))
+    def int_(key: str, default: int | None = None, fallback: tuple[str, ...] = ()):
+        return ConfigOption(key, default, lambda v: None if v is None else int(v), fallback)
 
     @staticmethod
     def bool_(key: str, default: bool = False, fallback: tuple[str, ...] = ()):
@@ -77,6 +77,11 @@ class Options:
 
     def contains(self, option: "ConfigOption | str") -> bool:
         return (option if isinstance(option, str) else option.key) in self._data
+
+    def set_key(self, option: ConfigOption) -> str | None:
+        """The key under which option is set (its own or a fallback), or
+        None when it is left at its default."""
+        return next((k for k in (option.key, *option.fallback_keys) if k in self._data), None)
 
 
 class MergeEngine(str, enum.Enum):
@@ -131,6 +136,21 @@ class CoreOptions:
     SOURCE_SPLIT_TARGET_SIZE = ConfigOption.memory("source.split.target-size", "128 mb")
     SOURCE_SPLIT_OPEN_FILE_COST = ConfigOption.memory("source.split.open-file-cost", "4 mb")
     COMMIT_MAX_RETRIES = ConfigOption.int_("commit.max-retries", 10)
+    COMMIT_FORCE_COMPACT = ConfigOption.bool_("commit.force-compact", False)
+    NUM_SORTED_RUNS_COMPACTION_TRIGGER = ConfigOption.int_("num-sorted-run.compaction-trigger", 5)
+    NUM_SORTED_RUNS_STOP_TRIGGER = ConfigOption.int_("num-sorted-run.stop-trigger", None)  # default trigger+3
+    NUM_LEVELS = ConfigOption.int_("num-levels", None)  # default trigger+1
+    COMPACTION_MAX_SIZE_AMP_PERCENT = ConfigOption.int_("compaction.max-size-amplification-percent", 200)
+    COMPACTION_SIZE_RATIO = ConfigOption.int_("compaction.size-ratio", 1)
+    COMPACTION_MAX_FILE_NUM = ConfigOption.int_("compaction.max.file-num", 50, ("compaction.early-max.file-num",))
+    # millis; the JAX package reads this key as a bare int too
+    COMPACTION_OPTIMIZATION_INTERVAL = ConfigOption.int_("compaction.optimization-interval", None)
+    # keys of features the port does not write yet: tables that are not
+    # write-only raise on them (table/write.py), so only their keys are kept
+    CHANGELOG_PRODUCER = ConfigOption.string("changelog-producer", "none")
+    RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time", None, str, ("record-level.expire-time.ms",))
+    SNAPSHOT_NUM_RETAINED_MAX = ConfigOption.int_("snapshot.num-retained.max", 2147483647)
+    SNAPSHOT_TIME_RETAINED = ConfigOption("snapshot.time-retained", "1 h", str, ("snapshot.time-retained.ms",))
 
     def __init__(self, options: "Options | Mapping[str, Any] | None" = None):
         self.options = options if isinstance(options, Options) else Options(options)
@@ -192,6 +212,28 @@ class CoreOptions:
     @property
     def write_only(self) -> bool:
         return self.options.get(CoreOptions.WRITE_ONLY)
+
+    @property
+    def num_sorted_runs_compaction_trigger(self) -> int:
+        return self.options.get(CoreOptions.NUM_SORTED_RUNS_COMPACTION_TRIGGER)
+
+    @property
+    def num_sorted_runs_stop_trigger(self) -> int:
+        v = self.options.get(CoreOptions.NUM_SORTED_RUNS_STOP_TRIGGER)
+        return v if v is not None else self.num_sorted_runs_compaction_trigger + 3
+
+    @property
+    def num_levels(self) -> int:
+        v = self.options.get(CoreOptions.NUM_LEVELS)
+        return v if v is not None else self.num_sorted_runs_compaction_trigger + 1
+
+    @property
+    def max_size_amplification_percent(self) -> int:
+        return self.options.get(CoreOptions.COMPACTION_MAX_SIZE_AMP_PERCENT)
+
+    @property
+    def size_ratio(self) -> int:
+        return self.options.get(CoreOptions.COMPACTION_SIZE_RATIO)
 
     @property
     def ignore_delete(self) -> bool:

@@ -1,5 +1,6 @@
 """The Table API (port of paimon_tpu/table/__init__.py, primary-key
-tables): new_read_builder / new_batch_write_builder and copy."""
+tables): new_read_builder / new_batch_write_builder /
+new_stream_write_builder and copy."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from ..core.store import KeyValueFileStore
 from ..fs import LocalFileIO
 from ..types import RowType
 from .read import ReadBuilder
-from .write import BatchWriteBuilder
+from .write import BatchWriteBuilder, StreamWriteBuilder
 
 __all__ = ["FileStoreTable"]
 
@@ -51,3 +52,6 @@ class FileStoreTable:
 
     def new_batch_write_builder(self) -> BatchWriteBuilder:
         return BatchWriteBuilder(self)
+
+    def new_stream_write_builder(self) -> StreamWriteBuilder:
+        return StreamWriteBuilder(self)

@@ -351,11 +351,25 @@ def test_unported_codecs_raise_naming_the_option(warehouse, option, value):
 
 
 def test_write_requires_write_only(warehouse):
+    """write-only=false (the default) no longer raises: the port writes,
+    compacts once the sorted runs pass the trigger, commits that commit as
+    APPEND + COMPACT, and both packages read the oracle's rows."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+
     cat = PortCatalog(warehouse, device="cpu")
     table = cat.create_table("db.compacting", _row_type(tt), primary_keys=["id"],
-                             options={**OPTIONS, "write-only": "false"})
-    with pytest.raises(NotImplementedError, match="write-only"):
-        table.new_batch_write_builder().new_write()
+                             options={**OPTIONS, "write-only": "false", "num-sorted-run.compaction-trigger": "2"})
+    kinds = []
+    for ids in (np.arange(0, 100), np.arange(50, 150), np.arange(140, 200)):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(_values(ids.astype(np.int64), False))
+        sids = wb.new_commit().commit(w.prepare_commit())
+        kinds.append([SnapshotManager(table.file_io, table.path).snapshot(i).commit_kind.value for i in sids])
+    assert kinds == [["APPEND"], ["APPEND"], ["APPEND", "COMPACT"]]
+    assert {f.level for f in table.store.restore_files((), 0)} == {table.store.options.num_levels - 1}
+    want = [tuple(_py(v) for v in row) for row in zip(*[list(c) for c in _values(np.arange(200), False).values()])]
+    assert _read(cat.get_table("db.compacting")) == want == _jax_read(JaxCatalog(warehouse).get_table("db.compacting"))
 
 
 def test_compressed_write_option_raises(warehouse):
