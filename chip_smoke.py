@@ -6,10 +6,10 @@
 Phases, one JSON line each on stdout:
 
 1. card     - `nvidia-smi --query-gpu=name,power.limit` (also printed raw).
-2. build    - nvcc builds both kernels from paimon_tpu_torch/csrc (seconds),
-              and each kernel's registers, shared memory and spills as
-              `-Xptxas -v` reports them (no spills allowed); cc builds the
-              zstd codec from paimon_tpu_torch/native/zstd.c (seconds).
+2. build    - nvcc builds the three kernels from paimon_tpu_torch/csrc
+              (seconds), and each kernel's registers, shared memory and
+              spills as `-Xptxas -v` reports them (no spills allowed); cc
+              builds the zstd codec from paimon_tpu_torch/native/zstd.c.
 3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
               PyTorch versions on the card, exact integer equality. K1: m in
               {2, 4, 64, T/2, T, 2T, 4096, 2^17, 2^18} (T its block-sort
@@ -21,6 +21,12 @@ Phases, one JSON line each on stdout:
               (all columns equal, all distinct, segments ending at every
               4th and every 128th column, sorted pad-tail lanes), plus
               contiguous views one column off a flat buffer's start.
+              segment_sum (the sorted-order float sum of the aggregation
+              engine) against its plain version bit for bit (any NaN equal
+              to any NaN), twice a case: float64 and float32 x 7 sizes x 5
+              segment patterns (lengths 1-8, all 1, one segment, up to 3000,
+              and -0.0/+0.0/NaN/+-inf values); whether torch's own
+              segment_reduce and index_add_ give the same bits is reported.
 4. main     - the bench.py table at bench.py's own options (bucket 1,
               parquet, write-only; no codec keys, so zstd data pages and
               zstd manifests), 1M rows, id BIGINT NOT NULL + 7 value
@@ -53,7 +59,24 @@ Phases, one JSON line each on stdout:
               seconds split into input decode, merge and encode + write. The
               read after each step must equal a sort-engine=numpy read and a
               numpy oracle (each id's last value).
-7. timing   - each kernel at its main-path shape against its plain version,
+7. engines  - the partial-update, aggregation and first-row merge engines,
+              one line per part. BASELINE config 2 at 10M rows (4 commits
+              of 2.5M, partial-update, write-only, default codecs,
+              sort-engine=pallas): write seconds, 5 read samples with input
+              rows/s, a staged read (decode, lane encode, merge, gather) and
+              one read under torch.profiler; every read equal to the numpy
+              and xla-segmented engines and to the oracle. BASELINE config 3
+              at scale 1 (4M rows, sum/max, parquet, bucket 1): write, read,
+              then a full compaction in one batch commit (seconds, input
+              bytes, GB/s), each read equal to the numpy engine and the
+              oracle. Then one small table per engine (partial-update with
+              remove-record-on-delete and -D rows; aggregation with every
+              fused function and retractions; aggregation with product,
+              listagg and primary-key; first-row), 5 commits of 20,000 rows
+              so every merge takes K1, each read at all three sort engines
+              and equal. The cuts are listed in the lines. Launches of each
+              kernel per part, zeroed before it.
+8. timing   - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -62,9 +85,10 @@ Phases, one JSON line each on stdout:
               K2's device time and the library call's, by torch.profiler,
               with the input warm in L2 (as the main path hands it over)
               and cold (cycling over copies that exceed the L2).
+              segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main and compact paths, and by path), the card line, and last
+the main, compact and engines paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -94,11 +118,27 @@ K1_TILE_ROWS = 131072
 C4_ROWS = 1_000_000
 C4_COMMITS = 20
 C4_OPTIONS = {"bucket": "1", "num-sorted-run.compaction-trigger": "4", "sort-engine": "pallas"}
+# BASELINE config 2 (benchmarks/baseline_configs.py:66) at scale 5, the 10M
+# rows BASELINE.json names: a partial-update table, 4 commits of 2.5M rows
+# over the same ids with alternating null columns
+C2_ROWS = 10_000_000
+C2_OPTIONS = {"bucket": "1", "merge-engine": "partial-update", "write-only": "true", "sort-engine": "pallas"}
+# BASELINE config 3 (:107) at scale 1: an aggregation table, 4 commits of 1M
+# rows over ids in [0, 500,000) from default_rng(1)
+C3_ROWS = 4_000_000
+C3_OPTIONS = {"bucket": "1", "file.format": "parquet", "merge-engine": "aggregation",
+              "fields.sum_col.aggregate-function": "sum", "fields.max_col.aggregate-function": "max",
+              "write-only": "true", "sort-engine": "pallas"}
+# the small per-engine tables: commits of this many rows over 1.5x as many
+# ids, so that every flush and read merges fewer than 2^18 rows (K1)
+SMALL_ROWS, SMALL_COMMITS = 20_000, 5
 READ_REPEATS = 5
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 << 20  # H100 SXM L2 cache
 SCALAR32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores, NVIDIA data sheet
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 rate outside the tensor cores, NVIDIA data sheet
+K1_K2 = ("sort_segments", "keep_last_mask")
 
 
 def emit(obj: dict) -> None:
@@ -165,6 +205,8 @@ def ptxas_usage(log: str) -> dict:
                 start = pos + num.end()
                 name, pos = mangled[start : start + int(num.group())], start + int(num.group())
             args = ",".join(re.findall(r"Li(\d+)E", mangled))
+            if (ty := re.match(r"I([df])E", mangled[pos:])) is not None:  # a float-type template argument
+                args = {"d": "double", "f": "float"}[ty.group(1)]
             cur = rows.setdefault(f"{name}<{args}>" if args else name, [0, 0, 0, 0])
             continue
         mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -471,17 +513,20 @@ def main() -> int:
     codec_build_s = time.perf_counter() - t0
     k1_usage = ptxas_usage(hk.build_log("sort_segments"))
     k2_usage = ptxas_usage(hk.build_log("keep_last_mask"))
+    sum_usage = ptxas_usage(hk.build_log("segment_sum"))
     tile = hk.K1_TILE
     instances = [f"{kernel}<{nl}>" for kernel in ("block_sort", "merge_round") for nl in range(2, 9)]
     missing = [k for k in instances if k not in k1_usage]
     assert not missing, f"ptxas reported no usage for {missing}"
     assert k2_usage, "ptxas reported no usage for K2"
-    usage = {**{k: k1_usage[k] for k in instances}, **k2_usage}
+    assert {"segment_sum_kernel<double>", "segment_sum_kernel<float>"} <= set(sum_usage), sum_usage
+    usage = {**{k: k1_usage[k] for k in instances}, **k2_usage, **sum_usage}
     spilled = {k: v for k, v in usage.items() if v[2] or v[3]}
     columns = ["registers", "static_smem_bytes", "spill_store_bytes", "spill_load_bytes"]
     emit({"phase": "build", "seconds": round(build_s, 3), "kernels": list(hk.KERNEL_SOURCES),
           "zstd_codec_seconds": round(codec_build_s, 3), "k1_tile": tile,
-          "k1_ptxas": {"columns": columns, **k1_usage}, "k2_ptxas": {"columns": columns, **k2_usage}})
+          "k1_ptxas": {"columns": columns, **k1_usage}, "k2_ptxas": {"columns": columns, **k2_usage},
+          "segment_sum_ptxas": {"columns": columns, **sum_usage}})
     assert not spilled, f"kernels spill: {spilled}"
 
     # 3. kernel vs plain, exact
@@ -501,9 +546,12 @@ def main() -> int:
     t0 = time.perf_counter()
     k2_aligned, k2_misaligned = k2_checks(hk, dev)
     checks += k2_aligned + k2_misaligned
+    k2_s = time.perf_counter() - t0
+    sum_checks = segment_sum_checks(hk, dev)
+    checks += sum_checks["exact_checks"]
     emit({"phase": "kernels", "exact_checks": checks, "k1_exact_checks": k1_checks,
           "k2_exact_checks": k2_aligned + k2_misaligned, "k2_misaligned_view_checks": k2_misaligned,
-          "k2_seconds": round(time.perf_counter() - t0, 3), "max_abs_err": 0})
+          "k2_seconds": round(k2_s, 3), "segment_sum": sum_checks, "max_abs_err": 0})
 
     # 4. main path
     with tempfile.TemporaryDirectory(prefix="paimon_tpu_torch_smoke_") as warehouse:
@@ -527,7 +575,7 @@ def main() -> int:
         main_launches = dict(hk.launches)
         assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched on the default tile"
         assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched on small tiles"
-        assert all(v > 0 for v in main_launches.values()), main_launches
+        assert all(main_launches[k] > 0 for k in K1_K2), main_launches
         main_shapes = dict(hk.last_shape)
         plain_out, plain_samples = timed_reads(table.copy({"sort-engine": "xla-segmented"}), READ_REPEATS)
         check_output(plain_out, reference, up, "xla-segmented")
@@ -561,7 +609,11 @@ def main() -> int:
         compact = compact_phase(pt, hk, warehouse)
         emit({"phase": "compact", **compact})
 
-    # 7. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 7. the merge engines
+        engines = engines_phase(pt, hk, warehouse)
+        emit({"phase": "engines", "part": "summary", **engines})
+
+    # 8. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -571,7 +623,8 @@ def main() -> int:
         hk.sort_segments(x, read_shape[2])
     torch.cuda.synchronize()
     widest = (8, 1 << 18, 6)
-    by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name]} for name in hk.launches}
+    by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
+                      "engines": engines["launches"][name]} for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
     at_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "host_ms_per_call")
@@ -606,14 +659,20 @@ def main() -> int:
     k2_row["library_device_ms_cold"] = device_ms(rotating(lambda t: (t[:, 1:] != t[:, :-1]).any(0), ys), {"ms": ""})["ms"]
     del ys
     kernels.append(k2_row)
-    assert err2 == 0 and all(r["max_abs_err"] == 0 for r in k1_rows)
+    sum_m = engines["kernel_shapes"]["segment_sum"][0]
+    sum_row = segment_sum_timing(hk, rng, dev, sum(by_path["segment_sum"].values()), sum_m)
+    sum_row["launches_by_path"] = by_path["segment_sum"]
+    kernels.append(sum_row)
+    assert err2 == 0 and all(r["max_abs_err"] == 0 for r in k1_rows) and sum_row["max_abs_err"] == 0
     emit({"phase": "timing", "card": card,
           "note": "ms: CUDA events, 10 warm-up + 100 timed calls; host_ms_per_call: host clock over 100 calls "
                   "without a synchronise; device_ms: torch.profiler kernel time per call over 20 calls on one "
                   "input (warm in L2); device_ms_cold: the same, cycling over copies that exceed the L2",
           "k1_device_split": split,
           "k2": {k: k2_row[k] for k in ("ms", "device_ms", "device_ms_cold", "host_ms_per_call", "bound_ms",
-                                        "plain_ms", "library_ms", "library_device_ms", "library_device_ms_cold")}})
+                                        "plain_ms", "library_ms", "library_device_ms", "library_device_ms_cold")},
+          "segment_sum": {k: sum_row[k] for k in ("shape", "ms", "device_ms", "host_ms_per_call", "bound_ms",
+                                                  "plain_ms", "library_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -777,6 +836,376 @@ def compact_phase(pt, hk, warehouse: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the merge engines: BASELINE configs 2 and 3, and one small table per engine
+# ---------------------------------------------------------------------------
+
+S0_POOL = np.array([f"v{i}" for i in range(97)], dtype=object)
+
+
+def same_values(x: np.ndarray, y: np.ndarray) -> bool:
+    """Equal; floats bit for bit (so -0.0 is not +0.0), any NaN equal to any
+    NaN (the card and the host write other NaN payloads)."""
+    if x.dtype.kind != "f":
+        return np.array_equal(x, y)
+    i = f"i{x.itemsize}"
+    return x.shape == y.shape and bool(((x.view(i) == y.view(i)) | (np.isnan(x) & np.isnan(y))).all())
+
+
+def same_rows(a, b, what: str) -> None:
+    """Equal row for row: validity, and the values of valid slots."""
+    assert a.num_rows == b.num_rows, f"{what}: {a.num_rows} rows against {b.num_rows}"
+    for name in a.schema.field_names:
+        x, y = a.column(name), b.column(name)
+        ok = x.valid_mask()
+        assert np.array_equal(ok, y.valid_mask()), f"{what}: validity of {name} differs"
+        assert same_values(x.values[ok], y.values[ok]), f"{what}: column {name} differs"
+
+
+def engine_reads(table, what: str) -> dict:
+    """The table read at sort-engine pallas, xla-segmented and numpy: equal
+    row for row. Returns the pallas read."""
+    out = read_all(table)
+    for engine in ("xla-segmented", "numpy"):
+        same_rows(out, read_all(table.copy({"sort-engine": engine})), f"{what}, pallas against {engine}")
+    return out
+
+
+def c2_batch(schema, ids: np.ndarray, r: int):
+    """Commit r of config 2 (baseline_configs.py:81-88)."""
+    from paimon_tpu_torch.data.batch import Column, ColumnBatch
+
+    def null(dtype):
+        return Column(np.zeros(len(ids), dtype), np.zeros(len(ids), np.bool_))
+
+    return ColumnBatch(schema, {
+        "id": Column(ids),
+        "a": Column(ids % 1000) if r % 2 == 0 else null(np.int64),
+        "b": null(np.int64) if r % 2 == 0 else Column(ids % 777),
+        "d0": Column(ids * 0.5 + r),
+        "d1": null(np.float64) if r < 2 else Column(ids * 1.5),
+        "s0": Column(S0_POOL[ids % 97]),
+    })
+
+
+def pu_read_stages(table) -> dict:
+    """One partial-update merge read, stage by stage and summed over its
+    sections (host clock, device synchronised at each boundary): decode
+    every column, lane encode, the fused merge (sort + segment + field
+    selection, download), gather."""
+    from paimon_tpu_torch.core.kv import KVBatch
+    from paimon_tpu_torch.core.levels import IntervalPartition
+    from paimon_tpu_torch.core.read import order_runs_for_merge
+    from paimon_tpu_torch.ops.merge import fused_partial_update
+
+    store = table.store
+    (split,) = table.new_read_builder().new_scan().plan()
+    rf = store.reader_factory(split.partition, split.bucket)
+    merge = store.merge_executor()
+    ms = dict.fromkeys(("decode", "encode_lanes", "merge", "gather"), 0.0)
+    sections = IntervalPartition(split.files).partition()
+    rows_in = rows_out = 0
+    for section in sections:
+        runs, seq_ascending = order_runs_for_merge(section)
+        t0 = time.perf_counter()
+        kv = KVBatch.concat([rf.read(f) for run in runs for f in run.files])
+        ms["decode"] += time.perf_counter() - t0
+        rows_in += kv.num_rows
+        if len(runs) == 1:
+            rows_out += kv.num_rows
+            continue
+        t0 = time.perf_counter()
+        lanes, seq_lanes = merge._key_lanes(kv), merge._seq_lanes(kv, seq_ascending)
+        ms["encode_lanes"] += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src, exists, last_take = fused_partial_update(
+            lanes, seq_lanes, merge._field_valid(kv), kv.kind, False, True, "pallas", DEVICE)
+        torch.cuda.synchronize()
+        ms["merge"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_out += merge._partial_update_rows(kv, src, exists, last_take).drop_deletes().num_rows
+        ms["gather"] += time.perf_counter() - t0
+    return {"sections": len(sections), "input_rows": rows_in, "output_rows": rows_out,
+            "ms": {k: round(v * 1e3, 3) for k, v in ms.items()}}
+
+
+def config2_phase(pt, hk, cat) -> dict:
+    """BASELINE config 2 at C2_ROWS: write, 5 timed reads checked against
+    the numpy and xla-segmented engines and the oracle, a staged read, and
+    one read under the profiler."""
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("a", pt.BIGINT()), ("b", pt.BIGINT()),
+                           ("d0", pt.DOUBLE()), ("d1", pt.DOUBLE()), ("s0", pt.STRING()))
+    table = cat.create_table("engines.c2", schema, primary_keys=["id"], options=dict(C2_OPTIONS))
+    per = C2_ROWS // 4
+    ids = np.arange(per, dtype=np.int64)
+    batches = [c2_batch(schema, ids, r) for r in range(4)]
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    for batch in batches:
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(batch)
+        wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    del batches
+    out, samples = timed_reads(table, READ_REPEATS)
+    read_launches = {k: hk.launches[k] - write_launches[k] for k in hk.launches}
+    assert out.num_rows == per, f"config 2: {out.num_rows} rows, the oracle has {per}"
+    oracle = {"id": ids, "a": ids % 1000, "b": ids % 777, "d0": ids * 0.5 + 3, "d1": ids * 1.5, "s0": S0_POOL[ids % 97]}
+    for name, want in oracle.items():
+        col = out.column(name)
+        assert col.validity is None, f"config 2: nulls left in {name}"
+        assert np.array_equal(col.values, want), f"config 2: {name} differs from the oracle"
+    for engine in ("numpy", "xla-segmented"):
+        same_rows(out, read_all(table.copy({"sort-engine": engine})), f"config 2, pallas against {engine}")
+    launches = dict(hk.launches)
+    stages = pu_read_stages(table)
+    return {
+        "config": "BASELINE config 2 (benchmarks/baseline_configs.py:66), scale 5",
+        "options": C2_OPTIONS, "rows_written": C2_ROWS, "commits": 4, "keys": per,
+        "cuts": ["no predicate: with_filter and predicate pushdown are not ported (ROADMAP Queue 1 item 9)"],
+        "write_s": round(write_s, 4),
+        "reads": {"samples_s": [round(x, 4) for x in samples],
+                  "rows_per_s": [round(C2_ROWS / x, 1) for x in samples],
+                  "median_rows_per_s": round(C2_ROWS / float(np.median(samples)), 1)},
+        "launches": {"write": write_launches, "reads": read_launches, "phase": launches},
+        "equal_to_numpy_engine": True, "equal_to_xla_segmented": True, "equal_to_oracle": True,
+        "read_stages": stages, "trace": device_busy(table),
+    }
+
+
+def check_c3_read(table, ids_in: np.ndarray, what: str) -> dict:
+    """The read against a numpy-engine read and the oracle: per key, the sum
+    of sum_col and the max of max_col over every written row."""
+    t0 = time.perf_counter()
+    out = read_all(table)
+    read_s = time.perf_counter() - t0
+    same_rows(out, read_all(table.copy({"sort-engine": "numpy"})), f"{what}, pallas against numpy")
+    keys = np.unique(ids_in)
+    total = np.zeros(C3_ROWS // 8, np.int64)
+    np.add.at(total, ids_in, ids_in % 7)
+    top = np.full(C3_ROWS // 8, -np.inf)
+    np.maximum.at(top, ids_in, ids_in * 0.25)
+    assert np.array_equal(out.column("id").values, keys), f"{what}: keys differ from the oracle"
+    assert np.array_equal(out.column("sum_col").values, total[keys]), f"{what}: sum_col differs from the oracle"
+    assert np.array_equal(out.column("max_col").values, top[keys]), f"{what}: max_col differs from the oracle"
+    return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def config3_phase(pt, hk, cat) -> dict:
+    """BASELINE config 3 at scale 1, then a full compaction in one batch
+    commit, each step's read checked."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("sum_col", pt.BIGINT()), ("max_col", pt.DOUBLE()))
+    table = cat.create_table("engines.c3", schema, primary_keys=["id"], options=dict(C3_OPTIONS))
+    per = C3_ROWS // 4
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, C3_ROWS // 8, per) for _ in range(4)]
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    for ids in batches:
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write({"id": ids, "sum_col": ids % 7, "max_col": ids * 0.25})
+        wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    ids_in = np.concatenate(batches)
+    out = {"config": "BASELINE config 3 (benchmarks/baseline_configs.py:107), scale 1",
+           "options": C3_OPTIONS, "rows_written": C3_ROWS, "commits": 4,
+           "cuts": ["file.format=parquet, not orc: ORC is not ported (ROADMAP Queue 1 item 8)",
+                    "bucket=1, not 8: writes to more than one bucket are not ported (Queue 1 item 9)",
+                    "no mesh", "the compaction runs on a copy of the table with write-only=false, as a "
+                    "dedicated compaction job would"],
+           "write_s": round(write_s, 4), "read": check_c3_read(table, ids_in, "config 3")}
+    files = table.store.restore_files((), 0)
+    input_bytes = sum(f.file_size for f in files)
+    before = dict(hk.launches)
+    compacting = table.copy({"write-only": "false"})
+    t0 = time.perf_counter()
+    wb = compacting.new_batch_write_builder()
+    w = wb.new_write()
+    w.compact(full=True)
+    kinds = [SnapshotManager(table.file_io, table.path).snapshot(i).commit_kind.value
+             for i in wb.new_commit().commit(w.prepare_commit())]
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    assert kinds == ["COMPACT"], kinds
+    out["full_compaction"] = {
+        "seconds": round(compact_s, 4), "input_files": len(files), "input_bytes": input_bytes,
+        "gb_per_s": round(input_bytes / compact_s / 1e9, 4), "snapshots": kinds,
+        "levels_after": level_layout(table),
+        "launches": {k: hk.launches[k] - before[k] for k in hk.launches},
+        "read": check_c3_read(table, ids_in, "config 3 after the full compaction")}
+    out["launches"] = {"write": write_launches, "phase": dict(hk.launches)}
+    return out
+
+
+RETRACTS = (0.75, 0.05, 0.1, 0.1)  # shares of +I, -U, +U, -D rows
+NO_UPDATE_BEFORE = (0.75, 0.0, 0.15, 0.1)
+
+
+def nullable(rng, values: np.ndarray, share: float = 0.2):
+    from paimon_tpu_torch.data.batch import Column
+
+    return Column(values, rng.random(len(values)) >= share)
+
+
+SMALL_TABLES = {
+    # partial-update with -D rows that remove keys (and -U rows, ignored)
+    "partial_update": ({"merge-engine": "partial-update", "partial-update.remove-record-on-delete": "true"},
+                       (("a", "BIGINT"), ("d", "DOUBLE"), ("s", "STRING")), RETRACTS),
+    # every aggregate the fused call runs, with retractions
+    "aggregation_fused": (
+        {"merge-engine": "aggregation",
+         **{f"fields.{f}.aggregate-function": fn for f, fn in (
+             ("c_sum", "sum"), ("d_sum", "sum"), ("f_sum", "sum"), ("i_sum", "sum"), ("c_cnt", "count"),
+             ("c_max", "max"), ("d_min", "min"), ("b_and", "bool_and"), ("b_or", "bool_or"),
+             ("fv", "first_value"), ("fnn", "first_non_null_value"), ("lv", "last_value"),
+             ("lnn", "last_non_null_value"))},
+         **{f"fields.{f}.ignore-retract": "true" for f in ("i_sum", "c_max", "d_min", "b_and", "b_or", "fv", "fnn",
+                                                            "lv", "lnn")}},
+        (("c_sum", "BIGINT"), ("d_sum", "DOUBLE"), ("f_sum", "FLOAT"), ("i_sum", "BIGINT"), ("c_cnt", "BIGINT"),
+         ("c_max", "INT"), ("d_min", "DOUBLE"), ("b_and", "BOOLEAN"), ("b_or", "BOOLEAN"), ("fv", "BIGINT"),
+         ("fnn", "STRING"), ("lv", "DOUBLE"), ("lnn", "STRING")), RETRACTS),
+    # the host aggregates and primary-key: the planned path (merge_plan)
+    "aggregation_planned": (
+        {"merge-engine": "aggregation", "fields.p.aggregate-function": "product",
+         "fields.l.aggregate-function": "listagg", "fields.l.list-agg-delimiter": "|",
+         "fields.pk.aggregate-function": "primary-key", "fields.d_sum.aggregate-function": "sum",
+         "fields.p.ignore-retract": "true", "fields.l.ignore-retract": "true"},
+        (("p", "BIGINT"), ("l", "STRING"), ("pk", "BIGINT"), ("d_sum", "DOUBLE")), RETRACTS),
+    # first-row, -D rows dropped by the engine's own ignore-delete key
+    "first_row": ({"merge-engine": "first-row", "first-row.ignore-delete": "true"},
+                  (("v", "BIGINT"), ("s", "STRING")), NO_UPDATE_BEFORE),
+}
+
+
+def small_column(rng, name: str, type_name: str, ids: np.ndarray, b: int):
+    from paimon_tpu_torch.data.batch import Column
+
+    n = len(ids)
+    if type_name == "STRING":
+        return nullable(rng, np.array([f"{name}{b}-{int(x) % 13}" for x in ids], dtype=object))
+    if type_name == "BOOLEAN":
+        return nullable(rng, rng.random(n) < 0.5)
+    if type_name == "DOUBLE":
+        return nullable(rng, rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n))
+    if type_name == "FLOAT":
+        return nullable(rng, rng.standard_normal(n).astype(np.float32))
+    dtype = np.int32 if type_name == "INT" else np.int64
+    if name == "p":  # the product's factors: small, never null
+        return Column(rng.integers(1, 4, n).astype(dtype))
+    return nullable(rng, rng.integers(-1000, 1000, n).astype(dtype))
+
+
+def small_tables_phase(pt, hk, cat) -> dict:
+    """One small table per engine, SMALL_COMMITS commits each, read at
+    every sort engine. Returns ({table: its numbers and launches}, the
+    kernels' last shapes)."""
+    from paimon_tpu_torch.data.batch import Column, ColumnBatch
+
+    types = {"BIGINT": pt.BIGINT(), "INT": pt.INT(), "DOUBLE": pt.DOUBLE(), "FLOAT": pt.FLOAT(),
+             "BOOLEAN": pt.BOOLEAN(), "STRING": pt.STRING()}
+    out, shapes = {}, {}
+    for name, (options, fields, kinds) in SMALL_TABLES.items():
+        schema = pt.RowType.of(("id", pt.BIGINT(False)), *[(f, types[t]) for f, t in fields])
+        opts = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", **options}
+        table = cat.create_table(f"engines.{name}", schema, primary_keys=["id"], options=opts)
+        rng = np.random.default_rng(len(out) + 31)
+        hk.reset_launches()
+        for b in range(SMALL_COMMITS):
+            ids = rng.integers(0, SMALL_ROWS * 3 // 2, SMALL_ROWS)
+            cols = {"id": Column(ids), **{f: small_column(rng, f, t, ids, b) for f, t in fields}}
+            wb = table.new_batch_write_builder()
+            w = wb.new_write()
+            w.write(ColumnBatch(schema, cols), rng.choice(4, SMALL_ROWS, p=kinds).astype(np.uint8))
+            wb.new_commit().commit(w.prepare_commit())
+        write_launches = dict(hk.launches)
+        rows = engine_reads(table, name).num_rows
+        out[name] = {"options": options, "rows_written": SMALL_ROWS * SMALL_COMMITS, "rows_read": rows,
+                     "equal_across_sort_engines": True,
+                     "launches": {"write": write_launches, "phase": dict(hk.launches)}}
+        assert hk.launches["sort_segments"] > 0, f"{name}: K1 never launched"
+        shapes.update(hk.last_shape)
+    return out, shapes
+
+
+def engines_phase(pt, hk, warehouse: str) -> dict:
+    """The merge engines: configs 2 and 3 and the small per-engine tables,
+    one JSON line each with its launches; returns the phase's launches
+    summed over its parts."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    out = {"config2": config2_phase(pt, hk, cat)}
+    emit({"phase": "engines", "part": "config2", **out["config2"]})
+    out["config3"] = config3_phase(pt, hk, cat)
+    emit({"phase": "engines", "part": "config3", **out["config3"]})
+    out["small_tables"], shapes = small_tables_phase(pt, hk, cat)
+    emit({"phase": "engines", "part": "small_tables", **out["small_tables"]})
+    parts = [out["config2"]["launches"]["phase"], out["config3"]["launches"]["phase"],
+             *[t["launches"]["phase"] for t in out["small_tables"].values()]]
+    launches = {k: sum(p[k] for p in parts) for k in hk.launches}
+    for k in hk.launches:
+        assert launches[k] > 0, f"{k} never launched on the engines path: {launches}"
+    return {"launches": launches, "kernel_shapes": shapes}
+
+
+SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)
+SEG_SUM_PATTERNS = ("short", "singletons", "one_segment", "long", "specials")
+
+
+def seg_sum_input(rng, m: int, pattern: str, dtype, dev):
+    """Values in sorted order and their segment starts and ids, on the card."""
+    v = rng.standard_normal(m) * 10.0 ** rng.integers(-6, 7, m)
+    if pattern == "specials":
+        pick = rng.integers(0, 6, m)
+        v = np.where(pick == 0, -0.0, np.where(pick == 1, 0.0, np.where(pick == 2, np.nan, np.where(
+            pick == 3, np.inf, np.where(pick == 4, -np.inf, v)))))
+    lengths = {"short": rng.integers(1, 9, m), "singletons": np.ones(m, np.int64), "one_segment": np.array([m]),
+               "long": rng.integers(1, 3000, m), "specials": rng.integers(1, 5, m)}[pattern]
+    starts = np.zeros(m, np.bool_)
+    heads = np.cumsum(np.concatenate([[0], lengths]))
+    starts[heads[heads < m]] = True
+    seg_id = (np.cumsum(starts) - 1).astype(np.int32)
+    t = torch.from_numpy(v.astype(dtype)).to(dev)
+    return t, torch.from_numpy(starts).to(dev), torch.from_numpy(seg_id).to(dev)
+
+
+
+
+def segment_sum_checks(hk, dev) -> dict:
+    """The segment_sum kernel against its plain version, bit for bit, twice
+    a case; and whether torch's own segment_reduce and index_add_ on the
+    card give the same bits (they are not used by the port)."""
+    rng = np.random.default_rng(99)
+    checks, others = 0, {"torch_segment_reduce": True, "index_add": True}
+    for dtype in (np.float64, np.float32):
+        for m in SEG_SUM_SIZES:
+            for pattern in SEG_SUM_PATTERNS:
+                v, starts, seg_id = seg_sum_input(rng, m, pattern, dtype, dev)
+                want = hk.segment_sum_plain(v, starts).cpu().numpy()
+                for _ in range(2):
+                    got = hk.segment_sum(v, starts, seg_id)
+                    torch.cuda.synchronize()
+                    assert same_values(got.cpu().numpy(), want), (
+                        f"segment_sum differs from its plain version at {m}, {pattern}, {dtype}")
+                    checks += 1
+                k = int(seg_id[-1]) + 1
+                lengths = torch.bincount(seg_id.long(), minlength=k)
+                sr = torch.segment_reduce(v, "sum", lengths=lengths, initial=0.0)
+                others["torch_segment_reduce"] &= same_values(sr.cpu().numpy(), want[:k])
+                ia = torch.zeros_like(v).index_add_(0, seg_id.long(), v)
+                others["index_add"] &= same_values(ia.cpu().numpy(), want)
+    return {"exact_checks": checks, "bit_identical_on_the_card": others}
+
+
 def k1_timing(hk, rng, dev, launches: int, shape) -> dict:
     """K1's row at one (nl, m, nb) shape: kernel, plain and library times,
     bound, and the error against the plain version."""
@@ -796,6 +1225,32 @@ def k1_timing(hk, rng, dev, launches: int, shape) -> dict:
         k1_bytes, k1_ops, cuda_ms(k1_library), [nl, m, nb],
     )
     row["host_ms_per_call"] = host_ms(lambda: hk.sort_segments(x, nb))
+    return row
+
+
+def segment_sum_timing(hk, rng, dev, launches: int, m: int) -> dict:
+    """segment_sum's row at the engines path's float64 shape (m rows, a few
+    rows a segment, as a merge gives): kernel, plain version (on the host,
+    where it adds in order) and index_add_ (the same sums in another order),
+    and the bound."""
+    v, starts, seg_id = seg_sum_input(rng, m, "short", np.float64, dev)
+    idx = seg_id.long()
+    err = (hk.segment_sum(v, starts, seg_id).cpu() - hk.segment_sum_plain(v, starts).cpu()).abs().max().item()
+    k = int(seg_id[-1]) + 1
+    nbytes = m * 8 + m + m * 4 + m * 8  # values, starts and ids read; the (m,) sums written
+    row = kernel_row(
+        "segment_sum (sorted-order float sum)", "paimon_tpu_torch/csrc/segment_sum.cu",
+        "paimon_tpu/ops/aggregates.py:72 _sum_fn (jax.ops.segment_sum, an XLA program; no Pallas kernel)",
+        launches, err, cuda_ms(lambda: hk.segment_sum(v, starts, seg_id)),
+        cuda_ms(lambda: hk.segment_sum_plain(v, starts), iters=10, warmup=2), nbytes, 0,
+        cuda_ms(lambda: torch.zeros_like(v).index_add_(0, idx, v)), [m, "float64"],
+    )
+    t_ops = m / FP64_OPS_PER_S * 1e3  # m float64 adds
+    if t_ops > row["bound_ms"]:
+        row["bound_ms"], row["bound_by"] = round(t_ops, 5), "operations"
+    row["segments"] = k
+    row["host_ms_per_call"] = host_ms(lambda: hk.segment_sum(v, starts, seg_id))
+    row["device_ms"] = device_ms(lambda: hk.segment_sum(v, starts, seg_id), {"ms": "segment_sum"})["ms"]
     return row
 
 

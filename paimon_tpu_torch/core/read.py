@@ -1,10 +1,12 @@
 """Merge-on-read: sections -> device merge -> batches (port of
 paimon_tpu/core/read.py). Files decode serially, with no thread pool.
 
-A single-run section needs no merge. A multi-run section takes the
-keys-only pipeline (`_pipelined_dedup`): decode the key columns, dispatch
-the dedup kernel without waiting, decode the value columns while the
-device sorts, then gather the winners on the host.
+A single-run section needs no merge. Under the deduplicate engine a
+multi-run section takes the keys-only pipeline (`_pipelined_dedup`):
+decode the key columns, dispatch the dedup kernel without waiting, decode
+the value columns while the device sorts, then gather the winners on the
+host. The other engines need every column to merge: they decode the
+section whole and merge it in one MergeExecutor call.
 """
 
 from __future__ import annotations

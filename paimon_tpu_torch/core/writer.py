@@ -2,8 +2,8 @@
 pipelined flush, admission control or changelog producers).
 
 Rows get sequence numbers in arrival order and buffer in a memtable; a
-flush merges the buffer through the MergeExecutor (the device dedup) and
-writes the result as level-0 files. A table that is not write-only has a
+flush merges the buffer through the MergeExecutor (the table's merge
+engine, on the device) and writes the result as level-0 files. A table that is not write-only has a
 compaction manager: each flush puts its files at the head of level 0 and
 lets the manager compact. prepare_commit flushes and hands the new files,
 and the compaction's before and after files, over as a CommitMessage.

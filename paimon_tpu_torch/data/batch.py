@@ -14,7 +14,7 @@ import numpy as np
 
 from ..types import DataType, RowType
 
-__all__ = ["Column", "ColumnBatch", "concat_batches"]
+__all__ = ["Column", "ColumnBatch", "concat_batches", "gather_column"]
 
 _OBJ = np.dtype(object)
 
@@ -162,3 +162,17 @@ def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
         return batches[0]
     schema = batches[0].schema
     return ColumnBatch(schema, {n: Column.concat([b.column(n) for b in batches]) for n in schema.field_names})
+
+
+def gather_column(column: Column, src: np.ndarray) -> Column:
+    """column.take(src) where src -1 gives null (the merge engines' picks:
+    a field no row supplied). Null slots of a fixed-width column hold 0, of
+    an object column whatever value sat at the clipped index; validity says
+    which are null (port of paimon_tpu/ops/aggregates.py `_gather_column`)."""
+    ok = src >= 0
+    safe = np.clip(src, 0, max(len(column) - 1, 0))
+    validity = ok & column.valid_mask().take(safe)
+    vals = column.values.take(safe)
+    if column.values.dtype != _OBJ:
+        vals = np.where(validity, vals, np.zeros((), column.values.dtype))
+    return Column(vals, validity if not validity.all() else None)

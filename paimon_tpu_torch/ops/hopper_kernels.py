@@ -1,5 +1,6 @@
-"""The merge hot path's two kernels, hand-written in CUDA for Hopper (port
-of paimon_tpu/ops/pallas_kernels.py).
+"""The merge hot path's kernels, hand-written in CUDA for Hopper (port of
+paimon_tpu/ops/pallas_kernels.py, and one XLA program of the aggregation
+engine).
 
 K1 `sort_segments` (csrc/sort_segments.cu) replaces the Pallas kernel of
 `fused_sort_segments`: a stable lexicographic sort of the stacked
@@ -10,6 +11,12 @@ merge-path rounds, the last of which writes the output. K2 `keep_last_mask`
 (csrc/keep_last.cu) replaces the Pallas boundary sweep that runs after the
 stock stable sort on larger batches: 16-byte loads of four columns a thread,
 the next column by warp shuffle, a grid the size of what the card holds.
+
+A third kernel, `segment_sum` (csrc/segment_sum.cu), replaces no Pallas
+kernel: it is the float case of the JAX package's jax.ops.segment_sum in the
+aggregation engine, an XLA program, written by hand because XLA on the CPU
+adds each segment's rows in sorted order and torch's atomic scatter-adds do
+not (their float sums change from run to run).
 
 Beside each kernel sits its plain PyTorch version. A wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
@@ -50,6 +57,8 @@ __all__ = [
     "fused_sort_segments",
     "keep_last_mask",
     "keep_last_mask_plain",
+    "segment_sum",
+    "segment_sum_plain",
     "K1_TILE",
     "build_kernels",
     "build_log",
@@ -73,7 +82,11 @@ K1_TILE = 512
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD = os.path.join(_PKG_DIR, "_build")
-KERNEL_SOURCES = {"sort_segments": "sort_segments.cu", "keep_last_mask": "keep_last.cu"}
+KERNEL_SOURCES = {
+    "sort_segments": "sort_segments.cu",
+    "keep_last_mask": "keep_last.cu",
+    "segment_sum": "segment_sum.cu",
+}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
                "-Xcompiler", "-fPIC"]
 
@@ -166,9 +179,12 @@ def _kernel(name: str):
         if name == "sort_segments":
             fn = lib.paimon_sort_segments
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        else:
+        elif name == "keep_last_mask":
             fn = lib.paimon_keep_last
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        else:
+            fn = lib.paimon_segment_sum
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _KERNELS[name] = fn
     return fn
@@ -303,4 +319,55 @@ def keep_last_mask(stacked: torch.Tensor, mask_pad: bool = True) -> torch.Tensor
         raise RuntimeError(f"keep_last_mask kernel launch failed with CUDA error {rc}")
     launches["keep_last_mask"] += 1
     last_shape["keep_last_mask"] = (lanes, m)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# segment_sum: float sums over contiguous segments, in sorted order
+# ---------------------------------------------------------------------------
+
+
+def segment_sum_plain(values: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Plain version of segment_sum: (m,) sums by segment id, 0 past the
+    last segment. torch.segment_reduce on the CPU adds each segment's rows
+    in order from `initial`, so it runs there whatever values' device."""
+    m = values.shape[0]
+    heads = torch.nonzero(seg_start.cpu()).flatten()
+    lengths = torch.diff(heads, append=torch.tensor([m]))
+    sums = torch.segment_reduce(values.cpu(), "sum", lengths=lengths, initial=0.0)
+    out = torch.zeros(m, dtype=values.dtype)
+    out[: sums.shape[0]] = sums
+    return out.to(values.device)
+
+
+def segment_sum(values: torch.Tensor, seg_start: torch.Tensor, seg_id: torch.Tensor) -> torch.Tensor:
+    """segment_sum wrapper. values: (m,) float32 or float64 in sorted order;
+    seg_start: (m,) bool, set at each segment's first row (row 0 always);
+    seg_id: (m,) int32, the segment of each row. Returns (m,) of values'
+    type: each segment's rows added in order from 0, by segment id."""
+    if values.dtype not in (torch.float32, torch.float64) or values.dim() != 1 or not values.is_contiguous():
+        raise ValueError(
+            f"segment_sum: expected a contiguous 1-D float tensor, got {values.dtype} {tuple(values.shape)}"
+        )
+    m = values.shape[0]
+    if seg_start.dtype != torch.bool or seg_id.dtype != torch.int32 or seg_start.shape != (m,) or seg_id.shape != (m,):
+        raise ValueError("segment_sum: seg_start must be (m,) bool and seg_id (m,) int32")
+    if not (seg_start.is_contiguous() and seg_id.is_contiguous()):
+        raise ValueError("segment_sum: seg_start and seg_id must be contiguous")
+    if m == 0:
+        raise ValueError("segment_sum: empty input")
+    if values.device.type == "cpu":
+        return segment_sum_plain(values, seg_start)
+    if values.device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {values.device}")
+    fn = _kernel("segment_sum")
+    dev = values.device
+    out = torch.zeros(m, dtype=values.dtype, device=dev)
+    with _on_device(dev):
+        rc = fn(values.data_ptr(), seg_start.data_ptr(), seg_id.data_ptr(), out.data_ptr(), m,
+                1 if values.dtype == torch.float64 else 0, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed with CUDA error {rc}")
+    launches["segment_sum"] += 1
+    last_shape["segment_sum"] = (m, str(values.dtype).removeprefix("torch."))
     return out

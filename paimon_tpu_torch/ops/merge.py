@@ -1,5 +1,6 @@
 """Sort + segment + select: the merge on the device (port of
-paimon_tpu/ops/merge.py, the deduplicate path).
+paimon_tpu/ops/merge.py: the deduplicate, first-row and partial-update
+selections).
 
 Coordinates: "input" = row index into the concatenated runs; "sorted" =
 position after the sort; `perm` maps sorted -> input. Every device batch is
@@ -12,9 +13,13 @@ pass `fusable`, else the stock stable lexsort plus K2), engine "xla" runs
 plain torch ops. On the device every lane is a flipped int32 tensor (see
 ops/hopper_kernels.py); all engines give bit-identical results.
 
+Segment reductions over integers (the partial-update and pick selections)
+are torch scatter-reduces by segment id: exact in any order.
+
 Not ported yet: the compact and delta link encodings and the batched tile
-program of the JAX package. `deduplicate_tiled_dispatch` here always takes
-the plain index download, tile by tile; the output is the same.
+program of the JAX package. `deduplicate_tiled_dispatch` and
+`fused_partial_update` here always take the plain index download; the
+output is the same.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..types import RowKind
 from ..utils import resolve_device
 from . import hopper_kernels as hk
 from .lanes import compress_key_lanes, ovc_codes, resolve_compress, scalar_dedup_winner
@@ -42,6 +48,11 @@ __all__ = [
     "deduplicate_select",
     "deduplicate_tiled_dispatch",
     "deduplicate_resolve_tiled",
+    "segment_extreme",
+    "segment_last_where",
+    "first_row_take",
+    "partial_update_takes",
+    "fused_partial_update",
 ]
 
 _MIN_PAD = 128
@@ -96,6 +107,123 @@ def sorted_segments(
     seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), keep_last[:-1]])
     seg_id = (torch.cumsum(seg_start.to(torch.int32), 0) - 1).to(torch.int32)
     return sorted_boundary[0], perm.to(torch.int32), seg_start, keep_last, seg_id
+
+
+def segment_extreme(values: torch.Tensor, seg_idx: torch.Tensor, largest: bool = True) -> torch.Tensor:
+    """Per-segment max (or min) of an integer (m,) tensor, indexed by segment
+    id; seg_idx is the int64 segment id of each row. An empty segment holds
+    the dtype's min (max), as jax.ops.segment_max (segment_min) gives."""
+    info = torch.iinfo(values.dtype)
+    out = torch.full(values.shape, info.min if largest else info.max, dtype=values.dtype, device=values.device)
+    return out.scatter_reduce_(0, seg_idx, values, "amax" if largest else "amin")
+
+
+def segment_last_where(seg_id: torch.Tensor, masks: torch.Tensor, pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Per segment, the last sorted position where each mask row is True (-1
+    = none). masks (F, m) bool in sorted coordinates; returns (F, m) int32
+    indexed by segment id. The shared core of the partial-update
+    selections."""
+    m = seg_id.shape[0]
+    if pos is None:
+        pos = torch.arange(m, dtype=torch.int32, device=seg_id.device)
+    idx = seg_id.long()
+    out = torch.empty(masks.shape, dtype=torch.int32, device=seg_id.device)
+    for f in range(masks.shape[0]):
+        out[f] = segment_extreme(torch.where(masks[f], pos, -1), idx)
+    return out
+
+
+def _partial_update_select(perm: torch.Tensor, seg_id: torch.Tensor, field_valid, is_add, is_delete):
+    """Per field, each segment's last valid add row after its last delete
+    (src, (F, m) input rows by segment id, -1 = none), and whether the
+    segment has an add after its last delete (exists, (m,)). field_valid
+    (F, m), is_add and is_delete (m,) are bool in input coordinates, padded
+    with False. The one core of both partial-update paths."""
+    m = perm.shape[0]
+    pos = torch.arange(m, dtype=torch.int32, device=perm.device)
+    p, idx = perm.long(), seg_id.long()
+    add_sorted = is_add[p]
+    last_del = segment_extreme(torch.where(is_delete[p], pos, -1), idx)
+    eligible = add_sorted & (pos > last_del[idx])
+    last_per_field = segment_last_where(seg_id, field_valid[:, p] & eligible, pos)
+    src = torch.where(last_per_field >= 0, perm[last_per_field.clamp(0, m - 1).long()], -1)
+    last_add = segment_extreme(torch.where(add_sorted, pos, -1), idx)
+    return src, last_add > last_del
+
+
+def _add_delete_masks(row_kind: np.ndarray, remove_record_on_delete: bool) -> tuple[np.ndarray, np.ndarray]:
+    """+I/+U rows add; -D rows delete only under remove-record-on-delete
+    (-U rows do neither)."""
+    is_add = np.isin(row_kind, (int(RowKind.INSERT), int(RowKind.UPDATE_AFTER)))
+    if remove_record_on_delete:
+        return is_add, row_kind == int(RowKind.DELETE)
+    return is_add, np.zeros_like(is_add)
+
+
+def _upload_mask(mask: np.ndarray, m: int, device: torch.device) -> torch.Tensor:
+    """A bool mask (..., n) in input coordinates, padded with False to m."""
+    out = np.zeros(mask.shape[:-1] + (m,), dtype=np.bool_)
+    out[..., : mask.shape[-1]] = mask
+    return torch.from_numpy(out).to(device)
+
+
+def first_row_take(plan: MergePlan) -> np.ndarray:
+    """Input rows of each key's first (key, seq) row, in key order."""
+    return plan.perm[plan.seg_start & plan.valid_sorted]
+
+
+def partial_update_takes(
+    plan: MergePlan,
+    field_valid: np.ndarray,
+    row_kind: np.ndarray,
+    remove_record_on_delete: bool = False,
+    device: "str | torch.device" = "cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Partial-update over a plan: per field, its latest non-null value in
+    (key, seq) order after the key's last -D. field_valid (F, n) bool. Returns
+    src (F, num_segments) input rows (-1 = null) and exists (num_segments,),
+    False where remove-record-on-delete removed the key."""
+    dev = resolve_device(device)
+    is_add, is_delete = _add_delete_masks(row_kind, remove_record_on_delete)
+    m = plan.m
+    src, exists = _partial_update_select(
+        torch.from_numpy(plan.perm).to(dev),
+        torch.from_numpy(plan.seg_id).to(dev),
+        _upload_mask(field_valid, m, dev),
+        _upload_mask(is_add, m, dev),
+        _upload_mask(is_delete, m, dev),
+    )
+    k = plan.num_segments
+    return src[:, :k].cpu().numpy(), exists[:k].cpu().numpy()
+
+
+def fused_partial_update(
+    key_lanes: np.ndarray,
+    seq_lanes: np.ndarray | None,
+    field_valid: np.ndarray,
+    row_kind: np.ndarray,
+    remove_record_on_delete: bool = False,
+    compress: bool | None = None,
+    engine: str = "xla",
+    device: "str | torch.device" = "cuda",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Partial-update in one device trip: sort + segment (K1 or K2 under
+    engine "pallas") + the field selection, and only (F, k) sources, k
+    existence flags and the k winning rows come back. Returns (src, exists,
+    last_take) in key order, as merge_plan + partial_update_takes + the
+    keep-last takes would. Key lanes go through the compression seam."""
+    klp, slp, pad, n, k, s, m, _ = prepare_lanes_planned(key_lanes, seq_lanes, compress=compress)
+    dev = resolve_device(device)
+    is_add, is_delete = _add_delete_masks(row_kind, remove_record_on_delete)
+    klt, slt = upload_lanes(klp, dev), upload_lanes(slp, dev)
+    padt = upload_lanes([pad], dev)[0]
+    pad_sorted, perm, _, keep_last, seg_id = sorted_segments(k, s, klt, slt, padt, engine=engine)
+    src, exists = _partial_update_select(
+        perm, seg_id, _upload_mask(field_valid, m, dev), _upload_mask(is_add, m, dev), _upload_mask(is_delete, m, dev)
+    )
+    packed, count = pack_selected(keep_last & (pad_sorted == hk.FLIP_ZERO), perm)
+    kk = int(count)
+    return src[:, :kk].cpu().numpy(), exists[:kk].cpu().numpy(), packed[:kk].cpu().numpy()
 
 
 def pack_selected(sel: torch.Tensor, perm: torch.Tensor):
@@ -179,6 +307,11 @@ class MergePlan:
     @property
     def valid_sorted(self) -> np.ndarray:
         return np.arange(self.m) < self.n
+
+    @property
+    def num_segments(self) -> int:
+        """Segments holding valid rows (pad segments sort after them)."""
+        return int(self.seg_id[self.n - 1]) + 1 if self.n else 0
 
 
 def merge_plan(

@@ -128,6 +128,8 @@ class CoreOptions:
     MERGE_LANE_COMPRESSION = ConfigOption.bool_("merge.lane-compression", True)
     MERGE_READ_BATCH_ROWS = ConfigOption.int_("merge.read-batch-rows", 8 << 20)
     SEQUENCE_FIELD = ConfigOption.string("sequence.field", None)
+    PARTIAL_UPDATE_REMOVE_RECORD_ON_DELETE = ConfigOption.bool_("partial-update.remove-record-on-delete", False)
+    AGGREGATE_DEFAULT_FUNC = ConfigOption.string("fields.default-aggregate-function", None)
     ROWKIND_FIELD = ConfigOption.string("rowkind.field", None)
     DELETION_VECTORS_ENABLED = ConfigOption.bool_("deletion-vectors.enabled", False)
     BRANCH = ConfigOption.string("branch", "main")
@@ -243,3 +245,8 @@ class CoreOptions:
     def sequence_field(self) -> list[str]:
         v = self.options.get(CoreOptions.SEQUENCE_FIELD)
         return [s.strip() for s in v.split(",")] if v else []
+
+    def field_option(self, field_name: str, suffix: str) -> str | None:
+        """fields.<field_name>.<suffix> (aggregate-function, ignore-retract,
+        list-agg-delimiter), or None when unset."""
+        return self.options._data.get(f"fields.{field_name}.{suffix}")

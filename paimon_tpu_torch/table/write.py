@@ -28,31 +28,32 @@ if TYPE_CHECKING:
 __all__ = ["BatchWriteBuilder", "StreamWriteBuilder", "TableWrite", "TableCommit", "BatchTableCommit"]
 
 
-def _check_writable(options: CoreOptions, streaming: bool) -> None:
+def _check_writable(options: CoreOptions) -> None:
     """Raise, naming the option, for what the port's write path would get
     wrong: it writes no changelog files, drops no expired records and
-    expires no snapshots."""
+    expires no snapshots. On a write-only table the JAX package writes a
+    changelog only under changelog-producer=input (its flush writes the raw
+    input; full-compaction produces its changelog in compactions, which a
+    write-only writer never runs, and lookup it refuses there), and it
+    expires snapshots after every commit once a retention option is set."""
     opts = options.options
+    producer = str(opts.get(CoreOptions.CHANGELOG_PRODUCER)).lower()
+    if producer != "none" and (not options.write_only or producer == "input"):
+        raise NotImplementedError(f"changelog-producer={producer}: the torch port writes no changelog files yet")
     if not options.write_only:
-        producer = str(opts.get(CoreOptions.CHANGELOG_PRODUCER)).lower()
-        if producer != "none":
-            raise NotImplementedError(
-                f"changelog-producer={producer}: the torch port writes no changelog files yet"
-            )
         key = opts.set_key(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
         if key is not None:
             raise NotImplementedError(
                 f"{key}: the torch port does not drop expired records in compaction yet"
             )
-    if not options.write_only or streaming:
-        for option in (CoreOptions.SNAPSHOT_NUM_RETAINED_MAX, CoreOptions.SNAPSHOT_TIME_RETAINED):
-            key = opts.set_key(option)
-            if key is not None:
-                raise NotImplementedError(f"{key}: the torch port does not expire snapshots after a commit yet")
+    for option in (CoreOptions.SNAPSHOT_NUM_RETAINED_MAX, CoreOptions.SNAPSHOT_TIME_RETAINED):
+        key = opts.set_key(option)
+        if key is not None:
+            raise NotImplementedError(f"{key}: the torch port does not expire snapshots after a commit yet")
 
 
 class TableWrite:
-    def __init__(self, table: "FileStoreTable", streaming: bool = False):
+    def __init__(self, table: "FileStoreTable"):
         self.table = table
         store = table.store
         if store.options.bucket != 1:
@@ -66,7 +67,7 @@ class TableWrite:
             raise NotImplementedError(
                 f"rowkind.field={rowkind_field}: the torch port takes row kinds only from write()'s kinds argument yet"
             )
-        _check_writable(store.options, streaming)
+        _check_writable(store.options)
         self._writer = None
 
     def write(self, data: "ColumnBatch | dict", kinds: "np.ndarray | Sequence[str] | None" = None) -> None:
@@ -153,7 +154,7 @@ class StreamWriteBuilder:
         self.table = table
 
     def new_write(self) -> TableWrite:
-        return TableWrite(self.table, streaming=True)
+        return TableWrite(self.table)
 
     def new_commit(self) -> TableCommit:
         return TableCommit(self.table)

@@ -18,6 +18,7 @@ from the written values.
 """
 
 import io
+import os
 
 import numpy as np
 import pyarrow as pa
@@ -638,27 +639,59 @@ def test_section_with_an_upgraded_file_reads_the_newest_row(warehouse, mixed_run
 
 
 GUARDS = [
-    ("changelog-producer", "input", {}),
-    ("changelog-producer", "lookup", {}),
-    ("changelog-producer", "full-compaction", {}),
-    ("record-level.expire-time", "1 d", {"record-level.time-field": "v"}),
-    ("record-level.expire-time.ms", "86400000", {"record-level.time-field": "v"}),
-    ("snapshot.num-retained.max", "5", {}),
-    ("snapshot.time-retained", "10 min", {}),
-    ("snapshot.num-retained.max", "5", {"write-only": "true"}),
-    ("sequence.field", "v", {}),
+    ("changelog-producer", "input", {}, "stream"),
+    ("changelog-producer", "lookup", {}, "stream"),
+    ("changelog-producer", "full-compaction", {}, "stream"),
+    ("record-level.expire-time", "1 d", {"record-level.time-field": "v"}, "stream"),
+    ("record-level.expire-time.ms", "86400000", {"record-level.time-field": "v"}, "stream"),
+    ("snapshot.num-retained.max", "5", {}, "stream"),
+    ("snapshot.time-retained", "10 min", {}, "stream"),
+    ("snapshot.num-retained.max", "5", {"write-only": "true"}, "stream"),
+    ("sequence.field", "v", {}, "stream"),
+    # batch writes of write-only tables: the JAX package writes the input
+    # changelog and expires snapshots after each commit there too
+    ("changelog-producer", "input", {"write-only": "true"}, "batch"),
+    ("snapshot.num-retained.max", "5", {"write-only": "true"}, "batch"),
+    ("snapshot.time-retained", "1 ms", {"write-only": "true", "snapshot.num-retained.min": "2"}, "batch"),
 ]
 
 
-@pytest.mark.parametrize("key, value, extra", GUARDS, ids=[f"{k}={v}{'-write-only' if e.get('write-only') else ''}"
-                                                            for k, v, e in GUARDS])
-def test_unported_write_options_raise_naming_the_option(warehouse, key, value, extra):
-    """What the port's write path would get wrong raises at the streaming
-    write's creation (sequence.field at its first write), naming the option:
+def _guard_id(key, value, extra, mode):
+    return f"{key}={value}{'-write-only' if extra.get('write-only') else ''}{'-batch' if mode == 'batch' else ''}"
+
+
+def _jax_batch_commits(warehouse, ident, options, commits=7):
+    """The JAX package's table under `options` after `commits` batch commits:
+    (changelog files in its bucket, snapshot files left)."""
+    table = JaxCatalog(warehouse).create_table(ident, _c4_schema(jt), primary_keys=["id"], options=options)
+    for c in range(commits):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(_rows(np.arange(10) + c, c))
+        wb.new_commit().commit(w.prepare_commit())
+    bucket = os.listdir(os.path.join(table.path, "bucket-0"))
+    snapshots = [n for n in os.listdir(os.path.join(table.path, "snapshot")) if n.startswith("snapshot-")]
+    return sum(n.startswith("changelog") for n in bucket), len(snapshots)
+
+
+@pytest.mark.parametrize("key, value, extra, mode", GUARDS, ids=[_guard_id(*g) for g in GUARDS])
+def test_unported_write_options_raise_naming_the_option(warehouse, key, value, extra, mode):
+    """What the port's write path would get wrong raises at the write's
+    creation (sequence.field at its first write), naming the option:
     changelog files, record TTL and snapshot expiry on tables that are not
-    write-only, snapshot expiry on any streaming table."""
-    ident = f"db.guard_{key.replace('.', '_').replace('-', '_')}_{value.replace(' ', '_')}_{len(extra)}"
+    write-only, snapshot expiry on any streaming table; and on batch writes
+    of write-only tables the input changelog and snapshot expiry, which the
+    JAX package is first shown to produce on the same table."""
+    ident = f"db.guard_{key.replace('.', '_').replace('-', '_')}_{value.replace(' ', '_')}_{len(extra)}_{mode}"
+    options = {**C4_OPTIONS, key: value, **extra}
+    if mode == "batch":
+        changelogs, snapshots = _jax_batch_commits(warehouse, ident + "_jax", options)
+        if key == "changelog-producer":
+            assert changelogs == 7 and snapshots == 7
+        else:
+            assert changelogs == 0 and snapshots < 7
     table = PortCatalog(warehouse, device="cpu").create_table(
-        ident, _c4_schema(tt), primary_keys=["id"], options={**C4_OPTIONS, key: value, **extra})
+        ident, _c4_schema(tt), primary_keys=["id"], options=options)
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-        table.new_stream_write_builder().new_write().write(_rows([1], 0))
+        builder = table.new_batch_write_builder() if mode == "batch" else table.new_stream_write_builder()
+        builder.new_write().write(_rows([1], 0))

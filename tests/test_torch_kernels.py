@@ -137,7 +137,10 @@ def test_plain_versions_do_not_count_launches():
     x = torch.from_numpy(np.stack([hk.flip_np(np.zeros(128, np.uint32)), np.arange(128, dtype=np.int32)]))
     hk.sort_segments(x, 1)
     hk.keep_last_mask(x, mask_pad=False)
-    assert hk.launches == {"sort_segments": 0, "keep_last_mask": 0}
+    starts = torch.zeros(128, dtype=torch.bool)
+    starts[::3] = True
+    hk.segment_sum(torch.ones(128, dtype=torch.float64), starts, (torch.cumsum(starts.int(), 0) - 1).int())
+    assert hk.launches == {"sort_segments": 0, "keep_last_mask": 0, "segment_sum": 0}
 
 
 class _CudaTensorStandIn:
