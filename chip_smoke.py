@@ -76,7 +76,24 @@ Phases, one JSON line each on stdout:
               so every merge takes K1, each read at all three sort engines
               and equal. The cuts are listed in the lines. Launches of each
               kernel per part, zeroed before it.
-8. timing   - each kernel at its main-path shape against its plain version,
+8. buckets  - buckets and partitions, one line per part. BASELINE config 3
+              at scale 1 at its own 8 buckets beside the bucket-1 control
+              (write, read, a traced read, then a full compaction on a
+              write-only=false handle: seconds, input bytes, GB/s, files per
+              bucket). BASELINE config 5's full compaction at its 16 buckets,
+              scale 5: 10M rows in 4 batch commits (id, x, y, v; write-only),
+              a checked and a traced read, then compact(full=True) with no
+              rows written on a write-only=false handle (seconds, input bytes,
+              GB/s, rows/s). The bench table with a dt partition column (4
+              values) at default options, so dynamic buckets of at most
+              100,000 keys: 4 runs and the 100k upsert (write seconds with the
+              assigner's host seconds apart, buckets per partition; the upsert
+              must leave the hash index as it was and every row must sit in
+              the bucket whose index holds its key), 5 reads and a traced one.
+              Every read equals a sort-engine=numpy read and an oracle built
+              from the generator. K1 and K2 launches per part, split between
+              the writes' flushes, compactions and reads; the cuts are listed.
+9. timing   - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -88,7 +105,7 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact and engines paths, and by path), the card line, and last
+the main, compact, engines and buckets paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -129,6 +146,15 @@ C3_ROWS = 4_000_000
 C3_OPTIONS = {"bucket": "1", "file.format": "parquet", "merge-engine": "aggregation",
               "fields.sum_col.aggregate-function": "sum", "fields.max_col.aggregate-function": "max",
               "write-only": "true", "sort-engine": "pallas"}
+# BASELINE config 5 (:177) at scale 5: 4 batch commits of 2.5M rows over ids
+# in [0, 10M) from default_rng(3), 16 buckets, write-only
+C5_ROWS = 10_000_000
+C5_OPTIONS = {"bucket": "16", "write-only": "true", "sort-engine": "pallas"}
+# the partitioned table at default options: dynamic buckets of at most
+# P_TARGET keys, so each of the 4 partitions (250,000 keys) takes 3
+P_DTS = np.array(["2024-01-01", "2024-01-02", "2024-01-03", "2024-01-04"], dtype=object)
+P_TARGET = 100_000
+P_OPTIONS = {"sort-engine": "pallas", "dynamic-bucket.target-row-num": str(P_TARGET)}
 # the small per-engine tables: commits of this many rows over 1.5x as many
 # ids, so that every flush and read merges fewer than 2^18 rows (K1)
 SMALL_ROWS, SMALL_COMMITS = 20_000, 5
@@ -319,13 +345,8 @@ BENCH_OPTIONS = {"bucket": "1", "file.format": "parquet", "write-only": "true", 
 UNCOMPRESSED = {"file.compression": "none", "manifest.compression": "none"}
 
 
-def build_table(pt, warehouse: str, name: str, extra_options: dict):
-    """bench.py's table (bench.py:54-96) with bench.py's options plus
-    sort-engine=pallas and extra_options, and the upsert commit."""
-    from paimon_tpu_torch.catalog import FileSystemCatalog
-
-    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
-    schema = pt.RowType.of(
+def build_schema(pt):
+    return pt.RowType.of(
         ("id", pt.BIGINT(False)),
         ("c1", pt.BIGINT()),
         ("c2", pt.BIGINT()),
@@ -335,7 +356,15 @@ def build_table(pt, warehouse: str, name: str, extra_options: dict):
         ("s1", pt.STRING()),
         ("s2", pt.STRING()),
     )
-    table = cat.create_table(f"bench.{name}", schema, primary_keys=["id"], options={**BENCH_OPTIONS, **extra_options})
+
+
+def build_table(pt, warehouse: str, name: str, extra_options: dict):
+    """bench.py's table (bench.py:54-96) with bench.py's options plus
+    sort-engine=pallas and extra_options, and the upsert commit."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    table = cat.create_table(f"bench.{name}", build_schema(pt), primary_keys=["id"], options={**BENCH_OPTIONS, **extra_options})
     rng = np.random.default_rng(7)
     ids = rng.permutation(N_ROWS).astype(np.int64)
     per = N_ROWS // N_RUNS
@@ -613,7 +642,11 @@ def main() -> int:
         engines = engines_phase(pt, hk, warehouse)
         emit({"phase": "engines", "part": "summary", **engines})
 
-    # 8. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 8. buckets and partitions
+        buckets = buckets_phase(pt, hk, warehouse)
+        emit({"phase": "buckets", "part": "summary", **buckets})
+
+    # 9. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -624,7 +657,8 @@ def main() -> int:
     torch.cuda.synchronize()
     widest = (8, 1 << 18, 6)
     by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
-                      "engines": engines["launches"][name]} for name in hk.launches}
+                      "engines": engines["launches"][name], "buckets": buckets["launches"][name]}
+              for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
     at_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "host_ms_per_call")
@@ -708,10 +742,21 @@ def check_c4_read(table, last_commit: np.ndarray, what: str) -> dict:
     return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
 
 
+def live_files(table) -> list:
+    """The table's live data files, over every partition and bucket."""
+    return [e.file for e in table.store.new_scan().plan().entries]
+
+
+def files_per_bucket(table) -> dict:
+    """{"partition/bucket": live files} (partition values joined by ",")."""
+    return {f"{','.join(map(str, p))}/{b}": len(files)
+            for p, buckets in sorted(table.store.new_scan().plan().grouped().items()) for b, files in sorted(buckets.items())}
+
+
 def level_layout(table) -> dict:
     """{level: [files, rows]} of the table's live files."""
     out: dict = {}
-    for f in table.store.restore_files((), 0):
+    for f in live_files(table):
         files, rows = out.get(f.level, (0, 0))
         out[f.level] = (files + 1, rows + f.row_count)
     return {str(lv): list(v) for lv, v in sorted(out.items())}
@@ -989,60 +1034,80 @@ def check_c3_read(table, ids_in: np.ndarray, what: str) -> dict:
     np.add.at(total, ids_in, ids_in % 7)
     top = np.full(C3_ROWS // 8, -np.inf)
     np.maximum.at(top, ids_in, ids_in * 0.25)
-    assert np.array_equal(out.column("id").values, keys), f"{what}: keys differ from the oracle"
-    assert np.array_equal(out.column("sum_col").values, total[keys]), f"{what}: sum_col differs from the oracle"
-    assert np.array_equal(out.column("max_col").values, top[keys]), f"{what}: max_col differs from the oracle"
+    ids = out.column("id").values
+    if table.store.options.bucket == 1:
+        assert np.array_equal(ids, keys), f"{what}: keys differ from the oracle"
+    order = np.argsort(ids, kind="stable")  # buckets come one after another
+    assert np.array_equal(ids[order], keys), f"{what}: keys differ from the oracle"
+    assert np.array_equal(out.column("sum_col").values[order], total[keys]), f"{what}: sum_col differs from the oracle"
+    assert np.array_equal(out.column("max_col").values[order], top[keys]), f"{what}: max_col differs from the oracle"
     return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
 
 
-def config3_phase(pt, hk, cat) -> dict:
+C3_CUTS = ["file.format=parquet, not orc: ORC is not ported (ROADMAP Queue 1 item 8)", "no mesh",
+           "the compaction runs on a copy of the table with write-only=false, as a dedicated compaction job would"]
+
+
+def config3_phase(pt, hk, cat, ident: str = "engines.c3", options: dict = C3_OPTIONS,
+                  cuts: tuple = ("bucket=1, not 8: the buckets phase runs 8 buckets beside a bucket-1 control",),
+                  trace: bool = False) -> dict:
     """BASELINE config 3 at scale 1, then a full compaction in one batch
-    commit, each step's read checked."""
+    commit, each step's read checked; launches split into the writes'
+    flushes, the reads and the compaction. trace: one more read, before the
+    compaction, under the profiler (counted with the reads)."""
     from paimon_tpu_torch.core.snapshot import SnapshotManager
 
     schema = pt.RowType.of(("id", pt.BIGINT(False)), ("sum_col", pt.BIGINT()), ("max_col", pt.DOUBLE()))
-    table = cat.create_table("engines.c3", schema, primary_keys=["id"], options=dict(C3_OPTIONS))
+    table = cat.create_table(ident, schema, primary_keys=["id"], options=dict(options))
     per = C3_ROWS // 4
     rng = np.random.default_rng(1)
     batches = [rng.integers(0, C3_ROWS // 8, per) for _ in range(4)]
     hk.reset_launches()
-    t0 = time.perf_counter()
-    for ids in batches:
-        wb = table.new_batch_write_builder()
-        w = wb.new_write()
-        w.write({"id": ids, "sum_col": ids % 7, "max_col": ids * 0.25})
-        wb.new_commit().commit(w.prepare_commit())
-    torch.cuda.synchronize()
-    write_s = time.perf_counter() - t0
+    with WriteProbe() as stages:
+        t0 = time.perf_counter()
+        for ids in batches:
+            wb = table.new_batch_write_builder()
+            w = wb.new_write()
+            w.write({"id": ids, "sum_col": ids % 7, "max_col": ids * 0.25})
+            wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
     write_launches = dict(hk.launches)
     ids_in = np.concatenate(batches)
+    what = f"config 3 at bucket={options['bucket']}"
     out = {"config": "BASELINE config 3 (benchmarks/baseline_configs.py:107), scale 1",
-           "options": C3_OPTIONS, "rows_written": C3_ROWS, "commits": 4,
-           "cuts": ["file.format=parquet, not orc: ORC is not ported (ROADMAP Queue 1 item 8)",
-                    "bucket=1, not 8: writes to more than one bucket are not ported (Queue 1 item 9)",
-                    "no mesh", "the compaction runs on a copy of the table with write-only=false, as a "
-                    "dedicated compaction job would"],
-           "write_s": round(write_s, 4), "read": check_c3_read(table, ids_in, "config 3")}
-    files = table.store.restore_files((), 0)
+           "options": options, "rows_written": C3_ROWS, "commits": 4, "cuts": [*cuts, *C3_CUTS],
+           "write_s": round(write_s, 4), "write_stages": stages.report(), "files_per_bucket": files_per_bucket(table)}
+    before = dict(hk.launches)
+    out["read"] = check_c3_read(table, ids_in, what)
+    if trace:
+        out["trace"] = device_busy(table)
+    read_launches = {k: hk.launches[k] - before[k] for k in hk.launches}
+    files = live_files(table)
     input_bytes = sum(f.file_size for f in files)
     before = dict(hk.launches)
     compacting = table.copy({"write-only": "false"})
-    t0 = time.perf_counter()
-    wb = compacting.new_batch_write_builder()
-    w = wb.new_write()
-    w.compact(full=True)
-    kinds = [SnapshotManager(table.file_io, table.path).snapshot(i).commit_kind.value
-             for i in wb.new_commit().commit(w.prepare_commit())]
-    torch.cuda.synchronize()
-    compact_s = time.perf_counter() - t0
+    with CompactionProbe(hk) as probe:
+        t0 = time.perf_counter()
+        wb = compacting.new_batch_write_builder()
+        w = wb.new_write()
+        w.compact(full=True)
+        kinds = [SnapshotManager(table.file_io, table.path).snapshot(i).commit_kind.value
+                 for i in wb.new_commit().commit(w.prepare_commit())]
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
     assert kinds == ["COMPACT"], kinds
+    compact_launches = {k: hk.launches[k] - before[k] for k in hk.launches}
     out["full_compaction"] = {
         "seconds": round(compact_s, 4), "input_files": len(files), "input_bytes": input_bytes,
         "gb_per_s": round(input_bytes / compact_s / 1e9, 4), "snapshots": kinds,
-        "levels_after": level_layout(table),
-        "launches": {k: hk.launches[k] - before[k] for k in hk.launches},
-        "read": check_c3_read(table, ids_in, "config 3 after the full compaction")}
-    out["launches"] = {"write": write_launches, "phase": dict(hk.launches)}
+        "levels_after": level_layout(table), "launches": compact_launches, "stages": probe.report()}
+    before = dict(hk.launches)
+    out["full_compaction"]["read"] = check_c3_read(table, ids_in, f"{what} after the full compaction")
+    for k in hk.launches:
+        read_launches[k] += hk.launches[k] - before[k]
+    out["launches"] = {"write": write_launches, "reads": read_launches, "compaction": compact_launches,
+                       "phase": dict(hk.launches)}
     return out
 
 
@@ -1155,6 +1220,260 @@ def engines_phase(pt, hk, warehouse: str) -> dict:
     for k in hk.launches:
         assert launches[k] > 0, f"{k} never launched on the engines path: {launches}"
     return {"launches": launches, "kernel_shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# buckets and partitions: BASELINE configs 3 (8 buckets) and 5 (16 buckets),
+# and a partitioned table at the default (dynamic) bucket mode
+# ---------------------------------------------------------------------------
+
+
+class WriteProbe:
+    """Host seconds of a write's stages, by wrapping their functions while
+    installed (the device synchronised after each call): routing (bucket
+    hashes and the partition/bucket group-by), the dynamic-bucket assigner
+    (its allocation loop is Python per new key), memtable flushes, and
+    inside them the encoding and writing of files (a flush less that is its
+    merge on a write-only table)."""
+
+    def __init__(self):
+        import paimon_tpu_torch.table.write as table_write
+        from paimon_tpu_torch.core.bucket_index import SimpleHashBucketAssigner
+        from paimon_tpu_torch.core.datafile import KeyValueFileWriterFactory
+        from paimon_tpu_torch.core.writer import MergeTreeWriter
+
+        self.targets = [(table_write, "group_by_partition_bucket", "routing"), (table_write, "key_hashes", "routing"),
+                        (SimpleHashBucketAssigner, "assign", "assigner"), (MergeTreeWriter, "flush", "flush"),
+                        (KeyValueFileWriterFactory, "write", "encode_write")]
+        self.seconds = dict.fromkeys([t[2] for t in self.targets], 0.0)
+        self._saved: list = []
+
+    def __enter__(self):
+        for owner, name, stage in self.targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+    def _wrap(self, fn, stage):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[stage] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    def report(self) -> dict:
+        return {k: round(v, 4) for k, v in self.seconds.items()}
+
+
+def launch_diff(hk, before: dict) -> dict:
+    return {k: hk.launches[k] - before[k] for k in hk.launches}
+
+
+def config3_buckets_part(pt, hk, cat) -> dict:
+    """Config 3 at its own 8 buckets beside the bucket-1 control."""
+    control = config3_phase(pt, hk, cat, "buckets.c3_bucket_1", C3_OPTIONS,
+                            ("bucket=1, not 8: the control for the 8-bucket run",))
+    eight = config3_phase(pt, hk, cat, "buckets.c3_bucket_8", {**C3_OPTIONS, "bucket": "8"}, (), trace=True)
+    return {"bucket_1": control, "bucket_8": eight,
+            "launches": {"phase": {k: control["launches"]["phase"][k] + eight["launches"]["phase"][k]
+                                   for k in hk.launches}}}
+
+
+def check_c5_read(table, ids_in: np.ndarray, what: str) -> dict:
+    """The read against a numpy-engine read and the oracle: each written id
+    once, with x, y and v computed from it."""
+    t0 = time.perf_counter()
+    out = read_all(table)
+    read_s = time.perf_counter() - t0
+    same_rows(out, read_all(table.copy({"sort-engine": "numpy"})), f"{what}, pallas against numpy")
+    ids = out.column("id").values
+    assert np.array_equal(np.sort(ids), np.unique(ids_in)), f"{what}: ids differ from the oracle"
+    for name, want in (("x", ids % 4096), ("y", (ids * 7) % 4096), ("v", ids * 1.0)):
+        assert np.array_equal(out.column(name).values, want), f"{what}: {name} differs from the oracle"
+    return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def config5_part(pt, hk, cat) -> dict:
+    """BASELINE config 5's full compaction at its 16 buckets: C5_ROWS rows
+    in 4 batch commits (write-only), a checked and a traced read, then
+    compact(full=True) with no rows written on a write-only=false handle
+    (every live bucket, one after another), and the read after it."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("x", pt.BIGINT()), ("y", pt.BIGINT()), ("v", pt.DOUBLE()))
+    table = cat.create_table("buckets.c5", schema, primary_keys=["id"], options=dict(C5_OPTIONS))
+    rng = np.random.default_rng(3)
+    per = C5_ROWS // 4
+    batches = [rng.integers(0, C5_ROWS, per) for _ in range(4)]
+    hk.reset_launches()
+    with WriteProbe() as stages:
+        t0 = time.perf_counter()
+        for ids in batches:
+            wb = table.new_batch_write_builder()
+            w = wb.new_write()
+            w.write({"id": ids, "x": ids % 4096, "y": (ids * 7) % 4096, "v": ids * 1.0})
+            wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    ids_in = np.concatenate(batches)
+    del batches
+    out = {"config": "BASELINE config 5 (benchmarks/baseline_configs.py:177), scale 5", "options": C5_OPTIONS,
+           "rows_written": C5_ROWS, "commits": 4,
+           "cuts": ["1B rows and 64 buckets cut to 10M rows and 16 buckets (the config's own at scale 5)",
+                    "DedicatedCompactor (not ported) replaced by TableWrite.compact(full=True) with no rows "
+                    "written on a write-only=false handle, the reference's dedicated-compact route",
+                    "the z-order half left out: append-only tables and sort_compact are not ported", "no mesh"],
+           "write_s": round(write_s, 4), "write_stages": stages.report(), "files_per_bucket": files_per_bucket(table)}
+    before = dict(hk.launches)
+    out["read_before"] = check_c5_read(table, ids_in, "config 5 before the compaction")
+    out["trace_before"] = device_busy(table)
+    read_launches = launch_diff(hk, before)
+    files = live_files(table)
+    input_bytes = sum(f.file_size for f in files)
+    before = dict(hk.launches)
+    with CompactionProbe(hk) as probe:
+        t0 = time.perf_counter()
+        wb = table.copy({"write-only": "false"}).new_batch_write_builder()
+        w = wb.new_write()
+        w.compact(full=True)
+        kinds = [SnapshotManager(table.file_io, table.path).snapshot(i).commit_kind.value
+                 for i in wb.new_commit().commit(w.prepare_commit())]
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+    assert kinds == ["COMPACT"], kinds
+    compact_launches = launch_diff(hk, before)
+    out["full_compaction"] = {
+        "seconds": round(compact_s, 4), "input_files": len(files), "input_bytes": input_bytes,
+        "gb_per_s": round(input_bytes / compact_s / 1e9, 4), "input_rows_per_s": round(C5_ROWS / compact_s, 1),
+        "snapshots": kinds, "files_per_bucket_after": files_per_bucket(table), "levels_after": level_layout(table),
+        "launches": compact_launches, "stages": probe.report()}
+    assert compact_launches["keep_last_mask"] > 0, f"config 5: K2 never launched in the compaction: {compact_launches}"
+    before = dict(hk.launches)
+    out["read_after"] = check_c5_read(table, ids_in, "config 5 after the full compaction")
+    for k in hk.launches:
+        read_launches[k] += hk.launches[k] - before[k]
+    out["launches"] = {"write": write_launches, "reads": read_launches, "compaction": compact_launches,
+                       "phase": dict(hk.launches)}
+    return out
+
+
+def partitioned_values(ids: np.ndarray, upsert: bool) -> dict:
+    return {"dt": P_DTS[ids % len(P_DTS)], **table_values(ids, upsert)}
+
+
+def check_partitioned_read(out, up: np.ndarray, what: str) -> None:
+    """Every id once, in its partition, with the upserted values where it
+    was upserted and the first values elsewhere."""
+    assert out.num_rows == N_ROWS, f"{what}: {out.num_rows} rows"
+    ids = out.column("id").values
+    order = np.argsort(ids, kind="stable")
+    assert np.array_equal(ids[order], np.arange(N_ROWS)), f"{what}: ids differ from the oracle (a key twice?)"
+    assert np.array_equal(out.column("dt").values, P_DTS[ids % len(P_DTS)]), f"{what}: a row in another partition"
+    upserted = np.zeros(N_ROWS, np.bool_)
+    upserted[up] = True
+    new, old = table_values(np.arange(N_ROWS), True), table_values(np.arange(N_ROWS), False)
+    for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+        want = np.where(upserted, new[name], old[name])
+        assert np.array_equal(out.column(name).values[order], want), f"{what}: {name} differs from the oracle"
+
+
+def partitioned_part(pt, hk, cat) -> dict:
+    """The bench table plus a dt partition column (4 values), primary key
+    (dt, id), no bucket option (dynamic buckets, the default) and otherwise
+    default options but dynamic-bucket.target-row-num: 4 sorted runs and
+    the upsert commit, each a batch commit; the upsert's keys must keep
+    their buckets (the index manifest is unchanged by it, and every row
+    read sits in the bucket whose hash index holds its key)."""
+    from paimon_tpu_torch.core.bucket_index import HashIndexFile
+    from paimon_tpu_torch.table.bucket import key_hashes
+
+    schema = pt.RowType.of(("dt", pt.STRING()), *[(f.name, f.type) for f in build_schema(pt).fields])
+    table = cat.create_table("buckets.partitioned", schema, partition_keys=["dt"], primary_keys=["dt", "id"],
+                             options=dict(P_OPTIONS))
+    rng = np.random.default_rng(7)
+    ids = rng.permutation(N_ROWS).astype(np.int64)
+    per = N_ROWS // N_RUNS
+    up = np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
+    batches = [partitioned_values(np.sort(ids[r * per : (r + 1) * per]), False) for r in range(N_RUNS)]
+    batches.append(partitioned_values(up, True))
+    hk.reset_launches()
+    index_before_upsert = None
+    with WriteProbe() as stages, CompactionProbe(hk) as probe:
+        t0 = time.perf_counter()
+        for r, batch in enumerate(batches):
+            if r == N_RUNS:
+                index_before_upsert = table.store.new_scan().plan().snapshot.index_manifest
+            wb = table.new_batch_write_builder()
+            w = wb.new_write()
+            w.write(batch)
+            wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    del batches
+    write_launches = dict(hk.launches)
+    plan = table.store.new_scan().plan()
+    assert plan.snapshot.index_manifest == index_before_upsert, "the upsert commit changed the hash index"
+    hif = HashIndexFile(table.file_io, table.path)
+    index = {(e.partition, e.bucket): hif.read(e.file_name) for e in plan.index_entries if e.kind == "HASH_INDEX"}
+    buckets = {p: sorted(b) for p, b in plan.grouped().items()}
+    assert sorted(index) == sorted((p, b) for p, bs in buckets.items() for b in bs), "index and data buckets differ"
+    assert all(len(h) <= P_TARGET for h in index.values()), "a bucket holds more keys than the target"
+    for split in table.new_read_builder().new_scan().plan():
+        batch = table.store.read_bucket(split.partition, split.bucket, split.files, ["dt", "id"])
+        assert np.isin(key_hashes(batch, ["id"]), index[(split.partition, split.bucket)]).all(), (
+            f"a row of {split.partition}/{split.bucket} whose key the bucket's hash index lacks")
+    out_read, samples = timed_reads(table, READ_REPEATS)
+    read_launches = launch_diff(hk, write_launches)
+    check_partitioned_read(out_read, up, "partitioned")
+    same_rows(out_read, read_all(table.copy({"sort-engine": "numpy"})), "partitioned, pallas against numpy")
+    median = float(np.median(samples))
+    compaction_launches = dict(probe.launches)
+    return {
+        "table": "bench.py's table (bench.py:54-96) plus dt STRING (4 values, dt = id % 4) as partition key, "
+                 "primary key (dt, id), no bucket option: dynamic buckets, default codecs, write-only=false",
+        "options": P_OPTIONS, "rows_written": N_ROWS + N_UPSERT, "commits": N_RUNS + 1,
+        "write_s": round(write_s, 4), "assigner_host_s": round(stages.seconds["assigner"], 4),
+        "write_stages": stages.report(), "compaction": probe.report(),
+        "buckets_per_partition": {",".join(p): len(b) for p, b in sorted(buckets.items())},
+        "keys_per_bucket": {f"{','.join(p)}/{b}": len(h) for (p, b), h in sorted(index.items())},
+        "files_per_bucket": files_per_bucket(table),
+        "upsert_kept_buckets": True,
+        "reads": {"samples_s": [round(x, 4) for x in samples], "median_s": round(median, 4),
+                  "output_rows_per_s_median": round(N_ROWS / median, 1),
+                  "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / median, 1)},
+        "equal_to_numpy_engine": True, "equal_to_oracle": True, "trace": device_busy(table),
+        "launches": {"write_flushes": {k: write_launches[k] - compaction_launches[k] for k in hk.launches},
+                     "compactions": compaction_launches, "reads": read_launches, "phase": dict(hk.launches)},
+    }
+
+
+def buckets_phase(pt, hk, warehouse: str) -> dict:
+    """Buckets and partitions, one JSON line per part with its launches;
+    returns the phase's launches summed over its parts."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    parts = {}
+    for name, fn in (("config3", config3_buckets_part), ("config5", config5_part),
+                     ("partitioned_dynamic", partitioned_part)):
+        hk.last_shape.clear()
+        parts[name] = fn(pt, hk, cat)
+        parts[name]["last_kernel_shapes"] = {k: list(v) for k, v in hk.last_shape.items()}
+        emit({"phase": "buckets", "part": name, **parts[name]})
+    launches = {k: sum(p["launches"]["phase"][k] for p in parts.values()) for k in hk.launches}
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched on the buckets path: {launches}"
+    return {"launches": launches}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

@@ -9,8 +9,12 @@ commit.max-retries. One committable gives up to two snapshots: APPEND (the
 writers' new level-0 files) then COMPACT (compaction's removed and written
 files), so a crashed commit replayed after its APPEND snapshot applies only
 the missing COMPACT half (filter_committed). A COMPACT commit whose removed
-files are no longer live raises CommitConflictError. Overwrite, changelog
-and index manifests and manifest merging are not ported yet.
+files are no longer live raises CommitConflictError (per partition and
+bucket: the buckets whose inputs are gone are abandoned, the others
+commit). The APPEND snapshot also carries the writers' new index files
+(the dynamic-bucket hash index): its index manifest is the previous one
+with each (partition, bucket, kind) slot the commit names replaced.
+Overwrite, changelog manifests and manifest merging are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Sequence
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..utils import now_millis
+from .deletionvectors import IndexFileEntry
+from .indexmanifest import read_index_manifest, write_index_manifest
 from .manifest import FileKind, ManifestCommittable, ManifestEntry, ManifestFile, ManifestList, merge_entries
 from .snapshot import CommitKind, Snapshot, SnapshotManager
 
@@ -94,8 +100,9 @@ class FileStoreCommit:
             append_entries += [ManifestEntry(FileKind.ADD, *where, f) for f in msg.new_files]
             compact_entries += [ManifestEntry(FileKind.DELETE, *where, f) for f in msg.compact_before]
             compact_entries += [ManifestEntry(FileKind.ADD, *where, f) for f in msg.compact_after]
+        index_entries = [e for msg in committable.messages for e in msg.new_index_files]
         written: list[int] = []
-        if not committable.skip_append and (append_entries or not compact_entries):
+        if not committable.skip_append and (append_entries or index_entries or not compact_entries):
             written.append(self._try_commit(CommitKind.APPEND, append_entries, committable))
             # the APPEND snapshot is durable: a retry of this committable
             # must not apply it twice if the COMPACT half fails below
@@ -117,6 +124,17 @@ class FileStoreCommit:
         live = {(e.partition, e.bucket, e.file.file_name) for e in live_entries}
         return {(e.partition, e.bucket) for e in deletes if (e.partition, e.bucket, e.file.file_name) not in live}
 
+    def _index_manifest(self, latest: Snapshot | None, index_entries: list[IndexFileEntry]) -> str | None:
+        """The previous index manifest with this commit's (partition, bucket,
+        kind) slots replaced by its entries (a writer always hands over the
+        whole set of its bucket); the previous one when there are none."""
+        if not index_entries:
+            return latest.index_manifest if latest else None
+        prev = read_index_manifest(self.file_io, self.table_path, latest.index_manifest) if latest and latest.index_manifest else []
+        replaced = {(e.partition, e.bucket, e.kind) for e in index_entries}
+        out = [e for e in prev if (e.partition, e.bucket, e.kind) not in replaced] + list(index_entries)
+        return write_index_manifest(self.file_io, self.table_path, out)
+
     def _try_commit(
         self,
         kind: CommitKind,
@@ -124,6 +142,11 @@ class FileStoreCommit:
         committable: ManifestCommittable,
         check_conflicts: bool = False,
     ) -> int:
+        """Publish one snapshot of `kind`; an APPEND snapshot also carries the
+        committable's new index files."""
+        index_entries = (
+            [e for msg in committable.messages for e in msg.new_index_files] if kind == CommitKind.APPEND else []
+        )
         max_retries = self.options.options.get(CoreOptions.COMMIT_MAX_RETRIES)
         retries = 0
         while True:
@@ -138,6 +161,7 @@ class FileStoreCommit:
                 # the buckets that lost their inputs are abandoned (their
                 # rewritten files become orphans); the others commit
                 entries = [e for e in entries if (e.partition, e.bucket) not in conflicted]
+                index_entries = [e for e in index_entries if (e.partition, e.bucket) not in conflicted]
             tmp_files: list[str] = []
             try:
                 snapshot_id = latest.id + 1 if latest else 1
@@ -149,6 +173,9 @@ class FileStoreCommit:
                 delta_meta = self.manifest_file.write(entries, self.schema_id, track=tmp_files)
                 base_name = self.manifest_list.write(base_metas, track=tmp_files)
                 delta_name = self.manifest_list.write([delta_meta], track=tmp_files)
+                index_manifest = self._index_manifest(latest, index_entries)
+                if index_manifest != (latest.index_manifest if latest else None):
+                    tmp_files.append(index_manifest)
                 added = sum(e.file.row_count for e in entries if e.kind == FileKind.ADD)
                 deleted = sum(e.file.row_count for e in entries if e.kind == FileKind.DELETE)
                 prev_total = (latest.total_record_count or 0) if latest else 0
@@ -162,7 +189,7 @@ class FileStoreCommit:
                     commit_identifier=committable.commit_identifier,
                     commit_kind=kind,
                     time_millis=now_millis(),
-                    index_manifest=latest.index_manifest if latest else None,
+                    index_manifest=index_manifest,
                     total_record_count=prev_total + added - deleted,
                     delta_record_count=added - deleted,
                     watermark=committable.watermark,

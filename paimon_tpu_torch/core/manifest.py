@@ -154,8 +154,9 @@ def merge_entries(*entry_lists: Iterable[ManifestEntry]) -> list[ManifestEntry]:
 
 @dataclass
 class CommitMessage:
-    """Per-(partition, bucket) new files from one writer, and the files its
-    compactions removed (compact_before) and wrote (compact_after)."""
+    """Per-(partition, bucket) new files from one writer, the files its
+    compactions removed (compact_before) and wrote (compact_after), and the
+    bucket's new index files (the dynamic-bucket hash index)."""
 
     partition: tuple
     bucket: int
@@ -163,9 +164,10 @@ class CommitMessage:
     new_files: list[DataFileMeta] = field(default_factory=list)
     compact_before: list[DataFileMeta] = field(default_factory=list)
     compact_after: list[DataFileMeta] = field(default_factory=list)
+    new_index_files: list = field(default_factory=list)  # IndexFileEntry
 
     def is_empty(self) -> bool:
-        return not self.new_files and not self.compact_before and not self.compact_after
+        return not (self.new_files or self.compact_before or self.compact_after or self.new_index_files)
 
 
 @dataclass

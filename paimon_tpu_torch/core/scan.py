@@ -1,6 +1,6 @@
-"""Snapshot scan planning: snapshot -> manifest lists -> live file entries
-(port of paimon_tpu/core/scan.py; delta/changelog scans and stats/index
-filters are not ported yet).
+"""Snapshot scan planning: snapshot -> manifest lists -> live file entries,
+and the index manifest's entries (port of paimon_tpu/core/scan.py;
+delta/changelog scans and stats/index filters are not ported yet).
 
 The port plans the latest snapshot on main only, and reads no deletion
 vectors: options that select another snapshot, branch or set of rows, and
@@ -15,7 +15,8 @@ from typing import Callable
 
 from ..fs import LocalFileIO
 from ..options import ConfigOption, CoreOptions
-from ..utils import loads
+from .deletionvectors import IndexFileEntry
+from .indexmanifest import read_index_manifest
 from .manifest import ManifestEntry, ManifestFile, ManifestList, merge_entries
 from .snapshot import Snapshot, SnapshotManager
 
@@ -41,6 +42,7 @@ __all__ = ["ScanPlan", "FileStoreScan"]
 class ScanPlan:
     snapshot: Snapshot | None
     entries: list[ManifestEntry] = field(default_factory=list)
+    index_entries: list[IndexFileEntry] = field(default_factory=list)
 
     def grouped(self) -> dict[tuple, dict[int, list]]:
         """{partition: {bucket: [DataFileMeta...]}}"""
@@ -87,31 +89,33 @@ class FileStoreScan:
                 "branches and incremental scans are not ported yet)"
             )
 
-    def _check_no_deletion_vectors(self, snapshot: Snapshot) -> None:
+    def _check_no_deletion_vectors(self, snapshot: Snapshot, index_entries: list[IndexFileEntry]) -> None:
         if self.options.options.get(CoreOptions.DELETION_VECTORS_ENABLED):
             raise NotImplementedError("deletion-vectors.enabled=true: deletion vectors are not ported to the torch port yet")
-        if snapshot.index_manifest:
-            data = self.file_io.read_bytes(f"{self.table_path}/manifest/{snapshot.index_manifest}")
-            if any(loads(line)["kind"] == "DELETION_VECTORS" for line in data.decode().splitlines() if line):
-                raise NotImplementedError(
-                    f"snapshot {snapshot.id} holds deletion vectors (deletion-vectors.enabled), which the torch "
-                    "port cannot apply yet"
-                )
+        if any(e.kind == "DELETION_VECTORS" for e in index_entries):
+            raise NotImplementedError(
+                f"snapshot {snapshot.id} holds deletion vectors (deletion-vectors.enabled), which the torch "
+                "port cannot apply yet"
+            )
 
     def plan(self) -> ScanPlan:
         snapshot = self.snapshot_manager.latest_snapshot()
         self._check_reads_latest_on_main(snapshot)
         if snapshot is None:
             return ScanPlan(None, [])
-        self._check_no_deletion_vectors(snapshot)
+        index_entries = (
+            read_index_manifest(self.file_io, self.table_path, snapshot.index_manifest)
+            if snapshot.index_manifest
+            else []
+        )
+        self._check_no_deletion_vectors(snapshot, index_entries)
         metas = self.manifest_list.read(snapshot.base_manifest_list) + self.manifest_list.read(
             snapshot.delta_manifest_list
         )
         entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
-        entries = [
-            e
-            for e in entries
-            if (self._partition_filter is None or self._partition_filter(e.partition))
-            and (self._bucket is None or e.bucket == self._bucket)
-        ]
-        return ScanPlan(snapshot, entries)
+        return ScanPlan(snapshot, [e for e in entries if self._accept(e)], [e for e in index_entries if self._accept(e)])
+
+    def _accept(self, e: "ManifestEntry | IndexFileEntry") -> bool:
+        return (self._partition_filter is None or self._partition_filter(e.partition)) and (
+            self._bucket is None or e.bucket == self._bucket
+        )

@@ -31,6 +31,15 @@ class TableSchema:
         trimmed = [k for k in self.primary_keys if k not in self.partition_keys]
         return trimmed if trimmed else list(self.primary_keys)
 
+    @property
+    def bucket_keys(self) -> list[str]:
+        """The columns a fixed-bucket table hashes: bucket-key, else the
+        trimmed primary key."""
+        opt = self.options.get("bucket-key")
+        if opt:
+            return [s.strip() for s in opt.split(",")]
+        return self.trimmed_primary_keys if self.primary_keys else [f.name for f in self.fields]
+
     def core_options(self) -> CoreOptions:
         return CoreOptions(dict(self.options))
 
@@ -109,6 +118,12 @@ class SchemaManager:
         for k in list(partition_keys) + list(primary_keys):
             if k not in row_type:
                 raise ValueError(f"key column {k!r} not in schema {row_type.field_names}")
+        missing = [p for p in partition_keys if p not in primary_keys]
+        if primary_keys and missing and CoreOptions(options or {}).bucket != -1:
+            raise ValueError(
+                f"primary key must contain all partition keys (missing {missing}) "
+                f"unless bucket=-1 enables cross-partition upsert"
+            )
         fields = []
         for i, f in enumerate(row_type.fields):
             t = f.type.with_nullable(False) if f.name in primary_keys else f.type

@@ -1,5 +1,9 @@
 """The key-value file store: one table's components wired from its schema
-and options (port of paimon_tpu/core/store.py, primary-key tables)."""
+and options (port of paimon_tpu/core/store.py, primary-key tables).
+
+Layout, the JAX package's: table/[k1=v1/k2=v2/]bucket-B/data-*.parquet,
+with the hash index of dynamic-bucket tables under table/index/.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ import torch
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..types import RowType
+from ..utils import partition_path
 from .commit import FileStoreCommit
 from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
@@ -44,9 +49,11 @@ class KeyValueFileStore:
         self.schema_manager = SchemaManager(file_io, table_path)
 
     def bucket_dir(self, partition: tuple, bucket: int) -> str:
-        if partition:
-            raise NotImplementedError("partitioned tables are not supported by the torch port yet")
-        return f"{self.table_path}/bucket-{bucket}"
+        pp = partition_path(
+            self.partition_keys, partition, default_name=self.options.options.get(CoreOptions.PARTITION_DEFAULT_NAME)
+        )
+        base = f"{self.table_path}/{pp}" if pp else self.table_path
+        return f"{base}/bucket-{bucket}"
 
     def schemas_by_id(self) -> dict[int, RowType]:
         out = {sid: RowType(ts.fields) for sid, ts in self.schema_manager.all_schemas().items()}
@@ -88,8 +95,13 @@ class KeyValueFileStore:
     def new_writer(self, partition: tuple, bucket: int, total_buckets: int | None = None) -> MergeTreeWriter:
         """A writer restored from the bucket's live files; it compacts unless
         the table is write-only."""
-        existing = self.restore_files(partition, bucket)
         co = self.options
+        if co.write_only and str(co.options.get(CoreOptions.CHANGELOG_PRODUCER)).lower() == "lookup":
+            raise ValueError(
+                "changelog-producer=lookup needs the writer's levels view and cannot run with "
+                "write-only=true (produce the changelog in the writing job, not a dedicated compactor)"
+            )
+        existing = self.restore_files(partition, bucket)
         merge = self.merge_executor()
         wf = self.writer_factory(partition, bucket)
         compact_manager = None

@@ -101,6 +101,11 @@ class CoreOptions:
     """The options this slice reads, with the JAX package's keys/defaults."""
 
     BUCKET = ConfigOption.int_("bucket", -1)
+    DYNAMIC_BUCKET_TARGET_ROW_NUM = ConfigOption.int_("dynamic-bucket.target-row-num", 2_000_000)
+    DYNAMIC_BUCKET_INITIAL_BUCKETS = ConfigOption.int_("dynamic-bucket.initial-buckets", None)
+    DYNAMIC_BUCKET_ASSIGNER_PARALLELISM = ConfigOption.int_("dynamic-bucket.assigner-parallelism", None)
+    PARTITION_DEFAULT_NAME = ConfigOption.string("partition.default-name", "__DEFAULT_PARTITION__")
+    SCAN_PLAN_SORT_PARTITION = ConfigOption.bool_("scan.plan-sort-partition", False)
     FILE_FORMAT = ConfigOption.string("file.format", "parquet")
     FILE_COMPRESSION = ConfigOption.string("file.compression", "zstd")
     # the port's zstd encoder has one strength and reads this key nowhere:
@@ -113,6 +118,7 @@ class CoreOptions:
     TARGET_FILE_SIZE = ConfigOption.memory("target-file-size", "128 mb")
     WRITE_BUFFER_SIZE = ConfigOption.memory("write-buffer-size", "256 mb")
     WRITE_BUFFER_ROWS = ConfigOption.int_("write-buffer-rows", 1_000_000)
+    LOCAL_MERGE_BUFFER_SIZE = ConfigOption.memory("local-merge-buffer-size", "0 b")
     WRITE_ONLY = ConfigOption.bool_("write-only", False, fallback=("write.compaction-skip",))
     MERGE_ENGINE = ConfigOption.enum("merge-engine", MergeEngine, MergeEngine.DEDUPLICATE)
     IGNORE_DELETE = ConfigOption.bool_(

@@ -1,6 +1,12 @@
 """Read builder: scan planning -> splits -> merge reads (port of
-paimon_tpu/table/read.py; predicates, time travel, incremental and
-streaming scans are not ported yet)."""
+paimon_tpu/table/read.py; predicates and partition pruning, time travel,
+incremental and streaming scans are not ported yet).
+
+Splits come in the JAX package's order: each partition's splits by sorted
+bucket, the partitions sorted and taken round-robin (one split of each in
+turn) or, under scan.plan-sort-partition=true, one after another; read_all
+concatenates them in that order.
+"""
 
 from __future__ import annotations
 
@@ -32,6 +38,11 @@ class ReadBuilder:
     def __init__(self, table: "FileStoreTable"):
         self.table = table
         self._projection: Sequence[str] | None = None
+
+    def with_filter(self, predicate) -> "ReadBuilder":
+        raise NotImplementedError(
+            "with_filter: predicates, and with them partition pruning, are not ported to the torch port yet"
+        )
 
     def with_projection(self, fields: Sequence[str]) -> "ReadBuilder":
         self._projection = list(fields)
@@ -74,12 +85,19 @@ class TableScan:
         target = int(store.options.options.get(CoreOptions.SOURCE_SPLIT_TARGET_SIZE))
         open_cost = int(store.options.options.get(CoreOptions.SOURCE_SPLIT_OPEN_FILE_COST))
         snapshot = plan.snapshot.id if plan.snapshot else None
-        splits = []
-        for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: kv[0]):
-            for bucket, files in sorted(buckets.items()):
-                for pack in _pack_bucket_splits(files, target, open_cost):
-                    splits.append(DataSplit(partition, bucket, pack, snapshot))
-        return splits
+        lanes = [
+            [
+                DataSplit(partition, bucket, pack, snapshot)
+                for bucket, files in sorted(buckets.items())
+                for pack in _pack_bucket_splits(files, target, open_cost)
+            ]
+            for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: kv[0])
+        ]
+        if store.options.options.get(CoreOptions.SCAN_PLAN_SORT_PARTITION):
+            return [split for lane in lanes for split in lane]
+        # round-robin across the sorted partitions: the i-th split of each
+        # partition, then the (i+1)-th
+        return [lane[i] for i in range(max(map(len, lanes), default=0)) for lane in lanes if i < len(lane)]
 
 
 class TableRead:

@@ -1,13 +1,15 @@
 """Batch and streaming write builders (port of paimon_tpu/table/write.py,
-fixed-bucket primary-key tables with bucket=1).
+primary-key tables: fixed buckets, dynamic buckets and partitions).
 
-A TableWrite buffers rows in a merge-tree writer per bucket and keeps it
-across commits; prepare_commit drains it into CommitMessages. A
-TableCommit turns those into an APPEND snapshot, and a COMPACT snapshot
-when the writer compacted. Streaming commits carry ascending identifiers
+A TableWrite routes rows to a merge-tree writer per (partition, bucket)
+and keeps the writers across commits; prepare_commit drains them into
+CommitMessages, with the dynamic-bucket assigner's new hash index files.
+A TableCommit turns those into an APPEND snapshot, and a COMPACT snapshot
+when a writer compacted. Streaming commits carry ascending identifiers
 and go through the replay filter; a batch commit carries the one batch
-identifier. Hash routing over several buckets, dynamic buckets, overwrite
-and snapshot expiry are not ported yet.
+identifier. Buckets run one after another (the JAX package's mesh and
+pipeline routes are not ported). Cross-partition upsert, the local merge
+buffer, overwrite and snapshot expiry are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,11 +18,14 @@ from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
+from ..core.bucket_index import HashIndexFile, SimpleHashBucketAssigner
 from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.manifest import CommitMessage, ManifestCommittable
+from ..core.writer import MergeTreeWriter
 from ..data.batch import ColumnBatch
 from ..options import CoreOptions
 from ..types import RowKind
+from .bucket import group_by_partition_bucket, key_hashes
 
 if TYPE_CHECKING:
     from . import FileStoreTable
@@ -53,48 +58,118 @@ def _check_writable(options: CoreOptions) -> None:
 
 
 class TableWrite:
+    """Routes rows to one merge-tree writer per (partition, bucket): by
+    hash(bucket key) % bucket on a fixed-bucket table, and through the
+    hash-index assigner on a dynamic-bucket one (bucket=-1, the default),
+    where each key keeps the bucket it was first given."""
+
     def __init__(self, table: "FileStoreTable"):
         self.table = table
         store = table.store
-        if store.options.bucket != 1:
-            raise NotImplementedError(
-                f"bucket={store.options.bucket}: the torch port writes only bucket=1 tables yet"
-            )
-        if store.partition_keys:
-            raise NotImplementedError("partitioned tables are not supported by the torch port yet")
-        rowkind_field = store.options.options.get(CoreOptions.ROWKIND_FIELD)
+        co = store.options
+        rowkind_field = co.options.get(CoreOptions.ROWKIND_FIELD)
         if rowkind_field:
             raise NotImplementedError(
                 f"rowkind.field={rowkind_field}: the torch port takes row kinds only from write()'s kinds argument yet"
             )
-        _check_writable(store.options)
-        self._writer = None
+        if int(co.options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE)) > 0:
+            raise NotImplementedError("local-merge-buffer-size: the torch port has no local merge buffer yet")
+        _check_writable(co)
+        self.partition_keys = store.partition_keys
+        self.bucket_keys = table.schema.bucket_keys
+        self.dynamic = co.bucket == -1
+        self.num_buckets = max(co.bucket, 1)
+        if self.dynamic and not set(self.partition_keys) <= set(table.schema.primary_keys):
+            raise NotImplementedError(
+                "cross-partition upsert (bucket=-1 with a primary key that omits a partition key) is not "
+                "ported to the torch port yet"
+            )
+        self._writers: dict[tuple, MergeTreeWriter] = {}
+        self._assigner = None
+        if self.dynamic:
+            self._assigner = SimpleHashBucketAssigner(
+                HashIndexFile(store.file_io, table.path),
+                co.options.get(CoreOptions.DYNAMIC_BUCKET_TARGET_ROW_NUM),
+                initial_buckets=co.options.get(CoreOptions.DYNAMIC_BUCKET_INITIAL_BUCKETS),
+                num_assigners=co.options.get(CoreOptions.DYNAMIC_BUCKET_ASSIGNER_PARALLELISM) or 1,
+            )
+            self._bootstrapped: set[tuple] = set()
 
     def write(self, data: "ColumnBatch | dict", kinds: "np.ndarray | Sequence[str] | None" = None) -> None:
         if isinstance(data, dict):
             data = ColumnBatch.from_pydict(self.table.row_type, data)
         if kinds is not None and not isinstance(kinds, np.ndarray):
             kinds = np.array([int(RowKind.from_short_string(k)) for k in kinds], dtype=np.uint8)
-        self._open_writer().write(data, kinds)
+        if self.dynamic:
+            self._write_dynamic(data, kinds)
+            return
+        for partition, bucket, rows in group_by_partition_bucket(
+            data, self.partition_keys, self.bucket_keys, self.num_buckets
+        ):
+            self._writer(partition, bucket).write(*_take(data, kinds, rows))
 
-    def _open_writer(self):
-        if self._writer is None:
-            self._writer = self.table.store.new_writer((), 0, 1)
-        return self._writer
+    def _write_dynamic(self, data: ColumnBatch, kinds: "np.ndarray | None") -> None:
+        for partition, _, rows in group_by_partition_bucket(data, self.partition_keys, [], 1):
+            sub, sub_kinds = _take(data, kinds, rows)
+            self._bootstrap_partition(partition)
+            buckets = self._assigner.assign(partition, key_hashes(sub, self.table.store.key_names))
+            for b in np.unique(buckets):
+                mask = buckets == b
+                self._writer(partition, int(b)).write(sub.filter(mask), sub_kinds[mask] if sub_kinds is not None else None)
+
+    def _bootstrap_partition(self, partition: tuple) -> None:
+        """Seed the assigner with the partition's hash index from the latest
+        snapshot, so that a key written before keeps its bucket."""
+        if partition in self._bootstrapped:
+            return
+        self._bootstrapped.add(partition)
+        store = self.table.store
+        plan = store.new_scan().with_partition_filter(lambda p: p == partition).plan()
+        hif = HashIndexFile(store.file_io, self.table.path)
+        indexes = {e.bucket: hif.read(e.file_name) for e in plan.index_entries if e.kind == "HASH_INDEX"}
+        if indexes:
+            self._assigner.bootstrap(partition, indexes)
+
+    def _writer(self, partition: tuple, bucket: int) -> MergeTreeWriter:
+        key = (partition, bucket)
+        if key not in self._writers:
+            total = -1 if self.dynamic else self.num_buckets
+            self._writers[key] = self.table.store.new_writer(partition, bucket, total)
+        return self._writers[key]
 
     def compact(self, full: bool = False) -> None:
-        """Compact the table's one bucket, restored from the latest
-        snapshot when no rows were written."""
-        self._open_writer().compact(full=full)
+        """Compact every bucket this write touched or, when no rows were
+        written (a dedicated compaction job), every live bucket of the
+        table, one after another."""
+        if not self._writers:
+            for partition, buckets in self.table.store.new_scan().plan().grouped().items():
+                for bucket in buckets:
+                    self._writer(partition, bucket)
+        for w in self._writers.values():
+            w.compact(full=full)
 
     def prepare_commit(self) -> list[CommitMessage]:
         store = self.table.store
         if store.options.options.get(CoreOptions.COMMIT_FORCE_COMPACT) and not store.options.write_only:
             self.compact(full=True)
-        if self._writer is None:
-            return []
-        msg = self._writer.prepare_commit()
-        return [] if msg.is_empty() else [msg]
+        msgs = [m for m in (w.prepare_commit() for w in self._writers.values()) if not m.is_empty()]
+        if self._assigner is not None:
+            by_pb = {(m.partition, m.bucket): m for m in msgs}
+            for partition, entries in self._assigner.prepare_commit().items():
+                for e in entries:
+                    msg = by_pb.get((partition, e.bucket))
+                    if msg is None:
+                        msg = by_pb[(partition, e.bucket)] = CommitMessage(partition, e.bucket, -1)
+                        msgs.append(msg)
+                    msg.new_index_files.append(e)
+        return msgs
+
+
+def _take(data: ColumnBatch, kinds: "np.ndarray | None", rows: np.ndarray) -> tuple:
+    """The rows of one (partition, bucket), and their kinds."""
+    if len(rows) == data.num_rows:
+        return data, kinds
+    return data.take(rows), None if kinds is None else kinds.take(rows)
 
 
 class TableCommit:

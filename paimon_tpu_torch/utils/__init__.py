@@ -7,16 +7,31 @@ from __future__ import annotations
 import json
 import time
 import uuid
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
-__all__ = ["new_file_name", "now_millis", "dumps", "loads", "resolve_device"]
+__all__ = ["new_file_name", "partition_path", "now_millis", "dumps", "loads", "resolve_device"]
 
 
 def new_file_name(prefix: str, ext: str | None = None) -> str:
     n = f"{prefix}-{uuid.uuid4().hex}"
     return f"{n}.{ext}" if ext else n
+
+
+def partition_path(
+    partition_keys: Sequence[str],
+    partition: Sequence[Any],
+    default_name: str = "__DEFAULT_PARTITION__",
+) -> str:
+    """Hive-style partition directory: k1=v1/k2=v2 ('' for unpartitioned).
+    Null and empty values take partition.default-name."""
+    if not partition_keys:
+        return ""
+    return "/".join(
+        f"{k}={default_name if v is None or v == '' else v}"
+        for k, v in zip(partition_keys, partition)
+    )
 
 
 def now_millis() -> int:

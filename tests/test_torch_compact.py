@@ -695,3 +695,21 @@ def test_unported_write_options_raise_naming_the_option(warehouse, key, value, e
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         builder = table.new_batch_write_builder() if mode == "batch" else table.new_stream_write_builder()
         builder.new_write().write(_rows([1], 0))
+
+
+@pytest.mark.parametrize("mode", ["batch", "stream"])
+def test_lookup_changelog_on_write_only_raises_the_jax_value_error(warehouse, mode):
+    """changelog-producer=lookup on a write-only table: the JAX package
+    refuses it with ValueError when its first write creates the bucket's
+    writer, and so does the port, with the same message."""
+    options = {**C4_OPTIONS, "changelog-producer": "lookup", "write-only": "true"}
+    writes = []
+    for name, pkg, catalog in (("jax", jt, JaxCatalog(warehouse)), ("port", tt, PortCatalog(warehouse, device="cpu"))):
+        table = catalog.create_table(f"db.lookup_write_only_{mode}_{name}", _c4_schema(pkg), primary_keys=["id"],
+                                     options=options)
+        builder = table.new_batch_write_builder() if mode == "batch" else table.new_stream_write_builder()
+        write = builder.new_write()  # creating the write is accepted by both
+        with pytest.raises(ValueError, match="changelog-producer=lookup") as err:
+            write.write(_rows([1], 0))
+        writes.append(str(err.value))
+    assert writes[0] == writes[1]
