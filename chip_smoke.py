@@ -93,7 +93,24 @@ Phases, one JSON line each on stdout:
               Every read equals a sort-engine=numpy read and an oracle built
               from the generator. K1 and K2 launches per part, split between
               the writes' flushes, compactions and reads; the cuts are listed.
-9. timing   - each kernel at its main-path shape against its plain version,
+9. strings  - string primary keys, one line per part. The bench table with
+              id STRING NOT NULL: the seed-7 ids in TPC-DS's business-key
+              form (16 characters over A-P, one per 4-bit digit, least
+              significant first, as dsdgen writes c_customer_id), the same
+              runs, upsert and options; write seconds, 5 reads at each tier
+              (the default tile, stock sort + K2; 131072, K1), each equal to
+              a sort-engine=numpy read and to the generator's rows in
+              business-key order, with the BIGINT table's rows/s of the main
+              phase beside them; a staged read per tier with the pool and
+              ranks a stage of their own and their share; one traced read.
+              BASELINE config 4 as in the compact phase, its ids in the same
+              business-key form. The partial-update, fused aggregation
+              (float sums: segment_sum) and first-row small tables keyed by
+              (tenant STRING, id BIGINT), the tenants holding '', prefix-
+              equal strings, non-ASCII text, a supplementary-plane character
+              and a trailing U+0000, each read at all three sort engines.
+              K1, K2 and segment_sum must each launch on this path.
+10. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -105,7 +122,8 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines and buckets paths, and by path), the card line, and last
+the main, compact, engines, buckets and strings paths, and by path), the
+card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -345,9 +363,9 @@ BENCH_OPTIONS = {"bucket": "1", "file.format": "parquet", "write-only": "true", 
 UNCOMPRESSED = {"file.compression": "none", "manifest.compression": "none"}
 
 
-def build_schema(pt):
+def build_schema(pt, id_type=None):
     return pt.RowType.of(
-        ("id", pt.BIGINT(False)),
+        ("id", id_type or pt.BIGINT(False)),
         ("c1", pt.BIGINT()),
         ("c2", pt.BIGINT()),
         ("c3", pt.BIGINT()),
@@ -358,13 +376,15 @@ def build_schema(pt):
     )
 
 
-def build_table(pt, warehouse: str, name: str, extra_options: dict):
+def build_table(pt, warehouse: str, name: str, extra_options: dict, values=table_values, id_type=None):
     """bench.py's table (bench.py:54-96) with bench.py's options plus
-    sort-engine=pallas and extra_options, and the upsert commit."""
+    sort-engine=pallas and extra_options, and the upsert commit; `values`
+    makes the rows of given ids (and `id_type` types their key)."""
     from paimon_tpu_torch.catalog import FileSystemCatalog
 
     cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
-    table = cat.create_table(f"bench.{name}", build_schema(pt), primary_keys=["id"], options={**BENCH_OPTIONS, **extra_options})
+    table = cat.create_table(f"bench.{name}", build_schema(pt, id_type), primary_keys=["id"],
+                             options={**BENCH_OPTIONS, **extra_options})
     rng = np.random.default_rng(7)
     ids = rng.permutation(N_ROWS).astype(np.int64)
     per = N_ROWS // N_RUNS
@@ -372,13 +392,13 @@ def build_table(pt, warehouse: str, name: str, extra_options: dict):
     for r in range(N_RUNS):
         wb = table.new_batch_write_builder()
         w = wb.new_write()
-        w.write(table_values(np.sort(ids[r * per : (r + 1) * per]), upsert=False))
+        w.write(values(np.sort(ids[r * per : (r + 1) * per]), upsert=False))
         wb.new_commit().commit(w.prepare_commit())
     # the upsert batch arrives unsorted: its flush dedups on the device too
     up = np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
     wb = table.new_batch_write_builder()
     w = wb.new_write()
-    w.write(table_values(up, upsert=True))
+    w.write(values(up, upsert=True))
     wb.new_commit().commit(w.prepare_commit())
     return table, up, time.perf_counter() - t0
 
@@ -431,8 +451,9 @@ def layer_breakdown(table, tile_rows: int) -> dict:
     from paimon_tpu_torch.core.kv import VALUE_KIND_FIELD_NAME, KVBatch
     from paimon_tpu_torch.core.levels import IntervalPartition
     from paimon_tpu_torch.core.read import order_runs_for_merge
-    from paimon_tpu_torch.data.keys import encode_key_lanes
+    from paimon_tpu_torch.data.keys import encode_key_lanes_with_pools
     from paimon_tpu_torch.ops.merge import deduplicate_resolve_tiled, deduplicate_tiled_dispatch
+    from paimon_tpu_torch.types import STRING_ROOTS
 
     t = table.copy({"merge.read-batch-rows": str(tile_rows)})
     store = t.store
@@ -447,8 +468,9 @@ def layer_breakdown(table, tile_rows: int) -> dict:
     kv_keys = KVBatch.concat(heads)
     ms["decode_keys"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    lanes = encode_key_lanes(kv_keys.data, ["id"])
-    ms["encode_lanes"] = (time.perf_counter() - t0) * 1e3
+    lanes = encode_key_lanes_with_pools(kv_keys.data, ["id"])
+    string_key = rf.read_schema.field("id").type.root in STRING_ROOTS
+    ms["pool_and_ranks" if string_key else "encode_lanes"] = (time.perf_counter() - t0) * 1e3
     offsets = np.cumsum([0] + [h.num_rows for h in heads]).tolist()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -646,7 +668,11 @@ def main() -> int:
         buckets = buckets_phase(pt, hk, warehouse)
         emit({"phase": "buckets", "part": "summary", **buckets})
 
-    # 9. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 9. string keys
+        strings = strings_phase(pt, hk, warehouse, reads)
+        emit({"phase": "strings", "part": "summary", **strings})
+
+    # 10. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -657,7 +683,8 @@ def main() -> int:
     torch.cuda.synchronize()
     widest = (8, 1 << 18, 6)
     by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
-                      "engines": engines["launches"][name], "buckets": buckets["launches"][name]}
+                      "engines": engines["launches"][name], "buckets": buckets["launches"][name],
+                      "strings": strings["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -722,20 +749,24 @@ def c4_batch(rng, b: int) -> dict:
     return {"id": ids, "v": ids * 0.5 + b, "tag": np.array([f"t{b}"] * per, dtype=object)}
 
 
-def check_c4_read(table, last_commit: np.ndarray, what: str) -> dict:
+def check_c4_read(table, last_commit: np.ndarray, what: str, string_key: bool = False) -> dict:
     """The table's read (sort-engine=pallas) against a sort-engine=numpy read
-    and the oracle: each written id with the value of its last commit."""
+    and the oracle: each written id with the value of its last commit, in
+    the order of the ids or, with string_key, of their business keys."""
     t0 = time.perf_counter()
     out = read_all(table)
     read_s = time.perf_counter() - t0
     reference = read_all(table.copy({"sort-engine": "numpy"}))
     ids = np.flatnonzero(last_commit >= 0)
+    if string_key:
+        ids = ids[np.argsort(business_key_bytes(ids), kind="stable")]
     assert out.num_rows == len(ids), f"{what}: {out.num_rows} rows, the oracle has {len(ids)}"
     for name in out.schema.field_names:
         a, b = out.column(name), reference.column(name)
         assert np.array_equal(a.values, b.values), f"{what}: column {name} differs from the numpy engine"
         assert np.array_equal(a.valid_mask(), b.valid_mask()), f"{what}: validity of {name} differs"
-    assert np.array_equal(out.column("id").values, ids), f"{what}: ids differ from the oracle"
+    want_ids = business_keys(ids) if string_key else ids
+    assert np.array_equal(out.column("id").values, want_ids), f"{what}: ids differ from the oracle"
     assert np.array_equal(out.column("v").values, ids * 0.5 + last_commit[ids]), f"{what}: v differs from the oracle"
     tags = np.array([f"t{b}" for b in last_commit[ids]], dtype=object)
     assert np.array_equal(out.column("tag").values, tags), f"{what}: tag differs from the oracle"
@@ -819,15 +850,18 @@ class CompactionProbe:
                 "merge_input_rows": self.merge_rows, "launches_in_compactions": dict(self.launches)}
 
 
-def compact_phase(pt, hk, warehouse: str) -> dict:
+def compact_phase(pt, hk, warehouse: str, string_key: bool = False) -> dict:
     """Config 4 at full size through StreamWriteBuilder, then a full
-    compaction in one batch commit; each step's read checked."""
+    compaction in one batch commit; each step's read checked. With
+    string_key the ids are written as their business keys (id STRING)."""
     from paimon_tpu_torch.catalog import FileSystemCatalog
     from paimon_tpu_torch.core.snapshot import SnapshotManager
 
     cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
-    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()))
-    table = cat.create_table("c4.stream", schema, primary_keys=["id"], options=dict(C4_OPTIONS))
+    schema = pt.RowType.of(("id", pt.STRING(False) if string_key else pt.BIGINT(False)), ("v", pt.DOUBLE()),
+                           ("tag", pt.STRING()))
+    table = cat.create_table("strings.c4" if string_key else "c4.stream", schema, primary_keys=["id"],
+                             options=dict(C4_OPTIONS))
     snapshots = SnapshotManager(table.file_io, table.path)
     rng = np.random.default_rng(2)
     last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
@@ -835,6 +869,8 @@ def compact_phase(pt, hk, warehouse: str) -> dict:
     for b in range(C4_COMMITS):
         batches.append(c4_batch(rng, b))
         last_commit[batches[-1]["id"]] = b
+        if string_key:
+            batches[-1]["id"] = business_keys(batches[-1]["id"])
     out: dict = {"config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1",
                  "options": C4_OPTIONS, "rows_written": C4_ROWS, "k1_max_rows": hk._FUSE_MAX_ROWS}
     hk.reset_launches()
@@ -854,7 +890,7 @@ def compact_phase(pt, hk, warehouse: str) -> dict:
                      **stream_probe.report(), "launches": write_launches,
                      "levels_after": level_layout(table)}
     assert kinds.count("COMPACT") >= 1, f"no COMPACT snapshot in {C4_COMMITS} commits: {kinds}"
-    out["stream"]["read"] = check_c4_read(table, last_commit, "after 20 commits")
+    out["stream"]["read"] = check_c4_read(table, last_commit, "after 20 commits", string_key)
 
     with CompactionProbe(hk) as full_probe:
         t0 = time.perf_counter()
@@ -869,7 +905,7 @@ def compact_phase(pt, hk, warehouse: str) -> dict:
                    "levels_after": layout}
     assert full_kinds == ["COMPACT"], full_kinds
     assert list(layout) == [str(table.store.options.num_levels - 1)], f"not all at the max level: {layout}"
-    out["full"]["read"] = check_c4_read(table, last_commit, "after the full compaction")
+    out["full"]["read"] = check_c4_read(table, last_commit, "after the full compaction", string_key)
     phase = dict(hk.launches)
     full = {k: full_probe.launches[k] for k in phase}
     out["launches"] = {"phase": phase, "streaming_writes": write_launches, "full_compaction": full,
@@ -1011,7 +1047,7 @@ def config2_phase(pt, hk, cat) -> dict:
     return {
         "config": "BASELINE config 2 (benchmarks/baseline_configs.py:66), scale 5",
         "options": C2_OPTIONS, "rows_written": C2_ROWS, "commits": 4, "keys": per,
-        "cuts": ["no predicate: with_filter and predicate pushdown are not ported (ROADMAP Queue 1 item 9)"],
+        "cuts": ["no predicate: with_filter and predicate pushdown are not ported (ROADMAP Queue 1 item 6)"],
         "write_s": round(write_s, 4),
         "reads": {"samples_s": [round(x, 4) for x in samples],
                   "rows_per_s": [round(C2_ROWS / x, 1) for x in samples],
@@ -1044,7 +1080,8 @@ def check_c3_read(table, ids_in: np.ndarray, what: str) -> dict:
     return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
 
 
-C3_CUTS = ["file.format=parquet, not orc: ORC is not ported (ROADMAP Queue 1 item 8)", "no mesh",
+C3_CUTS = ["file.format=parquet, not orc: ORC is not ported (ROADMAP Queue 1 item 11)",
+           "no mesh (ROADMAP Queue 1 item 13)",
            "the compaction runs on a copy of the table with write-only=false, as a dedicated compaction job would"]
 
 
@@ -1169,24 +1206,29 @@ def small_column(rng, name: str, type_name: str, ids: np.ndarray, b: int):
     return nullable(rng, rng.integers(-1000, 1000, n).astype(dtype))
 
 
-def small_tables_phase(pt, hk, cat) -> dict:
+def small_tables_phase(pt, hk, cat, tables: dict = SMALL_TABLES, tenants: np.ndarray | None = None,
+                       db: str = "engines") -> dict:
     """One small table per engine, SMALL_COMMITS commits each, read at
-    every sort engine. Returns ({table: its numbers and launches}, the
-    kernels' last shapes)."""
+    every sort engine. With tenants the key is (tenant STRING, id BIGINT),
+    each row's tenant drawn from them. Returns ({table: its numbers and
+    launches}, the kernels' last shapes)."""
     from paimon_tpu_torch.data.batch import Column, ColumnBatch
 
     types = {"BIGINT": pt.BIGINT(), "INT": pt.INT(), "DOUBLE": pt.DOUBLE(), "FLOAT": pt.FLOAT(),
              "BOOLEAN": pt.BOOLEAN(), "STRING": pt.STRING()}
     out, shapes = {}, {}
-    for name, (options, fields, kinds) in SMALL_TABLES.items():
-        schema = pt.RowType.of(("id", pt.BIGINT(False)), *[(f, types[t]) for f, t in fields])
+    key = [] if tenants is None else [("tenant", pt.STRING(False))]
+    for name, (options, fields, kinds) in tables.items():
+        schema = pt.RowType.of(*key, ("id", pt.BIGINT(False)), *[(f, types[t]) for f, t in fields])
         opts = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", **options}
-        table = cat.create_table(f"engines.{name}", schema, primary_keys=["id"], options=opts)
+        table = cat.create_table(f"{db}.{name}", schema, primary_keys=[k for k, _ in key] + ["id"], options=opts)
         rng = np.random.default_rng(len(out) + 31)
         hk.reset_launches()
         for b in range(SMALL_COMMITS):
             ids = rng.integers(0, SMALL_ROWS * 3 // 2, SMALL_ROWS)
             cols = {"id": Column(ids), **{f: small_column(rng, f, t, ids, b) for f, t in fields}}
+            if tenants is not None:
+                cols["tenant"] = Column(tenants[rng.integers(0, len(tenants), SMALL_ROWS)])
             wb = table.new_batch_write_builder()
             w = wb.new_write()
             w.write(ColumnBatch(schema, cols), rng.choice(4, SMALL_ROWS, p=kinds).astype(np.uint8))
@@ -1473,6 +1515,106 @@ def buckets_phase(pt, hk, warehouse: str) -> dict:
     launches = {k: sum(p["launches"]["phase"][k] for p in parts.values()) for k in hk.launches}
     for k in K1_K2:
         assert launches[k] > 0, f"{k} never launched on the buckets path: {launches}"
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# string keys: the bench table and config 4 keyed by TPC-DS business keys,
+# and small engine tables keyed by (tenant STRING, id BIGINT)
+# ---------------------------------------------------------------------------
+
+BUSINESS_KEY_LETTERS = np.frombuffer(b"ABCDEFGHIJKLMNOP", dtype=np.uint8)
+# the small tables' tenants: the empty string, prefix-equal strings,
+# non-ASCII text, a supplementary-plane character and a trailing U+0000
+TENANTS = np.array(["", "a", "ab", "acme", "acme\x00", "acme-eu", "Zurich", "Z\u00fcrich", "\u6771\u4eac",
+                    "\U0001F600", "\U0001F600x", "tenant-0000000000000001"], dtype=object)
+STRING_SMALL_TABLES = {k: SMALL_TABLES[k] for k in ("partial_update", "aggregation_fused", "first_row")}
+
+
+def business_key_bytes(ids: np.ndarray) -> np.ndarray:
+    """The ids' business keys as fixed-width bytes, which sort as the
+    strings do."""
+    digits = (ids.astype(np.int64)[:, None] >> (4 * np.arange(16))) & 15
+    return BUSINESS_KEY_LETTERS[digits].view("S16").ravel()
+
+
+def business_keys(ids: np.ndarray) -> np.ndarray:
+    """The ids in TPC-DS's business-key form, as dsdgen writes c_customer_id
+    CHAR(16): 16 characters over A-P, one per 4-bit digit, least
+    significant first, so that string order is not numeric order."""
+    return business_key_bytes(ids).astype("U16").astype(object)
+
+
+def string_values(ids: np.ndarray, upsert: bool) -> dict:
+    return {**table_values(ids, upsert), "id": business_keys(ids)}
+
+
+def check_string_output(out, reference, up: np.ndarray, what: str) -> None:
+    """The string-key bench table's read: equal to the numpy engine's read,
+    and to the generator's rows in business-key order, with the upserted
+    values."""
+    assert out.num_rows == N_ROWS, f"{what}: {out.num_rows} rows"
+    same_rows(out, reference, f"{what} against the numpy engine")
+    ids = np.argsort(business_key_bytes(np.arange(N_ROWS)), kind="stable")
+    assert np.array_equal(out.column("id").values, business_keys(ids)), f"{what}: keys not in business-key order"
+    upserted = np.isin(ids, up)
+    old, new = table_values(ids, upsert=False), table_values(ids, upsert=True)
+    for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+        want = np.where(upserted, new[name], old[name])
+        assert np.array_equal(out.column(name).values, want), f"{what}: {name} differs from the generator"
+
+
+def string_bench_part(pt, hk, warehouse: str, bigint_reads: dict) -> dict:
+    """The bench table keyed by business keys (id STRING): write, 5 reads at
+    each tier, each checked; then a staged read per tier (the pool and ranks
+    a stage of their own) and one traced read."""
+    hk.reset_launches()
+    table, up, write_s = build_table(pt, warehouse, "t_string_key", {}, string_values, pt.STRING(False))
+    write_launches = dict(hk.launches)
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    reads = {}
+    for label, tile in (("pallas_default_tile", None), (f"pallas_tile_{K1_TILE_ROWS}", K1_TILE_ROWS)):
+        before = dict(hk.launches)
+        out, samples = timed_reads(table if tile is None else table.copy({"merge.read-batch-rows": str(tile)}),
+                                   READ_REPEATS)
+        check_string_output(out, reference, up, f"string key, {label}")
+        reads[label] = read_stats(samples, launch_diff(hk, before))
+    launches = dict(hk.launches)
+    assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched on string keys"
+    assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched on string keys"
+    staged = {}
+    for label, tile in (("default_tile", 8 << 20), (f"tile_{K1_TILE_ROWS}", K1_TILE_ROWS)):
+        staged[label] = layer_breakdown(table, tile)
+        ms = staged[label]["ms"]
+        staged[label]["pool_share"] = round(ms["pool_and_ranks"] / sum(ms.values()), 4)
+    bigint = {label: bigint_reads[label]["output_rows_per_s_median"] for label in reads}
+    return {"table": "bench.py's table, id STRING NOT NULL (TPC-DS business keys of the seed-7 ids)",
+            "options": BENCH_OPTIONS, "write_s": round(write_s, 4), "reads": reads,
+            "bigint_key_output_rows_per_s_median": bigint, "staged": staged, "trace": device_busy(table),
+            "launches": {"write": write_launches, "reads": {k: launches[k] - write_launches[k] for k in launches},
+                         "phase": launches}}
+
+
+def strings_phase(pt, hk, warehouse: str, bigint_reads: dict) -> dict:
+    """String primary keys, one JSON line per part with its launches: the
+    bench table and config 4 keyed by business keys, and the small engine
+    tables keyed by (tenant, id). Returns the phase's launches summed over
+    its parts."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    parts = {"bench": string_bench_part(pt, hk, warehouse, bigint_reads)}
+    emit({"phase": "strings", "part": "bench", **parts["bench"]})
+    parts["config4"] = compact_phase(pt, hk, warehouse, string_key=True)
+    emit({"phase": "strings", "part": "config4", **parts["config4"]})
+    small, _ = small_tables_phase(pt, hk, cat, STRING_SMALL_TABLES, TENANTS, "strings")
+    emit({"phase": "strings", "part": "small_tables", "tenants": TENANTS.tolist(), **small})
+    assert small["aggregation_fused"]["launches"]["phase"]["segment_sum"] > 0, "segment_sum never launched"
+    phases = [parts["bench"]["launches"]["phase"], parts["config4"]["launches"]["phase"],
+              *[t["launches"]["phase"] for t in small.values()]]
+    launches = {k: sum(p[k] for p in phases) for k in hk.launches}
+    for k in hk.launches:
+        assert launches[k] > 0, f"{k} never launched on the strings path: {launches}"
     return {"launches": launches}
 
 

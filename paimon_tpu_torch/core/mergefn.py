@@ -2,7 +2,8 @@
 paimon_tpu/core/mergefn.py).
 
 One MergeExecutor call feeds every same-key group through the table's
-merge function at once: encode keys into lanes, sort and segment them on
+merge function at once: encode keys into lanes (string keys as ranks in a
+pool over the whole merge input), sort and segment them on
 the device (K1 or K2 under sort-engine=pallas), apply the engine as segment
 selections or reductions, and gather on the host. Engines: deduplicate,
 partial-update (without sequence groups), aggregation (every function but
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..data.batch import Column, ColumnBatch, gather_column
-from ..data.keys import encode_key_lanes, lexsort_rows, split_int64_lanes
+from ..data.keys import encode_key_lanes_with_pools, lexsort_rows, split_int64_lanes
 from ..ops.aggregates import NESTED_AGGREGATORS, AggregateSpec, aggregate_merge, fused_aggregate, fused_routable
 from ..options import CoreOptions, MergeEngine, SortEngine
 from ..types import RowKind, RowType
@@ -98,7 +99,10 @@ class MergeExecutor:
         return [f for f in self.value_schema.fields if f.name not in self.key_names]
 
     def _key_lanes(self, kv: KVBatch) -> np.ndarray:
-        return encode_key_lanes(kv.data, self.key_names)
+        """Key lanes; a string or bytes key ranks against a pool built over
+        kv, which holds every run of the merge (merge-wide, as the JAX
+        package builds it)."""
+        return encode_key_lanes_with_pools(kv.data, self.key_names)
 
     def _seq_lanes(self, kv: KVBatch, seq_ascending: bool) -> np.ndarray | None:
         """Explicit sequence-number lanes, only when input order does not

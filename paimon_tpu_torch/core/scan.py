@@ -2,10 +2,11 @@
 and the index manifest's entries (port of paimon_tpu/core/scan.py;
 delta/changelog scans and stats/index filters are not ported yet).
 
-The port plans the latest snapshot on main only, and reads no deletion
-vectors: options that select another snapshot, branch or set of rows, and
-tables that hold deletion vectors, raise NotImplementedError naming the
-option instead of returning other rows.
+The port plans the latest snapshot on main only, reads no deletion
+vectors and drops no expired records: options that select another
+snapshot, branch or set of rows, tables that hold deletion vectors, and
+record-level TTL raise NotImplementedError naming the option instead of
+returning other rows.
 """
 
 from __future__ import annotations
@@ -98,7 +99,19 @@ class FileStoreScan:
                 "port cannot apply yet"
             )
 
+    def _check_no_record_ttl(self) -> None:
+        """The JAX package drops rows older than record-level.expire-time on
+        every read once record-level.time-field names their time column."""
+        opts = self.options.options
+        key = opts.set_key(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
+        if key is not None and opts.get(CoreOptions.RECORD_LEVEL_TIME_FIELD) is not None:
+            raise NotImplementedError(
+                f"{key}: the torch port does not drop expired records on read yet (record-level.time-field="
+                f"{opts.get(CoreOptions.RECORD_LEVEL_TIME_FIELD)})"
+            )
+
     def plan(self) -> ScanPlan:
+        self._check_no_record_ttl()
         snapshot = self.snapshot_manager.latest_snapshot()
         self._check_reads_latest_on_main(snapshot)
         if snapshot is None:

@@ -159,6 +159,14 @@ class CoreOptions:
     RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time", None, str, ("record-level.expire-time.ms",))
     SNAPSHOT_NUM_RETAINED_MAX = ConfigOption.int_("snapshot.num-retained.max", 2147483647)
     SNAPSHOT_TIME_RETAINED = ConfigOption("snapshot.time-retained", "1 h", str, ("snapshot.time-retained.ms",))
+    # record TTL on read, partition expiry and post-commit metadata, which
+    # the JAX package acts on: the port raises on them (core/scan.py,
+    # table/write.py)
+    RECORD_LEVEL_TIME_FIELD = ConfigOption.string("record-level.time-field")
+    PARTITION_EXPIRATION_TIME = ConfigOption("partition.expiration-time", None, str, ("partition.expiration-time.ms",))
+    COMMIT_FORCE_CREATE_SNAPSHOT = ConfigOption.bool_("commit.force-create-snapshot", False)
+    TAG_AUTOMATIC_CREATION = ConfigOption.string("tag.automatic-creation", "none")
+    COMMIT_CALLBACKS = ConfigOption.string("commit.callbacks")
 
     def __init__(self, options: "Options | Mapping[str, Any] | None" = None):
         self.options = options if isinstance(options, Options) else Options(options)

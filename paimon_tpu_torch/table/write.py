@@ -9,7 +9,8 @@ when a writer compacted. Streaming commits carry ascending identifiers
 and go through the replay filter; a batch commit carries the one batch
 identifier. Buckets run one after another (the JAX package's mesh and
 pipeline routes are not ported). Cross-partition upsert, the local merge
-buffer, overwrite and snapshot expiry are not ported yet.
+buffer, overwrite, snapshot and partition expiry, the other post-commit
+work and bytes primary keys are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..core.manifest import CommitMessage, ManifestCommittable
 from ..core.writer import MergeTreeWriter
 from ..data.batch import ColumnBatch
 from ..options import CoreOptions
-from ..types import RowKind
+from ..types import RowKind, TypeRoot
 from .bucket import group_by_partition_bucket, key_hashes
 
 if TYPE_CHECKING:
@@ -33,14 +34,17 @@ if TYPE_CHECKING:
 __all__ = ["BatchWriteBuilder", "StreamWriteBuilder", "TableWrite", "TableCommit", "BatchTableCommit"]
 
 
-def _check_writable(options: CoreOptions) -> None:
+def _check_writable(options: CoreOptions, partition_keys: Sequence[str]) -> None:
     """Raise, naming the option, for what the port's write path would get
-    wrong: it writes no changelog files, drops no expired records and
-    expires no snapshots. On a write-only table the JAX package writes a
+    wrong: it writes no changelog files, drops no expired records, expires
+    no snapshots or partitions and does none of the JAX package's other
+    post-commit work. On a write-only table the JAX package writes a
     changelog only under changelog-producer=input (its flush writes the raw
     input; full-compaction produces its changelog in compactions, which a
     write-only writer never runs, and lookup it refuses there), and it
-    expires snapshots after every commit once a retention option is set."""
+    expires snapshots after every commit once a retention option is set
+    and partitions once partition.expiration-time is set on a partitioned
+    table."""
     opts = options.options
     producer = str(opts.get(CoreOptions.CHANGELOG_PRODUCER)).lower()
     if producer != "none" and (not options.write_only or producer == "input"):
@@ -55,6 +59,37 @@ def _check_writable(options: CoreOptions) -> None:
         key = opts.set_key(option)
         if key is not None:
             raise NotImplementedError(f"{key}: the torch port does not expire snapshots after a commit yet")
+    key = opts.set_key(CoreOptions.PARTITION_EXPIRATION_TIME)
+    if key is not None and partition_keys:
+        raise NotImplementedError(f"{key}: the torch port does not expire partitions after a commit yet")
+    post_commit = []
+    if opts.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT):
+        post_commit.append(f"{CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT.key}=true")
+    tag = opts.get(CoreOptions.TAG_AUTOMATIC_CREATION)
+    if tag not in (None, "none"):
+        post_commit.append(f"{CoreOptions.TAG_AUTOMATIC_CREATION.key}={tag}")
+    callbacks = opts.get(CoreOptions.COMMIT_CALLBACKS)
+    if callbacks:
+        post_commit.append(f"{CoreOptions.COMMIT_CALLBACKS.key}={callbacks}")
+    if post_commit:
+        raise NotImplementedError(
+            f"{', '.join(post_commit)}: the torch port creates no empty snapshots or tags and calls no commit "
+            "callbacks yet"
+        )
+
+
+def _check_key_types(table: "FileStoreTable") -> None:
+    """A bytes primary key is refused before any file is written: the JAX
+    package fails to commit such a table (its data-file metadata keeps the
+    raw key bytes as JSON min/max keys), so a table the port wrote could
+    not be read or continued there."""
+    for name in table.store.key_names:
+        dtype = table.row_type.field(name).type
+        if dtype.root in (TypeRoot.BINARY, TypeRoot.VARBINARY):
+            raise NotImplementedError(
+                f"primary key column {name!r} is {dtype.serialize()}: the JAX package cannot commit a table keyed "
+                "by bytes, so the torch port does not write one"
+            )
 
 
 class TableWrite:
@@ -74,7 +109,8 @@ class TableWrite:
             )
         if int(co.options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE)) > 0:
             raise NotImplementedError("local-merge-buffer-size: the torch port has no local merge buffer yet")
-        _check_writable(co)
+        _check_writable(co, store.partition_keys)
+        _check_key_types(table)
         self.partition_keys = store.partition_keys
         self.bucket_keys = table.schema.bucket_keys
         self.dynamic = co.bucket == -1
