@@ -110,7 +110,31 @@ Phases, one JSON line each on stdout:
               equal strings, non-ASCII text, a supplementary-plane character
               and a trailing U+0000, each read at all three sort engines.
               K1, K2 and segment_sum must each launch on this path.
-10. timing  - each kernel at its main-path shape against its plain version,
+10. maintenance - commit-time maintenance, one line per part. BASELINE
+              config 4 at scale 1 (as in the compact phase) three times:
+              at default options (a control: nothing is an hour old), then
+              with snapshot.num-retained.max=10 (standing in for an hour of
+              snapshot.time-retained, the cut) expiring after every commit,
+              synchronously and under snapshot.expire.execution-mode=async
+              (joined after each commit); a tag on snapshot 3 after the third
+              commit and a consumer at the latest snapshot after the tenth.
+              Write seconds, post-commit seconds with expiry apart,
+              snapshots, manifest and data files left, and checks: the read
+              equals the numpy engine and the oracle, every file a retained
+              snapshot or tag references is there, no data file is left
+              that none references. The partitioned dynamic-bucket table of
+              `buckets` with dt the four days up to today and
+              partition.expiration-time=2 d checked at every commit: the two
+              oldest days go (OVERWRITE snapshots), the read equals the
+              oracle over the two kept; drop_partition on yesterday, then two
+              commits that merge every manifest and keep one snapshot, with
+              snapshot.expire.clean-empty-directories: the dropped days'
+              directories must be gone. A small table with
+              commit.force-create-snapshot, automatic tags (keeping 1) and a
+              commit callback of this script: 3 commits and an empty one
+              give 4 snapshots, 1 tag and 4 calls. K1 and K2 must launch on
+              the expiring config 4 run.
+11. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -122,7 +146,8 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines, buckets and strings paths, and by path), the
+the main, compact, engines, buckets, strings and maintenance paths, and by
+path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -672,7 +697,13 @@ def main() -> int:
         strings = strings_phase(pt, hk, warehouse, reads)
         emit({"phase": "strings", "part": "summary", **strings})
 
-    # 10. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 10. commit-time maintenance
+        maintenance = maintenance_phase(pt, hk, warehouse)
+        maintenance["sync_write_launches_equal_compact_phase"] = (
+            maintenance["sync_write_launches"] == compact["launches"]["streaming_writes"])
+        emit({"phase": "maintenance", "part": "summary", **maintenance})
+
+    # 11. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -684,7 +715,7 @@ def main() -> int:
     widest = (8, 1 << 18, 6)
     by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
                       "engines": engines["launches"][name], "buckets": buckets["launches"][name],
-                      "strings": strings["launches"][name]}
+                      "strings": strings["launches"][name], "maintenance": maintenance["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -793,56 +824,81 @@ def level_layout(table) -> dict:
     return {str(lv): list(v) for lv, v in sorted(out.items())}
 
 
-class CompactionProbe:
+class Probe:
+    """Wraps the (owner, attribute name, stage) targets while installed:
+    each call's host seconds, the device synchronised after it, and its
+    count go to its stage. A subclass adds its bookkeeping in _before,
+    whose result is handed to _after with the call's arguments and
+    result."""
+
+    def __init__(self, targets: list):
+        self.targets = targets
+        self.seconds = dict.fromkeys([t[2] for t in targets], 0.0)
+        self.calls = dict.fromkeys(self.seconds, 0)
+        self._saved: list = []
+
+    def __enter__(self):
+        for owner, name, stage in self.targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+    def _wrap(self, fn, stage):
+        def timed(*args, **kwargs):
+            token = self._before(stage, args)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[stage] += time.perf_counter() - t0
+            self.calls[stage] += 1
+            self._after(stage, args, out, token)
+            return out
+
+        return timed
+
+    def _before(self, stage: str, args: tuple):
+        return None
+
+    def _after(self, stage: str, args: tuple, out, token) -> None:
+        pass
+
+
+class CompactionProbe(Probe):
     """Times the compaction manager and its rewriter's three stages and
     counts compactions, rewritten and upgraded files and the kernel launches
-    made inside compactions, by wrapping their methods while installed."""
+    made inside compactions."""
 
     def __init__(self, hk):
         from paimon_tpu_torch.core.compact import MergeTreeCompactManager, MergeTreeCompactRewriter
 
+        super().__init__([(MergeTreeCompactManager, "trigger_compaction", "compaction"),
+                          (MergeTreeCompactRewriter, "_read_section", "decode"),
+                          (MergeTreeCompactRewriter, "_merge_section", "merge"),
+                          (MergeTreeCompactRewriter, "_write_section", "encode_write")])
         self.hk = hk
-        self.targets = [(MergeTreeCompactManager, "trigger_compaction", "compaction"),
-                        (MergeTreeCompactRewriter, "_read_section", "decode"),
-                        (MergeTreeCompactRewriter, "_merge_section", "merge"),
-                        (MergeTreeCompactRewriter, "_write_section", "encode_write")]
-        self.seconds = dict.fromkeys([t[2] for t in self.targets], 0.0)
         self.compactions = self.rewritten = self.upgraded = 0
         self.merge_rows: list = []
         self.launches = dict.fromkeys(hk.launches, 0)
-        self._saved: list = []
 
-    def __enter__(self):
-        for cls, name, stage in self.targets:
-            fn = getattr(cls, name)
-            self._saved.append((cls, name, fn))
-            setattr(cls, name, self._wrap(fn, stage))
-        return self
+    def _before(self, stage: str, args: tuple):
+        if stage == "merge":
+            self.merge_rows.append(args[1].num_rows)
+        return dict(self.hk.launches)
 
-    def __exit__(self, *exc):
-        for cls, name, fn in self._saved:
-            setattr(cls, name, fn)
-        self._saved.clear()
-
-    def _wrap(self, fn, stage):
-        def timed(obj, *args, **kwargs):
-            if stage == "merge":
-                self.merge_rows.append(args[0].num_rows)
-            before = dict(self.hk.launches)
-            t0 = time.perf_counter()
-            out = fn(obj, *args, **kwargs)
-            torch.cuda.synchronize()
-            self.seconds[stage] += time.perf_counter() - t0
-            if stage == "compaction" and out is not None and not out.is_empty():
-                after_names = {f.file_name for f in out.after}
-                self.compactions += 1
-                self.upgraded += sum(f.file_name in after_names for f in out.before)
-                self.rewritten += sum(f.file_name not in after_names for f in out.before)
-                for k in self.launches:
-                    self.launches[k] += self.hk.launches[k] - before[k]
-            return out
-
-        return timed
+    def _after(self, stage: str, args: tuple, out, before) -> None:
+        if stage == "compaction" and out is not None and not out.is_empty():
+            after_names = {f.file_name for f in out.after}
+            self.compactions += 1
+            self.upgraded += sum(f.file_name in after_names for f in out.before)
+            self.rewritten += sum(f.file_name not in after_names for f in out.before)
+            for k in self.launches:
+                self.launches[k] += self.hk.launches[k] - before[k]
 
     def report(self) -> dict:
         return {"compactions": self.compactions, "files_rewritten": self.rewritten, "files_upgraded": self.upgraded,
@@ -1270,13 +1326,12 @@ def engines_phase(pt, hk, warehouse: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class WriteProbe:
-    """Host seconds of a write's stages, by wrapping their functions while
-    installed (the device synchronised after each call): routing (bucket
-    hashes and the partition/bucket group-by), the dynamic-bucket assigner
-    (its allocation loop is Python per new key), memtable flushes, and
-    inside them the encoding and writing of files (a flush less that is its
-    merge on a write-only table)."""
+class WriteProbe(Probe):
+    """Host seconds of a write's stages (the device synchronised after each
+    call): routing (bucket hashes and the partition/bucket group-by), the
+    dynamic-bucket assigner (its allocation loop is Python per new key),
+    memtable flushes, and inside them the encoding and writing of files (a
+    flush less that is its merge on a write-only table)."""
 
     def __init__(self):
         import paimon_tpu_torch.table.write as table_write
@@ -1284,33 +1339,9 @@ class WriteProbe:
         from paimon_tpu_torch.core.datafile import KeyValueFileWriterFactory
         from paimon_tpu_torch.core.writer import MergeTreeWriter
 
-        self.targets = [(table_write, "group_by_partition_bucket", "routing"), (table_write, "key_hashes", "routing"),
-                        (SimpleHashBucketAssigner, "assign", "assigner"), (MergeTreeWriter, "flush", "flush"),
-                        (KeyValueFileWriterFactory, "write", "encode_write")]
-        self.seconds = dict.fromkeys([t[2] for t in self.targets], 0.0)
-        self._saved: list = []
-
-    def __enter__(self):
-        for owner, name, stage in self.targets:
-            fn = getattr(owner, name)
-            self._saved.append((owner, name, fn))
-            setattr(owner, name, self._wrap(fn, stage))
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in self._saved:
-            setattr(owner, name, fn)
-        self._saved.clear()
-
-    def _wrap(self, fn, stage):
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            self.seconds[stage] += time.perf_counter() - t0
-            return out
-
-        return timed
+        super().__init__([(table_write, "group_by_partition_bucket", "routing"), (table_write, "key_hashes", "routing"),
+                          (SimpleHashBucketAssigner, "assign", "assigner"), (MergeTreeWriter, "flush", "flush"),
+                          (KeyValueFileWriterFactory, "write", "encode_write")])
 
     def report(self) -> dict:
         return {k: round(v, 4) for k, v in self.seconds.items()}
@@ -1616,6 +1647,310 @@ def strings_phase(pt, hk, warehouse: str, bigint_reads: dict) -> dict:
     for k in hk.launches:
         assert launches[k] > 0, f"{k} never launched on the strings path: {launches}"
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# commit-time maintenance: config 4 expiring after every commit, partition
+# expiry and drop, automatic tags, commit callbacks and forced snapshots
+# ---------------------------------------------------------------------------
+
+# snapshot.num-retained.max=10 stands in for an hour of the default
+# snapshot.time-retained, which a run cannot wait for (the cut); min and
+# limit stay at their defaults, 10 and 50
+M_OPTIONS = {**C4_OPTIONS, "snapshot.num-retained.max": "10"}
+M_TAG_AFTER = 3  # the tag is made on snapshot 3 after the third commit
+M_PIN_AFTER = 10  # the consumer is written after the tenth commit
+M_EXPIRATION = {"partition.expiration-time": "2 d", "partition.expiration-check-interval": "0 ms"}
+M_DROP = {"snapshot.expire.clean-empty-directories": "true", "snapshot.num-retained.max": "1",
+          "manifest.full-compaction-threshold-size": "1 b"}
+M_POST_COMMIT = {"bucket": "1", "sort-engine": "pallas", "commit.force-create-snapshot": "true",
+                 "tag.automatic-creation": "process-time", "tag.num-retained-max": "1",
+                 "commit.callbacks": f"{__name__}:record_commit"}
+COMMIT_CALLS: list = []
+
+
+def record_commit(table, snapshot) -> None:
+    """The post-commit part's commit callback: (snapshot id, kind)."""
+    COMMIT_CALLS.append((snapshot.id, snapshot.commit_kind.value))
+
+
+class MaintenanceProbe(Probe):
+    """Host seconds of TableCommit._post_commit and, inside it, of the
+    table's expire_snapshots (under async mode: handing the run over)."""
+
+    def __init__(self):
+        from paimon_tpu_torch.table import FileStoreTable
+        from paimon_tpu_torch.table.write import TableCommit
+
+        super().__init__([(TableCommit, "_post_commit", "post_commit"), (FileStoreTable, "expire_snapshots", "expiry")])
+        self.expired = 0
+
+    def _after(self, stage: str, args: tuple, out, token) -> None:
+        if stage == "expiry":
+            self.expired += out
+
+    def report(self) -> dict:
+        return {"post_commit_s": round(self.seconds["post_commit"], 4),
+                "post_commit_without_expiry_s": round(self.seconds["post_commit"] - self.seconds["expiry"], 4),
+                "expiry_s": round(self.seconds["expiry"], 4), "post_commits": self.calls["post_commit"],
+                "expiry_runs": self.calls["expiry"], "snapshots_expired_sync": self.expired}
+
+
+def table_files(table) -> dict:
+    """Files on disk: snapshots, manifest files (data manifests, lists and
+    index manifests together) and data files under bucket-*."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+
+    manifests = [n for n in os.listdir(f"{table.path}/manifest") if not n.startswith(".")]
+    data = sum(len([n for n in names if not n.startswith(".")]) for root, _, names in os.walk(table.path)
+               if os.path.basename(root).startswith("bucket-"))
+    ids = SnapshotManager(table.file_io, table.path)._listed_ids()
+    return {"snapshots": len(ids), "first_snapshot": ids[0] if ids else None, "latest_snapshot": ids[-1] if ids else None,
+            "manifest_files": len(manifests), "data_files": data}
+
+
+def referenced_files(table, snapshots: list) -> dict:
+    """{data file name: bucket directory} of every file the snapshots'
+    manifests name (ADD or DELETE entries); raises if a manifest list or
+    manifest is missing."""
+    from paimon_tpu_torch.core.manifest import ManifestFile, ManifestList
+
+    ml = ManifestList(table.file_io, f"{table.path}/manifest")
+    mf = ManifestFile(table.file_io, f"{table.path}/manifest")
+    out = {}
+    for snap in snapshots:
+        for lst in (snap.base_manifest_list, snap.delta_manifest_list):
+            for meta in ml.read(lst):
+                for e in mf.read(meta.file_name):
+                    out[e.file.file_name] = table.store.bucket_dir(e.partition, e.bucket)
+    return out
+
+
+def check_retained_files(table) -> dict:
+    """Every file a retained snapshot or a tag references is on disk, and
+    every data file on disk is referenced by one of them (consumer-pinned
+    snapshots are retained snapshots)."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+    from paimon_tpu_torch.table.tags import TagManager
+
+    sm = SnapshotManager(table.file_io, table.path)
+    tm = TagManager(table.file_io, table.path)
+    roots = [sm.snapshot(i) for i in sm._listed_ids()] + [tm.get(name) for name in tm.list_tags()]
+    referenced = referenced_files(table, roots)
+    missing = [name for name, d in referenced.items() if not os.path.exists(f"{d}/{name}")]
+    assert not missing, f"{len(missing)} files that a retained snapshot or tag references are missing: {missing[:3]}"
+    on_disk = [name for root, _, names in os.walk(table.path) if os.path.basename(root).startswith("bucket-")
+               for name in names if not name.startswith(".")]
+    orphans = [name for name in on_disk if name not in referenced]
+    assert not orphans, f"{len(orphans)} data files no retained snapshot, tag or pin references: {orphans[:3]}"
+    return {"referenced_files": len(referenced), "data_files_on_disk": len(on_disk), "missing": 0, "orphaned": 0}
+
+
+def config4_expiry_part(pt, hk, cat, batches: list, last_commit: np.ndarray, mode: str) -> dict:
+    """Config 4's 20 streaming commits expiring after each one: a tag on
+    snapshot 3 after the third commit, a consumer at the latest snapshot
+    after the tenth. mode "control" runs the default options (nothing is
+    old enough to expire), "sync" and "async" the expiring table."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+    from paimon_tpu_torch.table.consumer import ConsumerManager
+
+    options = dict(C4_OPTIONS) if mode == "control" else {
+        **M_OPTIONS, **({"snapshot.expire.execution-mode": "async"} if mode == "async" else {})}
+    table = cat.create_table(f"maintenance.c4_{mode}", pt.RowType.of(
+        ("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING())), primary_keys=["id"], options=options)
+    snapshots = SnapshotManager(table.file_io, table.path)
+    hk.reset_launches()
+    pinned = None
+    with MaintenanceProbe() as probe:
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        kinds = []
+        t0 = time.perf_counter()
+        for b, batch in enumerate(batches):
+            w.write(batch)
+            kinds += [snapshots.snapshot(i).commit_kind.value for i in c.commit_messages(b + 1, w.prepare_commit())]
+            if b + 1 == M_TAG_AFTER:
+                table.create_tag("after-commit-3", 3)
+            if b + 1 == M_PIN_AFTER:
+                pinned = snapshots.latest_snapshot_id()
+                ConsumerManager(table.file_io, table.path).record("reader", pinned)
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    # async: the expiry runs overlap the commits above; the one join comes
+    # here, before the checks (its single worker runs them in order)
+    t0 = time.perf_counter()
+    if mode == "async":
+        table.expire_future.result()
+    join_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    out = {"mode": mode, "options": options, "commits": len(batches),
+           "snapshots_written": {k: kinds.count(k) for k in sorted(set(kinds))}, "write_s": round(write_s, 4),
+           "async_join_s": round(join_s, 4), **probe.report(), "after": table_files(table), "tags": table.tags(),
+           "consumer_next_snapshot": pinned}
+    out["read"] = check_c4_read(table, last_commit, f"config 4, {mode}")
+    out["files"] = check_retained_files(table)
+    if mode != "control":
+        ids = snapshots._listed_ids()
+        latest = ids[-1]
+        assert table.tags() == {"after-commit-3": 3}, table.tags()
+        assert 3 in ids and all(i in ids for i in range(pinned, latest + 1)), (ids, pinned)
+        assert snapshots.earliest_snapshot_id() == ids[0] == 3, ids
+        out["snapshots_left"] = ids
+    out["launches"] = {"writes": write_launches, "reads": launch_diff(hk, write_launches), "phase": dict(hk.launches)}
+    return out
+
+
+def partition_dates(now: float) -> np.ndarray:
+    """The four days up to today, by the local clock, newest first."""
+    import datetime
+
+    today = datetime.datetime.fromtimestamp(now).date()
+    return np.array([(today - datetime.timedelta(days=d)).isoformat() for d in range(4)], dtype=object)
+
+
+def partition_expiry_part(pt, hk, cat) -> dict:
+    """The buckets phase's partitioned dynamic-bucket table at default
+    options, its dt values the four days up to today, under
+    partition.expiration-time=2 d checked at every commit: each commit's
+    sweep drops the two oldest days in an OVERWRITE snapshot, and the read
+    equals the oracle over the two days kept. Then drop_partition on
+    yesterday, and two commits under a retention that expires the dropped
+    files (manifests merged in full at every commit past two, so that the
+    second resolves the drop's DELETE entries, and num-retained.max=1)
+    with snapshot.expire.clean-empty-directories: the dropped days'
+    directories must be gone."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+    from paimon_tpu_torch.table.maintenance import drop_partition
+
+    dts = partition_dates(time.time())
+    schema = pt.RowType.of(("dt", pt.STRING()), *[(f.name, f.type) for f in build_schema(pt).fields])
+    table = cat.create_table("maintenance.partitioned", schema, partition_keys=["dt"], primary_keys=["dt", "id"],
+                             options={**P_OPTIONS, **M_EXPIRATION})
+    sm = SnapshotManager(table.file_io, table.path)
+    rng = np.random.default_rng(7)
+    ids = rng.permutation(N_ROWS).astype(np.int64)
+    per = N_ROWS // N_RUNS
+    up = np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
+    batches = [{"dt": dts[i % 4], **table_values(i, False)} for i in
+               (np.sort(ids[r * per : (r + 1) * per]) for r in range(N_RUNS))]
+    batches.append({"dt": dts[up % 4], **table_values(up, True)})
+    hk.reset_launches()
+    with MaintenanceProbe() as probe:
+        t0 = time.perf_counter()
+        for batch in batches:
+            wb = table.new_batch_write_builder()
+            w = wb.new_write()
+            w.write(batch)
+            wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    del batches
+    kinds = [sm.snapshot(i).commit_kind.value for i in sm._listed_ids()]
+    kept = {d for (d,) in table.store.new_scan().plan().grouped()}
+    assert kept == set(dts[:2]), f"partitions left: {sorted(kept)}, want {sorted(dts[:2])}"
+    assert "OVERWRITE" in kinds, kinds
+    out = read_all(table)
+    keep_ids = np.flatnonzero(np.arange(N_ROWS) % 4 < 2)
+    got = out.column("id").values
+    order = np.argsort(got, kind="stable")
+    assert np.array_equal(got[order], keep_ids), "the read's ids differ from the oracle over the kept days"
+    assert np.array_equal(out.column("dt").values[order], dts[keep_ids % 4]), "a row in another partition"
+    upserted = np.zeros(N_ROWS, np.bool_)
+    upserted[up] = True
+    new, old = table_values(keep_ids, True), table_values(keep_ids, False)
+    for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+        want = np.where(upserted[keep_ids], new[name], old[name])
+        assert np.array_equal(out.column(name).values[order], want), f"{name} differs from the oracle"
+    same_rows(out, read_all(table.copy({"sort-engine": "numpy"})), "partition expiry, pallas against numpy")
+    expiry = {"dates": dts.tolist(), "write_s": round(write_s, 4), **probe.report(), "snapshot_kinds": kinds,
+              "partitions_kept": sorted(kept), "partitions_expired": sorted(set(dts) - kept),
+              "read_rows": out.num_rows, "equal_to_oracle_over_kept_days": True, "equal_to_numpy_engine": True}
+    write_launches = dict(hk.launches)
+    # drop yesterday, then two commits (today only): the second merges the
+    # drop's DELETE entries away and expires every older snapshot
+    dropping = table.copy(M_DROP)
+    dropped = drop_partition(dropping, {"dt": dts[1]})
+    assert dropped == [(dts[1],)], dropped
+    drop_kind = sm.latest_snapshot().commit_kind.value
+    before = table_files(dropping)
+    for c in range(2):  # the drop snapshot merged the manifests before its DELETEs; the second commit merges them
+        wb = dropping.new_batch_write_builder()
+        w = wb.new_write()
+        w.write({"dt": dts[np.zeros(4, np.int64)], **table_values(np.arange(4, dtype=np.int64) * 4 + c, True)})
+        wb.new_commit().commit(w.prepare_commit())
+    gone = [d for d in dts[1:] if not os.path.exists(f"{table.path}/dt={d}")]
+    assert gone == list(dts[1:]), f"partition directories left: {sorted(set(dts[1:]) - set(gone))}"
+    left = {d for (d,) in dropping.store.new_scan().plan().grouped()}
+    assert left == {dts[0]}, left
+    return {"table": "bench.py's table plus dt STRING as partition key (dt = the day id % 4 days before today), "
+                     "primary key (dt, id), dynamic buckets, default codecs, write-only=false",
+            "options": {**P_OPTIONS, **M_EXPIRATION}, "expiry": expiry,
+            "drop": {"options": M_DROP, "dropped": [list(p) for p in dropped], "snapshot_kind": drop_kind,
+                     "files_before_expiry": before, "files_after": table_files(dropping),
+                     "directories_gone": gone, "files": check_retained_files(dropping)},
+            "launches": {"writes": write_launches, "drop": launch_diff(hk, write_launches), "phase": dict(hk.launches)}}
+
+
+def post_commit_part(pt, hk, cat) -> dict:
+    """A small table with commit.force-create-snapshot, automatic daily
+    tags by process time keeping 1, and a commit callback in this script:
+    3 batch commits and an empty one."""
+    table = cat.create_table("maintenance.post_commit", pt.RowType.of(
+        ("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING())), primary_keys=["id"],
+        options=M_POST_COMMIT)
+    calls = sys.modules[record_commit.__module__].COMMIT_CALLS
+    calls.clear()
+    hk.reset_launches()
+    rng = np.random.default_rng(12)
+    for b in range(3):
+        ids = rng.integers(0, 3000, 2000)
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write({"id": ids, "v": ids * 0.5 + b, "tag": np.array([f"t{b}"] * len(ids), dtype=object)})
+        wb.new_commit().commit(w.prepare_commit())
+    wb = table.new_batch_write_builder()
+    empty = wb.new_commit().commit(wb.new_write().prepare_commit())
+    files = table_files(table)
+    assert empty == [4] and files["snapshots"] == 4, (empty, files)
+    assert [c[0] for c in calls] == [1, 2, 3, 4], calls
+    assert len(table.tags()) == 1, table.tags()
+    return {"options": M_POST_COMMIT, "commits": 4, "empty_commit_snapshot": empty, "files": files,
+            "tags": table.tags(), "callback_calls": [list(c) for c in calls], "launches": {"phase": dict(hk.launches)}}
+
+
+def maintenance_phase(pt, hk, warehouse: str) -> dict:
+    """Commit-time maintenance, one JSON line per part; returns the
+    launches of the expiring config 4 run (sync), the phase's main path."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    rng = np.random.default_rng(2)
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    batches = []
+    for b in range(C4_COMMITS):
+        batches.append(c4_batch(rng, b))
+        last_commit[batches[-1]["id"]] = b
+    parts = {}
+    for mode in ("control", "sync", "async"):
+        parts[f"config4_{mode}"] = config4_expiry_part(pt, hk, cat, batches, last_commit, mode)
+        emit({"phase": "maintenance", "part": f"config4_{mode}",
+              "config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1",
+              "cuts": [] if mode == "control" else [
+                  "snapshot.num-retained.max=10 stands in for an hour of snapshot.time-retained"],
+              **parts[f"config4_{mode}"]})
+    sync, overlapped = parts["config4_sync"], parts["config4_async"]
+    assert (overlapped["snapshots_left"], overlapped["after"]) == (sync["snapshots_left"], sync["after"]), \
+        "expiry overlapping the commits left other files than expiry after each commit"
+    parts["partition_expiry"] = partition_expiry_part(pt, hk, cat)
+    emit({"phase": "maintenance", "part": "partition_expiry", **parts["partition_expiry"]})
+    parts["post_commit"] = post_commit_part(pt, hk, cat)
+    emit({"phase": "maintenance", "part": "post_commit", **parts["post_commit"]})
+    launches = parts["config4_sync"]["launches"]["phase"]
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched on the maintenance path: {launches}"
+    return {"launches": launches, "sync_write_launches": parts["config4_sync"]["launches"]["writes"],
+            "launches_other_parts": {k: sum(p["launches"]["phase"][k] for n, p in parts.items() if n != "config4_sync")
+                                     for k in hk.launches}}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

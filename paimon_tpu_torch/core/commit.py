@@ -1,5 +1,6 @@
 """The snapshot-CAS commit protocol (port of paimon_tpu/core/commit.py:
-append and compact commits, and the replay filter).
+append, compact and overwrite commits, manifest merging and the replay
+filter).
 
 A commit writes a delta manifest, a base manifest list (the previous
 snapshot's base + delta) and a delta manifest list, then publishes
@@ -13,21 +14,38 @@ files are no longer live raises CommitConflictError (per partition and
 bucket: the buckets whose inputs are gone are abandoned, the others
 commit). The APPEND snapshot also carries the writers' new index files
 (the dynamic-bucket hash index): its index manifest is the previous one
-with each (partition, bucket, kind) slot the commit names replaced.
-Overwrite, changelog manifests and manifest merging are not ported yet.
+with each (partition, bucket, kind) slot the commit names replaced; a
+COMPACT snapshot that removes files rewrites it unchanged, as the JAX
+package does. An OVERWRITE snapshot deletes the live files of the
+partitions a filter selects and keeps the index manifest as it was, hash
+index entries of the dropped partitions included, so that a partition
+written again gets the buckets the JAX package gives it. Before each
+commit the base manifests are merged once manifest.merge-min-count of
+them are small, or all of them once the small ones pass
+manifest.full-compaction-threshold-size. Changelog manifests are not
+written yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Sequence
+from typing import Callable, Sequence
 
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..utils import now_millis
 from .deletionvectors import IndexFileEntry
 from .indexmanifest import read_index_manifest, write_index_manifest
-from .manifest import FileKind, ManifestCommittable, ManifestEntry, ManifestFile, ManifestList, merge_entries
+from .manifest import (
+    FileKind,
+    ManifestCommittable,
+    ManifestEntry,
+    ManifestFile,
+    ManifestFileMeta,
+    ManifestList,
+    merge_entries,
+    merge_entries_keep_deletes,
+)
 from .snapshot import CommitKind, Snapshot, SnapshotManager
 
 # batch jobs commit once with this identifier (reference Long.MAX_VALUE)
@@ -111,29 +129,84 @@ class FileStoreCommit:
             written.append(self._try_commit(CommitKind.COMPACT, compact_entries, committable, check_conflicts=True))
         return written
 
+    def overwrite(
+        self, committable: ManifestCommittable, partition_filter: Callable[[tuple], bool] | None = None
+    ) -> list[int]:
+        """One OVERWRITE snapshot: DELETE entries for the live files of the
+        partitions `partition_filter` selects (all when None), then the
+        committable's new files."""
+        latest = self.snapshot_manager.latest_snapshot()
+        entries: list[ManifestEntry] = []
+        if latest is not None:
+            for e in self._live_entries(latest):
+                if partition_filter is None or partition_filter(e.partition):
+                    entries.append(ManifestEntry(FileKind.DELETE, e.partition, e.bucket, e.total_buckets, e.file))
+        for msg in committable.messages:
+            entries += [ManifestEntry(FileKind.ADD, msg.partition, msg.bucket, msg.total_buckets, f) for f in msg.new_files]
+        return [self._try_commit(CommitKind.OVERWRITE, entries, committable)]
+
+    def _live_entries(self, snapshot: Snapshot) -> list[ManifestEntry]:
+        metas = self.manifest_list.read(snapshot.base_manifest_list) + self.manifest_list.read(
+            snapshot.delta_manifest_list
+        )
+        return merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
+
     def _conflicted_buckets(self, latest: Snapshot, entries: list[ManifestEntry]) -> set[tuple]:
         """(partition, bucket) slots where a file this commit deletes is no
         longer live: a concurrent compaction removed it."""
         deletes = [e for e in entries if e.kind == FileKind.DELETE]
         if not deletes:
             return set()
-        metas = self.manifest_list.read(latest.base_manifest_list) + self.manifest_list.read(
-            latest.delta_manifest_list
-        )
-        live_entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
-        live = {(e.partition, e.bucket, e.file.file_name) for e in live_entries}
+        live = {(e.partition, e.bucket, e.file.file_name) for e in self._live_entries(latest)}
         return {(e.partition, e.bucket) for e in deletes if (e.partition, e.bucket, e.file.file_name) not in live}
 
-    def _index_manifest(self, latest: Snapshot | None, index_entries: list[IndexFileEntry]) -> str | None:
+    def _index_manifest(
+        self, latest: Snapshot | None, index_entries: list[IndexFileEntry], rewrite: bool = False
+    ) -> str | None:
         """The previous index manifest with this commit's (partition, bucket,
         kind) slots replaced by its entries (a writer always hands over the
-        whole set of its bucket); the previous one when there are none."""
-        if not index_entries:
+        whole set of its bucket); the previous one when there are none,
+        unless `rewrite` (a COMPACT commit that removes files, where the
+        JAX package purges the removed files' deletion vectors) asks for a
+        fresh copy."""
+        if not index_entries and not rewrite:
             return latest.index_manifest if latest else None
         prev = read_index_manifest(self.file_io, self.table_path, latest.index_manifest) if latest and latest.index_manifest else []
         replaced = {(e.partition, e.bucket, e.kind) for e in index_entries}
         out = [e for e in prev if (e.partition, e.bucket, e.kind) not in replaced] + list(index_entries)
-        return write_index_manifest(self.file_io, self.table_path, out)
+        return write_index_manifest(self.file_io, self.table_path, out) if out else None
+
+    def _maybe_merge_manifests(self, metas: list[ManifestFileMeta], tmp_files: list[str]) -> list[ManifestFileMeta]:
+        """The base manifests, merged as the JAX package merges them: all of
+        them (DELETE entries resolved) once the small ones pass
+        manifest.full-compaction-threshold-size and there are more than
+        twice as many as their bytes need; else the small ones (DELETE
+        entries whose ADD lies outside them kept) once there are
+        manifest.merge-min-count of them. Outputs are cut at
+        manifest.target-file-size by an adaptive bytes-per-entry guess."""
+        opts = self.options.options
+        target = int(opts.get(CoreOptions.MANIFEST_TARGET_SIZE))
+        full_threshold = int(opts.get(CoreOptions.MANIFEST_FULL_COMPACTION_THRESHOLD_SIZE))
+        small = [m for m in metas if m.file_size < target]
+        total_bytes = sum(m.file_size for m in metas)
+        fragmented = len(metas) > 2 * max(1, -(-total_bytes // target))
+        if small and fragmented and sum(m.file_size for m in small) >= full_threshold:
+            entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
+            out: list[ManifestFileMeta] = []
+        elif len(small) < opts.get(CoreOptions.MANIFEST_MERGE_MIN_COUNT):
+            return metas
+        else:
+            entries = merge_entries_keep_deletes(*(self.manifest_file.read(m.file_name) for m in small))
+            out = [m for m in metas if m.file_size >= target]
+        per_entry = 400.0
+        i = 0
+        while i < len(entries):
+            chunk = entries[i : i + max(1, int(target / per_entry))]
+            meta = self.manifest_file.write(chunk, self.schema_id, track=tmp_files)
+            out.append(meta)
+            per_entry = max(1.0, meta.file_size / len(chunk))
+            i += len(chunk)
+        return out
 
     def _try_commit(
         self,
@@ -142,11 +215,18 @@ class FileStoreCommit:
         committable: ManifestCommittable,
         check_conflicts: bool = False,
     ) -> int:
-        """Publish one snapshot of `kind`; an APPEND snapshot also carries the
+        """Publish one snapshot of `kind` over the latest one's (possibly
+        merged) base manifests; an APPEND snapshot also carries the
         committable's new index files."""
         index_entries = (
             [e for msg in committable.messages for e in msg.new_index_files] if kind == CommitKind.APPEND else []
         )
+        # files a COMPACT commit removes for good (an upgrade deletes and
+        # adds the same file at another level)
+        removed: list[ManifestEntry] = []
+        if kind == CommitKind.COMPACT:
+            added_names = {e.file.file_name for e in entries if e.kind == FileKind.ADD}
+            removed = [e for e in entries if e.kind == FileKind.DELETE and e.file.file_name not in added_names]
         max_retries = self.options.options.get(CoreOptions.COMMIT_MAX_RETRIES)
         retries = 0
         while True:
@@ -162,6 +242,7 @@ class FileStoreCommit:
                 # rewritten files become orphans); the others commit
                 entries = [e for e in entries if (e.partition, e.bucket) not in conflicted]
                 index_entries = [e for e in index_entries if (e.partition, e.bucket) not in conflicted]
+                removed = [e for e in removed if (e.partition, e.bucket) not in conflicted]
             tmp_files: list[str] = []
             try:
                 snapshot_id = latest.id + 1 if latest else 1
@@ -170,11 +251,12 @@ class FileStoreCommit:
                     if latest
                     else []
                 )
+                base_metas = self._maybe_merge_manifests(base_metas, tmp_files)
                 delta_meta = self.manifest_file.write(entries, self.schema_id, track=tmp_files)
                 base_name = self.manifest_list.write(base_metas, track=tmp_files)
                 delta_name = self.manifest_list.write([delta_meta], track=tmp_files)
-                index_manifest = self._index_manifest(latest, index_entries)
-                if index_manifest != (latest.index_manifest if latest else None):
+                index_manifest = self._index_manifest(latest, index_entries, rewrite=bool(removed))
+                if index_manifest and index_manifest != (latest.index_manifest if latest else None):
                     tmp_files.append(index_manifest)
                 added = sum(e.file.row_count for e in entries if e.kind == FileKind.ADD)
                 deleted = sum(e.file.row_count for e in entries if e.kind == FileKind.DELETE)

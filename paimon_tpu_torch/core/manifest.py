@@ -29,6 +29,7 @@ __all__ = [
     "CommitMessage",
     "ManifestCommittable",
     "merge_entries",
+    "merge_entries_keep_deletes",
 ]
 
 _AVRO_MAGIC = b"Obj\x01"
@@ -150,6 +151,23 @@ def merge_entries(*entry_lists: Iterable[ManifestEntry]) -> list[ManifestEntry]:
             else:
                 live.pop(e.identifier(), None)
     return list(live.values())
+
+
+def merge_entries_keep_deletes(*entry_lists: Iterable[ManifestEntry]) -> list[ManifestEntry]:
+    """merge_entries for a subset of the manifests: a DELETE whose ADD lies
+    outside the subset is kept (first), or that ADD would come back."""
+    live: dict[tuple, ManifestEntry] = {}
+    deletes: dict[tuple, ManifestEntry] = {}
+    for entries in entry_lists:
+        for e in entries:
+            key = e.identifier()
+            if e.kind == FileKind.ADD:
+                live[key] = e
+            elif key in live:
+                live.pop(key)
+            else:
+                deletes[key] = e
+    return list(deletes.values()) + list(live.values())
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """Snapshots: the versioned root of a table (port of
-paimon_tpu/core/snapshot.py; expiry, time travel and changelog snapshots
-are not ported yet). A snapshot file is immutable JSON published with the
+paimon_tpu/core/snapshot.py; time travel is not ported yet). A snapshot
+file is immutable JSON published with the
 atomic-rename CAS; the LATEST/EARLIEST hints are an optimization, listing
 is the truth.
 """
@@ -105,6 +105,26 @@ class SnapshotManager:
 
     def snapshot_exists(self, snapshot_id: int) -> bool:
         return self.file_io.exists(self.snapshot_path(snapshot_id))
+
+    # decoupled changelogs: an expired snapshot's copy, kept while its
+    # changelog files are retained (core/expire.py)
+    @property
+    def changelog_dir(self) -> str:
+        return f"{self.table_path}/changelog"
+
+    def changelog_path(self, snapshot_id: int) -> str:
+        return f"{self.changelog_dir}/changelog-{snapshot_id}"
+
+    def changelog(self, snapshot_id: int) -> Snapshot:
+        return Snapshot.from_json(self.file_io.read_bytes(self.changelog_path(snapshot_id)))
+
+    def changelog_ids(self) -> list[int]:
+        out = []
+        for st in self.file_io.list_files(self.changelog_dir):
+            base = st.path.rsplit("/", 1)[-1]
+            if base.startswith("changelog-") and base[len("changelog-") :].isdigit():
+                out.append(int(base[len("changelog-") :]))
+        return sorted(out)
 
     def _listed_ids(self) -> list[int]:
         out = []

@@ -18,11 +18,13 @@ from ..utils import partition_path
 from .commit import FileStoreCommit
 from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
+from .expire import SnapshotExpire
 from .levels import Levels
 from .mergefn import MergeExecutor
 from .read import MergeFileSplitRead
 from .scan import FileStoreScan
 from .schema import SchemaManager, TableSchema
+from .snapshot import SnapshotManager
 from .writer import MergeTreeWriter
 
 __all__ = ["KeyValueFileStore"]
@@ -47,6 +49,10 @@ class KeyValueFileStore:
         self.key_names = schema.trimmed_primary_keys
         self.partition_keys = list(schema.partition_keys)
         self.schema_manager = SchemaManager(file_io, table_path)
+        self.snapshot_manager = SnapshotManager(file_io, table_path)
+        # when a commit last swept expired partitions (table/write.py): the
+        # store lives as long as the table, a TableCommit only for a commit
+        self.last_partition_expire_check = 0
 
     def bucket_dir(self, partition: tuple, bucket: int) -> str:
         pp = partition_path(
@@ -87,6 +93,13 @@ class KeyValueFileStore:
 
     def new_commit(self) -> FileStoreCommit:
         return FileStoreCommit(self.file_io, self.table_path, self.commit_user, self.schema.id, self.options)
+
+    def new_expire(self, protected_ids=None) -> SnapshotExpire:
+        """Snapshot expiry under the table's options; protected_ids() gives
+        the snapshot ids to keep (tags, consumers)."""
+        return SnapshotExpire(
+            self.file_io, self.table_path, self.options, protected_ids, partition_keys=self.partition_keys
+        )
 
     def restore_files(self, partition: tuple, bucket: int) -> list[DataFileMeta]:
         plan = self.new_scan().with_bucket(bucket).with_partition_filter(lambda p: p == partition).plan()

@@ -21,6 +21,7 @@ class FileStatus:
     path: str
     size: int
     is_dir: bool
+    mtime_millis: int = 0
 
 
 def _strip_scheme(path: str) -> str:
@@ -47,8 +48,14 @@ class LocalFileIO:
         return os.path.exists(_strip_scheme(path))
 
     def delete(self, path: str) -> bool:
+        """Remove a file or an empty directory (OSError when it is not
+        empty); False when nothing is there."""
+        p = _strip_scheme(path)
         try:
-            os.remove(_strip_scheme(path))
+            if os.path.isdir(p):
+                os.rmdir(p)
+            else:
+                os.remove(p)
             return True
         except FileNotFoundError:
             return False
@@ -78,7 +85,7 @@ class LocalFileIO:
                 st = os.stat(fp)
             except FileNotFoundError:
                 continue
-            out.append(FileStatus(fp, st.st_size, os.path.isdir(fp)))
+            out.append(FileStatus(fp, st.st_size, os.path.isdir(fp), int(st.st_mtime * 1000)))
         return out
 
     def list_files(self, path: str) -> list[FileStatus]:
@@ -87,7 +94,7 @@ class LocalFileIO:
     def get_status(self, path: str) -> FileStatus:
         p = _strip_scheme(path)
         st = os.stat(p)
-        return FileStatus(p, st.st_size, os.path.isdir(p))
+        return FileStatus(p, st.st_size, os.path.isdir(p), int(st.st_mtime * 1000))
 
     def read_text(self, path: str) -> str:
         return self.read_bytes(path).decode("utf-8")

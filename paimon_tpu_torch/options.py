@@ -13,7 +13,20 @@ from typing import Any, Callable, Generic, Mapping, TypeVar
 
 T = TypeVar("T")
 
-__all__ = ["ConfigOption", "Options", "MemorySize", "CoreOptions", "MergeEngine", "SortEngine"]
+__all__ = ["ConfigOption", "Options", "MemorySize", "CoreOptions", "MergeEngine", "SortEngine", "parse_duration_millis"]
+
+_DURATION_UNITS = {"ms": 1, "s": 1000, "sec": 1000, "min": 60_000, "m": 60_000, "h": 3_600_000, "d": 86_400_000}
+
+
+def parse_duration_millis(v: "str | int | float") -> int:
+    """'1 h' / '30s' / '100 ms' / a bare number of millis -> millis."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    t = str(v).strip().lower().replace(" ", "")
+    for u in ("ms", "sec", "min", "s", "m", "h", "d"):
+        if t.endswith(u) and t[: -len(u)].replace(".", "", 1).isdigit():
+            return int(float(t[: -len(u)]) * _DURATION_UNITS[u])
+    return int(float(t))
 
 
 class MemorySize(int):
@@ -50,6 +63,12 @@ class ConfigOption(Generic[T]):
     @staticmethod
     def bool_(key: str, default: bool = False, fallback: tuple[str, ...] = ()):
         return ConfigOption(key, default, lambda v: v if isinstance(v, bool) else str(v).lower() == "true", fallback)
+
+    @staticmethod
+    def duration(key: str, default: "str | None", fallback: tuple[str, ...] = ()):
+        """Millis (int | None), parsed by parse_duration_millis."""
+        d = None if default is None else parse_duration_millis(default)
+        return ConfigOption(key, d, lambda v: None if v is None else parse_duration_millis(v), fallback)
 
     @staticmethod
     def memory(key: str, default: str):
@@ -153,20 +172,45 @@ class CoreOptions:
     COMPACTION_MAX_FILE_NUM = ConfigOption.int_("compaction.max.file-num", 50, ("compaction.early-max.file-num",))
     # millis; the JAX package reads this key as a bare int too
     COMPACTION_OPTIMIZATION_INTERVAL = ConfigOption.int_("compaction.optimization-interval", None)
+    MANIFEST_TARGET_SIZE = ConfigOption.memory("manifest.target-file-size", "8 mb")
+    MANIFEST_MERGE_MIN_COUNT = ConfigOption.int_("manifest.merge-min-count", 30)
+    MANIFEST_FULL_COMPACTION_THRESHOLD_SIZE = ConfigOption.memory("manifest.full-compaction-threshold-size", "16 mb")
     # keys of features the port does not write yet: tables that are not
     # write-only raise on them (table/write.py), so only their keys are kept
     CHANGELOG_PRODUCER = ConfigOption.string("changelog-producer", "none")
     RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time", None, str, ("record-level.expire-time.ms",))
-    SNAPSHOT_NUM_RETAINED_MAX = ConfigOption.int_("snapshot.num-retained.max", 2147483647)
-    SNAPSHOT_TIME_RETAINED = ConfigOption("snapshot.time-retained", "1 h", str, ("snapshot.time-retained.ms",))
-    # record TTL on read, partition expiry and post-commit metadata, which
-    # the JAX package acts on: the port raises on them (core/scan.py,
-    # table/write.py)
+    # record TTL on read, which the JAX package acts on: the port raises on
+    # it (core/scan.py)
     RECORD_LEVEL_TIME_FIELD = ConfigOption.string("record-level.time-field")
-    PARTITION_EXPIRATION_TIME = ConfigOption("partition.expiration-time", None, str, ("partition.expiration-time.ms",))
-    COMMIT_FORCE_CREATE_SNAPSHOT = ConfigOption.bool_("commit.force-create-snapshot", False)
+    # commit-time maintenance (table/write.py TableCommit._post_commit)
+    SNAPSHOT_NUM_RETAINED_MIN = ConfigOption.int_("snapshot.num-retained.min", 10)
+    SNAPSHOT_NUM_RETAINED_MAX = ConfigOption.int_("snapshot.num-retained.max", 2147483647)
+    SNAPSHOT_TIME_RETAINED = ConfigOption.duration("snapshot.time-retained", "1 h", ("snapshot.time-retained.ms",))
+    SNAPSHOT_EXPIRE_LIMIT = ConfigOption.int_("snapshot.expire.limit", 50)
+    SNAPSHOT_EXPIRE_CLEAN_EMPTY_DIRS = ConfigOption.bool_("snapshot.expire.clean-empty-directories", False)
+    SNAPSHOT_EXPIRE_EXECUTION_MODE = ConfigOption.string("snapshot.expire.execution-mode", "sync")
+    # any of the three set decouples changelog files from snapshot expiry
+    CHANGELOG_NUM_RETAINED_MIN = ConfigOption.int_("changelog.num-retained.min", None)
+    CHANGELOG_NUM_RETAINED_MAX = ConfigOption.int_("changelog.num-retained.max", None)
+    CHANGELOG_TIME_RETAINED = ConfigOption.duration("changelog.time-retained", None)
+    CONSUMER_EXPIRATION_TIME = ConfigOption.duration(
+        "consumer.expiration-time", None, ("consumer.expiration-time.ms",)
+    )
+    PARTITION_EXPIRATION_TIME = ConfigOption.duration(
+        "partition.expiration-time", None, ("partition.expiration-time.ms",)
+    )
+    PARTITION_EXPIRATION_CHECK_INTERVAL = ConfigOption.duration("partition.expiration-check-interval", "1 h")
+    PARTITION_TIMESTAMP_FORMATTER = ConfigOption.string("partition.timestamp-formatter", None)
+    PARTITION_TIMESTAMP_PATTERN = ConfigOption.string("partition.timestamp-pattern", None)
     TAG_AUTOMATIC_CREATION = ConfigOption.string("tag.automatic-creation", "none")
+    TAG_CREATION_PERIOD = ConfigOption.string("tag.creation-period", "daily")
+    TAG_CREATION_DELAY = ConfigOption.duration("tag.creation-delay", "0 ms")
+    TAG_PERIOD_FORMATTER = ConfigOption.string("tag.period-formatter", "with_dashes")
+    TAG_NUM_RETAINED_MAX = ConfigOption.int_("tag.num-retained-max", None)
+    TAG_DEFAULT_TIME_RETAINED = ConfigOption.duration("tag.default-time-retained", None)
+    TAG_CALLBACKS = ConfigOption.string("tag.callbacks", None)
     COMMIT_CALLBACKS = ConfigOption.string("commit.callbacks")
+    COMMIT_FORCE_CREATE_SNAPSHOT = ConfigOption.bool_("commit.force-create-snapshot", False)
 
     def __init__(self, options: "Options | Mapping[str, Any] | None" = None):
         self.options = options if isinstance(options, Options) else Options(options)
@@ -250,6 +294,18 @@ class CoreOptions:
     @property
     def size_ratio(self) -> int:
         return self.options.get(CoreOptions.COMPACTION_SIZE_RATIO)
+
+    @property
+    def snapshot_num_retained_min(self) -> int:
+        return self.options.get(CoreOptions.SNAPSHOT_NUM_RETAINED_MIN)
+
+    @property
+    def snapshot_num_retained_max(self) -> int:
+        return self.options.get(CoreOptions.SNAPSHOT_NUM_RETAINED_MAX)
+
+    @property
+    def snapshot_time_retained_ms(self) -> int:
+        return self.options.get(CoreOptions.SNAPSHOT_TIME_RETAINED)
 
     @property
     def ignore_delete(self) -> bool:

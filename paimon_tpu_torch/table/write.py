@@ -7,15 +7,20 @@ CommitMessages, with the dynamic-bucket assigner's new hash index files.
 A TableCommit turns those into an APPEND snapshot, and a COMPACT snapshot
 when a writer compacted. Streaming commits carry ascending identifiers
 and go through the replay filter; a batch commit carries the one batch
-identifier. Buckets run one after another (the JAX package's mesh and
-pipeline routes are not ported). Cross-partition upsert, the local merge
-buffer, overwrite, snapshot and partition expiry, the other post-commit
-work and bytes primary keys are not ported yet and raise.
+identifier. After each commit the table's maintenance runs, in the JAX
+package's order: commit callbacks, automatic tags, snapshot expiry and
+partition expiry; a failure there never fails the commit, and is reported
+with warnings.warn. Buckets run one after another (the JAX package's mesh
+and pipeline routes are not ported). Cross-partition upsert, the local
+merge buffer, table-level overwrite and bytes primary keys are not ported
+yet and raise.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Sequence
+import importlib
+import warnings
+from typing import TYPE_CHECKING, Callable, Sequence
 
 import numpy as np
 
@@ -24,27 +29,34 @@ from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.manifest import CommitMessage, ManifestCommittable
 from ..core.writer import MergeTreeWriter
 from ..data.batch import ColumnBatch
-from ..options import CoreOptions
+from ..options import ConfigOption, CoreOptions
 from ..types import RowKind, TypeRoot
+from ..utils import now_millis
 from .bucket import group_by_partition_bucket, key_hashes
+from .maintenance import expire_partitions
+from .tags import TagAutoCreation
 
 if TYPE_CHECKING:
     from . import FileStoreTable
 
-__all__ = ["BatchWriteBuilder", "StreamWriteBuilder", "TableWrite", "TableCommit", "BatchTableCommit"]
+__all__ = [
+    "BatchWriteBuilder",
+    "StreamWriteBuilder",
+    "TableWrite",
+    "TableCommit",
+    "BatchTableCommit",
+    "load_callbacks",
+    "run_maintenance",
+]
 
 
-def _check_writable(options: CoreOptions, partition_keys: Sequence[str]) -> None:
+def _check_writable(options: CoreOptions) -> None:
     """Raise, naming the option, for what the port's write path would get
-    wrong: it writes no changelog files, drops no expired records, expires
-    no snapshots or partitions and does none of the JAX package's other
-    post-commit work. On a write-only table the JAX package writes a
-    changelog only under changelog-producer=input (its flush writes the raw
-    input; full-compaction produces its changelog in compactions, which a
-    write-only writer never runs, and lookup it refuses there), and it
-    expires snapshots after every commit once a retention option is set
-    and partitions once partition.expiration-time is set on a partitioned
-    table."""
+    wrong: it writes no changelog files and drops no expired records. On a
+    write-only table the JAX package writes a changelog only under
+    changelog-producer=input (its flush writes the raw input;
+    full-compaction produces its changelog in compactions, which a
+    write-only writer never runs, and lookup it refuses there)."""
     opts = options.options
     producer = str(opts.get(CoreOptions.CHANGELOG_PRODUCER)).lower()
     if producer != "none" and (not options.write_only or producer == "input"):
@@ -55,27 +67,6 @@ def _check_writable(options: CoreOptions, partition_keys: Sequence[str]) -> None
             raise NotImplementedError(
                 f"{key}: the torch port does not drop expired records in compaction yet"
             )
-    for option in (CoreOptions.SNAPSHOT_NUM_RETAINED_MAX, CoreOptions.SNAPSHOT_TIME_RETAINED):
-        key = opts.set_key(option)
-        if key is not None:
-            raise NotImplementedError(f"{key}: the torch port does not expire snapshots after a commit yet")
-    key = opts.set_key(CoreOptions.PARTITION_EXPIRATION_TIME)
-    if key is not None and partition_keys:
-        raise NotImplementedError(f"{key}: the torch port does not expire partitions after a commit yet")
-    post_commit = []
-    if opts.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT):
-        post_commit.append(f"{CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT.key}=true")
-    tag = opts.get(CoreOptions.TAG_AUTOMATIC_CREATION)
-    if tag not in (None, "none"):
-        post_commit.append(f"{CoreOptions.TAG_AUTOMATIC_CREATION.key}={tag}")
-    callbacks = opts.get(CoreOptions.COMMIT_CALLBACKS)
-    if callbacks:
-        post_commit.append(f"{CoreOptions.COMMIT_CALLBACKS.key}={callbacks}")
-    if post_commit:
-        raise NotImplementedError(
-            f"{', '.join(post_commit)}: the torch port creates no empty snapshots or tags and calls no commit "
-            "callbacks yet"
-        )
 
 
 def _check_key_types(table: "FileStoreTable") -> None:
@@ -109,7 +100,7 @@ class TableWrite:
             )
         if int(co.options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE)) > 0:
             raise NotImplementedError("local-merge-buffer-size: the torch port has no local merge buffer yet")
-        _check_writable(co, store.partition_keys)
+        _check_writable(co)
         _check_key_types(table)
         self.partition_keys = store.partition_keys
         self.bucket_keys = table.schema.bucket_keys
@@ -208,6 +199,30 @@ def _take(data: ColumnBatch, kinds: "np.ndarray | None", rows: np.ndarray) -> tu
     return data.take(rows), None if kinds is None else kinds.take(rows)
 
 
+def load_callbacks(table: "FileStoreTable", option: ConfigOption) -> list[Callable]:
+    """The callables a 'module:function,module:function' option names; one
+    that does not resolve raises here, since a callback dropped silently is
+    worse than a loud configuration error."""
+    spec = table.options.options.get(option)
+    if not spec:
+        return []
+    out = []
+    for item in spec.split(","):
+        mod, _, fn = item.strip().partition(":")
+        out.append(getattr(importlib.import_module(mod), fn))
+    return out
+
+
+def run_maintenance(what: str, fn: Callable, *args) -> None:
+    """Call fn(*args). Maintenance never fails a commit: an exception is
+    reported with warnings.warn, naming `what` and the exception, and
+    dropped."""
+    try:
+        fn(*args)
+    except Exception as exc:  # noqa: BLE001 - the commit has landed already
+        warnings.warn(f"{what} failed after a commit: {exc!r}", RuntimeWarning, stacklevel=2)
+
+
 class TableCommit:
     def __init__(self, table: "FileStoreTable"):
         self.table = table
@@ -223,7 +238,9 @@ class TableCommit:
             if not remaining:
                 return []
             c = remaining[0]
-        return self._commit.commit(c)
+        snapshot_ids = self._commit.commit(c)
+        self._post_commit()
+        return snapshot_ids
 
     def filter_and_commit(self, committables: list[ManifestCommittable]) -> int:
         """Replay-safe commit of several committables: identifiers already
@@ -231,13 +248,54 @@ class TableCommit:
         remaining = self._commit.filter_committed(committables)
         for c in sorted(remaining, key=lambda x: x.commit_identifier):
             self._commit.commit(c)
+        if remaining:
+            self._post_commit()
         return len(remaining)
+
+    def _post_commit(self) -> None:
+        """Commit callbacks with the latest snapshot, automatic tags, then
+        snapshot and partition expiry."""
+        table = self.table
+        snap = table.store.snapshot_manager.latest_snapshot()
+        for fn in load_callbacks(table, CoreOptions.COMMIT_CALLBACKS):
+            run_maintenance(f"commit callback {fn.__name__}", fn, table, snap)
+        run_maintenance("automatic tag creation", lambda: TagAutoCreation(table).run())
+        run_maintenance("snapshot expiry", table.expire_snapshots)
+        self._maybe_expire_partitions()
+
+    def _maybe_expire_partitions(self) -> None:
+        """Sweep expired partitions (partition.expiration-time on a
+        partitioned table) at most once per
+        partition.expiration-check-interval."""
+        table = self.table
+        opts = table.options.options
+        ttl = opts.get(CoreOptions.PARTITION_EXPIRATION_TIME)
+        if ttl is None or not table.partition_keys:
+            return
+        now = now_millis()
+        store = table.store
+        if now - store.last_partition_expire_check < (opts.get(CoreOptions.PARTITION_EXPIRATION_CHECK_INTERVAL) or 0):
+            return
+        store.last_partition_expire_check = now
+        # partition.timestamp-pattern names the column ('$dt');
+        # partition.timestamp-formatter is a strptime pattern
+        col_spec = opts.get(CoreOptions.PARTITION_TIMESTAMP_PATTERN)
+        run_maintenance(
+            "partition expiry",
+            expire_partitions,
+            table,
+            ttl,
+            col_spec.lstrip("$") if col_spec else None,
+            opts.get(CoreOptions.PARTITION_TIMESTAMP_FORMATTER) or "%Y-%m-%d",
+        )
 
 
 class BatchTableCommit(TableCommit):
     def commit(self, messages: list[CommitMessage]) -> list[int]:
-        if not messages:
-            return []  # batch commits ignore an empty write
+        """Commit under the batch identifier; an empty write commits
+        nothing unless commit.force-create-snapshot is set."""
+        if not messages and not self.table.options.options.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT):
+            return []
         return self.commit_messages(BATCH_COMMIT_IDENTIFIER, messages)
 
 

@@ -644,13 +644,18 @@ GUARDS = [
     ("changelog-producer", "full-compaction", {}, "stream"),
     ("record-level.expire-time", "1 d", {"record-level.time-field": "v"}, "stream"),
     ("record-level.expire-time.ms", "86400000", {"record-level.time-field": "v"}, "stream"),
+    ("sequence.field", "v", {}, "stream"),
+    # batch writes of write-only tables: the JAX package writes the input
+    # changelog there too
+    ("changelog-producer", "input", {"write-only": "true"}, "batch"),
+]
+
+# snapshot retention, once refused: each case runs both packages (see
+# test_snapshot_retention_matches_the_reference)
+RETENTION = [
     ("snapshot.num-retained.max", "5", {}, "stream"),
     ("snapshot.time-retained", "10 min", {}, "stream"),
     ("snapshot.num-retained.max", "5", {"write-only": "true"}, "stream"),
-    ("sequence.field", "v", {}, "stream"),
-    # batch writes of write-only tables: the JAX package writes the input
-    # changelog and expires snapshots after each commit there too
-    ("changelog-producer", "input", {"write-only": "true"}, "batch"),
     ("snapshot.num-retained.max", "5", {"write-only": "true"}, "batch"),
     ("snapshot.time-retained", "1 ms", {"write-only": "true", "snapshot.num-retained.min": "2"}, "batch"),
 ]
@@ -678,23 +683,87 @@ def _jax_batch_commits(warehouse, ident, options, commits=7):
 def test_unported_write_options_raise_naming_the_option(warehouse, key, value, extra, mode):
     """What the port's write path would get wrong raises at the write's
     creation (sequence.field at its first write), naming the option:
-    changelog files, record TTL and snapshot expiry on tables that are not
-    write-only, snapshot expiry on any streaming table; and on batch writes
-    of write-only tables the input changelog and snapshot expiry, which the
+    changelog files and record TTL on tables that are not write-only; and
+    on batch writes of write-only tables the input changelog, which the
     JAX package is first shown to produce on the same table."""
     ident = f"db.guard_{key.replace('.', '_').replace('-', '_')}_{value.replace(' ', '_')}_{len(extra)}_{mode}"
     options = {**C4_OPTIONS, key: value, **extra}
     if mode == "batch":
         changelogs, snapshots = _jax_batch_commits(warehouse, ident + "_jax", options)
-        if key == "changelog-producer":
-            assert changelogs == 7 and snapshots == 7
-        else:
-            assert changelogs == 0 and snapshots < 7
+        assert changelogs == 7 and snapshots == 7
     table = PortCatalog(warehouse, device="cpu").create_table(
         ident, _c4_schema(tt), primary_keys=["id"], options=options)
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         builder = table.new_batch_write_builder() if mode == "batch" else table.new_stream_write_builder()
         builder.new_write().write(_rows([1], 0))
+
+
+def _disk(path) -> dict:
+    """What a table leaves on disk, free of file names: snapshot ids, the
+    EARLIEST hint, manifest counts by kind, and each data file by (bucket,
+    levels, row count, key range) from the manifests that reference it.
+    Asserts that every file the retained snapshots reference exists and
+    that every data file is referenced."""
+    snapshots = sorted(int(n[len("snapshot-"):]) for n in os.listdir(f"{path}/snapshot") if n.startswith("snapshot-"))
+    sm = SnapshotManager(LocalFileIO(), path)
+    commit = FileStoreCommit(LocalFileIO(), path, "reader", 0, PortOptions())
+    entries: dict[str, list] = {}
+    for sid in snapshots:
+        snap = sm.snapshot(sid)
+        for lst in (snap.base_manifest_list, snap.delta_manifest_list):
+            for meta in commit.manifest_list.read(lst):
+                for e in commit.manifest_file.read(meta.file_name):
+                    entries.setdefault(e.file.file_name, []).append(e)
+    on_disk = [n for n in os.listdir(f"{path}/bucket-0") if not n.startswith(".")]
+    assert sorted(entries) == sorted(on_disk)
+    files = sorted((tuple(sorted({e.file.level for e in es})), es[0].file.row_count, tuple(es[0].file.min_key),
+                    tuple(es[0].file.max_key)) for es in entries.values())
+    manifests = [n for n in os.listdir(f"{path}/manifest") if not n.startswith(".")]
+    return {
+        "snapshots": snapshots,
+        "earliest": int(LocalFileIO().read_text(f"{path}/snapshot/EARLIEST")),
+        "manifest_lists": sum(n.startswith("manifest-list-") for n in manifests),
+        "manifests": sum(not n.startswith("manifest-list-") for n in manifests),
+        "files": files,
+    }
+
+
+@pytest.mark.parametrize("key, value, extra, mode", RETENTION, ids=[_guard_id(*g) for g in RETENTION])
+def test_snapshot_retention_matches_the_reference(warehouse, monkeypatch, key, value, extra, mode):
+    """Snapshot retention, once refused by the port: 14 commits through each
+    package (4 minutes apart on a clock both share), expiring after every
+    commit, leave the same snapshots, EARLIEST hint, manifests and data
+    files, and the port reads the oracle in both tables."""
+    clock = [0]
+    for module in ("paimon_tpu.utils", "paimon_tpu.core.commit", "paimon_tpu.core.expire",
+                   "paimon_tpu_torch.core.commit", "paimon_tpu_torch.core.expire"):
+        monkeypatch.setattr(f"{module}.now_millis", lambda: clock[0])
+    ident = f"db.retention_{key.replace('.', '_').replace('-', '_')}_{value.replace(' ', '_')}_{len(extra)}_{mode}"
+    options = {**C4_OPTIONS, key: value, **extra}
+    batches = [_rows(np.arange(10) + c, c) for c in range(14)]
+    paths = {}
+    for name, pkg, catalog in (("jax", jt, JaxCatalog(warehouse)), ("port", tt, PortCatalog(warehouse, device="cpu"))):
+        clock[0] = 1_700_000_000_000
+        table = catalog.create_table(f"{ident}_{name}", _c4_schema(pkg), primary_keys=["id"], options=options)
+        if mode == "stream":
+            wb = table.new_stream_write_builder()
+            w, c = wb.new_write(), wb.new_commit()
+        for i, batch in enumerate(batches):
+            clock[0] += 4 * 60_000
+            if mode == "batch":
+                wb = table.new_batch_write_builder()
+                w, c = wb.new_write(), wb.new_commit()
+                w.write(batch)
+                c.commit(w.prepare_commit())
+            else:
+                w.write(batch)
+                c.commit_messages(i + 1, w.prepare_commit())
+        paths[name] = table.path
+    disk = _disk(paths["port"])
+    assert disk == _disk(paths["jax"])
+    assert disk["earliest"] == disk["snapshots"][0] > 1
+    for name in paths:
+        assert _read(PortCatalog(warehouse, device="cpu").get_table(f"{ident}_{name}")) == _oracle(batches)
 
 
 @pytest.mark.parametrize("mode", ["batch", "stream"])

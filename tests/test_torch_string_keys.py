@@ -22,11 +22,11 @@ with compaction, where both plan the same sections. A merge past 65,536
 rows, and a table written under merge.dict-domain=true, read the same in
 both packages.
 
-Guards: a BYTES primary key (the JAX package fails to commit such a table),
-record-level TTL on read, partition expiration and the post-commit options
-(empty snapshots, automatic tags, commit callbacks) raise
-NotImplementedError naming what is missing; each test first shows what the
-JAX package does.
+Guards: a BYTES primary key (the JAX package fails to commit such a table)
+and record-level TTL on read raise NotImplementedError naming what is
+missing; each test first shows what the JAX package does. Partition
+expiration and the post-commit options (empty snapshots, automatic tags,
+commit callbacks), once guarded here, give the JAX package's results.
 
 Tolerance: exact. Pools, ranks, lanes, keys and row values are compared for
 equality.
@@ -508,11 +508,11 @@ def _partition_type(pkg):
     return pkg.RowType.of(("dt", pkg.STRING(False)), ("id", pkg.BIGINT(False)), ("v", pkg.BIGINT()))
 
 
-def test_partition_expiration_raises(warehouse):
-    """partition.expiration-time on a partitioned table: the JAX package's
-    commit drops the partition of 2020 (1 row left of 3); the port raises
-    naming the option when it creates a write. An unpartitioned table with
-    the option has nothing to expire, and the port writes it."""
+def test_partition_expiration_drops_the_old_partition(warehouse):
+    """partition.expiration-time on a partitioned table: the commit drops
+    the partition of 2020, leaving 1 row of 3, in the JAX package and in
+    the port. An unpartitioned table with the option has nothing to
+    expire."""
     options = {"bucket": "2", "write-only": "true", "partition.expiration-time": "1 d",
                "partition.expiration-check-interval": "0 ms"}
     commits = [{"dt": np.array(["2020-01-01", "2020-01-01"], dtype=object), "id": np.array([1, 2]),
@@ -520,13 +520,12 @@ def test_partition_expiration_raises(warehouse):
                {"dt": np.array(["2999-01-01"], dtype=object), "id": np.array([3]), "v": np.array([3])}]
     jax_table = JaxCatalog(warehouse).create_table("db.part_expire_jax", _partition_type(jt), partition_keys=["dt"],
                                                    primary_keys=["dt", "id"], options=options)
-    for rows in commits:
-        _batch_commit(jax_table, rows)
-    assert _read(jax_table, "numpy") == [("2999-01-01", 3, 3)]
     port = PortCatalog(warehouse, device="cpu").create_table(
         "db.part_expire_port", _partition_type(tt), partition_keys=["dt"], primary_keys=["dt", "id"], options=options)
-    with pytest.raises(NotImplementedError, match=r"partition\.expiration-time"):
-        port.new_batch_write_builder().new_write()
+    for table in (jax_table, port):
+        for rows in commits:
+            _batch_commit(table, rows)
+    assert _read(port) == _read(jax_table, "numpy") == [("2999-01-01", 3, 3)]
     flat = PortCatalog(warehouse, device="cpu").create_table(
         "db.part_expire_flat", _partition_type(tt), primary_keys=["id"], options=options)
     for rows in commits:
@@ -549,29 +548,37 @@ POST_COMMIT = {
 
 
 @pytest.mark.parametrize("key", list(POST_COMMIT))
-def test_post_commit_options_raise(warehouse, key):
+def test_post_commit_options_match_the_reference(warehouse, key):
     """Post-commit metadata: after 3 commits and an empty batch commit the
-    JAX package holds 4 snapshots (force-create-snapshot), a tag
-    (automatic creation) or has called the callback 3 times; the port raises
-    naming the option when it creates a write."""
+    JAX package and the port each hold 4 snapshots
+    (force-create-snapshot), a tag (automatic creation) or have called the
+    callback with snapshots 1, 2 and 3; a streaming write continues the
+    port's table."""
     options = {"bucket": "1", "write-only": "true", key: POST_COMMIT[key]}
     ident = f"db.post_commit_{key.replace('.', '_').replace('-', '_')}"
-    jax_table = JaxCatalog(warehouse).create_table(ident, _ttl_type(jt), primary_keys=["id"], options=options)
-    CALLS.clear()
-    for c in range(3):
-        _batch_commit(jax_table, {"id": np.array([c]), "ts": np.array([0]), "v": np.array([c])})
-    wb = jax_table.new_batch_write_builder()
-    wb.new_commit().commit(wb.new_write().prepare_commit())
-    snapshots = jax_table.store.snapshot_manager.latest_snapshot().id
+    results = []
+    for catalog in (JaxCatalog(warehouse), PortCatalog(warehouse, device="cpu")):
+        pkg = jt if isinstance(catalog, JaxCatalog) else tt
+        table = catalog.create_table(f"{ident}_{pkg.__name__}", _ttl_type(pkg), primary_keys=["id"], options=options)
+        CALLS.clear()
+        for c in range(3):
+            _batch_commit(table, {"id": np.array([c]), "ts": np.array([0]), "v": np.array([c])})
+        wb = table.new_batch_write_builder()
+        wb.new_commit().commit(wb.new_write().prepare_commit())
+        snapshots = sorted(int(n[len("snapshot-"):]) for n in os.listdir(os.path.join(table.path, "snapshot"))
+                           if n.startswith("snapshot-"))
+        results.append((snapshots, len(table.tags()), list(CALLS)))
+    assert results[1] == results[0]
+    snapshots, tags, calls = results[1]
     if key == "commit.force-create-snapshot":
-        assert snapshots == 4
+        assert snapshots == [1, 2, 3, 4]
     elif key == "tag.automatic-creation":
-        assert snapshots == 3 and len(jax_table.tags()) == 1
+        assert snapshots == [1, 2, 3] and tags == 1
     else:
-        assert snapshots == 3 and CALLS == [1, 2, 3]
-    port = PortCatalog(warehouse, device="cpu").get_table(ident)
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-        port.new_batch_write_builder().new_write()
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-        port.new_stream_write_builder().new_write()
-    assert [r[0] for r in _read(port)] == [0, 1, 2]
+        assert snapshots == [1, 2, 3] and calls == [1, 2, 3]
+    port = PortCatalog(warehouse, device="cpu").get_table(f"{ident}_{tt.__name__}")
+    wb = port.new_stream_write_builder()
+    w = wb.new_write()
+    w.write({"id": np.array([3]), "ts": np.array([0]), "v": np.array([3])})
+    wb.new_commit().commit_messages(1, w.prepare_commit())
+    assert [r[0] for r in _read(port)] == [0, 1, 2, 3]
