@@ -134,7 +134,33 @@ Phases, one JSON line each on stdout:
               commit callback of this script: 3 commits and an empty one
               give 4 snapshots, 1 tag and 4 calls. K1 and K2 must launch on
               the expiring config 4 run.
-11. timing  - each kernel at its main-path shape against its plain version,
+11. cdc     - CDC sink tables, one line per part. BASELINE config 4 at
+              scale 1 with ts BIGINT NOT NULL (an update time in epoch
+              millis) as sequence.field, a tenth of each commit's rows of
+              ids already written carrying a ts up to an hour older than
+              their id's newest (late events, which must lose), three times:
+              under changelog-producer=input, lookup and full-compaction
+              (then a full compaction), beside the compact phase's run as the
+              control. Write seconds with compaction and lookup seconds
+              apart, snapshots by kind, changelog files and rows, K1 and K2
+              launches split into flushes, lookups, compactions, replay
+              checks and reads. Each read equals the numpy engine and the
+              oracle (per id the largest (ts, arrival)); the input
+              changelog is the input rows; the lookup changelog replayed
+              from an empty table gives the final read; the full-compaction
+              changelog replays to the max level at each compaction that
+              wrote changelog and to the read after the full compaction.
+              Then the sequence-group table of Apache Paimon's partial-update
+              docs (k, a, b, g_1, c, d, g_2; g_1 governs a, b and g_2 c, d;
+              c summed) at config 2's size: 10M rows in 4 commits of 2.5M,
+              two streams alternating, each filling one group, 5% of a
+              stream's second commit with an older group sequence and 1%
+              with none; write seconds, 5 reads with input rows/s, each equal
+              to the numpy and xla-segmented engines and the oracle, and a
+              staged read with the group plans a stage of their own. K1 and
+              K2 are then held exactly to their plain versions at every
+              shape the path called them at that the kernels phase skips.
+12. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -146,8 +172,8 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines, buckets, strings and maintenance paths, and by
-path), the
+the main, compact, engines, buckets, strings, maintenance and cdc paths,
+and by path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -703,7 +729,12 @@ def main() -> int:
             maintenance["sync_write_launches"] == compact["launches"]["streaming_writes"])
         emit({"phase": "maintenance", "part": "summary", **maintenance})
 
-    # 11. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 11. CDC sink tables
+        cdc = cdc_phase(pt, hk, warehouse, compact)
+        checks += cdc["shape_checks"]["exact_checks"]
+        emit({"phase": "cdc", "part": "summary", **cdc, "exact_checks_all_phases": checks})
+
+    # 12. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -715,7 +746,8 @@ def main() -> int:
     widest = (8, 1 << 18, 6)
     by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
                       "engines": engines["launches"][name], "buckets": buckets["launches"][name],
-                      "strings": strings["launches"][name], "maintenance": maintenance["launches"][name]}
+                      "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
+                      "cdc": cdc["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -1951,6 +1983,462 @@ def maintenance_phase(pt, hk, warehouse: str) -> dict:
     return {"launches": launches, "sync_write_launches": parts["config4_sync"]["launches"]["writes"],
             "launches_other_parts": {k: sum(p["launches"]["phase"][k] for n, p in parts.items() if n != "config4_sync")
                                      for k in hk.launches}}
+
+
+# ---------------------------------------------------------------------------
+# CDC sink tables: sequence.field, the changelog producers, sequence groups
+# ---------------------------------------------------------------------------
+
+CDC_PRODUCERS = ("input", "lookup", "full-compaction")
+CDC_T0 = 1_760_000_000_000  # epoch millis of the first commit; commits a minute apart
+CDC_LATE_SHARE = 0.1
+CDC_LATE_MAX_MS = 3_600_000
+SG_ROWS = 10_000_000  # config 2's size, scale 5
+SG_OPTIONS = {"bucket": "1", "merge-engine": "partial-update", "write-only": "true", "sort-engine": "pallas",
+              "fields.g_1.sequence-group": "a,b", "fields.g_2.sequence-group": "c,d",
+              "fields.c.aggregate-function": "sum"}
+SG_OLDER_SHARE = 0.05
+SG_NULL_SHARE = 0.01
+INSERT, UPDATE_AFTER = 0, 2
+
+
+def cdc_batches(rng) -> list:
+    """Config 4's 20 commits with ts BIGINT NOT NULL, an update time in
+    epoch millis a minute later each commit; from the second commit on a
+    tenth of the rows of ids already written carry a ts up to an hour
+    older than their id's newest (late CDC events, which must lose)."""
+    newest = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    batches = []
+    for b in range(C4_COMMITS):
+        batch = c4_batch(rng, b)
+        ids = batch["id"]
+        ts = CDC_T0 + b * 60_000 + rng.integers(0, 60_000, len(ids))
+        seen = np.flatnonzero(newest[ids] >= 0)
+        late = rng.choice(seen, min(len(seen), int(len(ids) * CDC_LATE_SHARE)), replace=False)
+        ts[late] = newest[ids[late]] - rng.integers(1, CDC_LATE_MAX_MS, len(late))
+        np.maximum.at(newest, ids, ts)
+        batches.append({**batch, "ts": ts})
+    return batches
+
+
+def cdc_oracle(batches) -> dict:
+    """Per id, the row with the largest (ts, arrival): id, ts and commit."""
+    ids = np.concatenate([b["id"] for b in batches])
+    ts = np.concatenate([b["ts"] for b in batches])
+    commit = np.repeat(np.arange(len(batches)), [len(b["id"]) for b in batches])
+    order = np.lexsort((np.arange(len(ids)), ts, ids))
+    last = np.ones(len(ids), dtype=np.bool_)
+    last[:-1] = ids[order][1:] != ids[order][:-1]
+    win = order[last]
+    late = sum(int((b["ts"] < CDC_T0 + i * 60_000).sum()) for i, b in enumerate(batches))
+    return {"id": ids[win], "ts": ts[win], "commit": commit[win], "late_rows": late}
+
+
+def check_cdc_rows(out, oracle: dict, what: str) -> None:
+    assert np.array_equal(out.column("id").values, oracle["id"]), f"{what}: ids differ from the oracle"
+    assert np.array_equal(out.column("ts").values, oracle["ts"]), f"{what}: ts differs from the oracle"
+    assert np.array_equal(out.column("v").values, oracle["id"] * 0.5 + oracle["commit"]), f"{what}: v differs"
+    tags = np.array([f"t{b}" for b in oracle["commit"]], dtype=object)
+    assert np.array_equal(out.column("tag").values, tags), f"{what}: tag differs from the oracle"
+
+
+def check_cdc_read(table, oracle: dict, what: str) -> dict:
+    """The read (sort-engine=pallas) against a sort-engine=numpy read and
+    the oracle."""
+    t0 = time.perf_counter()
+    out = read_all(table)
+    read_s = time.perf_counter() - t0
+    same_rows(out, read_all(table.copy({"sort-engine": "numpy"})), f"{what}, pallas against numpy")
+    check_cdc_rows(out, oracle, what)
+    return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def changelog_of(table, snapshot_ids) -> tuple:
+    """The changelog rows of the snapshots, in snapshot order and in each
+    one's manifest order (a KVBatch), and per snapshot kind: snapshots,
+    those with changelog, changelog files and rows."""
+    from paimon_tpu_torch.core.kv import KVBatch
+    from paimon_tpu_torch.core.manifest import ManifestFile, ManifestList
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+    from paimon_tpu_torch.data.batch import ColumnBatch
+
+    sm = SnapshotManager(table.file_io, table.path)
+    ml = ManifestList(table.file_io, f"{table.path}/manifest")
+    mf = ManifestFile(table.file_io, f"{table.path}/manifest")
+    rf = table.store.reader_factory((), 0)
+    parts, kinds = [], {}
+    for sid in snapshot_ids:
+        snap = sm.snapshot(sid)
+        k = kinds.setdefault(snap.commit_kind.value, {"snapshots": 0, "with_changelog": 0, "files": 0, "rows": 0})
+        k["snapshots"] += 1
+        if not snap.changelog_manifest_list:
+            continue
+        files = [e.file for meta in ml.read(snap.changelog_manifest_list) for e in mf.read(meta.file_name)]
+        parts += [rf.read(f) for f in files]
+        rows = sum(f.row_count for f in files)
+        assert snap.changelog_record_count == rows, f"snapshot {sid}: changelogRecordCount is not its files' rows"
+        k["with_changelog"] += 1
+        k["files"] += len(files)
+        k["rows"] += rows
+    if not parts:
+        return KVBatch(ColumnBatch.empty(table.store.value_schema), np.empty(0, np.int64), np.empty(0, np.uint8)), kinds
+    return KVBatch.concat(parts), kinds
+
+
+def replay(changelog) -> dict:
+    """The state that applying the changelog rows in order to an empty
+    table gives: per id its last row, kept when that row is +I or +U."""
+    ids = changelog.data.column("id").values
+    _, first_from_end = np.unique(ids[::-1], return_index=True)
+    last = len(ids) - 1 - first_from_end
+    last = last[np.isin(changelog.kind[last], (INSERT, UPDATE_AFTER))]
+    rows = changelog.take(last)
+    return {n: rows.data.column(n).values for n in rows.data.schema.field_names}
+
+
+def check_replay(state: dict, out, what: str) -> None:
+    assert len(state["id"]) == out.num_rows, f"{what}: the replay holds {len(state['id'])} ids, the table {out.num_rows}"
+    for name, values in state.items():
+        assert np.array_equal(values, out.column(name).values), f"{what}: the replay's {name} differs"
+
+
+class CdcProbe(Probe):
+    """Host seconds and kernel launches of the writers' lookups and of the
+    compactions."""
+
+    def __init__(self, hk):
+        from paimon_tpu_torch.core.compact import MergeTreeCompactManager
+        from paimon_tpu_torch.core.writer import MergeTreeWriter
+
+        super().__init__([(MergeTreeCompactManager, "trigger_compaction", "compaction"),
+                          (MergeTreeWriter, "_lookup_changelog", "lookup")])
+        self.hk = hk
+        self.launches = {stage: dict.fromkeys(hk.launches, 0) for stage in self.seconds}
+
+    def _before(self, stage: str, args: tuple):
+        return dict(self.hk.launches)
+
+    def _after(self, stage: str, args: tuple, out, before) -> None:
+        for k in self.launches[stage]:
+            self.launches[stage][k] += self.hk.launches[k] - before[k]
+
+
+class ShapeRecorder:
+    """Records the shapes K1 and K2 are called at while installed, without
+    touching their launch counts."""
+
+    def __init__(self, hk):
+        self.hk = hk
+        self.k1: set = set()
+        self.k2: set = set()
+
+    def __enter__(self):
+        self.saved = (self.hk.sort_segments, self.hk.keep_last_mask)
+        k1, k2 = self.saved
+
+        def sort_segments(stacked, num_boundary):
+            self.k1.add((*stacked.shape, num_boundary))
+            return k1(stacked, num_boundary)
+
+        def keep_last_mask(stacked, mask_pad=True):
+            self.k2.add(tuple(stacked.shape))
+            return k2(stacked, mask_pad)
+
+        self.hk.sort_segments, self.hk.keep_last_mask = sort_segments, keep_last_mask
+        return self
+
+    def __exit__(self, *exc):
+        self.hk.sort_segments, self.hk.keep_last_mask = self.saved
+
+
+def cdc_config4_part(pt, hk, cat, batches: list, oracle: dict, producer: str) -> dict:
+    """Config 4 with ts as sequence.field under one changelog producer: the
+    20 streaming commits (full-compaction: then a full compaction), the read
+    against the numpy engine and the oracle, and the changelog checks."""
+    from paimon_tpu_torch.core.snapshot import SnapshotManager
+
+    options = {**C4_OPTIONS, "sequence.field": "ts", "changelog-producer": producer}
+    table = cat.create_table(f"cdc.c4_{producer.replace('-', '_')}", pt.RowType.of(
+        ("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()), ("ts", pt.BIGINT(False))),
+        primary_keys=["id"], options=options)
+    snapshots = SnapshotManager(table.file_io, table.path)
+    max_level = table.store.options.num_levels - 1
+    hk.reset_launches()
+    checks = {"full_compaction_replays": 0}
+    replay_launches = dict.fromkeys(hk.launches, 0)  # the checks' reads, inside the write loop
+    write_s = 0.0
+    ids_written = []
+    with CdcProbe(hk) as probe:
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        for b, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            w.write(batch)
+            written = c.commit_messages(b + 1, w.prepare_commit())
+            torch.cuda.synchronize()
+            write_s += time.perf_counter() - t0
+            ids_written += written
+            if producer != "full-compaction":
+                continue
+            compacted = [i for i in written if snapshots.snapshot(i).commit_kind.value == "COMPACT"
+                         and snapshots.snapshot(i).changelog_manifest_list]
+            if compacted:
+                # the changelog so far replays to the rows at the max level
+                before = dict(hk.launches)
+                top = [e.file for e in table.store.new_scan().plan().entries if e.file.level == max_level]
+                check_replay(replay(changelog_of(table, ids_written)[0]), table.store.read_bucket((), 0, top),
+                             f"{producer}: after commit {b + 1}")
+                checks["full_compaction_replays"] += 1
+                for k in hk.launches:
+                    replay_launches[k] += hk.launches[k] - before[k]
+        if producer == "full-compaction":
+            t0 = time.perf_counter()
+            wbf = table.new_batch_write_builder()
+            wf = wbf.new_write()
+            wf.compact(full=True)
+            ids_written += wbf.new_commit().commit(wf.prepare_commit())
+            torch.cuda.synchronize()
+            write_s += time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    read = check_cdc_read(table, oracle, f"cdc {producer}")
+    changelog, by_kind = changelog_of(table, ids_written)
+    out_rows = read_all(table)
+    if producer == "input":
+        for name in ("id", "v", "tag", "ts"):
+            assert np.array_equal(changelog.data.column(name).values,
+                                  np.concatenate([b[name] for b in batches])), f"input: changelog {name} is not the input"
+        assert (changelog.kind == INSERT).all(), "input: the changelog's kinds are not the input's"
+        checks["changelog_is_the_input"] = True
+    else:
+        check_replay(replay(changelog), out_rows, f"{producer}: the replay against the final read")
+        checks["replay_equals_final_read"] = True
+    phase = dict(hk.launches)
+    lookups, compactions = probe.launches["lookup"], probe.launches["compaction"]
+    return {
+        "options": options, "rows_written": C4_ROWS, "late_rows": oracle["late_rows"],
+        "write_s": round(write_s, 4), "ingest_rows_per_s": round(C4_ROWS / write_s, 1),
+        "compaction_s": round(probe.seconds["compaction"], 4), "lookup_s": round(probe.seconds["lookup"], 4),
+        "lookups": probe.calls["lookup"], "compaction_calls": probe.calls["compaction"],
+        "snapshots": by_kind, "changelog_rows": changelog.num_rows,
+        "changelog_files": sum(k["files"] for k in by_kind.values()),
+        "levels_after": level_layout(table), "read": read, "checks": checks,
+        "launches": {"phase": phase,
+                     "flushes": {k: write_launches[k] - lookups[k] - compactions[k] - replay_launches[k] for k in phase},
+                     "lookups": lookups, "compactions": compactions, "replay_checks": replay_launches,
+                     "reads": {k: phase[k] - write_launches[k] for k in phase}},
+    }
+
+
+def sg_batch(schema, keys: np.ndarray, r: int, rng):
+    """Commit r of the sequence-group table: even commits are the stream
+    that fills group 1 (a, b, g_1), odd ones the stream that fills group 2
+    (c, d, g_2); a group's sequence rises with its stream's commits, but
+    5% of the rows of a stream's second commit carry an older one, and 1%
+    of every commit's rows a null one."""
+    from paimon_tpu_torch.data.batch import Column, ColumnBatch
+
+    n = len(keys)
+    g = (r // 2 + 1) * 1000 + rng.integers(0, 1000, n)
+    if r >= 2:
+        older = rng.random(n) < SG_OLDER_SHARE
+        g[older] = rng.integers(0, 1000, int(older.sum()))
+    g_valid = rng.random(n) >= SG_NULL_SHARE
+
+    def null(dtype):
+        return Column(np.zeros(n, dtype), np.zeros(n, np.bool_))
+
+    filled = {"a": Column((keys % 1000 + r).astype(np.int32)), "b": Column(((keys * 7 + r) % 977).astype(np.int32)),
+              "g_1": Column(g, g_valid)} if r % 2 == 0 else {
+        "c": Column((keys % 13 + r).astype(np.int32)), "d": Column((keys % 11 + r).astype(np.int32)),
+        "g_2": Column(g, g_valid)}
+    cols = {"k": Column(keys)}
+    for name in ("a", "b", "g_1", "c", "d", "g_2"):
+        cols[name] = filled.get(name) or null(np.int64 if name.startswith("g") else np.int32)
+    return ColumnBatch(schema, cols)
+
+
+def sg_oracle(batches, keys: np.ndarray) -> dict:
+    """Per key and group: the fields of the row with the largest (group
+    sequence, arrival) among the rows whose group sequence is set, c
+    summed over those rows; null where there is none."""
+    out = {"k": (keys, np.ones(len(keys), np.bool_))}
+    for group, fields, commits in (("g_1", ("a", "b"), (0, 2)), ("g_2", ("c", "d"), (1, 3))):
+        first, second = (batches[i] for i in commits)
+        ok0, ok1 = first.column(group).valid_mask(), second.column(group).valid_mask()
+        g0, g1 = first.column(group).values, second.column(group).values
+        take_second = ok1 & (~ok0 | (g1 >= g0))
+        any_ok = ok0 | ok1
+        for name in (*fields, group):
+            values = np.where(take_second, second.column(name).values, first.column(name).values)
+            out[name] = (values, any_ok)
+        if group == "g_2":
+            c0, c1 = first.column("c").values, second.column("c").values
+            out["c"] = (np.where(ok0, c0, 0) + np.where(ok1, c1, 0), any_ok)
+    return out
+
+
+def check_sg_read(out, oracle: dict, what: str) -> None:
+    assert out.num_rows == len(oracle["k"][0]), f"{what}: {out.num_rows} rows"
+    for name, (values, valid) in oracle.items():
+        col = out.column(name)
+        assert np.array_equal(col.valid_mask(), valid), f"{what}: validity of {name} differs from the oracle"
+        assert np.array_equal(col.values[valid], values[valid]), f"{what}: {name} differs from the oracle"
+
+
+def sg_read_stages(table) -> dict:
+    """One read of the sequence-group table, stage by stage over its
+    sections (host clock, device synchronised at each boundary): decode
+    every column, the key plan (lanes, sort and segments, existence), the
+    group plans (each group's lanes, plan, pick and aggregates), gather."""
+    from paimon_tpu_torch.core.kv import KVBatch
+    from paimon_tpu_torch.core.levels import IntervalPartition
+    from paimon_tpu_torch.core.read import order_runs_for_merge
+    from paimon_tpu_torch.ops.merge import merge_plan, partial_update_takes
+
+    store = table.store
+    (split,) = table.new_read_builder().new_scan().plan()
+    rf = store.reader_factory(split.partition, split.bucket)
+    merge = store.merge_executor()
+    ms = dict.fromkeys(("decode", "key_plan", "group_plans", "gather"), 0.0)
+    sections = IntervalPartition(split.files).partition()
+    rows_in = rows_out = 0
+    for section in sections:
+        runs, seq_ascending = order_runs_for_merge(section)
+        t0 = time.perf_counter()
+        kv = KVBatch.concat([rf.read(f) for run in runs for f in run.files])
+        ms["decode"] += time.perf_counter() - t0
+        rows_in += kv.num_rows
+        if len(runs) == 1:
+            rows_out += kv.num_rows
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = merge_plan(merge._key_lanes(kv), merge._seq_lanes(kv, seq_ascending), True, "pallas", DEVICE)
+        last_take = plan.perm[plan.keep_last & plan.valid_sorted]
+        src, exists = partial_update_takes(plan, merge._field_valid(kv), kv.kind, False, DEVICE)
+        torch.cuda.synchronize()
+        ms["key_plan"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        groups = {}
+        for seq_col, fields in merge._sequence_groups().items():
+            groups.update(merge._group_take(kv, seq_col, fields))
+        torch.cuda.synchronize()
+        ms["group_plans"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_out += merge._partial_update_rows(kv, src, exists, last_take, groups).drop_deletes().num_rows
+        ms["gather"] += time.perf_counter() - t0
+    total = sum(ms.values())
+    return {"sections": len(sections), "input_rows": rows_in, "output_rows": rows_out,
+            "ms": {k: round(v * 1e3, 3) for k, v in ms.items()},
+            "group_plans_share": round(ms["group_plans"] / total, 4) if total else None}
+
+
+def sequence_group_part(pt, hk, cat) -> dict:
+    """The sequence-group table of Apache Paimon's partial-update docs at
+    config 2's size: write, 5 timed reads, each checked against the numpy
+    and xla-segmented engines and the oracle, and a staged read."""
+    schema = pt.RowType.of(("k", pt.BIGINT(False)), ("a", pt.INT()), ("b", pt.INT()), ("g_1", pt.BIGINT()),
+                           ("c", pt.INT()), ("d", pt.INT()), ("g_2", pt.BIGINT()))
+    table = cat.create_table("cdc.sequence_groups", schema, primary_keys=["k"], options=dict(SG_OPTIONS))
+    per = SG_ROWS // 4
+    keys = np.arange(per, dtype=np.int64)
+    rng = np.random.default_rng(13)
+    batches = [sg_batch(schema, keys, r, rng) for r in range(4)]
+    oracle = sg_oracle(batches, keys)
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    for batch in batches:
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(batch)
+        wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    del batches
+    out, samples = timed_reads(table, READ_REPEATS)
+    read_launches = {k: hk.launches[k] - write_launches[k] for k in hk.launches}
+    check_sg_read(out, oracle, "sequence groups")
+    for engine in ("numpy", "xla-segmented"):
+        same_rows(out, read_all(table.copy({"sort-engine": engine})), f"sequence groups, pallas against {engine}")
+    launches = dict(hk.launches)
+    return {
+        "config": "Apache Paimon docs, primary-key table, merge engine partial-update, section 'Sequence Group' "
+                  "(k, a, b, g_1, c, d, g_2), at BASELINE config 2's size (scale 5)",
+        "options": SG_OPTIONS, "rows_written": SG_ROWS, "commits": 4, "keys": per,
+        "older_group_sequence_share": SG_OLDER_SHARE, "null_group_sequence_share": SG_NULL_SHARE,
+        "write_s": round(write_s, 4),
+        "reads": {"samples_s": [round(x, 4) for x in samples],
+                  "rows_per_s": [round(SG_ROWS / x, 1) for x in samples],
+                  "median_rows_per_s": round(SG_ROWS / float(np.median(samples)), 1)},
+        "launches": {"write": write_launches, "reads": read_launches, "phase": launches},
+        "equal_to_numpy_engine": True, "equal_to_xla_segmented": True, "equal_to_oracle": True,
+        "read_stages": sg_read_stages(table),
+    }
+
+
+def cdc_shape_checks(hk, recorder: ShapeRecorder, dev) -> dict:
+    """K1 and K2 held exactly to their plain versions at the shapes the
+    cdc path called them at that the kernels phase does not check."""
+    rng = np.random.default_rng(2027)
+    tile = hk.K1_TILE
+    k1_checked = {2, 4, 64, tile // 2, tile, 2 * tile, 4096, 1 << 17, 1 << 18}
+    k1_new = sorted(s for s in recorder.k1 if s[1] not in k1_checked or s[2] not in (1, s[0] - 1))
+    k2_new = sorted(s for s in recorder.k2 if s[0] not in K2_LANES or s[1] not in K2_COLUMNS)
+    checks = 0
+    for nl, m, nb in k1_new:
+        for pattern in K1_PATTERNS:
+            x, _ = k1_input(hk, rng, m, nl, dev, pattern)
+            got = hk.sort_segments(x, nb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hk.sort_segments_plain(x, nb)), f"K1 differs at {(nl, m, nb)}, {pattern}"
+            checks += 1
+    for lanes, m in k2_new:
+        for pattern in K2_PATTERNS:
+            y = k2_input(hk, lanes, m, dev, pattern)
+            for mask_pad in (False, True):
+                got = hk.keep_last_mask(y, mask_pad)
+                torch.cuda.synchronize()
+                assert torch.equal(got, hk.keep_last_mask_plain(y, mask_pad)), f"K2 differs at {(lanes, m)}, {pattern}"
+                checks += 1
+            del y
+    return {"k1_shapes": sorted(recorder.k1), "k2_shapes": sorted(recorder.k2),
+            "k1_new_shapes": k1_new, "k2_new_shapes": k2_new, "exact_checks": checks}
+
+
+def cdc_phase(pt, hk, warehouse: str, control: dict) -> dict:
+    """CDC sink tables, one JSON line per part: config 4 with a ts
+    sequence.field under each changelog producer, beside the compact
+    phase's run (control); the sequence-group table; then K1 and K2 at the
+    path's shapes the kernels phase missed. Launch counts are zeroed before
+    each part and summed over the parts."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    batches = cdc_batches(np.random.default_rng(2))
+    oracle = cdc_oracle(batches)
+    launches = dict.fromkeys(hk.launches, 0)
+    parts = {}
+    with ShapeRecorder(hk) as recorder:
+        for producer in CDC_PRODUCERS:
+            part = cdc_config4_part(pt, hk, cat, batches, oracle, producer)
+            parts[producer] = part
+            emit({"phase": "cdc", "part": f"config4_{producer}",
+                  "config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1, with ts BIGINT NOT NULL "
+                            "as sequence.field",
+                  "control_write_s": control["stream"]["write_s"], **part})
+        del batches
+        parts["sequence_groups"] = sequence_group_part(pt, hk, cat)
+        emit({"phase": "cdc", "part": "sequence_groups", **parts["sequence_groups"]})
+    for part in parts.values():
+        for k in launches:
+            launches[k] += part["launches"]["phase"][k]
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched on the cdc path: {launches}"
+    shape_checks = cdc_shape_checks(hk, recorder, torch.device(DEVICE))
+    return {"launches": launches,
+            "launches_by_part": {name: part["launches"]["phase"] for name, part in parts.items()},
+            "shape_checks": shape_checks}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

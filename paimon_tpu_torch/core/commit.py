@@ -22,8 +22,10 @@ index entries of the dropped partitions included, so that a partition
 written again gets the buckets the JAX package gives it. Before each
 commit the base manifests are merged once manifest.merge-min-count of
 them are small, or all of them once the small ones pass
-manifest.full-compaction-threshold-size. Changelog manifests are not
-written yet.
+manifest.full-compaction-threshold-size. Changelog files become ADD
+entries of a snapshot's changelog manifest list: the flushes' (input and
+lookup producers) on the APPEND snapshot, which is then made even when a
+commit holds only changelog, and the compactions' on the COMPACT one.
 """
 
 from __future__ import annotations
@@ -119,8 +121,11 @@ class FileStoreCommit:
             compact_entries += [ManifestEntry(FileKind.DELETE, *where, f) for f in msg.compact_before]
             compact_entries += [ManifestEntry(FileKind.ADD, *where, f) for f in msg.compact_after]
         index_entries = [e for msg in committable.messages for e in msg.new_index_files]
+        append_changelog = any(msg.changelog_files for msg in committable.messages)
         written: list[int] = []
-        if not committable.skip_append and (append_entries or index_entries or not compact_entries):
+        if not committable.skip_append and (
+            append_entries or index_entries or append_changelog or not compact_entries
+        ):
             written.append(self._try_commit(CommitKind.APPEND, append_entries, committable))
             # the APPEND snapshot is durable: a retry of this committable
             # must not apply it twice if the COMPACT half fails below
@@ -128,6 +133,19 @@ class FileStoreCommit:
         if compact_entries:
             written.append(self._try_commit(CommitKind.COMPACT, compact_entries, committable, check_conflicts=True))
         return written
+
+    @staticmethod
+    def _changelog_entries(kind: CommitKind, committable: ManifestCommittable) -> list[ManifestEntry]:
+        """ADD entries of the changelog files a snapshot of `kind` carries:
+        the flushes' on APPEND, the compactions' on COMPACT."""
+        attr = {CommitKind.APPEND: "changelog_files", CommitKind.COMPACT: "compact_changelog_files"}.get(kind)
+        if attr is None:
+            return []
+        return [
+            ManifestEntry(FileKind.ADD, msg.partition, msg.bucket, msg.total_buckets, f)
+            for msg in committable.messages
+            for f in getattr(msg, attr)
+        ]
 
     def overwrite(
         self, committable: ManifestCommittable, partition_filter: Callable[[tuple], bool] | None = None
@@ -216,8 +234,9 @@ class FileStoreCommit:
         check_conflicts: bool = False,
     ) -> int:
         """Publish one snapshot of `kind` over the latest one's (possibly
-        merged) base manifests; an APPEND snapshot also carries the
-        committable's new index files."""
+        merged) base manifests, with the committable's changelog files of
+        that kind; an APPEND snapshot also carries its new index files."""
+        changelog = self._changelog_entries(kind, committable)
         index_entries = (
             [e for msg in committable.messages for e in msg.new_index_files] if kind == CommitKind.APPEND else []
         )
@@ -243,6 +262,7 @@ class FileStoreCommit:
                 entries = [e for e in entries if (e.partition, e.bucket) not in conflicted]
                 index_entries = [e for e in index_entries if (e.partition, e.bucket) not in conflicted]
                 removed = [e for e in removed if (e.partition, e.bucket) not in conflicted]
+                changelog = [e for e in changelog if (e.partition, e.bucket) not in conflicted]
             tmp_files: list[str] = []
             try:
                 snapshot_id = latest.id + 1 if latest else 1
@@ -255,6 +275,11 @@ class FileStoreCommit:
                 delta_meta = self.manifest_file.write(entries, self.schema_id, track=tmp_files)
                 base_name = self.manifest_list.write(base_metas, track=tmp_files)
                 delta_name = self.manifest_list.write([delta_meta], track=tmp_files)
+                changelog_list = changelog_rows = None
+                if changelog:
+                    changelog_meta = self.manifest_file.write(changelog, self.schema_id, track=tmp_files)
+                    changelog_list = self.manifest_list.write([changelog_meta], track=tmp_files)
+                    changelog_rows = sum(e.file.row_count for e in changelog)
                 index_manifest = self._index_manifest(latest, index_entries, rewrite=bool(removed))
                 if index_manifest and index_manifest != (latest.index_manifest if latest else None):
                     tmp_files.append(index_manifest)
@@ -266,7 +291,7 @@ class FileStoreCommit:
                     schema_id=self.schema_id,
                     base_manifest_list=base_name,
                     delta_manifest_list=delta_name,
-                    changelog_manifest_list=None,
+                    changelog_manifest_list=changelog_list,
                     commit_user=self.commit_user,
                     commit_identifier=committable.commit_identifier,
                     commit_kind=kind,
@@ -274,6 +299,7 @@ class FileStoreCommit:
                     index_manifest=index_manifest,
                     total_record_count=prev_total + added - deleted,
                     delta_record_count=added - deleted,
+                    changelog_record_count=changelog_rows,
                     watermark=committable.watermark,
                     log_offsets=dict(committable.log_offsets),
                 )

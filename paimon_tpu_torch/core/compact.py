@@ -7,10 +7,15 @@ picked unit into sections: a lone file is upgraded to the output level
 (its metadata moves, its bytes stay), unless it is a small level-0 file or
 carries deletes that this compaction must drop; everything else is
 rewritten through the same merge as a flush or a read (MergeExecutor, so
-K1 or K2 under sort-engine=pallas). The JAX package's pipelined and mesh
+K1 or K2 under sort-engine=pallas). Under the full-compaction changelog
+producer (and lookup without lookup-wait) a rewrite that drops deletes
+also diffs each section's merged rows against its previous top-level rows
+(core/changelog.py) and writes the diff as changelog files; every file of
+such a compaction that is not at the output level yet is rewritten, not
+upgraded, so that the diff sees it. The JAX package's pipelined and mesh
 rewrite routes give the same outputs and are not ported; neither are
-deletion vectors, the full-compaction changelog and record-level TTL,
-which the table write refuses (table/write.py).
+deletion vectors and record-level TTL, which the table write refuses
+(table/write.py).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from dataclasses import dataclass, field
 
 from ..options import CoreOptions
 from ..utils import now_millis
+from .changelog import state_changelog
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
 from .kv import KVBatch
 from .levels import IntervalPartition, Levels, SortedRun
@@ -38,6 +44,7 @@ class CompactUnit:
 class CompactResult:
     before: list[DataFileMeta] = field(default_factory=list)
     after: list[DataFileMeta] = field(default_factory=list)
+    changelog: list[DataFileMeta] = field(default_factory=list)
 
     def is_empty(self) -> bool:
         return not self.before and not self.after
@@ -133,33 +140,56 @@ class UniversalCompaction:
 
 class MergeTreeCompactRewriter:
     """Merge-read each section's runs and write the result at the output
-    level. Sections are read, merged and written one after another."""
+    level. Sections are read, merged and written one after another. With
+    emit_full_changelog, a rewrite that drops deletes also writes the diff
+    of each section against its files at the output level as changelog."""
 
     def __init__(
         self,
         reader_factory: KeyValueFileReaderFactory,
         writer_factory: KeyValueFileWriterFactory,
         merge_executor: MergeExecutor,
+        emit_full_changelog: bool = False,
+        row_deduplicate: bool = True,
     ):
         self.reader_factory = reader_factory
         self.writer_factory = writer_factory
         self.merge = merge_executor
+        self.emit_full_changelog = emit_full_changelog
+        self.row_deduplicate = row_deduplicate
 
-    def rewrite(self, sections: list[list[SortedRun]], output_level: int, drop_delete: bool) -> list[DataFileMeta]:
+    def rewrite(
+        self, sections: list[list[SortedRun]], output_level: int, drop_delete: bool
+    ) -> tuple[list[DataFileMeta], list[DataFileMeta]]:
+        """(files written, changelog files written)."""
         out: list[DataFileMeta] = []
+        changelog: list[DataFileMeta] = []
         for section in sections:
-            kv, seq_ascending = self._read_section(section)
+            kv, seq_ascending, old_top = self._read_section(section, output_level)
             merged = self._merge_section(kv, seq_ascending, drop_delete)
+            if self.emit_full_changelog and drop_delete:
+                cl = self._section_changelog(old_top, merged)
+                changelog.extend(self.writer_factory.write(cl, level=0, file_source="compact", prefix="changelog"))
             out.extend(self._write_section(merged, output_level))
-        return out
+        return out, changelog
 
-    def _read_section(self, section: list[SortedRun]) -> tuple[KVBatch, bool]:
-        """The section's runs concatenated in merge order, and whether their
-        sequence ranges ascend disjointly (then stability orders equal keys)."""
+    def _section_changelog(self, old_top: list[KVBatch], merged: KVBatch) -> KVBatch:
+        """The section's rows at the output level before this compaction
+        against its merged rows."""
+        before = KVBatch.concat(old_top) if old_top else merged.slice(0, 0)
+        return state_changelog(before, merged, self.merge.key_names, self.row_deduplicate)
+
+    def _read_section(self, section: list[SortedRun], output_level: int) -> tuple[KVBatch, bool, list[KVBatch]]:
+        """The section's runs concatenated in merge order, whether their
+        sequence ranges ascend disjointly (then stability orders equal keys),
+        and the rows of its files at the output level."""
         from .read import order_runs_for_merge
 
         runs, seq_ascending = order_runs_for_merge(section)
-        return KVBatch.concat([self.reader_factory.read(f) for run in runs for f in run.files]), seq_ascending
+        files = [f for run in runs for f in run.files]
+        batches = [self.reader_factory.read(f) for f in files]
+        old_top = [b for f, b in zip(files, batches) if f.level == output_level]
+        return KVBatch.concat(batches), seq_ascending, old_top
 
     def _merge_section(self, kv: KVBatch, seq_ascending: bool, drop_delete: bool) -> KVBatch:
         merged = self.merge.merge(kv, seq_ascending=seq_ascending)
@@ -193,7 +223,10 @@ class MergeTreeCompactManager:
         if plan is None:
             return None
         unit, drop_delete, result, rewrite_sections = plan
-        after = self.rewriter.rewrite(rewrite_sections, unit.output_level, drop_delete) if rewrite_sections else []
+        after, changelog = (
+            self.rewriter.rewrite(rewrite_sections, unit.output_level, drop_delete) if rewrite_sections else ([], [])
+        )
+        result.changelog.extend(changelog)
         return self._finish(result, rewrite_sections, after)
 
     def _plan_unit(self, full: bool = False):
@@ -212,12 +245,17 @@ class MergeTreeCompactManager:
         result = CompactResult()
         rewrite_sections: list[list[SortedRun]] = []
         min_rewrite_size = self.options.target_file_size  # files below target get merged together
+        # the full changelog must see every row that reaches the top level:
+        # an upgrade would move a file there unseen
+        force_rewrite = self.rewriter.emit_full_changelog and drop_delete
         for section in IntervalPartition(unit.files).partition():
             if len(section) > 1:
                 rewrite_sections.append(section)
                 continue
             for f in section[0].files:
-                if not self._can_upgrade(f, drop_delete, min_rewrite_size):
+                if (force_rewrite and f.level != unit.output_level) or not self._can_upgrade(
+                    f, drop_delete, min_rewrite_size
+                ):
                     rewrite_sections.append([SortedRun([f])])
                 elif f.level != unit.output_level:  # at the output level already: untouched
                     result.before.append(f)

@@ -133,29 +133,47 @@ class KeyValueFileWriterFactory:
             total += 16 if dt == np.dtype(object) else dt.itemsize
         return max(total, 1)
 
-    def write(self, kv: KVBatch, level: int, file_source: str = "append") -> list[DataFileMeta]:
-        """Input must be key-sorted; rolls into several files at target size."""
+    def write(
+        self, kv: KVBatch, level: int, file_source: str = "append", prefix: str = "data", sorted_input: bool = True
+    ) -> list[DataFileMeta]:
+        """Rolls into several files at target size. Input must be key-sorted
+        unless sorted_input=False (changelog files keep event order: their
+        key range is then computed, not taken from the first and last row)."""
         n = kv.num_rows
         if n == 0:
             return []
         rows_per_file = max(1, int(self.target_file_size / self._estimate_row_bytes(kv.data)))
         return [
-            self._write_one(kv.slice(s, min(s + rows_per_file, n)), level, file_source)
+            self._write_one(kv.slice(s, min(s + rows_per_file, n)), level, file_source, prefix, sorted_input)
             for s in range(0, n, rows_per_file)
         ]
 
-    def _write_one(self, kv: KVBatch, level: int, file_source: str) -> DataFileMeta:
-        name = new_file_name("data", "parquet")
+    def _key_range(self, data: ColumnBatch, sorted_input: bool) -> tuple[tuple, tuple]:
+        first = last = 0
+        if self.key_names and not sorted_input:
+            order = np.lexsort([data.column(k).values for k in reversed(self.key_names)])
+            first, last = int(order[0]), int(order[-1])
+        else:
+            last = data.num_rows - 1
+        return tuple(
+            tuple(_py(data.column(k).value_at(i)) for k in self.key_names) for i in (first, last)
+        )
+
+    def _write_one(
+        self, kv: KVBatch, level: int, file_source: str, prefix: str = "data", sorted_input: bool = True
+    ) -> DataFileMeta:
+        name = new_file_name(prefix, "parquet")
         path = f"{self.bucket_dir}/{name}"
         compression = self.per_level_compression.get(level, self.compression)
         self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch(), compression))
         value_stats = collect_stats(kv.data)
+        min_key, max_key = self._key_range(kv.data, sorted_input)
         return DataFileMeta(
             file_name=name,
             file_size=self.file_io.get_status(path).size,
             row_count=kv.num_rows,
-            min_key=tuple(_py(kv.data.column(k).value_at(0)) for k in self.key_names),
-            max_key=tuple(_py(kv.data.column(k).value_at(kv.num_rows - 1)) for k in self.key_names),
+            min_key=min_key,
+            max_key=max_key,
             key_stats={k: value_stats[k] for k in self.key_names},
             value_stats=value_stats,
             min_sequence_number=int(kv.seq.min()),

@@ -173,7 +173,9 @@ def merge_entries_keep_deletes(*entry_lists: Iterable[ManifestEntry]) -> list[Ma
 @dataclass
 class CommitMessage:
     """Per-(partition, bucket) new files from one writer, the files its
-    compactions removed (compact_before) and wrote (compact_after), and the
+    compactions removed (compact_before) and wrote (compact_after), its
+    changelog files (changelog_files from flushes under the input and
+    lookup producers, compact_changelog_files from compactions), and the
     bucket's new index files (the dynamic-bucket hash index)."""
 
     partition: tuple
@@ -183,9 +185,18 @@ class CommitMessage:
     compact_before: list[DataFileMeta] = field(default_factory=list)
     compact_after: list[DataFileMeta] = field(default_factory=list)
     new_index_files: list = field(default_factory=list)  # IndexFileEntry
+    changelog_files: list[DataFileMeta] = field(default_factory=list)
+    compact_changelog_files: list[DataFileMeta] = field(default_factory=list)
 
     def is_empty(self) -> bool:
-        return not (self.new_files or self.compact_before or self.compact_after or self.new_index_files)
+        return not (
+            self.new_files
+            or self.compact_before
+            or self.compact_after
+            or self.new_index_files
+            or self.changelog_files
+            or self.compact_changelog_files
+        )
 
 
 @dataclass

@@ -6,11 +6,15 @@ merge function at once: encode keys into lanes (string keys as ranks in a
 pool over the whole merge input), sort and segment them on
 the device (K1 or K2 under sort-engine=pallas), apply the engine as segment
 selections or reductions, and gather on the host. Engines: deduplicate,
-partial-update (without sequence groups), aggregation (every function but
-collect, merge_map and nested_update) and first-row. Partial-update and
-routable aggregations take one fused device call; first-row, the numpy
-engine and the host aggregates (product, listagg) go through merge_plan.
-Under sort-engine=numpy every step runs on the host.
+partial-update (with sequence groups), aggregation (every function but
+collect, merge_map and nested_update) and first-row. A sequence.field
+orders each key's rows before the system sequence number: its lanes go
+ahead of the seqno lanes (a string field as ranks in a pool over the
+merge's column). Partial-update without sequence groups and routable
+aggregations take one fused device call; first-row, sequence groups (one
+extra plan per group, ordered by the group's own sequence column), the
+numpy engine and the host aggregates (product, listagg) go through
+merge_plan. Under sort-engine=numpy every step runs on the host.
 """
 
 from __future__ import annotations
@@ -21,10 +25,10 @@ import numpy as np
 import torch
 
 from ..data.batch import Column, ColumnBatch, gather_column
-from ..data.keys import encode_key_lanes_with_pools, lexsort_rows, split_int64_lanes
+from ..data.keys import _encode_column, _pool_and_ranks, encode_key_lanes_with_pools, lexsort_rows, split_int64_lanes
 from ..ops.aggregates import NESTED_AGGREGATORS, AggregateSpec, aggregate_merge, fused_aggregate, fused_routable
 from ..options import CoreOptions, MergeEngine, SortEngine
-from ..types import RowKind, RowType
+from ..types import STRING_ROOTS, RowKind, RowType
 from .kv import KVBatch
 
 __all__ = ["MergeExecutor"]
@@ -61,14 +65,7 @@ class MergeExecutor:
         self.engine = engine
         self.options = options or CoreOptions()
         self.device = torch.device(device)
-        if self.options.sequence_field:
-            raise NotImplementedError("sequence.field is not supported by the torch port yet")
-        if engine == MergeEngine.PARTIAL_UPDATE:
-            for key in self.options.options._data:
-                if key.startswith("fields.") and key.endswith(".sequence-group"):
-                    raise NotImplementedError(
-                        f"{key}: partial-update sequence groups are not supported by the torch port yet"
-                    )
+        self._user_seq = self.options.sequence_field
         if engine == MergeEngine.AGGREGATE:
             for f in self._value_fields():
                 fn = self._agg_spec(f.name).function
@@ -105,12 +102,17 @@ class MergeExecutor:
         return encode_key_lanes_with_pools(kv.data, self.key_names)
 
     def _seq_lanes(self, kv: KVBatch, seq_ascending: bool) -> np.ndarray | None:
-        """Explicit sequence-number lanes, only when input order does not
-        already encode them (stability of the sort covers that case)."""
-        if seq_ascending:
-            return None
-        hi, lo = split_int64_lanes(kv.seq)
-        return np.stack([hi, lo], axis=1)
+        """The sequence.field lanes (a null there raises the JAX package's
+        ValueError), then the system sequence-number lanes, only when input
+        order does not already encode them (stability of the sort covers
+        that case)."""
+        parts = []
+        if self._user_seq:
+            parts.append(encode_key_lanes_with_pools(kv.data, self._user_seq))
+        if not seq_ascending:
+            hi, lo = split_int64_lanes(kv.seq)
+            parts.append(np.stack([hi, lo], axis=1))
+        return np.concatenate(parts, axis=1) if parts else None
 
     @staticmethod
     def _strictly_increasing(lanes: np.ndarray) -> bool:
@@ -158,7 +160,7 @@ class MergeExecutor:
             return ("dedup", handle, kv)
         if engine != SortEngine.NUMPY:
             # one device call: sort + segment + the engine's selection
-            if self.engine == MergeEngine.PARTIAL_UPDATE:
+            if self.engine == MergeEngine.PARTIAL_UPDATE and not self._sequence_groups():
                 return ("sync", self._partial_update_fused(kv, lanes, seq_lanes))
             if self.engine == MergeEngine.AGGREGATE:
                 fields = self._value_fields()
@@ -205,20 +207,38 @@ class MergeExecutor:
             )
         return remove_on_delete
 
+    def _sequence_groups(self) -> dict[str, list[str]]:
+        """{sequence column: [the fields it governs]} from the
+        fields.<column>.sequence-group options (partial-update only)."""
+        if self.engine != MergeEngine.PARTIAL_UPDATE:
+            return {}
+        groups: dict[str, list[str]] = {}
+        for key, value in self.options.options._data.items():
+            if key.startswith("fields.") and key.endswith(".sequence-group"):
+                groups[key[len("fields.") : -len(".sequence-group")]] = [s.strip() for s in str(value).split(",")]
+        return groups
+
+    def _default_fields(self):
+        """The value fields outside every sequence group."""
+        groups = self._sequence_groups()
+        grouped = {f for fields in groups.values() for f in fields} | set(groups)
+        return [f for f in self._value_fields() if f.name not in grouped]
+
     def _field_valid(self, kv: KVBatch) -> np.ndarray:
-        """(F, n) non-null masks of the value fields."""
-        fields = self._value_fields()
+        """(F, n) non-null masks of the value fields outside the groups."""
+        fields = self._default_fields()
         if not fields:
             return np.zeros((0, kv.num_rows), np.bool_)
         return np.stack([kv.data.column(f.name).valid_mask() for f in fields])
 
-    def _partial_update_rows(self, kv: KVBatch, src, exists, last_take) -> KVBatch:
-        """The merged rows: keys from each key's last row, each field from its
-        source row (-1 = null); -D where remove-record-on-delete removed the
-        key."""
+    def _partial_update_rows(self, kv: KVBatch, src, exists, last_take, extra=None) -> KVBatch:
+        """The merged rows: keys from each key's last row, each field outside
+        the groups from its source row (-1 = null), the groups' columns from
+        `extra`; -D where remove-record-on-delete removed the key."""
         cols: dict[str, Column] = {k: kv.data.column(k).take(last_take) for k in self.key_names}
-        for fi, f in enumerate(self._value_fields()):
+        for fi, f in enumerate(self._default_fields()):
             cols[f.name] = gather_column(kv.data.column(f.name), src[fi])
+        cols.update(extra or {})
         kind = np.where(exists, int(RowKind.INSERT), int(RowKind.DELETE)).astype(np.uint8)
         return KVBatch(ColumnBatch(self.value_schema, cols), kv.seq.take(last_take), kind)
 
@@ -247,10 +267,63 @@ class MergeExecutor:
         src, exists = partial_update_takes(
             plan, self._field_valid(kv), kv.kind, remove_on_delete, self._plan_device()
         )
-        out = self._partial_update_rows(kv, src, exists, last_take)
+        # each group's fields come together from the row with the highest
+        # (group sequence, system sequence) whose group sequence is not null
+        groups = {}
+        for seq_col, fields in self._sequence_groups().items():
+            groups.update(self._group_take(kv, seq_col, fields))
+        out = self._partial_update_rows(kv, src, exists, last_take, groups)
         if not exists.all() and not remove_on_delete:
             out = out.filter(exists)
         return out
+
+    def _group_take(self, kv: KVBatch, seq_col: str, fields) -> dict[str, Column]:
+        """One sequence group's columns: a plan over (key, group sequence,
+        system sequence) picks each key's last +I/+U row with a non-null
+        group sequence; a field with an aggregate function (or
+        fields.default-aggregate-function) aggregates over that plan, the
+        rows without a group sequence left out."""
+        from ..ops.aggregates import _padded, _Sorted
+        from ..ops.merge import merge_plan
+
+        dev = self._plan_device()
+        gcol = kv.data.column(seq_col)
+        g_valid = gcol.valid_mask()
+        hi, lo = split_int64_lanes(kv.seq)
+        seq_lanes = np.concatenate(
+            [self._lanes_nullsafe(gcol, kv.data.schema.field(seq_col).type.root), np.stack([hi, lo], axis=1)], axis=1
+        )
+        plan = merge_plan(self._key_lanes(kv), seq_lanes, compress=self._compress, engine=self._backend(), device=dev)
+        candidate = g_valid & np.isin(kv.kind, (int(RowKind.INSERT), int(RowKind.UPDATE_AFTER)))
+        src = _Sorted.of_plan(plan, dev).pick(_padded(candidate, plan.m, False, dev), last=True)
+        src = src[: plan.num_segments].cpu().numpy()
+        out = {seq_col: gather_column(gcol, src)}
+        default_fn = self.options.options.get(CoreOptions.AGGREGATE_DEFAULT_FUNC)
+        for name in fields:
+            col = kv.data.column(name)
+            if (self.options.field_option(name, "aggregate-function") or default_fn) is None:
+                out[name] = gather_column(col, src)
+                continue
+            if not g_valid.all():
+                col = Column(col.values, col.valid_mask() & g_valid)
+            out[name] = aggregate_merge(plan, col, self._agg_spec(name), kv.kind, dev)
+        return out
+
+    @staticmethod
+    def _lanes_nullsafe(col: Column, root) -> np.ndarray:
+        """Lanes of a sequence-group column that may hold nulls: a null is
+        lane 0 and loses to every value; string ranks are offset by 1."""
+        valid = col.valid_mask()
+        if root in STRING_ROOTS:
+            ranks = np.zeros(len(valid), dtype=np.uint32)
+            if valid.any():
+                ranks[valid] = _pool_and_ranks(col.values[valid])[1] + np.uint32(1)
+            return ranks.reshape(-1, 1)
+        filled = col.values.copy()
+        filled[~valid] = 0
+        lanes = np.stack(_encode_column(filled, root, None), axis=1)
+        lanes[~valid] = 0
+        return lanes
 
     # ---- aggregation ----------------------------------------------------
     def _agg_spec(self, field_name: str) -> AggregateSpec:
@@ -285,8 +358,9 @@ class MergeExecutor:
     def supports_keys_only_pipeline(self) -> bool:
         """Merge needs only (key columns, seq, kind) to pick winners: the read
         path can dispatch the kernel before value columns decode. Only
-        deduplicate picks whole rows so."""
-        return self.engine == MergeEngine.DEDUPLICATE and not self.options.ignore_delete
+        deduplicate picks whole rows so, and only when no sequence.field
+        column needs decoding to order them."""
+        return self.engine == MergeEngine.DEDUPLICATE and not self.options.ignore_delete and not self._user_seq
 
     def dedup_select_async(self, kv_keys: KVBatch, seq_ascending: bool, run_offsets=None):
         """kv_keys carries only the key columns. With run_offsets and no

@@ -6,7 +6,9 @@ multi-run section takes the keys-only pipeline (`_pipelined_dedup`):
 decode the key columns, dispatch the dedup kernel without waiting, decode
 the value columns while the device sorts, then gather the winners on the
 host. The other engines need every column to merge: they decode the
-section whole and merge it in one MergeExecutor call.
+section whole and merge it in one MergeExecutor call. read_kv merges
+whole sections into key-value rows, kinds and sequence numbers kept (the
+lookup changelog producer reads a bucket's state with it).
 """
 
 from __future__ import annotations
@@ -100,3 +102,19 @@ class MergeFileSplitRead:
         else:
             data = kv_keys.data
         return KVBatch(data, kv_keys.seq, kv_keys.kind).take(self.merge.dedup_resolve(handle))
+
+    def read_kv(self, files: list[DataFileMeta], drop_delete: bool = False) -> KVBatch:
+        """The files' merged key-value rows, each section key-sorted, in
+        section order."""
+        parts: list[KVBatch] = []
+        for section in IntervalPartition(files).partition():
+            runs, seq_ascending = order_runs_for_merge(section)
+            kv = KVBatch.concat([self.reader_factory.read(f) for run in runs for f in run.files])
+            if len(section) > 1:
+                kv = self.merge.merge(kv, seq_ascending=seq_ascending)
+            parts.append(kv.drop_deletes() if drop_delete else kv)
+        if not parts:
+            return KVBatch(
+                ColumnBatch.empty(self.reader_factory.read_schema), np.empty(0, dtype=np.int64), np.empty(0, np.uint8)
+            )
+        return KVBatch.concat(parts)

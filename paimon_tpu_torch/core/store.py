@@ -12,7 +12,7 @@ from typing import Sequence
 import torch
 
 from ..fs import LocalFileIO
-from ..options import CoreOptions
+from ..options import ChangelogProducer, CoreOptions
 from ..types import RowType
 from ..utils import partition_path
 from .commit import FileStoreCommit
@@ -109,7 +109,7 @@ class KeyValueFileStore:
         """A writer restored from the bucket's live files; it compacts unless
         the table is write-only."""
         co = self.options
-        if co.write_only and str(co.options.get(CoreOptions.CHANGELOG_PRODUCER)).lower() == "lookup":
+        if co.write_only and co.changelog_producer == ChangelogProducer.LOOKUP:
             raise ValueError(
                 "changelog-producer=lookup needs the writer's levels view and cannot run with "
                 "write-only=true (produce the changelog in the writing job, not a dedicated compactor)"
@@ -126,7 +126,18 @@ class KeyValueFileStore:
                 co.options.get(CoreOptions.COMPACTION_OPTIMIZATION_INTERVAL),
                 max_file_num=co.options.get(CoreOptions.COMPACTION_MAX_FILE_NUM),
             )
-            rewriter = MergeTreeCompactRewriter(self.reader_factory(partition, bucket), wf, merge)
+            # the full changelog comes from compactions under full-compaction,
+            # and under lookup when the commit does not wait for the lookup
+            producer = co.changelog_producer
+            lookup_wait = co.options.get(CoreOptions.CHANGELOG_PRODUCER_LOOKUP_WAIT)
+            rewriter = MergeTreeCompactRewriter(
+                self.reader_factory(partition, bucket),
+                wf,
+                merge,
+                emit_full_changelog=producer == ChangelogProducer.FULL_COMPACTION
+                or (producer == ChangelogProducer.LOOKUP and not lookup_wait),
+                row_deduplicate=co.options.get(CoreOptions.CHANGELOG_PRODUCER_ROW_DEDUPLICATE),
+            )
             compact_manager = MergeTreeCompactManager(Levels(existing, co.num_levels), strategy, rewriter, co)
         return MergeTreeWriter(
             partition,

@@ -1,12 +1,19 @@
 """The merge-tree writer (port of paimon_tpu/core/writer.py, without the
-pipelined flush, admission control or changelog producers).
+pipelined flush or admission control).
 
 Rows get sequence numbers in arrival order and buffer in a memtable; a
 flush merges the buffer through the MergeExecutor (the table's merge
 engine, on the device) and writes the result as level-0 files. A table that is not write-only has a
 compaction manager: each flush puts its files at the head of level 0 and
-lets the manager compact. prepare_commit flushes and hands the new files,
-and the compaction's before and after files, over as a CommitMessage.
+lets the manager compact. Changelog producers: under `input` a flush
+writes its raw buffer as changelog files; under `lookup` (with
+changelog-producer.lookup-wait, the default) it reads the bucket's files
+that overlap the flushed keys, merges them with the flushed rows and diffs
+the state before against the state after (core/changelog.py). The
+compactions' changelog (full-compaction, or lookup without waiting) comes
+from the compaction manager. prepare_commit flushes and hands the new
+files, the compaction's before and after files and the changelog files
+over as a CommitMessage.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..data.batch import ColumnBatch
-from ..options import CoreOptions
+from ..options import ChangelogProducer, CoreOptions
 from .compact import CompactResult, MergeTreeCompactManager
 from .datafile import DataFileMeta, KeyValueFileWriterFactory
 from .kv import KVBatch
@@ -50,6 +57,8 @@ class MergeTreeWriter:
         self._new_files: list[DataFileMeta] = []
         self._compact_before: list[DataFileMeta] = []
         self._compact_after: list[DataFileMeta] = []
+        self._changelog: list[DataFileMeta] = []
+        self._compact_changelog: list[DataFileMeta] = []
 
     def write(self, data: ColumnBatch, kinds: np.ndarray | None = None) -> None:
         n = data.num_rows
@@ -75,13 +84,47 @@ class MergeTreeWriter:
         self._buffer = []
         self._buffered_rows = 0
         self._buffered_bytes = 0
+        producer = self.options.changelog_producer
+        if producer == ChangelogProducer.INPUT:
+            self._write_changelog(kv)
         merged = self.merge.merge(kv, seq_ascending=True)
+        if producer == ChangelogProducer.LOOKUP and self.options.options.get(
+            CoreOptions.CHANGELOG_PRODUCER_LOOKUP_WAIT
+        ):
+            self._write_changelog(self._lookup_changelog(merged))
         files = self.writer_factory.write(merged, level=0)
         self._new_files.extend(files)
         if self.compact_manager is not None:
             for f in files:
                 self.compact_manager.levels.level0.insert(0, f)
             self._absorb(self.compact_manager.trigger_compaction())
+
+    def _write_changelog(self, kv: KVBatch) -> None:
+        """Changelog files keep their rows' order (no key sort)."""
+        self._changelog.extend(
+            self.writer_factory.write(kv, level=0, file_source="append", prefix="changelog", sorted_input=False)
+        )
+
+    def _lookup_changelog(self, merged: KVBatch) -> KVBatch:
+        """The bucket's state before this flush against the state after it,
+        over the files whose key range meets the flushed keys."""
+        from .changelog import state_changelog
+        from .read import MergeFileSplitRead
+
+        if merged.num_rows == 0 or self.compact_manager is None:
+            return merged.slice(0, 0)
+        key_names = self.merge.key_names
+        lo = tuple(merged.data.column(k).values[0] for k in key_names)
+        hi = tuple(merged.data.column(k).values[-1] for k in key_names)
+        overlapping = [
+            f for f in self.compact_manager.levels.all_files() if not (f.max_key < lo or f.min_key > hi)
+        ]
+        reader = MergeFileSplitRead(self.compact_manager.rewriter.reader_factory, self.merge, key_names)
+        before = reader.read_kv(overlapping, drop_delete=True)
+        after = self.merge.merge(KVBatch.concat([before, merged]), seq_ascending=True).drop_deletes()
+        return state_changelog(
+            before, after, key_names, self.options.options.get(CoreOptions.CHANGELOG_PRODUCER_ROW_DEDUPLICATE)
+        )
 
     def compact(self, full: bool = False) -> None:
         """Explicit compaction: full=True compacts every run into the
@@ -97,6 +140,7 @@ class MergeTreeWriter:
             return
         self._compact_before.extend(result.before)
         self._compact_after.extend(result.after)
+        self._compact_changelog.extend(result.changelog)
 
     def prepare_commit(self) -> CommitMessage:
         self.flush()
@@ -114,10 +158,12 @@ class MergeTreeWriter:
             list(self._new_files),
             compact_before=[f for f in self._compact_before if (f.file_name, f.level) not in cancel],
             compact_after=[f for f in self._compact_after if (f.file_name, f.level) not in cancel],
+            changelog_files=list(self._changelog),
+            compact_changelog_files=list(self._compact_changelog),
         )
-        self._new_files.clear()
-        self._compact_before.clear()
-        self._compact_after.clear()
+        for pending in (self._new_files, self._compact_before, self._compact_after, self._changelog,
+                        self._compact_changelog):
+            pending.clear()
         return msg
 
     @property

@@ -13,7 +13,16 @@ from typing import Any, Callable, Generic, Mapping, TypeVar
 
 T = TypeVar("T")
 
-__all__ = ["ConfigOption", "Options", "MemorySize", "CoreOptions", "MergeEngine", "SortEngine", "parse_duration_millis"]
+__all__ = [
+    "ConfigOption",
+    "Options",
+    "MemorySize",
+    "CoreOptions",
+    "MergeEngine",
+    "SortEngine",
+    "ChangelogProducer",
+    "parse_duration_millis",
+]
 
 _DURATION_UNITS = {"ms": 1, "s": 1000, "sec": 1000, "min": 60_000, "m": 60_000, "h": 3_600_000, "d": 86_400_000}
 
@@ -110,6 +119,13 @@ class MergeEngine(str, enum.Enum):
     FIRST_ROW = "first-row"
 
 
+class ChangelogProducer(str, enum.Enum):
+    NONE = "none"
+    INPUT = "input"
+    FULL_COMPACTION = "full-compaction"
+    LOOKUP = "lookup"
+
+
 class SortEngine(str, enum.Enum):
     XLA_SEGMENTED = "xla-segmented"  # plain torch ops
     PALLAS = "pallas"  # the hand-written Hopper kernels
@@ -175,9 +191,14 @@ class CoreOptions:
     MANIFEST_TARGET_SIZE = ConfigOption.memory("manifest.target-file-size", "8 mb")
     MANIFEST_MERGE_MIN_COUNT = ConfigOption.int_("manifest.merge-min-count", 30)
     MANIFEST_FULL_COMPACTION_THRESHOLD_SIZE = ConfigOption.memory("manifest.full-compaction-threshold-size", "16 mb")
-    # keys of features the port does not write yet: tables that are not
-    # write-only raise on them (table/write.py), so only their keys are kept
-    CHANGELOG_PRODUCER = ConfigOption.string("changelog-producer", "none")
+    CHANGELOG_PRODUCER = ConfigOption.enum("changelog-producer", ChangelogProducer, ChangelogProducer.NONE)
+    # drop -U/+U pairs whose values did not change (full-compaction and
+    # lookup producers); the JAX package's default, true
+    CHANGELOG_PRODUCER_ROW_DEDUPLICATE = ConfigOption.bool_("changelog-producer.row-deduplicate", True)
+    # lookup producer: false defers the changelog to the next compaction
+    CHANGELOG_PRODUCER_LOOKUP_WAIT = ConfigOption.bool_("changelog-producer.lookup-wait", True)
+    # a key of a feature the port does not write yet: tables that are not
+    # write-only raise on it (table/write.py), so only its key is kept
     RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time", None, str, ("record-level.expire-time.ms",))
     # record TTL on read, which the JAX package acts on: the port raises on
     # it (core/scan.py)
@@ -310,6 +331,10 @@ class CoreOptions:
     @property
     def ignore_delete(self) -> bool:
         return self.options.get(CoreOptions.IGNORE_DELETE)
+
+    @property
+    def changelog_producer(self) -> ChangelogProducer:
+        return self.options.get(CoreOptions.CHANGELOG_PRODUCER)
 
     @property
     def sequence_field(self) -> list[str]:

@@ -29,7 +29,7 @@ from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.manifest import CommitMessage, ManifestCommittable
 from ..core.writer import MergeTreeWriter
 from ..data.batch import ColumnBatch
-from ..options import ConfigOption, CoreOptions
+from ..options import ConfigOption, CoreOptions, MergeEngine
 from ..types import RowKind, TypeRoot
 from ..utils import now_millis
 from .bucket import group_by_partition_bucket, key_hashes
@@ -52,17 +52,9 @@ __all__ = [
 
 def _check_writable(options: CoreOptions) -> None:
     """Raise, naming the option, for what the port's write path would get
-    wrong: it writes no changelog files and drops no expired records. On a
-    write-only table the JAX package writes a changelog only under
-    changelog-producer=input (its flush writes the raw input;
-    full-compaction produces its changelog in compactions, which a
-    write-only writer never runs, and lookup it refuses there)."""
-    opts = options.options
-    producer = str(opts.get(CoreOptions.CHANGELOG_PRODUCER)).lower()
-    if producer != "none" and (not options.write_only or producer == "input"):
-        raise NotImplementedError(f"changelog-producer={producer}: the torch port writes no changelog files yet")
+    wrong: it drops no expired records in compaction."""
     if not options.write_only:
-        key = opts.set_key(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
+        key = options.options.set_key(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
         if key is not None:
             raise NotImplementedError(
                 f"{key}: the torch port does not drop expired records in compaction yet"
@@ -99,6 +91,10 @@ class TableWrite:
                 f"rowkind.field={rowkind_field}: the torch port takes row kinds only from write()'s kinds argument yet"
             )
         if int(co.options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE)) > 0:
+            if co.merge_engine == MergeEngine.DEDUPLICATE and co.sequence_field:
+                # the JAX package's check: its buffer dedups by arrival, so a
+                # late row could evict one with a higher sequence field
+                raise ValueError("local-merge-buffer-size cannot combine with sequence.field")
             raise NotImplementedError("local-merge-buffer-size: the torch port has no local merge buffer yet")
         _check_writable(co)
         _check_key_types(table)

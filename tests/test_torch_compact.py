@@ -649,6 +649,8 @@ GUARDS = [
     # changelog there too
     ("changelog-producer", "input", {"write-only": "true"}, "batch"),
 ]
+# once refused, now ported: these cases run both packages
+PORTED = {"changelog-producer", "sequence.field"}
 
 # snapshot retention, once refused: each case runs both packages (see
 # test_snapshot_retention_matches_the_reference)
@@ -665,32 +667,73 @@ def _guard_id(key, value, extra, mode):
     return f"{key}={value}{'-write-only' if extra.get('write-only') else ''}{'-batch' if mode == 'batch' else ''}"
 
 
-def _jax_batch_commits(warehouse, ident, options, commits=7):
-    """The JAX package's table under `options` after `commits` batch commits:
-    (changelog files in its bucket, snapshot files left)."""
-    table = JaxCatalog(warehouse).create_table(ident, _c4_schema(jt), primary_keys=["id"], options=options)
-    for c in range(commits):
-        wb = table.new_batch_write_builder()
-        w = wb.new_write()
-        w.write(_rows(np.arange(10) + c, c))
-        wb.new_commit().commit(w.prepare_commit())
-    bucket = os.listdir(os.path.join(table.path, "bucket-0"))
-    snapshots = [n for n in os.listdir(os.path.join(table.path, "snapshot")) if n.startswith("snapshot-")]
-    return sum(n.startswith("changelog") for n in bucket), len(snapshots)
+def _changelog(path) -> list:
+    """Per snapshot: its kind, changelogRecordCount and the (row kinds,
+    rows) of each changelog file its changelog manifest list names."""
+    io_ = LocalFileIO()
+    sm = SnapshotManager(io_, path)
+    commit = FileStoreCommit(io_, path, "reader", 0, PortOptions())
+    out = []
+    for sid in range(1, sm.latest_snapshot_id() + 1):
+        snap = sm.snapshot(sid)
+        files = []
+        for meta in commit.manifest_list.read(snap.changelog_manifest_list) if snap.changelog_manifest_list else []:
+            for e in commit.manifest_file.read(meta.file_name):
+                t = pq.read_table(f"{path}/bucket-0/{e.file.file_name}")
+                files.append((t.column("_VALUE_KIND").to_pylist(),
+                              list(zip(*(t.column(c).to_pylist() for c in ("id", "v", "tag"))))))
+        out.append((snap.commit_kind.value, snap.changelog_record_count, files))
+    return out
 
 
 @pytest.mark.parametrize("key, value, extra, mode", GUARDS, ids=[_guard_id(*g) for g in GUARDS])
 def test_unported_write_options_raise_naming_the_option(warehouse, key, value, extra, mode):
     """What the port's write path would get wrong raises at the write's
-    creation (sequence.field at its first write), naming the option:
-    changelog files and record TTL on tables that are not write-only; and
-    on batch writes of write-only tables the input changelog, which the
-    JAX package is first shown to produce on the same table."""
+    creation, naming the option: record TTL on tables that are not
+    write-only. The changelog producers and sequence.field, once refused
+    here, are ported: their cases write 7 commits through both packages and
+    compare the snapshots, each snapshot's changelog files row for row, and
+    the reads (with an oracle); on batch writes of a write-only table the
+    input changelog is one file a commit in both."""
     ident = f"db.guard_{key.replace('.', '_').replace('-', '_')}_{value.replace(' ', '_')}_{len(extra)}_{mode}"
     options = {**C4_OPTIONS, key: value, **extra}
-    if mode == "batch":
-        changelogs, snapshots = _jax_batch_commits(warehouse, ident + "_jax", options)
-        assert changelogs == 7 and snapshots == 7
+    if key in PORTED:
+        batches = [_rows(np.arange(10) + 3 * c, c) for c in range(7)]
+        if key == "sequence.field":
+            batches[3]["v"] = batches[3]["v"] - 10.0  # late rows: they lose to the rows already written
+        seen = {}
+        for name, pkg, catalog in (("jax", jt, JaxCatalog(warehouse)),
+                                   ("port", tt, PortCatalog(warehouse, device="cpu"))):
+            table = catalog.create_table(f"{ident}_{name}", _c4_schema(pkg), primary_keys=["id"], options=options)
+            if mode == "stream":
+                wb = table.new_stream_write_builder()
+                w, c = wb.new_write(), wb.new_commit()
+            for i, batch in enumerate(batches):
+                if mode == "batch":
+                    wb = table.new_batch_write_builder()
+                    w = wb.new_write()
+                    w.write(batch)
+                    wb.new_commit().commit(w.prepare_commit())
+                else:
+                    w.write(batch)
+                    c.commit_messages(i + 1, w.prepare_commit())
+            seen[name] = (_changelog(table.path), _read(table, "numpy" if name == "jax" else None))
+        assert seen["port"] == seen["jax"]
+        changelog, rows = seen["port"]
+        last = {}
+        for batch in batches:
+            for i, v, t in zip(batch["id"].tolist(), batch["v"].tolist(), batch["tag"]):
+                # under sequence.field=v the row with the largest (v, arrival) wins
+                if key != "sequence.field" or i not in last or v >= last[i][1]:
+                    last[i] = (i, v, t)
+        assert rows == [last[i] for i in sorted(last)]
+        if key == "sequence.field":
+            assert any(r[2] != "t3" for r in rows if r[0] in set(batches[3]["id"].tolist()))
+        else:
+            assert any(files for _, _, files in changelog)
+        if mode == "batch":
+            assert [len(files) for _, _, files in changelog] == [1] * 7
+        return
     table = PortCatalog(warehouse, device="cpu").create_table(
         ident, _c4_schema(tt), primary_keys=["id"], options=options)
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
