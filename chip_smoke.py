@@ -63,9 +63,11 @@ Phases, one JSON line each on stdout:
               one line per part. BASELINE config 2 at 10M rows (4 commits
               of 2.5M, partial-update, write-only, default codecs,
               sort-engine=pallas): write seconds, 5 read samples with input
-              rows/s, a staged read (decode, lane encode, merge, gather) and
-              one read under torch.profiler; every read equal to the numpy
-              and xla-segmented engines and to the oracle. BASELINE config 3
+              rows/s, one read under the benchmark's predicate (a >= 100
+              AND b < 500) held to the oracle, a staged read (decode, lane
+              encode, merge, gather) and one read under torch.profiler;
+              every read equal to the numpy and xla-segmented engines and
+              to the oracle. BASELINE config 3
               at scale 1 (4M rows, sum/max, parquet, bucket 1): write, read,
               then a full compaction in one batch commit (seconds, input
               bytes, GB/s), each read equal to the numpy engine and the
@@ -89,7 +91,10 @@ Phases, one JSON line each on stdout:
               100,000 keys: 4 runs and the 100k upsert (write seconds with the
               assigner's host seconds apart, buckets per partition; the upsert
               must leave the hash index as it was and every row must sit in
-              the bucket whose index holds its key), 5 reads and a traced one.
+              the bucket whose index holds its key), 5 reads and a traced one,
+              and one read filtered to the first partition (dt = its value),
+              which must plan only that partition's splits and return its
+              rows of the unfiltered read.
               Every read equals a sort-engine=numpy read and an oracle built
               from the generator. K1 and K2 launches per part, split between
               the writes' flushes, compactions and reads; the cuts are listed.
@@ -160,7 +165,26 @@ Phases, one JSON line each on stdout:
               staged read with the group plans a stage of their own. K1 and
               K2 are then held exactly to their plain versions at every
               shape the path called them at that the kernels phase skips.
-12. timing  - each kernel at its main-path shape against its plain version,
+12. deletes - row-level deletes, one line per part. The bench table (as in
+              main) with deletion-vectors.enabled: DELETE of 50,000 ids drawn
+              with seed 9 (an erasure by key), then DELETE WHERE c2 = 13
+              (upserted keys whose older version has c2 = 13 must stay, with
+              their newest values); seconds, rows deleted, vector positions,
+              containers and bytes. 5 reads at each tier and two filtered
+              reads (id BETWEEN 400,000 AND 449,999; d1 > 250,000), each equal
+              to the numpy engine and to an oracle kept from the ids written,
+              upserted and deleted, with rows/s and splits and files pruned;
+              one traced read; then compact(full=True) on a write-only=false
+              handle: every file with a vector rewritten, no DELETION_VECTORS
+              entry left, the rows unchanged. Then BASELINE config 4 at scale
+              1 with ts BIGINT (epoch millis from the run's clock, two hours
+              old for a tenth of the ids) under record-level.expire-time=1 h:
+              20 streaming commits, the read without the expired ids, a full
+              compaction that leaves only the live rows on disk. K1 and K2
+              launches split into writes, deletes, reads and compaction; K1
+              and K2 then held exactly to their plain versions at the path's
+              shapes that the kernels and cdc phases did not check.
+13. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -172,8 +196,8 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines, buckets, strings, maintenance and cdc paths,
-and by path), the
+the main, compact, engines, buckets, strings, maintenance, cdc and deletes
+paths, and by path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -734,7 +758,12 @@ def main() -> int:
         checks += cdc["shape_checks"]["exact_checks"]
         emit({"phase": "cdc", "part": "summary", **cdc, "exact_checks_all_phases": checks})
 
-    # 12. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 12. row-level deletes
+        deletes = deletes_phase(pt, hk, warehouse, cdc["shape_checks"])
+        checks += deletes["shape_checks"]["exact_checks"]
+        emit({"phase": "deletes", "part": "summary", **deletes, "exact_checks_all_phases": checks})
+
+    # 13. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -747,7 +776,7 @@ def main() -> int:
     by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
                       "engines": engines["launches"][name], "buckets": buckets["launches"][name],
                       "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
-                      "cdc": cdc["launches"][name]}
+                      "cdc": cdc["launches"][name], "deletes": deletes["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -812,15 +841,17 @@ def c4_batch(rng, b: int) -> dict:
     return {"id": ids, "v": ids * 0.5 + b, "tag": np.array([f"t{b}"] * per, dtype=object)}
 
 
-def check_c4_read(table, last_commit: np.ndarray, what: str, string_key: bool = False) -> dict:
+def check_c4_read(table, last_commit: np.ndarray, what: str, string_key: bool = False,
+                  keep: np.ndarray | None = None) -> dict:
     """The table's read (sort-engine=pallas) against a sort-engine=numpy read
-    and the oracle: each written id with the value of its last commit, in
-    the order of the ids or, with string_key, of their business keys."""
+    and the oracle: each written id (that `keep` keeps) with the value of its
+    last commit, in the order of the ids or, with string_key, of their
+    business keys."""
     t0 = time.perf_counter()
     out = read_all(table)
     read_s = time.perf_counter() - t0
     reference = read_all(table.copy({"sort-engine": "numpy"}))
-    ids = np.flatnonzero(last_commit >= 0)
+    ids = np.flatnonzero((last_commit >= 0) if keep is None else (last_commit >= 0) & keep)
     if string_key:
         ids = ids[np.argsort(business_key_bytes(ids), kind="stable")]
     assert out.num_rows == len(ids), f"{what}: {out.num_rows} rows, the oracle has {len(ids)}"
@@ -1130,13 +1161,22 @@ def config2_phase(pt, hk, cat) -> dict:
         assert np.array_equal(col.values, want), f"config 2: {name} differs from the oracle"
     for engine in ("numpy", "xla-segmented"):
         same_rows(out, read_all(table.copy({"sort-engine": engine})), f"config 2, pallas against {engine}")
+    # the benchmark's own predicate (baseline_configs.py:92), on the merged rows
+    from paimon_tpu_torch.data.predicate import and_, greater_or_equal, less_than
+
+    t0 = time.perf_counter()
+    filtered, _ = read_filtered(table, and_(greater_or_equal("a", 100), less_than("b", 500)))
+    filtered_s = time.perf_counter() - t0
+    want_ids = ids[(oracle["a"] >= 100) & (oracle["b"] < 500)]
+    assert np.array_equal(filtered.column("id").values, want_ids), "config 2: the filtered read differs from the oracle"
     launches = dict(hk.launches)
     stages = pu_read_stages(table)
     return {
         "config": "BASELINE config 2 (benchmarks/baseline_configs.py:66), scale 5",
         "options": C2_OPTIONS, "rows_written": C2_ROWS, "commits": 4, "keys": per,
-        "cuts": ["no predicate: with_filter and predicate pushdown are not ported (ROADMAP Queue 1 item 6)"],
         "write_s": round(write_s, 4),
+        "filtered_read": {"predicate": "a >= 100 AND b < 500", "seconds": round(filtered_s, 4),
+                          "matched": filtered.num_rows, "input_rows_per_s": round(C2_ROWS / filtered_s, 1)},
         "reads": {"samples_s": [round(x, 4) for x in samples],
                   "rows_per_s": [round(C2_ROWS / x, 1) for x in samples],
                   "median_rows_per_s": round(C2_ROWS / float(np.median(samples)), 1)},
@@ -1492,6 +1532,28 @@ def check_partitioned_read(out, up: np.ndarray, what: str) -> None:
         assert np.array_equal(out.column(name).values[order], want), f"{what}: {name} differs from the oracle"
 
 
+def pruned_partition_read(table, full) -> dict:
+    """One read filtered to the first partition (dt = P_DTS[0]): it must
+    plan only that partition's splits and return, in order, the rows of
+    the unfiltered read `full` (already held to the oracle) in it."""
+    from paimon_tpu_torch.data.predicate import equal
+
+    rb = table.new_read_builder().with_filter(equal("dt", P_DTS[0]))
+    t0 = time.perf_counter()
+    splits = rb.new_scan().plan()
+    out = rb.new_read().read_all(splits)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    every = table.new_read_builder().new_scan().plan()
+    assert {s.partition for s in splits} == {(P_DTS[0],)}, "the pruned read planned another partition"
+    assert len(splits) == sum(s.partition == (P_DTS[0],) for s in every), "the pruned read lost a split"
+    assert out.num_rows == N_ROWS // len(P_DTS), f"the pruned read returned {out.num_rows} rows"
+    same_rows(out, full.filter(full.column("dt").values == P_DTS[0]), "the pruned read against the full read")
+    return {"predicate": f"dt = '{P_DTS[0]}'", "seconds": round(seconds, 4), "rows": out.num_rows,
+            "output_rows_per_s": round(out.num_rows / seconds, 1), "splits": len(splits), "splits_unfiltered": len(every),
+            "files": sum(len(s.files) for s in splits), "files_unfiltered": sum(len(s.files) for s in every)}
+
+
 def partitioned_part(pt, hk, cat) -> dict:
     """The bench table plus a dt partition column (4 values), primary key
     (dt, id), no bucket option (dynamic buckets, the default) and otherwise
@@ -1534,13 +1596,14 @@ def partitioned_part(pt, hk, cat) -> dict:
     assert sorted(index) == sorted((p, b) for p, bs in buckets.items() for b in bs), "index and data buckets differ"
     assert all(len(h) <= P_TARGET for h in index.values()), "a bucket holds more keys than the target"
     for split in table.new_read_builder().new_scan().plan():
-        batch = table.store.read_bucket(split.partition, split.bucket, split.files, ["dt", "id"])
+        batch = table.store.read_bucket(split.partition, split.bucket, split.files, projection=["dt", "id"])
         assert np.isin(key_hashes(batch, ["id"]), index[(split.partition, split.bucket)]).all(), (
             f"a row of {split.partition}/{split.bucket} whose key the bucket's hash index lacks")
     out_read, samples = timed_reads(table, READ_REPEATS)
     read_launches = launch_diff(hk, write_launches)
     check_partitioned_read(out_read, up, "partitioned")
     same_rows(out_read, read_all(table.copy({"sort-engine": "numpy"})), "partitioned, pallas against numpy")
+    pruned = pruned_partition_read(table, out_read)
     median = float(np.median(samples))
     compaction_launches = dict(probe.launches)
     return {
@@ -1556,7 +1619,7 @@ def partitioned_part(pt, hk, cat) -> dict:
         "reads": {"samples_s": [round(x, 4) for x in samples], "median_s": round(median, 4),
                   "output_rows_per_s_median": round(N_ROWS / median, 1),
                   "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / median, 1)},
-        "equal_to_numpy_engine": True, "equal_to_oracle": True, "trace": device_busy(table),
+        "equal_to_numpy_engine": True, "equal_to_oracle": True, "pruned_read": pruned, "trace": device_busy(table),
         "launches": {"write_flushes": {k: write_launches[k] - compaction_launches[k] for k in hk.launches},
                      "compactions": compaction_launches, "reads": read_launches, "phase": dict(hk.launches)},
     }
@@ -2377,14 +2440,17 @@ def sequence_group_part(pt, hk, cat) -> dict:
     }
 
 
-def cdc_shape_checks(hk, recorder: ShapeRecorder, dev) -> dict:
-    """K1 and K2 held exactly to their plain versions at the shapes the
-    cdc path called them at that the kernels phase does not check."""
-    rng = np.random.default_rng(2027)
+def path_shape_checks(hk, recorder: ShapeRecorder, dev, seed: int, checked: tuple = ((), ())) -> dict:
+    """K1 and K2 held exactly to their plain versions at the shapes a path
+    called them at that neither the kernels phase nor `checked` (K1 shapes,
+    K2 shapes an earlier path's checks held) covers."""
+    rng = np.random.default_rng(seed)
     tile = hk.K1_TILE
     k1_checked = {2, 4, 64, tile // 2, tile, 2 * tile, 4096, 1 << 17, 1 << 18}
-    k1_new = sorted(s for s in recorder.k1 if s[1] not in k1_checked or s[2] not in (1, s[0] - 1))
-    k2_new = sorted(s for s in recorder.k2 if s[0] not in K2_LANES or s[1] not in K2_COLUMNS)
+    k1_new = sorted(s for s in recorder.k1 if (s[1] not in k1_checked or s[2] not in (1, s[0] - 1))
+                    and s not in set(checked[0]))
+    k2_new = sorted(s for s in recorder.k2 if (s[0] not in K2_LANES or s[1] not in K2_COLUMNS)
+                    and s not in set(checked[1]))
     checks = 0
     for nl, m, nb in k1_new:
         for pattern in K1_PATTERNS:
@@ -2435,10 +2501,240 @@ def cdc_phase(pt, hk, warehouse: str, control: dict) -> dict:
             launches[k] += part["launches"]["phase"][k]
     for k in K1_K2:
         assert launches[k] > 0, f"{k} never launched on the cdc path: {launches}"
-    shape_checks = cdc_shape_checks(hk, recorder, torch.device(DEVICE))
+    shape_checks = path_shape_checks(hk, recorder, torch.device(DEVICE), 2027)
     return {"launches": launches,
             "launches_by_part": {name: part["launches"]["phase"] for name, part in parts.items()},
             "shape_checks": shape_checks}
+
+
+# ---------------------------------------------------------------------------
+# row-level deletes: DELETE through deletion vectors on the bench table,
+# filtered reads, the full compaction that purges the vectors, and
+# record-level TTL on config 4
+# ---------------------------------------------------------------------------
+
+DV_OPTIONS = {"deletion-vectors.enabled": "true"}
+DV_ERASED = 50_000  # ids erased by key, drawn with seed 9
+DV_C2 = 13  # the value predicate c2 = 13
+# config 4 with an epoch-millis ts column; ids divisible by TTL_EVERY carry a
+# ts two hours old in every version, so a tenth of the ids expire
+TTL_OPTIONS = {**C4_OPTIONS, "record-level.expire-time": "1 h", "record-level.time-field": "ts",
+               "record-level.time-field-type": "millis"}
+TTL_EVERY = 10
+
+
+def dv_stats(table) -> dict:
+    """The latest snapshot's deletion vectors: containers (chains counted
+    file by file), their bytes, files with a vector, positions."""
+    from paimon_tpu_torch.core.deletionvectors import DeletionVectorsIndexFile
+
+    plan = table.store.new_scan().plan()
+    idx = DeletionVectorsIndexFile(table.file_io, table.path)
+    heads = plan.dv_indexes().values()
+    containers = [n for head in heads for n in idx.chain_names(head)]
+    dvs = {f: dv for head in heads for f, dv in idx.read_all(head).items()}
+    return {"containers": len(containers),
+            "container_bytes": sum(os.path.getsize(f"{idx.index_dir}/{n}") for n in containers),
+            "files_with_vectors": len(dvs), "positions": sum(dv.cardinality for dv in dvs.values()),
+            "data_files": len(plan.entries)}
+
+
+def check_dv_rows(out, reference, keep: np.ndarray, current: dict, what: str) -> None:
+    """`out` equals the numpy engine's `reference` row for row and the
+    oracle: the ids `keep` marks, in order, with their current values."""
+    same_rows(out, reference, f"{what}: against the numpy engine")
+    ids = np.flatnonzero(keep)
+    assert np.array_equal(out.column("id").values, ids), f"{what}: ids differ from the oracle"
+    for name, values in current.items():
+        assert np.array_equal(out.column(name).values, values[ids]), f"{what}: {name} differs from the oracle"
+
+
+def read_filtered(table, predicate):
+    rb = table.new_read_builder().with_filter(predicate)
+    splits = rb.new_scan().plan()
+    out = rb.new_read().read_all(splits)
+    torch.cuda.synchronize()
+    return out, splits
+
+
+def dv_bench_part(pt, hk, warehouse: str) -> dict:
+    """The bench table with deletion-vectors.enabled: two DELETEs, reads at
+    both tiles, two filtered reads, a traced read, then compact(full=True)
+    on a write-only=false handle. Every read equals the numpy engine and
+    the oracle kept here (the ids written, upserted and deleted)."""
+    from paimon_tpu_torch.data.predicate import between, equal, greater_than, in_
+
+    hk.reset_launches()
+    table, up, write_s = build_table(pt, warehouse, "dv", DV_OPTIONS)
+    launches = {"writes": dict(hk.launches)}
+    ids = np.arange(N_ROWS)
+    upserted = np.zeros(N_ROWS, np.bool_)
+    upserted[up] = True
+    new, old = table_values(ids, True), table_values(ids, False)
+    current = {name: np.where(upserted, new[name], old[name]) for name in new}
+    alive = np.ones(N_ROWS, np.bool_)
+    erased = np.random.default_rng(9).choice(N_ROWS, DV_ERASED, replace=False)
+
+    before = dict(hk.launches)
+    deletes = {}
+    t0 = time.perf_counter()
+    n = table.delete_where(in_("id", erased.tolist()))
+    torch.cuda.synchronize()
+    deletes["erase_by_key"] = {"predicate": f"id IN ({DV_ERASED} ids drawn with seed 9)",
+                               "seconds": round(time.perf_counter() - t0, 4), "rows_deleted": n, **dv_stats(table)}
+    assert n == DV_ERASED, f"the erasure deleted {n} rows"
+    alive[erased] = False
+    matched = alive & (current["c2"] == DV_C2)
+    # upserted keys whose older version has c2 = 13: they must stay, with
+    # their newest values (the resurrection check)
+    older_matched = alive & upserted & (old["c2"] == DV_C2)
+    t0 = time.perf_counter()
+    n = table.delete_where(equal("c2", DV_C2))
+    torch.cuda.synchronize()
+    deletes["by_value"] = {"predicate": f"c2 = {DV_C2}", "seconds": round(time.perf_counter() - t0, 4),
+                           "rows_deleted": n, "upserted_keys_whose_older_version_matched": int(older_matched.sum()),
+                           **dv_stats(table)}
+    assert n == int(matched.sum()) and older_matched.any(), (n, int(matched.sum()), int(older_matched.sum()))
+    alive &= ~matched
+    launches["deletes"] = launch_diff(hk, before)
+
+    before = dict(hk.launches)
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    check_dv_rows(reference, reference, alive, current, "numpy engine")
+    reads = {}
+    for label, opts in (("pallas_default_tile", {}),
+                        (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        b = dict(hk.launches)
+        out, samples = timed_reads(table.copy(opts), READ_REPEATS)
+        check_dv_rows(out, reference, alive, current, label)
+        median = float(np.median(samples))
+        reads[label] = {"samples_s": [round(x, 4) for x in samples], "median_s": round(median, 4),
+                        "output_rows": out.num_rows, "output_rows_per_s_median": round(out.num_rows / median, 1),
+                        "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / median, 1),
+                        "launches": launch_diff(hk, b)}
+    every = table.new_read_builder().new_scan().plan()
+    lo, hi = int(0.4 * N_ROWS), int(0.45 * N_ROWS) - 1
+    filtered = {}
+    for label, pred, keep in (
+        (f"id BETWEEN {lo} AND {hi}", between("id", lo, hi), alive & (ids >= lo) & (ids <= hi)),
+        (f"d1 > {N_ROWS / 4}", greater_than("d1", N_ROWS / 4), alive & (current["d1"] > N_ROWS / 4)),
+    ):
+        ref, _ = read_filtered(table.copy({"sort-engine": "numpy"}), pred)
+        t0 = time.perf_counter()
+        out, splits = read_filtered(table, pred)
+        seconds = time.perf_counter() - t0
+        check_dv_rows(out, ref, keep, current, label)
+        filtered[label] = {"seconds": round(seconds, 4), "rows": out.num_rows,
+                           "output_rows_per_s": round(out.num_rows / seconds, 1),
+                           "splits_pruned": len(every) - len(splits),
+                           "files_pruned": sum(len(s.files) for s in every) - sum(len(s.files) for s in splits)}
+    launches["reads"] = launch_diff(hk, before)
+    trace = device_busy(table)
+
+    vectors = dv_stats(table)
+    from paimon_tpu_torch.core.deletionvectors import DeletionVectorsIndexFile
+
+    plan = table.store.new_scan().plan()
+    dv_files = {f for head in plan.dv_indexes().values()
+                for f in DeletionVectorsIndexFile(table.file_io, table.path).read_all(head)}
+    before = dict(hk.launches)
+    with CompactionProbe(hk) as probe:
+        t0 = time.perf_counter()
+        wb = table.copy({"write-only": "false"}).new_batch_write_builder()
+        w = wb.new_write()
+        w.compact(full=True)
+        wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+    launches["compaction"] = launch_diff(hk, before)
+    plan = table.store.new_scan().plan()
+    assert not dv_files & {e.file.file_name for e in plan.entries}, "a file with a vector survived the compaction"
+    assert not [e for e in plan.index_entries if e.kind == "DELETION_VECTORS"], "vectors left in the index manifest"
+    assert sum(e.file.row_count for e in plan.entries) == int(alive.sum()), "deleted rows left on disk"
+    check_dv_rows(read_all(table), read_all(table.copy({"sort-engine": "numpy"})), alive, current,
+                  "after the full compaction")
+    launches["phase"] = dict(hk.launches)
+    return {"table": "bench.py's table (bench.py:54-96), its options, deletion-vectors.enabled=true",
+            "rows_written": N_ROWS + N_UPSERT, "write_s": round(write_s, 4), "deletes": deletes,
+            "rows_left": int(alive.sum()), "reads": reads, "filtered_reads": filtered, "vectors": vectors,
+            "trace": trace, "compaction": {"seconds": round(compact_s, 4), "files_with_vectors_rewritten": len(dv_files),
+                                           **probe.report(), "vectors_left": 0},
+            "equal_to_numpy_engine": True, "equal_to_oracle": True, "launches": launches}
+
+
+def ttl_part(pt, hk, cat) -> dict:
+    """Config 4 at scale 1 with an epoch-millis ts (the run's clock; two
+    hours old for ids divisible by TTL_EVERY) under record-level.expire-time
+    = 1 h: 20 streaming commits with compactions, the read, then a full
+    compaction that must leave only the live rows on disk."""
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()), ("ts", pt.BIGINT()))
+    table = cat.create_table("deletes.c4_ttl", schema, primary_keys=["id"], options=dict(TTL_OPTIONS))
+    rng = np.random.default_rng(2)
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    now_ms = int(time.time() * 1000)
+    batches = []
+    for b in range(C4_COMMITS):
+        batch = c4_batch(rng, b)
+        batch["ts"] = np.where(batch["id"] % TTL_EVERY == 0, now_ms - 7_200_000, now_ms)
+        last_commit[batch["id"]] = b
+        batches.append(batch)
+    keep = np.arange(C4_ROWS // 2) % TTL_EVERY != 0
+    hk.reset_launches()
+    with CompactionProbe(hk) as probe:
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        t0 = time.perf_counter()
+        for b, batch in enumerate(batches):
+            w.write(batch)
+            c.commit_messages(b + 1, w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    write_launches = dict(hk.launches)
+    read = check_c4_read(table, last_commit, "ttl: after 20 commits", keep=keep)
+    t0 = time.perf_counter()
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.compact(full=True)
+    wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    live = int(((last_commit >= 0) & keep).sum())
+    on_disk = sum(f.row_count for f in live_files(table))
+    assert on_disk == live, f"ttl: {on_disk} rows on disk after the full compaction, {live} live"
+    full_read = check_c4_read(table, last_commit, "ttl: after the full compaction", keep=keep)
+    phase = dict(hk.launches)
+    return {"config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1, with ts BIGINT epoch millis",
+            "options": TTL_OPTIONS, "rows_written": C4_ROWS, "ids_written": int((last_commit >= 0).sum()),
+            "ids_expired": int(((last_commit >= 0) & ~keep).sum()), "write_s": round(write_s, 4),
+            "ingest_rows_per_s": round(C4_ROWS / write_s, 1), "compaction": probe.report(), "read": read,
+            "full_compaction_s": round(full_s, 4), "rows_on_disk_after": on_disk, "read_after": full_read,
+            "launches": {"phase": phase, "streaming_writes": write_launches,
+                         "reads_and_full_compaction": {k: phase[k] - write_launches[k] for k in phase}}}
+
+
+def deletes_phase(pt, hk, warehouse: str, cdc_checked: dict) -> dict:
+    """Row-level deletes, one JSON line per part: the deletion-vector bench
+    table and config 4 under record TTL; then K1 and K2 at the path's
+    shapes that the kernels and cdc phases did not check."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    parts = {}
+    with ShapeRecorder(hk) as recorder:
+        t0 = time.perf_counter()
+        parts["deletion_vectors"] = dv_bench_part(pt, hk, warehouse)
+        parts["deletion_vectors"]["part_s"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "deletes", "part": "deletion_vectors", **parts["deletion_vectors"]})
+        t0 = time.perf_counter()
+        parts["record_ttl"] = ttl_part(pt, hk, cat)
+        parts["record_ttl"]["part_s"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "deletes", "part": "record_ttl", **parts["record_ttl"]})
+    launches = {k: sum(p["launches"]["phase"][k] for p in parts.values()) for k in hk.launches}
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched on the deletes path: {launches}"
+    checked = ([tuple(s) for s in cdc_checked["k1_new_shapes"]], [tuple(s) for s in cdc_checked["k2_new_shapes"]])
+    return {"launches": launches, "launches_by_part": {name: p["launches"]["phase"] for name, p in parts.items()},
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2028, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

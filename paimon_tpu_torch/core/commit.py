@@ -13,10 +13,12 @@ the missing COMPACT half (filter_committed). A COMPACT commit whose removed
 files are no longer live raises CommitConflictError (per partition and
 bucket: the buckets whose inputs are gone are abandoned, the others
 commit). The APPEND snapshot also carries the writers' new index files
-(the dynamic-bucket hash index): its index manifest is the previous one
-with each (partition, bucket, kind) slot the commit names replaced; a
-COMPACT snapshot that removes files rewrites it unchanged, as the JAX
-package does. An OVERWRITE snapshot deletes the live files of the
+(the dynamic-bucket hash index, a DELETE's deletion vectors): its index
+manifest is the previous one with each (partition, bucket, kind) slot the
+commit names replaced; a COMPACT snapshot that removes files drops the
+deletion vectors of the files it removes for good (an upgrade removes and
+adds one file name, and its vector stays) and rewrites the manifest, as
+the JAX package does. An OVERWRITE snapshot deletes the live files of the
 partitions a filter selects and keeps the index manifest as it was, hash
 index entries of the dropped partitions included, so that a partition
 written again gets the buckets the JAX package gives it. Before each
@@ -36,7 +38,7 @@ from typing import Callable, Sequence
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..utils import now_millis
-from .deletionvectors import IndexFileEntry
+from .deletionvectors import DeletionVectorsIndexFile, IndexFileEntry
 from .indexmanifest import read_index_manifest, write_index_manifest
 from .manifest import (
     FileKind,
@@ -179,19 +181,40 @@ class FileStoreCommit:
         return {(e.partition, e.bucket) for e in deletes if (e.partition, e.bucket, e.file.file_name) not in live}
 
     def _index_manifest(
-        self, latest: Snapshot | None, index_entries: list[IndexFileEntry], rewrite: bool = False
+        self, latest: Snapshot | None, index_entries: list[IndexFileEntry], removed: list[ManifestEntry]
     ) -> str | None:
         """The previous index manifest with this commit's (partition, bucket,
         kind) slots replaced by its entries (a writer always hands over the
-        whole set of its bucket); the previous one when there are none,
-        unless `rewrite` (a COMPACT commit that removes files, where the
-        JAX package purges the removed files' deletion vectors) asks for a
-        fresh copy."""
-        if not index_entries and not rewrite:
+        whole set of its bucket); the previous one when there are none and
+        no file is `removed`. Where files are removed (a COMPACT commit),
+        the deletion vectors of those files go: a container keeping none is
+        dropped, one keeping some is written anew with those. The manifest
+        is then written anew even when nothing in it changed, as the JAX
+        package does."""
+        dead: dict[tuple, set] = {}
+        for e in removed:
+            dead.setdefault((e.partition, e.bucket), set()).add(e.file.file_name)
+        if not index_entries and not dead:
             return latest.index_manifest if latest else None
         prev = read_index_manifest(self.file_io, self.table_path, latest.index_manifest) if latest and latest.index_manifest else []
         replaced = {(e.partition, e.bucket, e.kind) for e in index_entries}
-        out = [e for e in prev if (e.partition, e.bucket, e.kind) not in replaced] + list(index_entries)
+        dv_io = DeletionVectorsIndexFile(
+            self.file_io, self.table_path, int(self.options.options.get(CoreOptions.DELETION_VECTOR_INDEX_FILE_TARGET_SIZE))
+        )
+        out = []
+        for e in prev:
+            if (e.partition, e.bucket, e.kind) in replaced:
+                continue
+            gone = dead.get((e.partition, e.bucket))
+            if gone and e.kind == "DELETION_VECTORS":
+                dvs = dv_io.read_all(e.file_name)
+                live = {f: dv for f, dv in dvs.items() if f not in gone}
+                if not live:
+                    continue
+                if len(live) != len(dvs):
+                    e = IndexFileEntry(e.kind, e.partition, e.bucket, *dv_io.write(live))
+            out.append(e)
+        out += index_entries
         return write_index_manifest(self.file_io, self.table_path, out) if out else None
 
     def _maybe_merge_manifests(self, metas: list[ManifestFileMeta], tmp_files: list[str]) -> list[ManifestFileMeta]:
@@ -280,7 +303,7 @@ class FileStoreCommit:
                     changelog_meta = self.manifest_file.write(changelog, self.schema_id, track=tmp_files)
                     changelog_list = self.manifest_list.write([changelog_meta], track=tmp_files)
                     changelog_rows = sum(e.file.row_count for e in changelog)
-                index_manifest = self._index_manifest(latest, index_entries, rewrite=bool(removed))
+                index_manifest = self._index_manifest(latest, index_entries, removed)
                 if index_manifest and index_manifest != (latest.index_manifest if latest else None):
                     tmp_files.append(index_manifest)
                 added = sum(e.file.row_count for e in entries if e.kind == FileKind.ADD)

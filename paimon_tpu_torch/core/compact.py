@@ -12,10 +12,12 @@ producer (and lookup without lookup-wait) a rewrite that drops deletes
 also diffs each section's merged rows against its previous top-level rows
 (core/changelog.py) and writes the diff as changelog files; every file of
 such a compaction that is not at the output level yet is rewritten, not
-upgraded, so that the diff sees it. The JAX package's pipelined and mesh
-rewrite routes give the same outputs and are not ported; neither are
-deletion vectors and record-level TTL, which the table write refuses
-(table/write.py).
+upgraded, so that the diff sees it. The rewriter reads each file without
+the rows its deletion vector marks and the rows record-level TTL expires,
+so neither comes back; a lone file with a deletion vector is rewritten,
+not upgraded, and the commit then drops the vectors of the files that
+left (core/commit.py). The JAX package's pipelined and mesh rewrite
+routes give the same outputs and are not ported.
 """
 
 from __future__ import annotations
@@ -149,14 +151,32 @@ class MergeTreeCompactRewriter:
         reader_factory: KeyValueFileReaderFactory,
         writer_factory: KeyValueFileWriterFactory,
         merge_executor: MergeExecutor,
+        deletion_vectors: dict | None = None,
         emit_full_changelog: bool = False,
         row_deduplicate: bool = True,
+        expire_predicate=None,
     ):
         self.reader_factory = reader_factory
         self.writer_factory = writer_factory
         self.merge = merge_executor
+        # {data file name: DeletionVector} of the bucket when the writer
+        # was restored
+        self.deletion_vectors = deletion_vectors or {}
+        # record-level TTL: the rows to keep (core/store.py)
+        self.expire_predicate = expire_predicate
         self.emit_full_changelog = emit_full_changelog
         self.row_deduplicate = row_deduplicate
+
+    def read(self, f: DataFileMeta) -> KVBatch:
+        """A file's rows without its deletion vector's and the expired."""
+        from .read import read_live
+
+        kv = read_live(self.reader_factory, f, self.deletion_vectors)
+        if self.expire_predicate is not None and kv.num_rows:
+            keep = self.expire_predicate.eval(kv.data)
+            if not keep.all():
+                kv = kv.filter(keep)
+        return kv
 
     def rewrite(
         self, sections: list[list[SortedRun]], output_level: int, drop_delete: bool
@@ -187,7 +207,7 @@ class MergeTreeCompactRewriter:
 
         runs, seq_ascending = order_runs_for_merge(section)
         files = [f for run in runs for f in run.files]
-        batches = [self.reader_factory.read(f) for f in files]
+        batches = [self.read(f) for f in files]
         old_top = [b for f, b in zip(files, batches) if f.level == output_level]
         return KVBatch.concat(batches), seq_ascending, old_top
 
@@ -253,8 +273,11 @@ class MergeTreeCompactManager:
                 rewrite_sections.append(section)
                 continue
             for f in section[0].files:
-                if (force_rewrite and f.level != unit.output_level) or not self._can_upgrade(
-                    f, drop_delete, min_rewrite_size
+                # a deletion vector's rows leave the file only by a rewrite
+                if (
+                    f.file_name in self.rewriter.deletion_vectors
+                    or (force_rewrite and f.level != unit.output_level)
+                    or not self._can_upgrade(f, drop_delete, min_rewrite_size)
                 ):
                     rewrite_sections.append([SortedRun([f])])
                 elif f.level != unit.output_level:  # at the output level already: untouched

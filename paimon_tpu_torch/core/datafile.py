@@ -203,11 +203,19 @@ class KeyValueFileReaderFactory:
         self.schemas_by_id = schemas_by_id
 
     def read(
-        self, meta: DataFileMeta, fields: Sequence[str] | None = None, system_columns: bool | str = True
+        self,
+        meta: DataFileMeta,
+        fields: Sequence[str] | None = None,
+        system_columns: bool | str = True,
+        predicate=None,
     ) -> KVBatch:
         """fields: subset of read-schema fields to decode. system_columns:
         True reads _SEQUENCE_NUMBER + _VALUE_KIND, "kind" only _VALUE_KIND
-        (seq zeros), False neither (the caller holds them already)."""
+        (seq zeros), False neither (the caller holds them already).
+        predicate: row groups whose statistics cannot match it are skipped;
+        the rows left depend on the predicate alone, so two reads of one
+        file under one predicate are row-aligned whatever their fields. The
+        predicate filters no row itself."""
         ext = meta.file_name.rsplit(".", 1)[-1]
         if ext != "parquet":
             raise NotImplementedError(f"file.format={ext} is not supported by the torch port yet")
@@ -226,8 +234,18 @@ class KeyValueFileReaderFactory:
             if src is not None:
                 wanted.append(src.name)
         disk_schema = kv_disk_schema(data_schema)
+        if predicate is not None:
+            # the file's stats are found by name: prune only where each
+            # named field is the file's column of the same name and id
+            read_by_name = {f.name: f for f in self.read_schema.fields}
+            for name in predicate.referenced_fields():
+                f = read_by_name.get(name)
+                src = by_id.get(f.id) if f is not None else None
+                if src is None or src.name != name:
+                    predicate = None
+                    break
         raw = self.file_io.read_bytes(f"{self.bucket_dir}/{meta.file_name}")
-        parts = read_parquet(raw, disk_schema, wanted)
+        parts = read_parquet(raw, disk_schema, wanted, predicate)
         disk = concat_batches(parts) if parts else ColumnBatch.empty(disk_schema.project(wanted))
         n = disk.num_rows
         cols: dict[str, Column] = {}

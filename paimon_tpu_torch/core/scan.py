@@ -1,12 +1,19 @@
 """Snapshot scan planning: snapshot -> manifest lists -> live file entries,
 and the index manifest's entries (port of paimon_tpu/core/scan.py;
-delta/changelog scans and stats/index filters are not ported yet).
+delta/changelog scans and file-index filters are not ported yet).
 
-The port plans the latest snapshot on main only, reads no deletion
-vectors and drops no expired records: options that select another
-snapshot, branch or set of rows, tables that hold deletion vectors, and
-record-level TTL raise NotImplementedError naming the option instead of
-returning other rows.
+Files are filtered by partition, bucket and the min/max/null-count stats
+of their metadata. On a primary-key table only a key filter may skip a
+file: a file whose values miss a predicate may still hold the newest
+version of a key whose older version matches, and skipping it would bring
+the older one back. Value filters are for tables whose every row is
+final. The plan carries the index manifest's entries of the planned
+buckets (hash index and deletion vectors; a key or value filter never
+drops them).
+
+The port plans the latest snapshot on main only: options that select
+another snapshot, branch or set of rows raise NotImplementedError naming
+the option instead of returning other rows.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+from ..data.predicate import Predicate
 from ..fs import LocalFileIO
 from ..options import ConfigOption, CoreOptions
 from .deletionvectors import IndexFileEntry
@@ -52,6 +60,22 @@ class ScanPlan:
             out.setdefault(e.partition, {}).setdefault(e.bucket, []).append(e.file)
         return out
 
+    def dv_index_for(self, partition: tuple, bucket: int) -> str | None:
+        """The bucket's deletion-vector container, if it has one."""
+        return next(
+            (
+                e.file_name
+                for e in self.index_entries
+                if e.kind == "DELETION_VECTORS" and e.partition == partition and e.bucket == bucket
+            ),
+            None,
+        )
+
+    def dv_indexes(self) -> dict[tuple, str]:
+        """{(partition, bucket): deletion-vector container} of every bucket
+        that has one."""
+        return {(e.partition, e.bucket): e.file_name for e in self.index_entries if e.kind == "DELETION_VECTORS"}
+
 
 class FileStoreScan:
     def __init__(self, file_io: LocalFileIO, table_path: str, options: CoreOptions):
@@ -63,6 +87,8 @@ class FileStoreScan:
         self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression)
         self._partition_filter: Callable[[tuple], bool] | None = None
         self._bucket: int | None = None
+        self._key_filter: Predicate | None = None
+        self._value_filter: Predicate | None = None
 
     def with_partition_filter(self, fn: Callable[[tuple], bool]) -> "FileStoreScan":
         self._partition_filter = fn
@@ -70,6 +96,17 @@ class FileStoreScan:
 
     def with_bucket(self, bucket: int) -> "FileStoreScan":
         self._bucket = bucket
+        return self
+
+    def with_key_filter(self, predicate: Predicate | None) -> "FileStoreScan":
+        """Skip files whose key stats cannot match."""
+        self._key_filter = predicate
+        return self
+
+    def with_value_filter(self, predicate: Predicate | None) -> "FileStoreScan":
+        """Skip files whose value stats cannot match: sound only where every
+        row is final, never on a primary-key table's merge input."""
+        self._value_filter = predicate
         return self
 
     def _check_reads_latest_on_main(self, latest: Snapshot | None) -> None:
@@ -90,28 +127,7 @@ class FileStoreScan:
                 "branches and incremental scans are not ported yet)"
             )
 
-    def _check_no_deletion_vectors(self, snapshot: Snapshot, index_entries: list[IndexFileEntry]) -> None:
-        if self.options.options.get(CoreOptions.DELETION_VECTORS_ENABLED):
-            raise NotImplementedError("deletion-vectors.enabled=true: deletion vectors are not ported to the torch port yet")
-        if any(e.kind == "DELETION_VECTORS" for e in index_entries):
-            raise NotImplementedError(
-                f"snapshot {snapshot.id} holds deletion vectors (deletion-vectors.enabled), which the torch "
-                "port cannot apply yet"
-            )
-
-    def _check_no_record_ttl(self) -> None:
-        """The JAX package drops rows older than record-level.expire-time on
-        every read once record-level.time-field names their time column."""
-        opts = self.options.options
-        key = opts.set_key(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
-        if key is not None and opts.get(CoreOptions.RECORD_LEVEL_TIME_FIELD) is not None:
-            raise NotImplementedError(
-                f"{key}: the torch port does not drop expired records on read yet (record-level.time-field="
-                f"{opts.get(CoreOptions.RECORD_LEVEL_TIME_FIELD)})"
-            )
-
     def plan(self) -> ScanPlan:
-        self._check_no_record_ttl()
         snapshot = self.snapshot_manager.latest_snapshot()
         self._check_reads_latest_on_main(snapshot)
         if snapshot is None:
@@ -121,14 +137,22 @@ class FileStoreScan:
             if snapshot.index_manifest
             else []
         )
-        self._check_no_deletion_vectors(snapshot, index_entries)
         metas = self.manifest_list.read(snapshot.base_manifest_list) + self.manifest_list.read(
             snapshot.delta_manifest_list
         )
         entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
-        return ScanPlan(snapshot, [e for e in entries if self._accept(e)], [e for e in index_entries if self._accept(e)])
+        return ScanPlan(
+            snapshot, [e for e in entries if self._accept(e)], [e for e in index_entries if self._accept_slot(e)]
+        )
 
-    def _accept(self, e: "ManifestEntry | IndexFileEntry") -> bool:
+    def _accept_slot(self, e: "ManifestEntry | IndexFileEntry") -> bool:
         return (self._partition_filter is None or self._partition_filter(e.partition)) and (
             self._bucket is None or e.bucket == self._bucket
+        )
+
+    def _accept(self, e: ManifestEntry) -> bool:
+        return (
+            self._accept_slot(e)
+            and (self._key_filter is None or self._key_filter.test_stats(e.file.key_stats))
+            and (self._value_filter is None or self._value_filter.test_stats(e.file.value_stats))
         )

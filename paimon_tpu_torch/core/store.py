@@ -1,6 +1,10 @@
 """The key-value file store: one table's components wired from its schema
 and options (port of paimon_tpu/core/store.py, primary-key tables).
 
+A bucket's writer is restored from its live files and deletion vectors;
+its compactions drop the vectors' rows and the rows that record-level TTL
+expires, and every read ANDs the TTL into its predicate.
+
 Layout, the JAX package's: table/[k1=v1/k2=v2/]bucket-B/data-*.parquet,
 with the hash index of dynamic-bucket tables under table/index/.
 """
@@ -11,13 +15,15 @@ from typing import Sequence
 
 import torch
 
+from ..data.predicate import Predicate, and_, greater_than, is_null, or_
 from ..fs import LocalFileIO
 from ..options import ChangelogProducer, CoreOptions
 from ..types import RowType
-from ..utils import partition_path
+from ..utils import now_millis, partition_path
 from .commit import FileStoreCommit
 from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
+from .deletionvectors import DeletionVectorsIndexFile
 from .expire import SnapshotExpire
 from .levels import Levels
 from .mergefn import MergeExecutor
@@ -105,6 +111,14 @@ class KeyValueFileStore:
         plan = self.new_scan().with_bucket(bucket).with_partition_filter(lambda p: p == partition).plan()
         return [e.file for e in plan.entries]
 
+    def restore_state(self, partition: tuple, bucket: int) -> tuple[list[DataFileMeta], dict]:
+        """(live files, deletion vectors by data file name) of one bucket in
+        the latest snapshot."""
+        plan = self.new_scan().with_bucket(bucket).with_partition_filter(lambda p: p == partition).plan()
+        dv_index = plan.dv_index_for(partition, bucket)
+        dvs = DeletionVectorsIndexFile(self.file_io, self.table_path).read_all(dv_index) if dv_index else {}
+        return [e.file for e in plan.entries], dvs
+
     def new_writer(self, partition: tuple, bucket: int, total_buckets: int | None = None) -> MergeTreeWriter:
         """A writer restored from the bucket's live files; it compacts unless
         the table is write-only."""
@@ -114,7 +128,7 @@ class KeyValueFileStore:
                 "changelog-producer=lookup needs the writer's levels view and cannot run with "
                 "write-only=true (produce the changelog in the writing job, not a dedicated compactor)"
             )
-        existing = self.restore_files(partition, bucket)
+        existing, dvs = self.restore_state(partition, bucket)
         merge = self.merge_executor()
         wf = self.writer_factory(partition, bucket)
         compact_manager = None
@@ -134,6 +148,8 @@ class KeyValueFileStore:
                 self.reader_factory(partition, bucket),
                 wf,
                 merge,
+                deletion_vectors=dvs,
+                expire_predicate=self.record_expire_predicate(),
                 emit_full_changelog=producer == ChangelogProducer.FULL_COMPACTION
                 or (producer == ChangelogProducer.LOOKUP and not lookup_wait),
                 row_deduplicate=co.options.get(CoreOptions.CHANGELOG_PRODUCER_ROW_DEDUPLICATE),
@@ -150,8 +166,37 @@ class KeyValueFileStore:
             compact_manager=compact_manager,
         )
 
+    def record_expire_predicate(self) -> Predicate | None:
+        """Record-level TTL: the rows to keep, those whose
+        record-level.time-field is later than now less
+        record-level.expire-time (the field counts seconds, millis or
+        micros by record-level.time-field-type), or NULL (a row without a
+        time never expires); None when either option is unset. Every read
+        ANDs it in, and compaction drops the rows it rejects."""
+        ttl = self.options.options.get(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
+        field = self.options.options.get(CoreOptions.RECORD_LEVEL_TIME_FIELD)
+        if ttl is None or field is None:
+            return None
+        unit = self.options.options.get(CoreOptions.RECORD_LEVEL_TIME_FIELD_TYPE)
+        cutoff_ms = now_millis() - ttl
+        # the JAX package's scales: an unknown unit counts seconds
+        cutoff = cutoff_ms * 1000 if unit == "micros" else cutoff_ms // {"millis": 1}.get(unit, 1000)
+        return or_(greater_than(field, cutoff), is_null(field))
+
     def read_bucket(
-        self, partition: tuple, bucket: int, files: list[DataFileMeta], projection: Sequence[str] | None = None
+        self,
+        partition: tuple,
+        bucket: int,
+        files: list[DataFileMeta],
+        predicate: Predicate | None = None,
+        projection: Sequence[str] | None = None,
+        drop_delete: bool = True,
+        deletion_vectors: dict | None = None,
     ):
+        """Merge-read one bucket's files under the predicate ANDed with the
+        record TTL, without the deletion vectors' rows."""
+        expire = self.record_expire_predicate()
+        if expire is not None:
+            predicate = expire if predicate is None else and_(predicate, expire)
         read = MergeFileSplitRead(self.reader_factory(partition, bucket), self.merge_executor(), self.key_names)
-        return read.read_split(files, projection)
+        return read.read_split(files, predicate, projection, drop_delete, deletion_vectors)

@@ -8,8 +8,9 @@ compaction manager: each flush puts its files at the head of level 0 and
 lets the manager compact. Changelog producers: under `input` a flush
 writes its raw buffer as changelog files; under `lookup` (with
 changelog-producer.lookup-wait, the default) it reads the bucket's files
-that overlap the flushed keys, merges them with the flushed rows and diffs
-the state before against the state after (core/changelog.py). The
+that overlap the flushed keys (without their deletion vectors' rows),
+merges them with the flushed rows and diffs the state before against the
+state after (core/changelog.py). The
 compactions' changelog (full-compaction, or lookup without waiting) comes
 from the compaction manager. prepare_commit flushes and hands the new
 files, the compaction's before and after files and the changelog files
@@ -120,7 +121,9 @@ class MergeTreeWriter:
             f for f in self.compact_manager.levels.all_files() if not (f.max_key < lo or f.min_key > hi)
         ]
         reader = MergeFileSplitRead(self.compact_manager.rewriter.reader_factory, self.merge, key_names)
-        before = reader.read_kv(overlapping, drop_delete=True)
+        before = reader.read_kv(
+            overlapping, drop_delete=True, deletion_vectors=self.compact_manager.rewriter.deletion_vectors
+        )
         after = self.merge.merge(KVBatch.concat([before, merged]), seq_ascending=True).drop_deletes()
         return state_changelog(
             before, after, key_names, self.options.options.get(CoreOptions.CHANGELOG_PRODUCER_ROW_DEDUPLICATE)

@@ -9,7 +9,8 @@ leaves; PLAIN and dictionary (PLAIN dictionary page + RLE/bit-packed
 codes) encodings, and on read also DELTA_BINARY_PACKED integers (the JAX
 package's native encoder writes sorted integer columns so); data pages
 v1 (v2 is read too); codecs UNCOMPRESSED and ZSTD (the port's own codec,
-utils/compression.py); chunk min/max/null-count statistics. It reads the
+utils/compression.py); chunk min/max/null-count statistics, written and,
+under a predicate, read to skip row groups. It reads the
 files pyarrow writes with those codecs, and pyarrow reads the files it
 writes. Any other codec, on read or as file.compression on write, raises
 NotImplementedError naming file.compression.
@@ -25,6 +26,7 @@ import numpy as np
 from ..data.batch import Column, ColumnBatch
 from ..types import STRING_ROOTS, DataType, RowType, TypeRoot
 from ..utils.compression import zstd_compress, zstd_decompress
+from . import FieldStats
 from .thrift import ThriftError, append_uvarint, build_struct, read_struct, read_varint, zigzag
 
 __all__ = ["read_parquet", "write_parquet", "ParquetFormatError"]
@@ -219,6 +221,7 @@ class _Chunk:
     max_def: int
     start: int
     size: int
+    stats: dict | None = None  # the chunk's Statistics struct, as thrift fields
 
 
 def _parse_footer(data: bytes):
@@ -250,7 +253,7 @@ def _parse_footer(data: bytes):
             data_off = md[9]
             dict_off = md.get(11)
             start = dict_off if dict_off is not None and 0 < dict_off < data_off else data_off
-            cols[name] = _Chunk(name, md[1], md.get(4, 0), md[5], max_def[name], start, md[7])
+            cols[name] = _Chunk(name, md[1], md.get(4, 0), md[5], max_def[name], start, md[7], md.get(12))
         groups.append((rg[3], cols))
     return groups
 
@@ -373,13 +376,52 @@ def _decode_chunk(data: bytes, chunk: _Chunk, dtype: DataType, num_rows: int):
     return values, (None if validity.all() else validity)
 
 
-def read_parquet(data: bytes, schema: RowType, projection) -> list[ColumnBatch]:
+def _stat_value(raw: bytes | None, physical: int, dtype: DataType):
+    """One min or max of a chunk's statistics, as the port's columns hold
+    the value (an int, a float, a bool, a str or bytes)."""
+    if raw is None:
+        return None
+    if physical == T_BYTE_ARRAY:
+        return raw.decode("utf-8") if _is_utf8(dtype) else bytes(raw)
+    if physical == T_BOOLEAN:
+        return bool(raw[0]) if raw else None
+    np_dtype = _PLAIN_DTYPES.get(physical)
+    if np_dtype is None or len(raw) != np_dtype.itemsize:
+        return None
+    return np.frombuffer(raw, dtype=np_dtype)[0].item()
+
+
+def _chunk_field_stats(chunk: _Chunk, dtype: DataType, num_rows: int) -> FieldStats | None:
+    """A chunk's min_value/max_value/null_count, or None when its writer
+    recorded no min and max; an absent null count is unknown."""
+    st = chunk.stats or {}
+    lo, hi = _stat_value(st.get(6), chunk.physical, dtype), _stat_value(st.get(5), chunk.physical, dtype)
+    if lo is None or hi is None:
+        return None
+    return FieldStats(lo, hi, st.get(3), num_rows)
+
+
+def _row_group_matches(predicate, cols: dict, schema: RowType, num_rows: int) -> bool:
+    stats = {}
+    for name in predicate.referenced_fields():
+        chunk = cols.get(name)
+        if chunk is not None and name in schema:
+            st = _chunk_field_stats(chunk, schema.field(name).type, num_rows)
+            if st is not None:
+                stats[name] = st
+    return predicate.test_stats(stats)
+
+
+def read_parquet(data: bytes, schema: RowType, projection, predicate=None) -> list[ColumnBatch]:
     """Decode the projected columns of one file: one ColumnBatch per row
-    group, rows in file order."""
+    group, rows in file order. Under a predicate, row groups whose chunk
+    statistics cannot match are skipped; which ones depends on the
+    predicate alone, so two reads of one file under one predicate return
+    the same rows whatever they project."""
     read_schema = schema.project(projection)
     out = []
     for num_rows, cols in _parse_footer(data):
-        if num_rows == 0:
+        if num_rows == 0 or (predicate is not None and not _row_group_matches(predicate, cols, schema, num_rows)):
             continue
         columns = {}
         for f in read_schema.fields:

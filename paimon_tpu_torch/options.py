@@ -172,6 +172,7 @@ class CoreOptions:
     PARTIAL_UPDATE_REMOVE_RECORD_ON_DELETE = ConfigOption.bool_("partial-update.remove-record-on-delete", False)
     AGGREGATE_DEFAULT_FUNC = ConfigOption.string("fields.default-aggregate-function", None)
     ROWKIND_FIELD = ConfigOption.string("rowkind.field", None)
+    # "Deletion-vector mode." (table/delete.py)
     DELETION_VECTORS_ENABLED = ConfigOption.bool_("deletion-vectors.enabled", False)
     BRANCH = ConfigOption.string("branch", "main")
     SCAN_MODE = ConfigOption("scan.mode", "default", str, ("log.scan",))
@@ -197,12 +198,19 @@ class CoreOptions:
     CHANGELOG_PRODUCER_ROW_DEDUPLICATE = ConfigOption.bool_("changelog-producer.row-deduplicate", True)
     # lookup producer: false defers the changelog to the next compaction
     CHANGELOG_PRODUCER_LOOKUP_WAIT = ConfigOption.bool_("changelog-producer.lookup-wait", True)
-    # a key of a feature the port does not write yet: tables that are not
-    # write-only raise on it (table/write.py), so only its key is kept
-    RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time", None, str, ("record-level.expire-time.ms",))
-    # record TTL on read, which the JAX package acts on: the port raises on
-    # it (core/scan.py)
+    # "Row TTL on read/compact." (core/store.py record_expire_predicate)
+    RECORD_LEVEL_EXPIRE_TIME = ConfigOption.duration(
+        "record-level.expire-time", None, ("record-level.expire-time.ms",)
+    )
+    # "Row TTL time column."
     RECORD_LEVEL_TIME_FIELD = ConfigOption.string("record-level.time-field")
+    # "Row TTL column unit: seconds|millis|micros."
+    RECORD_LEVEL_TIME_FIELD_TYPE = ConfigOption.string("record-level.time-field-type", "seconds")
+    # "Roll the packed deletion-vector container at this size."
+    DELETION_VECTOR_INDEX_FILE_TARGET_SIZE = ConfigOption.memory("deletion-vector.index-file.target-size", "2 mb")
+    # "DELETE/UPDATE commands produce input changelog even when
+    # changelog-producer=none." (table/delete.py)
+    DELETE_FORCE_PRODUCE_CHANGELOG = ConfigOption.bool_("delete.force-produce-changelog", False)
     # commit-time maintenance (table/write.py TableCommit._post_commit)
     SNAPSHOT_NUM_RETAINED_MIN = ConfigOption.int_("snapshot.num-retained.min", 10)
     SNAPSHOT_NUM_RETAINED_MAX = ConfigOption.int_("snapshot.num-retained.max", 2147483647)

@@ -1,6 +1,7 @@
 """The Table API (port of paimon_tpu/table/__init__.py, primary-key
 tables): new_read_builder / new_batch_write_builder /
-new_stream_write_builder, copy, tags and snapshot expiry."""
+new_stream_write_builder, copy, delete_where, tags and snapshot
+expiry."""
 
 from __future__ import annotations
 
@@ -70,6 +71,14 @@ class FileStoreTable:
 
     def new_stream_write_builder(self) -> StreamWriteBuilder:
         return StreamWriteBuilder(self)
+
+    def delete_where(self, predicate) -> int:
+        """DELETE FROM this table WHERE predicate (table/delete.py): through
+        deletion vectors under deletion-vectors.enabled, else as -D rows;
+        returns the number of rows deleted."""
+        from .delete import delete_where
+
+        return delete_where(self, predicate)
 
     def create_tag(self, name: str, snapshot_id: int | None = None) -> None:
         TagManager(self.file_io, self.path).create(name, snapshot_id)

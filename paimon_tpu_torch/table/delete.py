@@ -1,0 +1,118 @@
+"""DELETE FROM table WHERE <predicate> (port of paimon_tpu/table/delete.py,
+primary-key tables).
+
+Two strategies, as in the JAX package:
+
+1. deletion-vectors.enabled: the predicate is first resolved against the
+   merged view (a with_filter read), then every stored version of each
+   matching key is marked in its file's deletion vector, so that no older
+   version comes back on merge. Each changed bucket's whole container is
+   written anew and committed as one index entry, in one APPEND snapshot
+   with the batch-delete identifier; no data file is rewritten.
+2. otherwise: the matching merged rows are written back as -D rows, with
+   an input changelog under delete.force-produce-changelog when the table
+   has no changelog producer.
+
+The JAX package's third strategy, the copy-on-write rewrite of append
+tables, waits for append tables in the port.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import numpy as np
+
+from ..core.deletionvectors import DeletionVectorsIndexFile, DeletionVectorsMaintainer
+from ..core.manifest import CommitMessage, ManifestCommittable
+from ..data.predicate import Predicate
+from ..options import ChangelogProducer, CoreOptions
+from ..types import RowKind
+
+if TYPE_CHECKING:
+    from . import FileStoreTable
+
+__all__ = ["delete_where"]
+
+# a DELETE commits under this identifier (the JAX package's
+# Long.MAX_VALUE - 1)
+DELETE_COMMIT_IDENTIFIER = (1 << 63) - 2
+
+
+def delete_where(table: "FileStoreTable", predicate: Predicate) -> int:
+    """Delete the rows the predicate matches; returns how many."""
+    if not table.schema.primary_keys:
+        raise NotImplementedError(
+            "DELETE on an append-only table (copy-on-write rewrite) is not ported to the torch port yet"
+        )
+    if table.options.options.get(CoreOptions.DELETION_VECTORS_ENABLED):
+        return _delete_with_dvs(table, predicate)
+    return _delete_with_retract(table, predicate)
+
+
+def _key_match_mask(batch, key_names, matching) -> np.ndarray:
+    """Whether each row's key tuple is one of `matching`'s."""
+    if len(key_names) == 1:
+        k = key_names[0]
+        return np.isin(batch.column(k).values, matching.column(k).values)
+    keys = set(zip(*(matching.column(k).values.tolist() for k in key_names)))
+    rows = zip(*(batch.column(k).values.tolist() for k in key_names))
+    return np.fromiter((r in keys for r in rows), dtype=np.bool_, count=batch.num_rows)
+
+
+def _delete_with_dvs(table: "FileStoreTable", predicate: Predicate) -> int:
+    store = table.store
+    idx = DeletionVectorsIndexFile(
+        table.file_io, table.path, int(store.options.options.get(CoreOptions.DELETION_VECTOR_INDEX_FILE_TARGET_SIZE))
+    )
+    plan = store.new_scan().plan()
+    rb = table.new_read_builder().with_filter(predicate)
+    matching = rb.new_read().read_all(rb.new_scan().plan())
+    if matching.num_rows == 0:
+        return 0
+    messages: list[CommitMessage] = []
+    for partition, buckets in plan.grouped().items():
+        for bucket, files in buckets.items():
+            dv_index = plan.dv_index_for(partition, bucket)
+            restored = idx.read_all(dv_index) if dv_index else {}
+            maintainer = DeletionVectorsMaintainer(idx, restored)
+            reader = store.reader_factory(partition, bucket)
+            changed = False
+            for f in files:
+                kv = reader.read(f)  # every row, in file order: positions count these
+                mask = _key_match_mask(kv.data, store.key_names, matching)
+                existing = restored.get(f.file_name)
+                if existing is not None:
+                    mask &= ~existing.deleted_mask(kv.num_rows)
+                positions = np.flatnonzero(mask)
+                if len(positions):
+                    maintainer.notify_deletion(f.file_name, positions.astype(np.uint32))
+                    changed = True
+            if changed:
+                entry = maintainer.prepare_commit(partition, bucket)
+                if entry:
+                    messages.append(
+                        CommitMessage(partition, bucket, max(store.options.bucket, 1), new_index_files=[entry])
+                    )
+    if messages:
+        store.new_commit().commit(ManifestCommittable(DELETE_COMMIT_IDENTIFIER, messages=messages))
+    return matching.num_rows
+
+
+def _delete_with_retract(table: "FileStoreTable", predicate: Predicate) -> int:
+    """Write the matching merged rows back as -D rows."""
+    rb = table.new_read_builder().with_filter(predicate)
+    matching = rb.new_read().read_all(rb.new_scan().plan())
+    if matching.num_rows == 0:
+        return 0
+    if (
+        table.options.options.get(CoreOptions.DELETE_FORCE_PRODUCE_CHANGELOG)
+        and table.options.changelog_producer == ChangelogProducer.NONE
+    ):
+        # consumers see the retractions even on a table without changelog
+        table = table.copy({"changelog-producer": "input"})
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(matching, np.full(matching.num_rows, int(RowKind.DELETE), dtype=np.uint8))
+    wb.new_commit().commit(w.prepare_commit())
+    return matching.num_rows

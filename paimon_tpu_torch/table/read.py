@@ -1,6 +1,11 @@
 """Read builder: scan planning -> splits -> merge reads (port of
-paimon_tpu/table/read.py; predicates and partition pruning, time travel,
-incremental and streaming scans are not ported yet).
+paimon_tpu/table/read.py; time travel, incremental and streaming scans
+are not ported yet).
+
+with_filter ANDs predicates. The scan keeps the partitions that the
+predicate's partition-only conjuncts accept and the files whose key stats
+its key-only conjuncts accept; the read pushes the predicate into the
+merge (core/read.py) and applies the split's deletion vectors.
 
 Splits come in the JAX package's order: each partition's splits by sorted
 bucket, the partitions sorted and taken round-robin (one split of each in
@@ -14,8 +19,10 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Sequence
 
 from ..core.datafile import DataFileMeta
+from ..core.deletionvectors import DeletionVectorsIndexFile
 from ..core.levels import IntervalPartition
 from ..data.batch import ColumnBatch, concat_batches
+from ..data.predicate import Predicate, PredicateBuilder, and_
 from ..options import CoreOptions
 
 if TYPE_CHECKING:
@@ -32,27 +39,28 @@ class DataSplit:
     bucket: int
     files: list[DataFileMeta]
     snapshot_id: int | None = None
+    dv_index_file: str | None = None  # the bucket's deletion-vector container
 
 
 class ReadBuilder:
     def __init__(self, table: "FileStoreTable"):
         self.table = table
+        self._predicate: Predicate | None = None
         self._projection: Sequence[str] | None = None
 
-    def with_filter(self, predicate) -> "ReadBuilder":
-        raise NotImplementedError(
-            "with_filter: predicates, and with them partition pruning, are not ported to the torch port yet"
-        )
+    def with_filter(self, predicate: Predicate) -> "ReadBuilder":
+        self._predicate = predicate if self._predicate is None else (self._predicate & predicate)
+        return self
 
     def with_projection(self, fields: Sequence[str]) -> "ReadBuilder":
         self._projection = list(fields)
         return self
 
     def new_scan(self) -> "TableScan":
-        return TableScan(self.table)
+        return TableScan(self.table, self._predicate)
 
     def new_read(self) -> "TableRead":
-        return TableRead(self.table, self._projection)
+        return TableRead(self.table, self._predicate, self._projection)
 
 
 def _pack_bucket_splits(files, target: int, open_cost: int) -> list[list]:
@@ -76,18 +84,44 @@ def _pack_bucket_splits(files, target: int, open_cost: int) -> list[list]:
 
 
 class TableScan:
-    def __init__(self, table: "FileStoreTable"):
+    def __init__(self, table: "FileStoreTable", predicate: Predicate | None = None):
         self.table = table
+        self.predicate = predicate
+
+    def _partition_predicate(self):
+        """partition tuple -> bool from the predicate's partition-only
+        conjuncts, or None when none prunes."""
+        store = self.table.store
+        parts = PredicateBuilder.pick_by_fields(PredicateBuilder.split_and(self.predicate), set(store.partition_keys))
+        if not parts:
+            return None
+        pred = and_(*parts)
+        keys = store.partition_keys
+        row_type = self.table.row_type.project(keys)
+
+        def accept(partition: tuple) -> bool:
+            row = ColumnBatch.from_pydict(row_type, {k: [v] for k, v in zip(keys, partition)})
+            return bool(pred.eval(row)[0])
+
+        return accept
 
     def plan(self) -> list[DataSplit]:
         store = self.table.store
-        plan = store.new_scan().plan()
+        scan = store.new_scan()
+        if self.predicate is not None:
+            key_parts = PredicateBuilder.pick_by_fields(PredicateBuilder.split_and(self.predicate), set(store.key_names))
+            if key_parts:
+                scan = scan.with_key_filter(and_(*key_parts))
+            accept = self._partition_predicate()
+            if accept is not None:
+                scan = scan.with_partition_filter(accept)
+        plan = scan.plan()
         target = int(store.options.options.get(CoreOptions.SOURCE_SPLIT_TARGET_SIZE))
         open_cost = int(store.options.options.get(CoreOptions.SOURCE_SPLIT_OPEN_FILE_COST))
         snapshot = plan.snapshot.id if plan.snapshot else None
         lanes = [
             [
-                DataSplit(partition, bucket, pack, snapshot)
+                DataSplit(partition, bucket, pack, snapshot, plan.dv_index_for(partition, bucket))
                 for bucket, files in sorted(buckets.items())
                 for pack in _pack_bucket_splits(files, target, open_cost)
             ]
@@ -101,12 +135,20 @@ class TableScan:
 
 
 class TableRead:
-    def __init__(self, table: "FileStoreTable", projection: Sequence[str] | None):
+    def __init__(self, table: "FileStoreTable", predicate: Predicate | None, projection: Sequence[str] | None):
         self.table = table
+        self.predicate = predicate
         self.projection = projection
 
     def read(self, split: DataSplit) -> ColumnBatch:
-        return self.table.store.read_bucket(split.partition, split.bucket, split.files, self.projection)
+        dvs = None
+        if split.dv_index_file:
+            every = DeletionVectorsIndexFile(self.table.file_io, self.table.path).read_all(split.dv_index_file)
+            names = {f.file_name for f in split.files}
+            dvs = {name: dv for name, dv in every.items() if name in names}
+        return self.table.store.read_bucket(
+            split.partition, split.bucket, split.files, self.predicate, self.projection, deletion_vectors=dvs
+        )
 
     def read_all(self, splits: Sequence[DataSplit]) -> ColumnBatch:
         batches = [self.read(s) for s in splits]

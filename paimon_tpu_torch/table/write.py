@@ -50,17 +50,6 @@ __all__ = [
 ]
 
 
-def _check_writable(options: CoreOptions) -> None:
-    """Raise, naming the option, for what the port's write path would get
-    wrong: it drops no expired records in compaction."""
-    if not options.write_only:
-        key = options.options.set_key(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
-        if key is not None:
-            raise NotImplementedError(
-                f"{key}: the torch port does not drop expired records in compaction yet"
-            )
-
-
 def _check_key_types(table: "FileStoreTable") -> None:
     """A bytes primary key is refused before any file is written: the JAX
     package fails to commit such a table (its data-file metadata keeps the
@@ -96,7 +85,6 @@ class TableWrite:
                 # late row could evict one with a higher sequence field
                 raise ValueError("local-merge-buffer-size cannot combine with sequence.field")
             raise NotImplementedError("local-merge-buffer-size: the torch port has no local merge buffer yet")
-        _check_writable(co)
         _check_key_types(table)
         self.partition_keys = store.partition_keys
         self.bucket_keys = table.schema.bucket_keys

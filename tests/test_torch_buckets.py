@@ -543,9 +543,26 @@ def test_null_numeric_partition_value_raises(warehouse):
 
 
 def test_predicates_and_local_merge_raise(warehouse):
-    table = _create("port", PortCatalog(warehouse, device="cpu"), "db.unported_read", True,
+    """with_filter, once refused, is ported: on a partitioned dynamic-bucket
+    table written by the port, a partition, a key and a value predicate
+    plan the JAX package's splits and read its rows, in its order. The
+    local merge buffer still raises."""
+    from paimon_tpu.data import predicate as jp
+    from paimon_tpu_torch.data import predicate as tp
+
+    ident = "db.unported_read"
+    table = _create("port", PortCatalog(warehouse, device="cpu"), ident, True,
                     _options("dynamic", "deduplicate", "port"))
-    with pytest.raises(NotImplementedError, match="partition pruning"):
-        table.new_read_builder().with_filter(None)
+    for c in range(3):
+        _batch_commit(table, _commit_rows(c))
+    jax = JaxCatalog(warehouse).get_table(ident)
+    for make in (lambda p: p.equal("dt", DTS[0]), lambda p: p.between("id", 10, 40),
+                 lambda p: p.and_(p.in_("dt", list(DTS[1:3])), p.greater_than("d", 5.0))):
+        rb, jrb = table.new_read_builder().with_filter(make(tp)), jax.new_read_builder().with_filter(make(jp))
+        splits, jsplits = rb.new_scan().plan(), jrb.new_scan().plan()
+        assert [(s.partition, s.bucket, [f.file_name for f in s.files]) for s in splits] == [
+            (s.partition, s.bucket, [f.file_name for f in s.files]) for s in jsplits]
+        got = [tuple(_py(v) for v in row) for row in rb.new_read().read_all(splits).to_pylist()]
+        assert got and got == [tuple(_py(v) for v in row) for row in jrb.new_read().read_all(jsplits).to_pylist()]
     with pytest.raises(NotImplementedError, match="local-merge-buffer-size"):
         table.copy({"local-merge-buffer-size": "1 mb"}).new_batch_write_builder().new_write()

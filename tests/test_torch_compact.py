@@ -650,7 +650,7 @@ GUARDS = [
     ("changelog-producer", "input", {"write-only": "true"}, "batch"),
 ]
 # once refused, now ported: these cases run both packages
-PORTED = {"changelog-producer", "sequence.field"}
+PORTED = {"changelog-producer", "sequence.field", "record-level.expire-time", "record-level.expire-time.ms"}
 
 # snapshot retention, once refused: each case runs both packages (see
 # test_snapshot_retention_matches_the_reference)
@@ -689,12 +689,14 @@ def _changelog(path) -> list:
 @pytest.mark.parametrize("key, value, extra, mode", GUARDS, ids=[_guard_id(*g) for g in GUARDS])
 def test_unported_write_options_raise_naming_the_option(warehouse, key, value, extra, mode):
     """What the port's write path would get wrong raises at the write's
-    creation, naming the option: record TTL on tables that are not
-    write-only. The changelog producers and sequence.field, once refused
+    creation, naming the option. The changelog producers, sequence.field
+    and record-level TTL on tables that are not write-only, once refused
     here, are ported: their cases write 7 commits through both packages and
     compare the snapshots, each snapshot's changelog files row for row, and
     the reads (with an oracle); on batch writes of a write-only table the
-    input changelog is one file a commit in both."""
+    input changelog is one file a commit in both. Under TTL every row has
+    expired (the time field v counts seconds since 1970), so both packages
+    read nothing and their compactions drop the rows they rewrite."""
     ident = f"db.guard_{key.replace('.', '_').replace('-', '_')}_{value.replace(' ', '_')}_{len(extra)}_{mode}"
     options = {**C4_OPTIONS, key: value, **extra}
     if key in PORTED:
@@ -726,6 +728,14 @@ def test_unported_write_options_raise_naming_the_option(warehouse, key, value, e
                 # under sequence.field=v the row with the largest (v, arrival) wins
                 if key != "sequence.field" or i not in last or v >= last[i][1]:
                     last[i] = (i, v, t)
+        if key.startswith("record-level"):
+            # the time field v counts seconds: every row is decades older
+            # than a day, so reads and compactions drop them all
+            assert rows == [] and last
+            assert not any(files for _, _, files in changelog)
+            table = PortCatalog(warehouse, device="cpu").get_table(f"{ident}_port")
+            assert sum(e.file.row_count for e in table.store.new_scan().plan().entries) < 70
+            return
         assert rows == [last[i] for i in sorted(last)]
         if key == "sequence.field":
             assert any(r[2] != "t3" for r in rows if r[0] in set(batches[3]["id"].tolist()))

@@ -59,6 +59,15 @@ def test_no_forbidden_import_in_source(path):
         assert not any(_forbidden(n) for n in names), f"{path}:{node.lineno} imports {names}"
 
 
+@pytest.mark.parametrize("module", ["data/predicate.py", "table/delete.py", "core/deletionvectors.py"])
+def test_row_level_delete_modules_are_scanned(module):
+    """The predicate, DELETE and deletion-vector modules are in the scanned
+    sources (and so in the child process's import closure)."""
+    path = REPO / "paimon_tpu_torch" / module
+    assert path in SOURCES
+    test_no_forbidden_import_in_source(path)
+
+
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     from paimon_tpu_torch.catalog import FileSystemCatalog
 

@@ -474,8 +474,11 @@ def test_port_zstd_files_are_smaller_than_uncompressed(warehouse, default_tables
 
 
 def test_deletion_vectors_raise_naming_the_option(warehouse):
-    """The JAX package deletes id 1 through a deletion vector: the port,
-    which cannot apply one, raises instead of returning the row."""
+    """The JAX package deletes id 1 through a deletion vector. The port,
+    which once refused such a table, now applies the vector: it reads the
+    JAX package's rows, with deletion-vectors.enabled and, as the JAX
+    package does, with the option off (the snapshot's index manifest holds
+    the vectors either way)."""
     from paimon_tpu.data.predicate import equal
 
     ident = "db.deletion_vectors"
@@ -489,11 +492,9 @@ def test_deletion_vectors_raise_naming_the_option(warehouse):
     assert table.delete_where(equal("id", 1)) == 1
     assert [r[0] for r in _jax_read(table)] == [2, 3]
     port_table = PortCatalog(warehouse, device="cpu").get_table(ident)
-    with pytest.raises(NotImplementedError, match=r"deletion-vectors\.enabled"):
-        _read(port_table)
-    # the snapshot's index manifest alone is enough to refuse
-    with pytest.raises(NotImplementedError, match="deletion vectors"):
-        _read(port_table.copy({"deletion-vectors.enabled": "false"}))
+    assert _read(port_table) == _jax_read(table)
+    off = {"deletion-vectors.enabled": "false"}
+    assert _read(port_table.copy(off)) == _jax_read(table.copy(off)) == _jax_read(table)
 
 
 @pytest.fixture(scope="module")
