@@ -184,7 +184,35 @@ Phases, one JSON line each on stdout:
               launches split into writes, deletes, reads and compaction; K1
               and K2 then held exactly to their plain versions at the path's
               shapes that the kernels and cdc phases did not check.
-13. timing  - each kernel at its main-path shape against its plain version,
+13. history - table history, one line per part, on a copy of the main
+              phase's bench table (snapshots 1-4 the four runs, 5 the
+              upsert; tag t2 on snapshot 2), so no later phase sees it:
+              reads under scan.snapshot-id=2, scan.tag-name=t2,
+              scan.version=t2, scan.timestamp-millis (snapshot 2's time)
+              and scan.snapshot-id=4, each at both tiles; the delta reads
+              incremental-between=4,5 (the upsert, all +I) and t2,5
+              (600,000 rows, compared as a multiset of rows with kinds);
+              branch b from t2 with the upsert written to it through
+              branch_table, the branch and main read, rollback_to("t2") on
+              main (the data files only snapshots 3-5 listed must be
+              deleted, the branch's kept), main read, fast_forward("b"),
+              main read (the branch's rows), and every file main's or the
+              branch's latest snapshot lists must exist. Every read equals a
+              sort-engine=numpy read under the same options and an oracle
+              from the generator. Then BASELINE config 4 at scale 1 with
+              snapshot.num-retained.max=10 under a stream reader with
+              consumer-id set, planning until nothing is new after each
+              commit: COMPACT snapshots give no split, the deltas applied
+              to a key -> row map equal the oracle (and the batch read,
+              held to it) after commits 5, 10 and 20, the reader's
+              checkpoint completes after commits 10 and 20, and expiry
+              keeps every snapshot from the consumer's position on; then a
+              full compaction and a compacted-full starting plan equal to
+              the batch read. Seconds per part, rows, splits and files per
+              read and per plan, files rollback deleted, K1 and K2 launches
+              per part; K1 and K2 then held exactly to their plain versions
+              at the path's shapes no earlier check covered.
+14. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -196,8 +224,8 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines, buckets, strings, maintenance, cdc and deletes
-paths, and by path), the
+the main, compact, engines, buckets, strings, maintenance, cdc, deletes
+and history paths, and by path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -210,6 +238,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -763,7 +792,14 @@ def main() -> int:
         checks += deletes["shape_checks"]["exact_checks"]
         emit({"phase": "deletes", "part": "summary", **deletes, "exact_checks_all_phases": checks})
 
-    # 13. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 13. table history
+        checked = tuple([tuple(s) for p in (cdc, deletes) for s in p["shape_checks"][key]]
+                        for key in ("k1_new_shapes", "k2_new_shapes"))
+        history = history_phase(pt, hk, warehouse, table.path, checked)
+        checks += history["shape_checks"]["exact_checks"]
+        emit({"phase": "history", "part": "summary", **history, "exact_checks_all_phases": checks})
+
+    # 14. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -776,7 +812,8 @@ def main() -> int:
     by_path = {name: {"main": main_launches[name], "compact": compact["launches"]["phase"][name],
                       "engines": engines["launches"][name], "buckets": buckets["launches"][name],
                       "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
-                      "cdc": cdc["launches"][name], "deletes": deletes["launches"][name]}
+                      "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
+                      "history": history["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -2735,6 +2772,312 @@ def deletes_phase(pt, hk, warehouse: str, cdc_checked: dict) -> dict:
     checked = ([tuple(s) for s in cdc_checked["k1_new_shapes"]], [tuple(s) for s in cdc_checked["k2_new_shapes"]])
     return {"launches": launches, "launches_by_part": {name: p["launches"]["phase"] for name, p in parts.items()},
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2028, checked)}
+
+
+# ---------------------------------------------------------------------------
+# table history: time travel, incremental reads, a branch, rollback and
+# fast-forward on a copy of the bench table, and a stream reader with a
+# consumer over config 4
+# ---------------------------------------------------------------------------
+
+# config 4 with a consumer's stream reader and at most 10 snapshots kept
+C4_HISTORY_OPTIONS = {**C4_OPTIONS, "snapshot.num-retained.max": "10"}
+HISTORY_ACKS = (10, 20)  # commits after which the reader's checkpoint completes
+HISTORY_CHECKS = (5, 10, 20)  # commits after which the replayed deltas are checked
+NO_IDS = np.empty(0, np.int64)
+
+
+def bench_runs() -> tuple[list, np.ndarray]:
+    """The bench table's four runs (sorted ids) and its upserted ids, drawn
+    as build_table draws them."""
+    ids = np.random.default_rng(7).permutation(N_ROWS).astype(np.int64)
+    per = N_ROWS // N_RUNS
+    runs = [np.sort(ids[r * per:(r + 1) * per]) for r in range(N_RUNS)]
+    return runs, np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
+
+
+def check_history_rows(out, reference, ids: np.ndarray, upserted: np.ndarray, what: str) -> None:
+    """`out` equals the numpy engine's `reference` row for row and the
+    oracle: `ids` in order, those in `upserted` with the upsert's values,
+    the others with their first values."""
+    same_rows(out, reference, f"{what}: against the numpy engine")
+    assert np.array_equal(out.column("id").values, ids), f"{what}: ids differ from the oracle"
+    new, old, is_up = table_values(ids, True), table_values(ids, False), np.isin(ids, upserted)
+    for name in new:
+        assert np.array_equal(out.column(name).values, np.where(is_up, new[name], old[name])), (
+            f"{what}: {name} differs from the oracle")
+
+
+def history_read(hk, table, options: dict, ids: np.ndarray, upserted: np.ndarray, what: str) -> dict:
+    """The table read under `options` at both tiles, each held to a
+    sort-engine=numpy read under the same options and to the oracle; per
+    tile seconds, rows, splits, files and launches."""
+    reference = read_all(table.copy({**options, "sort-engine": "numpy"}))
+    out = {}
+    for label, tile in (("default_tile", {}), (f"tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        before = dict(hk.launches)
+        rb = table.copy({**options, **tile}).new_read_builder()
+        t0 = time.perf_counter()
+        splits = rb.new_scan().plan()
+        rows = rb.new_read().read_all(splits)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_history_rows(rows, reference, ids, upserted, f"{what}, {label}")
+        out[label] = {"seconds": round(seconds, 4), "rows": rows.num_rows, "splits": len(splits),
+                      "files": sum(len(x.files) for x in splits), "launches": launch_diff(hk, before)}
+    return out
+
+
+def time_travel_part(hk, table, runs: list) -> dict:
+    """Reads of snapshots 2 and 4 of the bench table's copy by id, tag,
+    version and time."""
+    sm = table.store.snapshot_manager
+    t2, t3 = sm.snapshot(2).time_millis, sm.snapshot(3).time_millis
+    assert t2 < t3, f"snapshots 2 and 3 share the time {t2}"
+    table.create_tag("t2", 2)
+    at = {k: np.sort(np.concatenate(runs[:k])) for k in (2, 4)}
+    travels = {"scan.snapshot-id=2": ({"scan.snapshot-id": "2"}, 2), "scan.tag-name=t2": ({"scan.tag-name": "t2"}, 2),
+               "scan.version=t2": ({"scan.version": "t2"}, 2),
+               f"scan.timestamp-millis={t2}": ({"scan.timestamp-millis": str(t2)}, 2),
+               "scan.snapshot-id=4": ({"scan.snapshot-id": "4"}, 4)}
+    before = dict(hk.launches)
+    reads = {label: history_read(hk, table, opts, at[k], NO_IDS, label) for label, (opts, k) in travels.items()}
+    return {"reads": reads, "oracle_rows": {"snapshot 2": len(at[2]), "snapshot 4": len(at[4])},
+            "launches": launch_diff(hk, before)}
+
+
+def change_read(table, options: dict) -> tuple:
+    """(rows, kinds, splits) of an incremental read."""
+    rb = table.copy(options).new_read_builder()
+    splits = rb.new_scan().plan()
+    read = rb.new_read()
+    parts = [read.read_with_kinds(s) for s in splits]
+    torch.cuda.synchronize()
+    from paimon_tpu_torch.data.batch import concat_batches
+
+    return concat_batches([p[0] for p in parts]), np.concatenate([p[1] for p in parts]), splits
+
+
+def incremental_part(hk, table, runs: list, up: np.ndarray) -> dict:
+    """incremental-between=4,5 and t2,5 in delta mode, held to the numpy
+    engine and, as multisets of rows with their kinds, to the oracle."""
+    before = dict(hk.launches)
+    out = {}
+    for spec, changes in (("4,5", [(up, True)]), ("t2,5", [(runs[2], False), (runs[3], False), (up, True)])):
+        t0 = time.perf_counter()
+        data, kinds, splits = change_read(table, {"incremental-between": spec})
+        seconds = time.perf_counter() - t0
+        ref, ref_kinds, _ = change_read(table, {"incremental-between": spec, "sort-engine": "numpy"})
+        same_rows(data, ref, f"incremental-between={spec}: against the numpy engine")
+        assert np.array_equal(kinds, ref_kinds) and not kinds.any(), f"incremental-between={spec}: kinds not all +I"
+        want = {name: np.concatenate([table_values(ids, upsert)[name] for ids, upsert in changes])
+                for name in data.schema.field_names}
+        got_order = np.lexsort((data.column("c1").values, data.column("id").values))
+        want_order = np.lexsort((want["c1"], want["id"]))
+        for name, values in want.items():
+            assert np.array_equal(data.column(name).values[got_order], values[want_order]), (
+                f"incremental-between={spec}: {name} differs from the oracle")
+        out[f"incremental-between={spec}"] = {
+            "seconds": round(seconds, 4), "rows": data.num_rows, "splits": len(splits),
+            "files": sum(len(s.files) for s in splits), "snapshots": sorted({s.snapshot_id for s in splits})}
+    return {"reads": out, "launches": launch_diff(hk, before)}
+
+
+def snapshot_files(table, snapshot_id: int | None = None) -> set:
+    """The data files a snapshot of the table (the latest by default) lists."""
+    scan = table.store.new_scan()
+    if snapshot_id is not None:
+        scan = scan.with_snapshot(snapshot_id)
+    return {e.file.file_name for e in scan.plan().entries}
+
+
+def branch_part(hk, table, runs: list, up: np.ndarray) -> dict:
+    """Branch b from t2 with the upsert written to it; rollback of main to
+    t2; fast-forward of main to b. Each read at both tiles."""
+    from paimon_tpu_torch.table.branch import BranchManager, branch_table
+
+    before = dict(hk.launches)
+    bm = BranchManager(table.file_io, table.path)
+    bm.create("b", from_tag="t2")
+    branch = branch_table(table, "b")
+    t0 = time.perf_counter()
+    wb = branch.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(table_values(up, upsert=True))
+    wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    branch_write_s = time.perf_counter() - t0
+    write_launches = launch_diff(hk, before)
+    at2 = np.sort(np.concatenate(runs[:2]))
+    branch_ids = np.union1d(at2, up)
+    reads = {"branch": history_read(hk, branch, {}, branch_ids, up, "branch b"),
+             "main": history_read(hk, table, {}, np.arange(N_ROWS), up, "main beside the branch")}
+    sm = table.store.snapshot_manager
+    only_later = set().union(*(snapshot_files(table, k) for k in (3, 4, 5))) - snapshot_files(table, 2)
+    only_later -= snapshot_files(table, 1)
+    bucket_dir = table.store.bucket_dir((), 0)
+    on_disk = set(os.listdir(bucket_dir))
+    manifests = set(os.listdir(f"{table.path}/manifest"))
+    t0 = time.perf_counter()
+    table.rollback_to("t2")
+    rollback_s = time.perf_counter() - t0
+    assert sm.latest_snapshot_id() == 2, f"rollback left snapshot {sm.latest_snapshot_id()} the latest"
+    deleted = on_disk - set(os.listdir(bucket_dir))
+    assert deleted == only_later and deleted, f"rollback deleted {sorted(deleted)}, only 3-5 reached {only_later}"
+    branch_files = snapshot_files(branch)
+    assert all(os.path.exists(f"{bucket_dir}/{n}") for n in branch_files), "rollback deleted a file of the branch"
+    reads["main_after_rollback"] = history_read(hk, table, {}, at2, NO_IDS, "main after the rollback")
+    t0 = time.perf_counter()
+    bm.fast_forward("b")
+    fast_forward_s = time.perf_counter() - t0
+    assert sm.latest_snapshot_id() == branch.store.snapshot_manager.latest_snapshot_id()
+    reads["main_after_fast_forward"] = history_read(hk, table, {}, branch_ids, up, "main after the fast-forward")
+    listed = snapshot_files(table) | snapshot_files(branch)
+    missing = sorted(n for n in listed if not os.path.exists(f"{bucket_dir}/{n}"))
+    assert not missing, f"files listed by main or the branch are missing: {missing}"
+    return {"branch_write_s": round(branch_write_s, 4), "rollback_s": round(rollback_s, 4),
+            "fast_forward_s": round(fast_forward_s, 4), "reads": reads,
+            "rollback_deleted": {"data_files": len(deleted),
+                                 "manifest_files": len(manifests - set(os.listdir(f"{table.path}/manifest")))},
+            "files_listed_by_main_and_branch": len(listed), "branch_write_launches": write_launches,
+            "launches": launch_diff(hk, before)}
+
+
+def stream_part(pt, hk, cat) -> dict:
+    """Config 4's 20 commits under a consumer's stream reader that plans
+    until nothing is new after each commit and applies every delta to a
+    key -> row map; the reader's checkpoint completes after commits 10 and
+    20, and expiry keeps 10 snapshots unless the consumer needs more. Then a
+    full compaction and a compacted-full starting plan."""
+    from paimon_tpu_torch.core.snapshot import CommitKind
+    from paimon_tpu_torch.table.consumer import ConsumerManager
+
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()))
+    table = cat.create_table("history.c4_stream", schema, primary_keys=["id"], options=dict(C4_HISTORY_OPTIONS))
+    reader = table.copy({"consumer-id": "history"})
+    scan = reader.new_read_builder().new_stream_scan()
+    read = reader.new_read_builder().new_read()
+    consumers = ConsumerManager(table.file_io, table.path)
+    sm = table.store.snapshot_manager
+    assert scan.plan() is None  # an empty table: the stream starts at snapshot 1
+    rng = np.random.default_rng(2)
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    seen_v = np.full(C4_ROWS // 2, np.nan)
+    seen_tag = np.full(C4_ROWS // 2, None, dtype=object)
+    next_sid, plans, checks = 1, [], {}
+    wb = table.new_stream_write_builder()
+    w, c = wb.new_write(), wb.new_commit()
+    write_s = plan_s = 0.0
+    before = dict(hk.launches)
+    write_launches = dict.fromkeys(hk.launches, 0)
+    for b in range(C4_COMMITS):
+        batch = c4_batch(rng, b)
+        last_commit[batch["id"]] = b
+        launches_at = dict(hk.launches)
+        t0 = time.perf_counter()
+        w.write(batch)
+        c.commit_messages(b + 1, w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s += time.perf_counter() - t0
+        for k, v in launch_diff(hk, launches_at).items():
+            write_launches[k] += v
+        t0 = time.perf_counter()
+        while (splits := scan.plan()) is not None:
+            kind = sm.snapshot(next_sid).commit_kind
+            assert kind == CommitKind.APPEND or not splits, f"COMPACT snapshot {next_sid} gave {len(splits)} splits"
+            rows = 0
+            for s in splits:
+                data, kinds = read.read_with_kinds(s)
+                assert not kinds.any(), f"snapshot {next_sid}: a delta row is not +I"
+                ids = data.column("id").values
+                seen_v[ids] = data.column("v").values
+                seen_tag[ids] = data.column("tag").values
+                rows += data.num_rows
+            plans.append([next_sid, kind.value, len(splits), sum(len(s.files) for s in splits), rows])
+            next_sid += 1
+        torch.cuda.synchronize()
+        plan_s += time.perf_counter() - t0
+        latest = sm.latest_snapshot_id()
+        if b + 1 in HISTORY_ACKS:
+            token = scan.checkpoint()
+            scan.notify_checkpoint_complete()
+            assert consumers.consumer("history") == token == latest + 1, (token, latest)
+        position = consumers.consumer("history")
+        if position is not None:
+            kept = [i for i in range(position, latest + 1) if not sm.snapshot_exists(i)]
+            assert not kept, f"expiry deleted snapshots {kept} past the consumer's position {position}"
+        if b + 1 in HISTORY_CHECKS:
+            written = np.flatnonzero(last_commit >= 0)
+            assert np.array_equal(np.flatnonzero(~np.isnan(seen_v)), written), f"commit {b + 1}: replayed ids differ"
+            assert np.array_equal(seen_v[written], written * 0.5 + last_commit[written]), f"commit {b + 1}: v differs"
+            assert np.array_equal(seen_tag[written], np.array([f"t{x}" for x in last_commit[written]], dtype=object))
+            # the batch read equals the oracle, so it equals the replayed map
+            checks[f"after_commit_{b + 1}"] = {
+                **check_c4_read(table, last_commit, f"stream: after commit {b + 1}"),
+                "snapshots_kept": sm.snapshot_count(), "earliest": sm.earliest_snapshot_id(),
+                "consumer_next_snapshot": position}
+    stream_launches = launch_diff(hk, before)
+    t0 = time.perf_counter()
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.compact(full=True)
+    wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    batch_read = check_c4_read(table, last_commit, "stream: after the full compaction")
+    compacted = table.copy({"scan.mode": "compacted-full"})
+    t0 = time.perf_counter()
+    splits = compacted.new_read_builder().new_stream_scan().plan()
+    out = compacted.new_read_builder().new_read().read_all(splits)
+    torch.cuda.synchronize()
+    compacted_s = time.perf_counter() - t0
+    same_rows(out, read_all(table), "compacted-full starting plan against the batch read")
+    kinds = [p[1] for p in plans]
+    return {"config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1, read by a stream",
+            "options": C4_HISTORY_OPTIONS, "rows_written": C4_ROWS, "write_s": round(write_s, 4),
+            "plan_and_read_s": round(plan_s, 4), "plans": len(plans),
+            "append_plans": kinds.count("APPEND"), "compact_plans": kinds.count("COMPACT"),
+            "splits_files_rows_per_plan": {"columns": ["snapshot", "kind", "splits", "files", "rows"], "plans": plans},
+            "checks": checks, "full_compaction_s": round(full_s, 4), "read_after_full_compaction": batch_read,
+            "compacted_full": {"seconds": round(compacted_s, 4), "rows": out.num_rows, "splits": len(splits),
+                               "files": sum(len(s.files) for s in splits), "equal_to_batch_read": True},
+            "launches": {"phase": launch_diff(hk, before), "streaming_writes": write_launches,
+                         "stream": stream_launches}}
+
+
+def history_phase(pt, hk, warehouse: str, bench_path: str, checked: tuple) -> dict:
+    """Table history, one JSON line per part, on a copy of the main phase's
+    bench table (so no later phase sees its changes): time travel,
+    incremental reads, branch, rollback and fast-forward; then config 4
+    under a consumer's stream reader. K1 and K2 are then held exactly to
+    their plain versions at the path's shapes that no earlier check
+    covered. Launch counts are zeroed before the phase."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    parts = {}
+    seconds = {}
+    with ShapeRecorder(hk) as recorder:
+        t0 = time.perf_counter()
+        shutil.copytree(bench_path, cat.table_path("bench.t_history"))
+        table = cat.get_table("bench.t_history")
+        runs, up = bench_runs()
+        seconds["copy"] = round(time.perf_counter() - t0, 3)
+        for name, run in (("time_travel", lambda: time_travel_part(hk, table, runs)),
+                          ("incremental", lambda: incremental_part(hk, table, runs, up)),
+                          ("branch_rollback_fast_forward", lambda: branch_part(hk, table, runs, up)),
+                          ("stream", lambda: stream_part(pt, hk, cat))):
+            t0 = time.perf_counter()
+            parts[name] = run()
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            emit({"phase": "history", "part": name, **parts[name]})
+    launches = dict(hk.launches)
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched on the history path: {launches}"
+    by_part = {name: p["launches"]["phase"] if "phase" in p["launches"] else p["launches"] for name, p in parts.items()}
+    return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds,
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2029, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

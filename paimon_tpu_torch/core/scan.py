@@ -1,19 +1,20 @@
-"""Snapshot scan planning: snapshot -> manifest lists -> live file entries,
+"""Snapshot scan planning: snapshot -> manifest lists -> file entries,
 and the index manifest's entries (port of paimon_tpu/core/scan.py;
-delta/changelog scans and file-index filters are not ported yet).
+file-index filters are not ported yet).
 
-Files are filtered by partition, bucket and the min/max/null-count stats
-of their metadata. On a primary-key table only a key filter may skip a
-file: a file whose values miss a predicate may still hold the newest
+A scan plans the latest snapshot or the one with_snapshot names, of one of
+three kinds: "all" (the live files of base + delta manifests), "delta"
+(the ADD entries of the snapshot's delta manifest list: the files it
+wrote) or "changelog" (the entries of its changelog manifest list). The
+index entries come from the planned snapshot's index manifest, so a read
+of an old snapshot takes that snapshot's deletion vectors.
+
+Files are filtered by partition, bucket, level and the min/max/null-count
+stats of their metadata. On a primary-key table only a key filter may skip
+a file: a file whose values miss a predicate may still hold the newest
 version of a key whose older version matches, and skipping it would bring
 the older one back. Value filters are for tables whose every row is
-final. The plan carries the index manifest's entries of the planned
-buckets (hash index and deletion vectors; a key or value filter never
-drops them).
-
-The port plans the latest snapshot on main only: options that select
-another snapshot, branch or set of rows raise NotImplementedError naming
-the option instead of returning other rows.
+final. A key or value filter never drops index entries.
 """
 
 from __future__ import annotations
@@ -23,26 +24,11 @@ from typing import Callable
 
 from ..data.predicate import Predicate
 from ..fs import LocalFileIO
-from ..options import ConfigOption, CoreOptions
+from ..options import CoreOptions
 from .deletionvectors import IndexFileEntry
 from .indexmanifest import read_index_manifest
-from .manifest import ManifestEntry, ManifestFile, ManifestList, merge_entries
+from .manifest import FileKind, ManifestEntry, ManifestFile, ManifestList, merge_entries
 from .snapshot import Snapshot, SnapshotManager
-
-# batch-scan options of the JAX package (paimon_tpu/options.py:966-988 and
-# its incremental-between pair) that read another snapshot or other rows
-_TIME_TRAVEL_KEYS = (
-    "scan.timestamp-millis",
-    "log.scan.timestamp-millis",
-    "scan.timestamp",
-    "scan.tag-name",
-    "scan.version",
-    "scan.watermark",
-    "scan.file-creation-time-millis",
-    "incremental-between",
-    "incremental-between-timestamp",
-)
-_LATEST_SCAN_MODES = ("default", "latest-full", "full", "latest")
 
 __all__ = ["ScanPlan", "FileStoreScan"]
 
@@ -85,10 +71,28 @@ class FileStoreScan:
         self.snapshot_manager = SnapshotManager(file_io, table_path)
         self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", options.manifest_compression)
         self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression)
+        self._snapshot_id: int | None = None
+        self._kind = "all"
         self._partition_filter: Callable[[tuple], bool] | None = None
         self._bucket: int | None = None
+        self._level: int | None = None
         self._key_filter: Predicate | None = None
         self._value_filter: Predicate | None = None
+
+    def with_snapshot(self, snapshot_id: int) -> "FileStoreScan":
+        self._snapshot_id = snapshot_id
+        return self
+
+    def with_kind(self, kind: str) -> "FileStoreScan":
+        """"all", "delta" or "changelog"."""
+        if kind not in ("all", "delta", "changelog"):
+            raise ValueError(f"unknown scan kind {kind!r}")
+        self._kind = kind
+        return self
+
+    def with_level(self, level: int) -> "FileStoreScan":
+        self._level = level
+        return self
 
     def with_partition_filter(self, fn: Callable[[tuple], bool]) -> "FileStoreScan":
         self._partition_filter = fn
@@ -109,38 +113,27 @@ class FileStoreScan:
         self._value_filter = predicate
         return self
 
-    def _check_reads_latest_on_main(self, latest: Snapshot | None) -> None:
-        opts = self.options.options
-        chosen = [f"{k}={opts.get(ConfigOption.string(k))}" for k in _TIME_TRAVEL_KEYS if opts.contains(k)]
-        snapshot_id = opts.get(CoreOptions.SCAN_SNAPSHOT_ID)
-        if snapshot_id is not None and (latest is None or snapshot_id != latest.id):
-            chosen.append(f"scan.snapshot-id={snapshot_id}")
-        mode = opts.get(CoreOptions.SCAN_MODE)
-        if str(mode).lower() not in _LATEST_SCAN_MODES:
-            chosen.append(f"scan.mode={mode}")
-        branch = opts.get(CoreOptions.BRANCH)
-        if branch != "main":
-            chosen.append(f"branch={branch}")
-        if chosen:
-            raise NotImplementedError(
-                f"{', '.join(chosen)}: the torch port reads only the latest snapshot on main (time travel, "
-                "branches and incremental scans are not ported yet)"
-            )
-
     def plan(self) -> ScanPlan:
-        snapshot = self.snapshot_manager.latest_snapshot()
-        self._check_reads_latest_on_main(snapshot)
+        sm = self.snapshot_manager
+        snapshot = sm.latest_snapshot() if self._snapshot_id is None else sm.snapshot(self._snapshot_id)
         if snapshot is None:
             return ScanPlan(None, [])
+        if self._kind == "changelog":
+            metas = self.manifest_list.read(snapshot.changelog_manifest_list) if snapshot.changelog_manifest_list else []
+            entries = [e for m in metas for e in self.manifest_file.read(m.file_name)]
+        elif self._kind == "delta":
+            metas = self.manifest_list.read(snapshot.delta_manifest_list)
+            entries = [e for m in metas for e in self.manifest_file.read(m.file_name) if e.kind == FileKind.ADD]
+        else:
+            metas = self.manifest_list.read(snapshot.base_manifest_list) + self.manifest_list.read(
+                snapshot.delta_manifest_list
+            )
+            entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
         index_entries = (
             read_index_manifest(self.file_io, self.table_path, snapshot.index_manifest)
             if snapshot.index_manifest
             else []
         )
-        metas = self.manifest_list.read(snapshot.base_manifest_list) + self.manifest_list.read(
-            snapshot.delta_manifest_list
-        )
-        entries = merge_entries(*(self.manifest_file.read(m.file_name) for m in metas))
         return ScanPlan(
             snapshot, [e for e in entries if self._accept(e)], [e for e in index_entries if self._accept_slot(e)]
         )
@@ -153,6 +146,7 @@ class FileStoreScan:
     def _accept(self, e: ManifestEntry) -> bool:
         return (
             self._accept_slot(e)
+            and (self._level is None or e.file.level == self._level)
             and (self._key_filter is None or self._key_filter.test_stats(e.file.key_stats))
             and (self._value_filter is None or self._value_filter.test_stats(e.file.value_stats))
         )

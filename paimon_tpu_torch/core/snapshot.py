@@ -1,14 +1,16 @@
 """Snapshots: the versioned root of a table (port of
-paimon_tpu/core/snapshot.py; time travel is not ported yet). A snapshot
-file is immutable JSON published with the
-atomic-rename CAS; the LATEST/EARLIEST hints are an optimization, listing
-is the truth.
+paimon_tpu/core/snapshot.py). A snapshot file is immutable JSON published
+with the atomic-rename CAS; the LATEST/EARLIEST hints are an
+optimization, listing is the truth. An expired snapshot whose changelog
+is still retained reads from its decoupled copy under changelog/, so that
+a streaming reader resuming at an old position keeps its history.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
+from typing import Iterator
 
 from ..fs import LocalFileIO
 from ..utils import dumps, loads
@@ -101,7 +103,15 @@ class SnapshotManager:
         return f"{self.snapshot_dir}/snapshot-{snapshot_id}"
 
     def snapshot(self, snapshot_id: int) -> Snapshot:
-        return Snapshot.from_json(self.file_io.read_bytes(self.snapshot_path(snapshot_id)))
+        """The snapshot, or its decoupled changelog copy once it expired
+        (FileNotFoundError when neither is there)."""
+        try:
+            raw = self.file_io.read_bytes(self.snapshot_path(snapshot_id))
+        except FileNotFoundError:
+            if self.changelog_exists(snapshot_id):
+                return self.changelog(snapshot_id)
+            raise
+        return Snapshot.from_json(raw)
 
     def snapshot_exists(self, snapshot_id: int) -> bool:
         return self.file_io.exists(self.snapshot_path(snapshot_id))
@@ -117,6 +127,9 @@ class SnapshotManager:
 
     def changelog(self, snapshot_id: int) -> Snapshot:
         return Snapshot.from_json(self.file_io.read_bytes(self.changelog_path(snapshot_id)))
+
+    def changelog_exists(self, snapshot_id: int) -> bool:
+        return self.file_io.exists(self.changelog_path(snapshot_id))
 
     def changelog_ids(self) -> list[int]:
         out = []
@@ -161,6 +174,24 @@ class SnapshotManager:
     def latest_snapshot(self) -> Snapshot | None:
         sid = self.latest_snapshot_id()
         return self.snapshot(sid) if sid is not None else None
+
+    def snapshots(self) -> Iterator[Snapshot]:
+        """The listed snapshots in id order."""
+        for sid in self._listed_ids():
+            yield self.snapshot(sid)
+
+    def snapshot_count(self) -> int:
+        return len(self._listed_ids())
+
+    def earlier_or_equal_time_millis(self, millis: int) -> Snapshot | None:
+        """The last snapshot, walking in id order, committed at or before
+        `millis`; the walk stops at the first later one."""
+        best = None
+        for snap in self.snapshots():
+            if snap.time_millis > millis:
+                break
+            best = snap
+        return best
 
     def snapshots_of_user(self, user: str):
         """This user's snapshots, newest first (a lazy backward walk, so a

@@ -25,6 +25,7 @@ from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, Universa
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
 from .deletionvectors import DeletionVectorsIndexFile
 from .expire import SnapshotExpire
+from .kv import KVBatch
 from .levels import Levels
 from .mergefn import MergeExecutor
 from .read import MergeFileSplitRead
@@ -165,6 +166,14 @@ class KeyValueFileStore:
             restored_max_seq=max((f.max_sequence_number for f in existing), default=-1),
             compact_manager=compact_manager,
         )
+
+    def read_raw(self, partition: tuple, bucket: int, files: list[DataFileMeta]) -> KVBatch:
+        """The files' rows with their kinds and sequence numbers, unmerged,
+        file after file by (min_sequence_number, file_name): the order a
+        changelog split replays in."""
+        rf = self.reader_factory(partition, bucket)
+        ordered = sorted(files, key=lambda f: (f.min_sequence_number, f.file_name))
+        return KVBatch.concat([rf.read(f) for f in ordered])
 
     def record_expire_predicate(self) -> Predicate | None:
         """Record-level TTL: the rows to keep, those whose

@@ -10,6 +10,7 @@ exactly one racing writer wins).
 from __future__ import annotations
 
 import os
+import shutil
 import uuid
 from dataclasses import dataclass
 
@@ -47,13 +48,17 @@ class LocalFileIO:
     def exists(self, path: str) -> bool:
         return os.path.exists(_strip_scheme(path))
 
-    def delete(self, path: str) -> bool:
+    def delete(self, path: str, recursive: bool = False) -> bool:
         """Remove a file or an empty directory (OSError when it is not
-        empty); False when nothing is there."""
+        empty), or with `recursive` a directory and all it holds; False
+        when nothing is there."""
         p = _strip_scheme(path)
         try:
             if os.path.isdir(p):
-                os.rmdir(p)
+                if recursive:
+                    shutil.rmtree(p)
+                else:
+                    os.rmdir(p)
             else:
                 os.remove(p)
             return True

@@ -21,6 +21,7 @@ __all__ = [
     "MergeEngine",
     "SortEngine",
     "ChangelogProducer",
+    "StartupMode",
     "parse_duration_millis",
 ]
 
@@ -84,11 +85,11 @@ class ConfigOption(Generic[T]):
         return ConfigOption(key, MemorySize.parse(default), MemorySize.parse)
 
     @staticmethod
-    def enum(key: str, enum_cls, default):
+    def enum(key: str, enum_cls, default, fallback: tuple[str, ...] = ()):
         def parse(v):
             return v if isinstance(v, enum_cls) else enum_cls(str(v).lower().replace("_", "-"))
 
-        return ConfigOption(key, default, parse)
+        return ConfigOption(key, default, parse, fallback)
 
 
 class Options:
@@ -117,6 +118,21 @@ class MergeEngine(str, enum.Enum):
     PARTIAL_UPDATE = "partial-update"
     AGGREGATE = "aggregation"
     FIRST_ROW = "first-row"
+
+
+class StartupMode(str, enum.Enum):
+    DEFAULT = "default"
+    LATEST_FULL = "latest-full"
+    LATEST = "latest"
+    FROM_TIMESTAMP = "from-timestamp"
+    FROM_SNAPSHOT = "from-snapshot"
+    FROM_SNAPSHOT_FULL = "from-snapshot-full"
+    COMPACTED_FULL = "compacted-full"
+
+    @classmethod
+    def _missing_(cls, value):
+        # the deprecated "full" is "latest-full"
+        return cls.LATEST_FULL if value == "full" else None
 
 
 class ChangelogProducer(str, enum.Enum):
@@ -175,8 +191,41 @@ class CoreOptions:
     # "Deletion-vector mode." (table/delete.py)
     DELETION_VECTORS_ENABLED = ConfigOption.bool_("deletion-vectors.enabled", False)
     BRANCH = ConfigOption.string("branch", "main")
-    SCAN_MODE = ConfigOption("scan.mode", "default", str, ("log.scan",))
+    # time travel and incremental reads (table/read.py TableScan)
+    SCAN_MODE = ConfigOption.enum("scan.mode", StartupMode, StartupMode.DEFAULT, ("log.scan",))
     SCAN_SNAPSHOT_ID = ConfigOption.int_("scan.snapshot-id", None)
+    SCAN_TIMESTAMP_MILLIS = ConfigOption.int_("scan.timestamp-millis", None, ("log.scan.timestamp-millis",))
+    # "YYYY-MM-DD[ HH:MM:SS[.ffffff]]" in the local zone
+    SCAN_TIMESTAMP = ConfigOption.string("scan.timestamp", None)
+    SCAN_TAG_NAME = ConfigOption.string("scan.tag-name", None)
+    # a tag name, else a snapshot id
+    SCAN_VERSION = ConfigOption.string("scan.version", None)
+    # the earliest snapshot whose watermark is at least this
+    SCAN_WATERMARK = ConfigOption.int_("scan.watermark", None)
+    # only the data files created after this epoch-millis
+    SCAN_FILE_CREATION_TIME_MILLIS = ConfigOption.int_("scan.file-creation-time-millis", None)
+    SCAN_MAX_SPLITS_PER_TASK = ConfigOption.int_("scan.max-splits-per-task", 10)
+    # "t1,t2" epoch-millis
+    INCREMENTAL_BETWEEN_TIMESTAMP = ConfigOption.string("incremental-between-timestamp", None)
+    # "a,b" snapshot ids or tag names: a exclusive, b inclusive
+    INCREMENTAL_BETWEEN = ConfigOption.string("incremental-between", None)
+    # delta (APPEND snapshots' new files) or changelog (changelog files)
+    INCREMENTAL_BETWEEN_SCAN_MODE = ConfigOption.string("incremental-between-scan-mode", "delta")
+    # streaming reads (table/stream.py): the stream ends once a snapshot's
+    # watermark passes this bound
+    SCAN_BOUNDED_WATERMARK = ConfigOption.int_("scan.bounded.watermark", None)
+    STREAMING_READ_OVERWRITE = ConfigOption.bool_("streaming-read-overwrite", False)
+    STREAMING_READ_MODE = ConfigOption.string("streaming-read-mode", "file")
+    # none: the changelog-aware follow-up; file-monitor: every snapshot's raw
+    # delta files, compactions included
+    STREAM_SCAN_MODE = ConfigOption.string("stream-scan-mode", "none")
+    CONTINUOUS_DISCOVERY_INTERVAL = ConfigOption.duration("continuous.discovery-interval", "10 s")
+    CONSUMER_ID = ConfigOption.string("consumer-id", None)
+    CONSUMER_IGNORE_PROGRESS = ConfigOption.bool_("consumer.ignore-progress", False)
+    # exactly-once: progress recorded on checkpoint completion;
+    # at-least-once: on every plan
+    CONSUMER_MODE = ConfigOption.string("consumer.mode", "exactly-once")
+    SNAPSHOT_WATERMARK_IDLE_TIMEOUT = ConfigOption.duration("snapshot.watermark-idle-timeout", None)
     SOURCE_SPLIT_TARGET_SIZE = ConfigOption.memory("source.split.target-size", "128 mb")
     SOURCE_SPLIT_OPEN_FILE_COST = ConfigOption.memory("source.split.open-file-cost", "4 mb")
     COMMIT_MAX_RETRIES = ConfigOption.int_("commit.max-retries", 10)

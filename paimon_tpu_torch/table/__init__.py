@@ -1,7 +1,13 @@
 """The Table API (port of paimon_tpu/table/__init__.py, primary-key
 tables): new_read_builder / new_batch_write_builder /
-new_stream_write_builder, copy, delete_where, tags and snapshot
-expiry."""
+new_stream_write_builder, copy, with_user, delete_where, tags,
+rollback_to, snapshot expiry, and load_table.
+
+A branch view (table/branch.py branch_table) resolves its data files in
+the main tree through an instance-level store.bucket_dir; copy and
+with_user carry it over. copy({"branch": x}) only merges the option and
+still reads main, as in the JAX package: load_table pins a branch.
+"""
 
 from __future__ import annotations
 
@@ -11,17 +17,18 @@ from dataclasses import replace
 
 import torch
 
-from ..core.schema import TableSchema
+from ..core.schema import SchemaManager, TableSchema
 from ..core.store import KeyValueFileStore
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..types import RowType
+from ..utils import resolve_device
 from .consumer import ConsumerManager
 from .read import ReadBuilder
 from .tags import TagManager
 from .write import BatchWriteBuilder, StreamWriteBuilder
 
-__all__ = ["FileStoreTable"]
+__all__ = ["FileStoreTable", "load_table"]
 
 
 class FileStoreTable:
@@ -59,9 +66,23 @@ class FileStoreTable:
         """The same table with option overrides."""
         merged = dict(self.schema.options)
         merged.update(dynamic_options)
-        return FileStoreTable(
-            self.file_io, self.path, replace(self.schema, options=merged), self.store.commit_user, self.device
+        schema = replace(self.schema, options=merged)
+        return self._carry_store_overrides(
+            FileStoreTable(self.file_io, self.path, schema, self.store.commit_user, self.device)
         )
+
+    def with_user(self, commit_user: str) -> "FileStoreTable":
+        """The same table committing as `commit_user`."""
+        return self._carry_store_overrides(
+            FileStoreTable(self.file_io, self.path, self.schema, commit_user, self.device)
+        )
+
+    def _carry_store_overrides(self, out: "FileStoreTable") -> "FileStoreTable":
+        """A branch view's rebuilt store keeps resolving data files in the
+        main tree, or every shared file would read as missing."""
+        if "bucket_dir" in self.store.__dict__:
+            out.store.bucket_dir = self.store.__dict__["bucket_dir"]
+        return out
 
     def new_read_builder(self) -> ReadBuilder:
         return ReadBuilder(self)
@@ -88,6 +109,12 @@ class FileStoreTable:
 
     def tags(self) -> dict[str, int]:
         return TagManager(self.file_io, self.path).list_tags()
+
+    def rollback_to(self, target: "int | str") -> None:
+        """Roll back to a snapshot id or a tag's snapshot (table/rollback.py)."""
+        from .rollback import rollback_to
+
+        rollback_to(self, target)
 
     def expire_snapshots(self) -> int:
         """Expire snapshots by the table's retention options, keeping the
@@ -120,6 +147,48 @@ class FileStoreTable:
         self.expire_future = self._expire_executor.submit(expire.expire)
         self.expire_future.add_done_callback(_report_async_failure)
         return 0
+
+
+def load_table(
+    path: str,
+    commit_user: str = "anonymous",
+    dynamic_options: dict[str, str] | None = None,
+    row_type: RowType | None = None,
+    device: "str | torch.device" = "cuda",
+) -> FileStoreTable:
+    """Open the table at `path` on `device` ("cuda" unless the caller asks
+    for the CPU). The branch option, in `dynamic_options` or in the table's
+    options, pins the view to that branch; the other dynamic options apply
+    to that view. With auto-create=true and a `row_type`, a missing table is
+    created first: primary and partition keys from the 'primary-key' and
+    'partition' options, the scan.*, consumer*, incremental-between* and
+    streaming-read* options applied to the view and not persisted."""
+    dev = resolve_device(device)
+    file_io = LocalFileIO()
+    schema = SchemaManager(file_io, path).latest()
+    if schema is None:
+        opts = dict(dynamic_options or {})
+        if str(opts.get("auto-create", "")).lower() != "true" or row_type is None:
+            raise FileNotFoundError(f"no table at {path}")
+        opts.pop("auto-create")
+        pk = [c.strip() for c in opts.pop("primary-key", "").split(",") if c.strip()]
+        parts = [c.strip() for c in opts.pop("partition", "").split(",") if c.strip()]
+        session_prefixes = ("scan.", "consumer", "incremental-between", "streaming-read")
+        persisted = {k: v for k, v in opts.items() if not k.startswith(session_prefixes)}
+        session = {k: v for k, v in opts.items() if k.startswith(session_prefixes)}
+        schema = SchemaManager(file_io, path).create_table(row_type, parts, pk, persisted)
+        table = FileStoreTable(file_io, path, schema, commit_user, dev)
+        return table.copy(session) if session else table
+    table = FileStoreTable(file_io, path, schema, commit_user, dev)
+    # the branch first: its view has its own schema, and the other dynamic
+    # options land on that view
+    dynamic_options = dict(dynamic_options or {})
+    branch = dynamic_options.pop("branch", None) or table.options.options.get(CoreOptions.BRANCH)
+    if branch and branch != "main":
+        from .branch import branch_table
+
+        table = branch_table(table, branch)
+    return table.copy(dynamic_options) if dynamic_options else table
 
 
 def _report_async_failure(future: concurrent.futures.Future) -> None:

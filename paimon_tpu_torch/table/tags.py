@@ -50,6 +50,10 @@ class TagManager:
     def get(self, name: str) -> Snapshot:
         return Snapshot.from_json(self.file_io.read_bytes(self.tag_path(name)))
 
+    def snapshot_id(self, name: str) -> int:
+        """The tagged snapshot's id (FileNotFoundError for no such tag)."""
+        return self.get(name).id
+
     def list_tags(self) -> dict[str, int]:
         """Tag name -> tagged snapshot id."""
         out = {}

@@ -233,6 +233,27 @@ def _stream_read(table) -> list:
         out.append(plan)
 
 
+def _port_stream_read(path) -> list:
+    """_stream_read with the port's own streaming reader (table/stream.py)."""
+    from paimon_tpu_torch.table import load_table
+
+    table = load_table(path, device="cpu")
+    scan = table.new_read_builder().new_stream_scan()
+    read = table.new_read_builder().new_read()
+    scan.restore(1)
+    out = []
+    while True:
+        splits = scan.plan()
+        if splits is None:
+            return out
+        plan = []
+        for s in splits:
+            data, kinds = read.read_with_kinds(s)
+            rows = [(JaxRowKind(int(k)).short_string, *map(_py, r)) for r, k in zip(data.to_pylist(), kinds)]
+            plan.append((s.bucket, len(s.files), s.is_changelog, rows))
+        out.append(plan)
+
+
 def _both(warehouse, ident, options, commits, mode, compact_full=False):
     tables = {}
     for name in ("jax", "port"):
@@ -305,6 +326,18 @@ def test_jax_stream_reader_reads_the_ports_changelog(warehouse, case):
     plans = {name: _stream_read(JaxCatalog(warehouse).get_table(f"{ident}_{name}")) for name in ("jax", "port")}
     assert plans["port"] == plans["jax"]
     assert any(split[2] and split[3] for plan in plans["port"] for split in plan)
+
+
+@pytest.mark.parametrize("case", ["input", "lookup", "full-compaction"])
+def test_port_stream_reader_replays_as_the_jax_one(warehouse, case):
+    """The port's streaming reader gives the JAX package's plans and rows on
+    both packages' tables of each producer."""
+    options, mode = CASES[case]
+    ident = f"db.pstream_{case.replace('-', '_')}"
+    _both(warehouse, ident, options, _commits(seed=3, n=8), mode, compact_full=case == "full-compaction")
+    for name in ("jax", "port"):
+        path = JaxCatalog(warehouse).get_table(f"{ident}_{name}").path
+        assert _port_stream_read(path) == _stream_read(JaxCatalog(warehouse).get_table(f"{ident}_{name}"))
 
 
 def test_full_compaction_rewrites_files_it_could_upgrade(warehouse):

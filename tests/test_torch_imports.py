@@ -68,6 +68,15 @@ def test_row_level_delete_modules_are_scanned(module):
     test_no_forbidden_import_in_source(path)
 
 
+@pytest.mark.parametrize("module", ["table/stream.py", "table/enumerator.py", "table/rollback.py", "table/branch.py"])
+def test_history_modules_are_scanned(module):
+    """The streaming reader, enumerator, rollback and branch modules are in
+    the scanned sources (and so in the child process's import closure)."""
+    path = REPO / "paimon_tpu_torch" / module
+    assert path in SOURCES
+    test_no_forbidden_import_in_source(path)
+
+
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     from paimon_tpu_torch.catalog import FileSystemCatalog
 
@@ -77,6 +86,19 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         FileSystemCatalog(str(tmp_path), device="cuda")
     assert FileSystemCatalog(str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_load_table_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    import paimon_tpu_torch as tt
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.table import load_table
+
+    table = FileSystemCatalog(str(tmp_path), device="cpu").create_table(
+        "db.t", tt.RowType.of(("id", tt.BIGINT(False))), primary_keys=["id"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_table(table.path)
+    assert load_table(table.path, device="cpu").device.type == "cpu"
 
 
 def test_merge_ops_default_device_without_cuda_raises(monkeypatch):

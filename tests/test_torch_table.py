@@ -536,7 +536,7 @@ def _travel_options(table) -> dict:
 
 # the JAX package reads snapshot 1 (or only its later files) under these;
 # scan.watermark (no snapshot has one here) and scan.mode do not move a
-# batch read of the JAX package, but the port refuses them all the same
+# batch read of the JAX package, and the port's reads follow it
 _TRAVELS = {"scan.snapshot-id", "scan.timestamp-millis", "scan.timestamp", "scan.tag-name", "scan.version",
             "scan.file-creation-time-millis", "branch"}
 
@@ -545,18 +545,30 @@ _TRAVELS = {"scan.snapshot-id", "scan.timestamp-millis", "scan.timestamp", "scan
                                  "scan.version", "scan.watermark", "scan.file-creation-time-millis", "scan.mode",
                                  "branch"])
 def test_time_travel_options_raise_naming_the_option(warehouse, travel_table, key):
-    """Each option that selects another snapshot, branch or file set raises
-    in the port, which plans only the latest snapshot on main."""
-    from paimon_tpu.table.branch import branch_table
+    """Each option that selects another snapshot, branch or file set reads
+    the JAX package's rows through the same entry point: copy({key: value})
+    for the scan options; branch_table and load_table for a branch, whose
+    copy({"branch": ...}) reads main in both packages."""
+    from paimon_tpu.table import load_table as jax_load_table
+    from paimon_tpu.table.branch import branch_table as jax_branch_table
+    from paimon_tpu_torch.table import load_table
+    from paimon_tpu_torch.table.branch import branch_table
 
     value = _travel_options(travel_table)[key]
     latest = _jax_read(travel_table)
-    if key in _TRAVELS:
-        view = branch_table(travel_table, value) if key == "branch" else travel_table.copy({key: value})
-        assert _jax_read(view) != latest
-    port_view = PortCatalog(warehouse, device="cpu").get_table("db.travel").copy({key: value})
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-        _read(port_view)
+    port_table = PortCatalog(warehouse, device="cpu").get_table("db.travel")
+    if key == "branch":
+        want = _jax_read(jax_branch_table(travel_table, value))
+        assert _read(branch_table(port_table, value)) == want
+        path = travel_table.path
+        assert _read(load_table(path, dynamic_options={key: value}, device="cpu")) == want
+        assert _jax_read(jax_load_table(path, dynamic_options={key: value})) == want
+        # copy only merges the option: both packages still read main
+        assert _read(port_table.copy({key: value})) == _jax_read(travel_table.copy({key: value})) == latest
+    else:
+        want = _jax_read(travel_table.copy({key: value}))
+        assert _read(port_table.copy({key: value})) == want
+    assert (want != latest) == (key in _TRAVELS)
 
 
 def test_scan_snapshot_id_of_the_latest_snapshot_reads(warehouse, travel_table):
