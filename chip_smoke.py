@@ -212,7 +212,34 @@ Phases, one JSON line each on stdout:
               read and per plan, files rollback deleted, K1 and K2 launches
               per part; K1 and K2 then held exactly to their plain versions
               at the path's shapes no earlier check covered.
-14. timing  - each kernel at its main-path shape against its plain version,
+14. writes  - the write surface, one line per part (each run with
+              sort-engine=pallas where the table is keyed, every read held
+              to a sort-engine=numpy read and an oracle). overwrite: copies
+              of the buckets phase's partitioned table (a dynamic-partition
+              overwrite of one day with 275,000 rows, then a static one of
+              another day under dynamic-partition-overwrite=false; the
+              untouched days unchanged, each overwritten day exactly its new
+              rows) and of the bench table (a whole-table overwrite with its
+              100,000-row upsert batch, then a full refresh with all
+              1,100,000 rows in one batch), each an OVERWRITE snapshot, read
+              at both tiles. rowkind: config 4 with op STRING as
+              rowkind.field, 5% of each later commit -D rows of ids written
+              before. local_merge: config 4 under local-merge-buffer-size=64
+              mb (one drain a commit) and 1 mb (several), each commit in 10
+              writes, beside the compact phase's run. cross_partition: the
+              partitioned bench schema keyed by id alone at default options,
+              the four runs and the upsert moving about 75% of its ids to
+              another day on one write, then a new write that bootstraps the
+              global index from the files and 50,000 more upserts; every id
+              once, in its last day. append: config 5's append clone (4
+              commits, a full compaction), and an unaware-bucket log table
+              partitioned by dt (20 commits of 50,000 events under a
+              consumer's stream reader, value-filtered reads, a DELETE by
+              copy-on-write), rows in the order written; no kernel may
+              launch there. Seconds, rows, files and launches per part; K1
+              and K2 then held exactly to their plain versions at the path's
+              shapes no earlier check covered.
+15. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -224,8 +251,8 @@ Phases, one JSON line each on stdout:
               segment_sum at the engines path's float64 shape.
 
 Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines, buckets, strings, maintenance, cdc, deletes
-and history paths, and by path), the
+the main, compact, engines, buckets, strings, maintenance, cdc, deletes,
+history and writes paths, and by path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -799,7 +826,14 @@ def main() -> int:
         checks += history["shape_checks"]["exact_checks"]
         emit({"phase": "history", "part": "summary", **history, "exact_checks_all_phases": checks})
 
-    # 14. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 14. the write surface
+        checked = tuple(list(checked[i]) + [tuple(s) for s in history["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        writes = writes_phase(pt, hk, warehouse, table.path, compact, checked)
+        checks += writes["shape_checks"]["exact_checks"]
+        emit({"phase": "writes", "part": "summary", **writes, "exact_checks_all_phases": checks})
+
+    # 15. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -813,7 +847,7 @@ def main() -> int:
                       "engines": engines["launches"][name], "buckets": buckets["launches"][name],
                       "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
                       "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
-                      "history": history["launches"][name]}
+                      "history": history["launches"][name], "writes": writes["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -3078,6 +3112,489 @@ def history_phase(pt, hk, warehouse: str, bench_path: str, checked: tuple) -> di
     by_part = {name: p["launches"]["phase"] if "phase" in p["launches"] else p["launches"] for name, p in parts.items()}
     return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds,
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2029, checked)}
+
+
+# ---------------------------------------------------------------------------
+# the write surface: table and dynamic-partition overwrite, rowkind.field,
+# the local merge buffer, cross-partition upsert and append-only tables
+# ---------------------------------------------------------------------------
+
+OW_ROWS = 275_000  # an overwritten day: its 250,000 keys and 25,000 new ones
+RK_DELETE_SHARE = 0.05  # rowkind: the share of -D rows in each commit after the first
+LM_CHUNKS = 10  # local merge: each commit's 50,000 rows in this many writes
+LM_CAPS = ("64 mb", "1 mb")  # local-merge-buffer-size: a commit's rows (~3.7 MB) fit the first, not the second
+XP_UPSERT_2 = 50_000  # cross partition: the upserts after the restart
+C5_APPEND_ROWS = 500_000  # BASELINE config 5's append clone (db.c5z)
+
+
+def overwrite_values(ids: np.ndarray, tag: int) -> dict:
+    """The rows of overwrite `tag`: the upsert values, c2 moved by 1000 * tag."""
+    out = partitioned_values(ids, True)
+    out["c2"] = out["c2"] + 1000 * tag
+    return out
+
+
+def check_overwritten(table, before, new_days: dict, what: str) -> dict:
+    """The table read at both tiles equals a sort-engine=numpy read; each
+    day in `new_days` (day -> (ids, tag)) holds exactly its overwrite's
+    rows, and every other day the rows it had in `before`."""
+    reads = {}
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    for label, opts in (("default_tile", {}), (f"tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        t0 = time.perf_counter()
+        out = read_all(table.copy(opts))
+        reads[label] = {"read_s": round(time.perf_counter() - t0, 4), "rows": out.num_rows}
+        same_rows(out, reference, f"{what}, {label}: pallas against numpy")
+    dts = reference.column("dt").values
+    for day in P_DTS:
+        part = reference.filter(dts == day)
+        if day in new_days:
+            ids, tag = new_days[day]
+            got = part.take(np.argsort(part.column("id").values, kind="stable"))
+            want = overwrite_values(np.sort(ids), tag)
+            assert got.num_rows == len(ids), f"{what}: day {day} holds {got.num_rows} rows, its overwrite {len(ids)}"
+            for name in got.schema.field_names:
+                assert same_values(got.column(name).values, want[name]), f"{what}: day {day}, {name} differs"
+        else:
+            same_rows(part, before.filter(before.column("dt").values == day), f"{what}: untouched day {day}")
+    return {"reads": reads, "rows": reference.num_rows, "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def overwrite_part(pt, hk, cat, bench_path: str) -> dict:
+    """Copies of the partitioned table of the buckets phase and of the bench
+    table: (i) a dynamic-partition overwrite (the default) of one day with
+    275,000 rows, (ii) a static overwrite of another day under
+    dynamic-partition-overwrite=false, (iii) a whole-table overwrite of the
+    bench copy with its 100,000-row upsert batch, then (iv) a full refresh of
+    it with all 1,100,000 rows (the runs, then the upsert) in one batch."""
+    from paimon_tpu_torch.core.snapshot import CommitKind
+
+    shutil.copytree(cat.table_path("buckets.partitioned"), cat.table_path("writes.overwrite_partitioned"))
+    shutil.copytree(bench_path, cat.table_path("writes.overwrite_bench"))
+    table = cat.get_table("writes.overwrite_partitioned")
+    sm = table.store.snapshot_manager
+    before = read_all(table.copy({"sort-engine": "numpy"}))
+    rng = np.random.default_rng(14)
+    out: dict = {"table": "the partitioned table of the buckets phase (copied): dt STRING (4 days), key (dt, id), "
+                          "dynamic buckets of at most 100,000 keys; and a copy of the main phase's bench table",
+                 "who": "a daily batch job that recomputes one day's partition (INSERT OVERWRITE, "
+                        "dynamic-partition-overwrite), and a daily full refresh"}
+    new_days, steps = {}, {}
+    for step, day, tag, view in (("dynamic_partition", 1, 1, table),
+                                 ("static_partition", 2, 2, table.copy({"dynamic-partition-overwrite": "false"}))):
+        ids = rng.permutation(day + 4 * np.arange(OW_ROWS)).astype(np.int64)
+        before_step = dict(hk.launches)
+        t0 = time.perf_counter()
+        wb = view.new_batch_write_builder()
+        wb = wb.with_overwrite() if step == "dynamic_partition" else wb.with_overwrite(lambda p, d=P_DTS[day]: p == (d,))
+        w = wb.new_write()
+        w.write(overwrite_values(ids, tag))
+        sids = wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        write_launches = launch_diff(hk, before_step)
+        assert [sm.snapshot(i).commit_kind for i in sids] == [CommitKind.OVERWRITE], sids
+        new_days[P_DTS[day]] = (ids, tag)
+        steps[step] = {"day": P_DTS[day], "rows": OW_ROWS, "write_s": round(write_s, 4),
+                       "files_per_bucket": files_per_bucket(table), "launches_write": write_launches,
+                       **check_overwritten(table, before, new_days, step)}
+        steps[step]["launches"] = launch_diff(hk, before_step)
+        emit({"phase": "writes", "part": "overwrite", "step": step, **steps[step]})
+    bench = cat.get_table("writes.overwrite_bench")
+    runs, up = bench_runs()
+    for step, values in (("whole_table_upsert_batch", [table_values(up, True)]),
+                         ("whole_table_full_refresh",
+                          [table_values(np.concatenate(runs)[rng.permutation(N_ROWS)], False),
+                           table_values(up[rng.permutation(N_UPSERT)], True)])):
+        before_step = dict(hk.launches)
+        t0 = time.perf_counter()
+        wb = bench.new_batch_write_builder().with_overwrite()
+        w = wb.new_write()
+        for v in values:
+            w.write(v)
+        sids = wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        write_launches = launch_diff(hk, before_step)
+        assert [bench.store.snapshot_manager.snapshot(i).commit_kind for i in sids] == [CommitKind.OVERWRITE], sids
+        reference = read_all(bench.copy({"sort-engine": "numpy"}))
+        reads = {}
+        for label, opts in (("default_tile", {}), (f"tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+            t0 = time.perf_counter()
+            got = read_all(bench.copy(opts))
+            reads[label] = {"read_s": round(time.perf_counter() - t0, 4), "rows": got.num_rows}
+            if step == "whole_table_full_refresh":
+                check_output(got, reference, up, f"{step}, {label}")
+            else:
+                same_rows(got, reference, f"{step}, {label}: pallas against numpy")
+                want = table_values(np.sort(up), True)
+                for name in got.schema.field_names:
+                    assert same_values(got.column(name).values, want[name]), f"{step}: {name} differs from the batch"
+        steps[step] = {"rows_written": sum(len(v["id"]) for v in values), "rows": reference.num_rows,
+                       "write_s": round(write_s, 4), "launches_write": write_launches, "reads": reads,
+                       "files": len(live_files(bench)), "equal_to_numpy_engine": True, "equal_to_oracle": True,
+                       "launches": launch_diff(hk, before_step)}
+        emit({"phase": "writes", "part": "overwrite", "step": step, **steps[step]})
+    return {**out, "steps": steps}
+
+
+def rowkind_part(pt, hk, cat) -> dict:
+    """Config 4 with an op STRING column as rowkind.field: 20 streaming
+    commits, 5% of each commit after the first -D rows of ids an earlier
+    commit wrote; the read is each id's last row unless that is -D."""
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()), ("op", pt.STRING()))
+    options = {**C4_OPTIONS, "rowkind.field": "op"}
+    table = cat.create_table("writes.rowkind", schema, primary_keys=["id"], options=options)
+    rng, del_rng = np.random.default_rng(2), np.random.default_rng(12)
+    per = C4_ROWS // C4_COMMITS
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    deleted = np.zeros(C4_ROWS // 2, dtype=np.bool_)
+    before = dict(hk.launches)
+    wb = table.new_stream_write_builder()
+    w, c = wb.new_write(), wb.new_commit()
+    write_s, deletes = 0.0, 0
+    for b in range(C4_COMMITS):
+        batch = c4_batch(rng, b)
+        op = np.full(per, "+I", dtype=object)
+        if b:
+            k = int(per * RK_DELETE_SHARE)
+            rows = del_rng.choice(per, k, replace=False)
+            batch["id"][rows] = del_rng.choice(np.flatnonzero(last_commit >= 0), k)
+            batch["v"] = batch["id"] * 0.5 + b
+            op[rows] = "-D"
+            deletes += k
+        batch["op"] = op
+        ids = batch["id"]
+        last_ids, first_rev = np.unique(ids[::-1], return_index=True)
+        last_commit[last_ids] = b
+        deleted[last_ids] = op[len(ids) - 1 - first_rev] == "-D"
+        t0 = time.perf_counter()
+        w.write(batch)
+        c.commit_messages(b + 1, w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s += time.perf_counter() - t0
+    write_launches = launch_diff(hk, before)
+    read = check_c4_read(table, last_commit, "rowkind: after 20 commits", keep=~deleted)
+    tiled = check_c4_read(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}), last_commit,
+                          "rowkind: after 20 commits, K1 tile", keep=~deleted)
+    return {"config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1, plus op STRING as "
+                      "rowkind.field", "who": "a CDC feed with Debezium's op code in a column",
+            "options": options, "rows_written": C4_ROWS, "delete_rows": deletes,
+            "ids_deleted_at_the_end": int((deleted & (last_commit >= 0)).sum()), "write_s": round(write_s, 4),
+            "read": read, f"read_tile_{K1_TILE_ROWS}": tiled, "levels_after": level_layout(table),
+            "launches": {"writes": write_launches, "phase": launch_diff(hk, before)}}
+
+
+class LocalMergeProbe(Probe):
+    """Counts the local merge buffer's drains that held rows, with their
+    rows, host seconds and kernel launches."""
+
+    def __init__(self, hk):
+        import paimon_tpu_torch.table.write as table_write
+
+        super().__init__([(table_write.TableWrite, "_local_merge_flush", "drain")])
+        self.hk = hk
+        self.rows: list = []
+        self.launches = dict.fromkeys(hk.launches, 0)
+
+    def _before(self, stage: str, args: tuple):
+        self.rows.append(sum(b.num_rows for b, _ in args[0]._local_buffer))
+        return dict(self.hk.launches)
+
+    def _after(self, stage: str, args: tuple, out, before) -> None:
+        for k in self.launches:
+            self.launches[k] += self.hk.launches[k] - before[k]
+
+    def report(self) -> dict:
+        rows = [r for r in self.rows if r]
+        return {"drains": len(rows), "drain_rows_min_max": [min(rows), max(rows)] if rows else None,
+                "drain_s": round(self.seconds["drain"], 4), "launches_in_drains": dict(self.launches)}
+
+
+def local_merge_part(pt, hk, cat, control: dict) -> dict:
+    """Config 4 as in the compact phase under local-merge-buffer-size, each
+    commit written in 10 writes of 5,000 rows: at 64 mb the buffer drains
+    once a commit (at prepare_commit), at 1 mb several times."""
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()))
+    out = {"config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), scale 1, each commit in "
+                     f"{LM_CHUNKS} writes", "who": "a pre-shuffle merge of hot keys (local-merge-buffer-size)",
+           "control": {"write_s": control["stream"]["write_s"], "launches": control["launches"]["streaming_writes"]}}
+    for cap in LM_CAPS:
+        options = {**C4_OPTIONS, "local-merge-buffer-size": cap}
+        table = cat.create_table(f"writes.local_merge_{cap.replace(' ', '')}", schema, primary_keys=["id"],
+                                 options=options)
+        rng = np.random.default_rng(2)
+        last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+        before = dict(hk.launches)
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        write_s = 0.0
+        with LocalMergeProbe(hk) as probe, CompactionProbe(hk) as compactions:
+            for b in range(C4_COMMITS):
+                batch = c4_batch(rng, b)
+                last_commit[batch["id"]] = b
+                chunk = len(batch["id"]) // LM_CHUNKS
+                t0 = time.perf_counter()
+                for i in range(LM_CHUNKS):
+                    w.write({k: v[i * chunk:(i + 1) * chunk] for k, v in batch.items()})
+                c.commit_messages(b + 1, w.prepare_commit())
+                torch.cuda.synchronize()
+                write_s += time.perf_counter() - t0
+        write_launches = launch_diff(hk, before)
+        part = {"options": options, "write_s": round(write_s, 4), **probe.report(),
+                "compaction": compactions.report(), "levels_after": level_layout(table),
+                "read": check_c4_read(table, last_commit, f"local merge {cap}: after 20 commits")}
+        part["launches"] = {"writes": write_launches, "phase": launch_diff(hk, before)}
+        out[cap.replace(" ", "")] = part
+    large, small = (out[cap.replace(" ", "")] for cap in LM_CAPS)
+    assert small["drains"] > large["drains"] == C4_COMMITS, f"drains: {large['drains']} and {small['drains']}"
+    return out
+
+
+def cross_values(ids: np.ndarray, dts: np.ndarray, variant: int) -> dict:
+    """Bench rows of the given days: the first values (variant 0), the
+    upsert's (1) or the second upsert's (2: c2 moved by 2000)."""
+    out = {"dt": dts, **table_values(ids, variant > 0)}
+    if variant == 2:
+        out["c2"] = out["c2"] + 2000
+    return out
+
+
+def cross_partition_part(pt, hk, cat) -> dict:
+    """The partitioned bench schema keyed by id alone (dynamic buckets at
+    default options): the four runs (id in day P_DTS[id % 4]) and the
+    100,000-row upsert, each upserted id moved to day P_DTS[(id + s) % 4]
+    with s from the seed, on one streaming write; then a new write that
+    bootstraps the global index from the files and 50,000 more upserts."""
+    from paimon_tpu_torch.table.crosspartition import CrossPartitionUpsertWrite, GlobalIndexAssigner
+
+    schema = pt.RowType.of(("dt", pt.STRING()), *[(f.name, f.type) for f in build_schema(pt).fields])
+    options = {"sort-engine": "pallas"}
+    table = cat.create_table("writes.cross_partition", schema, partition_keys=["dt"], primary_keys=["id"],
+                             options=options)
+    runs, up = bench_runs()
+    rng = np.random.default_rng(10)
+    up_dts = P_DTS[(up + rng.integers(0, 4, N_UPSERT)) % 4]
+    up2 = np.random.default_rng(11).choice(N_ROWS, XP_UPSERT_2, replace=False).astype(np.int64)
+    up2_dts = P_DTS[(up2 + rng.integers(0, 4, XP_UPSERT_2)) % 4]
+    final_dt = P_DTS[np.arange(N_ROWS) % 4].copy()
+    variant = np.zeros(N_ROWS, dtype=np.int64)
+    before = dict(hk.launches)
+    probe = Probe([(CrossPartitionUpsertWrite, "write", "assign_and_route"), (GlobalIndexAssigner, "bootstrap", "bootstrap")])
+    with probe, CompactionProbe(hk) as compactions:
+        t0 = time.perf_counter()
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        for i, run in enumerate(runs, start=1):
+            w.write(cross_values(run, P_DTS[run % 4], 0))
+            c.commit_messages(i, w.prepare_commit())
+        w.write(cross_values(up, up_dts, 1))
+        c.commit_messages(N_RUNS + 1, w.prepare_commit())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        final_dt[up], variant[up] = up_dts, 1
+        moved_1 = int((up_dts != P_DTS[up % 4]).sum())
+        first_launches = launch_diff(hk, before)
+        bootstrap_rows = sum(f.row_count for f in live_files(table))
+        t0 = time.perf_counter()
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        bootstrap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w.write(cross_values(up2, up2_dts, 2))
+        wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        moved_2 = int((up2_dts != final_dt[up2]).sum())
+        final_dt[up2], variant[up2] = up2_dts, 2
+    write_launches = launch_diff(hk, before)
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    ids = reference.column("id").values
+    order = np.argsort(ids, kind="stable")
+    assert np.array_equal(ids[order], np.arange(N_ROWS)), "cross partition: an id is missing or read twice"
+    assert np.array_equal(reference.column("dt").values[order], final_dt), "cross partition: an id is not in its last day"
+    for v in (0, 1, 2):
+        sel = np.flatnonzero(variant == v)
+        want = cross_values(sel, final_dt[sel], v)
+        for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+            assert same_values(reference.column(name).values[order][sel], want[name]), f"cross partition: {name}"
+    reads = {}
+    for label, opts in (("default_tile", {}), (f"tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        t0 = time.perf_counter()
+        got = read_all(table.copy(opts))
+        reads[label] = {"read_s": round(time.perf_counter() - t0, 4), "rows": got.num_rows}
+        same_rows(got, reference, f"cross partition, {label}: pallas against numpy")
+    return {"table": "bench.py's table plus dt STRING (4 days) as partition key, primary key id alone (cross-partition "
+                     "upsert), dynamic buckets at default options",
+            "who": "an orders table partitioned by order date whose CDC updates change the date "
+                   "(Paimon's cross-partitions upsert dynamic bucket mode)",
+            "options": options, "rows_written": N_ROWS + N_UPSERT + XP_UPSERT_2,
+            "moved_by_upsert": moved_1, "moved_after_restart": moved_2, "write_s_runs_and_upsert": round(first_s, 4),
+            "bootstrap_s": round(bootstrap_s, 4), "bootstrap_rows": bootstrap_rows,
+            "bootstrap_probe_s": round(probe.seconds["bootstrap"], 4), "write_s_after_restart": round(second_s, 4),
+            "assign_and_route_s": round(probe.seconds["assign_and_route"], 4),
+            "buckets_per_partition": {p[0]: len(b) for p, b in sorted(table.store.new_scan().plan().grouped().items())},
+            "files_per_bucket": files_per_bucket(table), "compaction": compactions.report(), "reads": reads,
+            "every_id_once_in_its_last_day": True, "equal_to_numpy_engine": True, "equal_to_oracle": True,
+            "launches": {"runs_and_upsert": first_launches, "writes": write_launches,
+                         "phase": launch_diff(hk, before)}}
+
+
+def append_part(pt, hk, cat) -> dict:
+    """(i) BASELINE config 5's append clone (bucket 1, no primary key):
+    500,000 rows in 4 commits, then a full compaction; (ii) an
+    unaware-bucket log table (the bench schema with dt, no primary key,
+    bucket=-1, partitioned by dt): 20 streaming commits of 50,000 events
+    under a consumer's stream reader, a value-filtered read, a DELETE by
+    copy-on-write. No merge runs, so no kernel may launch."""
+    from paimon_tpu_torch.data.predicate import equal, less_than
+
+    before = dict(hk.launches)
+    out: dict = {"who": "an append-only event log (Paimon's append table, unaware bucket)"}
+    schema5 = pt.RowType.of(("id", pt.BIGINT(False)), ("x", pt.BIGINT()), ("y", pt.BIGINT()), ("v", pt.DOUBLE()))
+    c5 = cat.create_table("writes.c5_append", schema5, options={"bucket": "1"})
+    rng = np.random.default_rng(3)
+    per = C5_APPEND_ROWS // 4
+    written = []
+    t0 = time.perf_counter()
+    for _ in range(4):
+        ids = rng.integers(0, C5_ROWS, per)
+        written.append(ids)
+        wb = c5.new_batch_write_builder()
+        w = wb.new_write()
+        w.write({"id": ids, "x": ids % 4096, "y": (ids * 7) % 4096, "v": ids * 1.0})
+        wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    files_before = len(live_files(c5))
+    t0 = time.perf_counter()
+    wb = c5.new_batch_write_builder()
+    w = wb.new_write()
+    w.compact(full=True)
+    kinds = [c5.store.snapshot_manager.snapshot(i).commit_kind.value for i in wb.new_commit().commit(w.prepare_commit())]
+    compact_s = time.perf_counter() - t0
+    got = read_all(c5)
+    assert kinds == ["COMPACT"] and len(live_files(c5)) == 1, (kinds, live_files(c5))
+    assert np.array_equal(got.column("id").values, np.concatenate(written)), "config 5 append: rows out of order"
+    assert np.array_equal(got.column("y").values, (np.concatenate(written) * 7) % 4096), "config 5 append: y differs"
+    out["config5_append"] = {
+        "config": "BASELINE config 5's append clone (benchmarks/baseline_configs.py:209-219: db.c5z, bucket 1, no "
+                  "primary key), 500,000 rows in 4 commits (the reference writes 1), then compact(full=True)",
+        "write_s": round(write_s, 4), "files_before_full_compaction": files_before, "full_compaction_s": round(compact_s, 4),
+        "rows": got.num_rows, "rows_in_written_order": True}
+
+    schema = pt.RowType.of(("dt", pt.STRING()), *[(f.name, f.type) for f in build_schema(pt).fields])
+    log = cat.create_table("writes.log", schema, partition_keys=["dt"], options={"bucket": "-1"})
+    reader = log.copy({"consumer-id": "writes"})
+    scan = reader.new_read_builder().new_stream_scan()
+    read = reader.new_read_builder().new_read()
+    assert scan.plan() is None
+    per = C4_ROWS // C4_COMMITS
+    wb = log.new_stream_write_builder()
+    w, c = wb.new_write(), wb.new_commit()
+    write_s = plan_s = 0.0
+    seen, plans = [], []
+    for b in range(C4_COMMITS):
+        ids = np.arange(b * per, (b + 1) * per, dtype=np.int64)
+        t0 = time.perf_counter()
+        w.write(partitioned_values(ids, False))
+        c.commit_messages(b + 1, w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while (splits := scan.plan()) is not None:
+            rows = 0
+            for s in splits:
+                data, kinds_ = read.read_with_kinds(s)
+                assert not kinds_.any(), "a delta row of the log is not +I"
+                seen.append(data.column("id").values)
+                rows += data.num_rows
+            plans.append([len(splits), sum(len(s.files) for s in splits), rows])
+        plan_s += time.perf_counter() - t0
+        if b + 1 in HISTORY_ACKS:
+            scan.checkpoint()
+            scan.notify_checkpoint_complete()
+    all_ids = np.arange(C4_ROWS, dtype=np.int64)
+    assert np.array_equal(np.sort(np.concatenate(seen)), all_ids), "the stream did not read every event once"
+    full = read_all(log)
+    same_rows(full, read_all(log.copy({"sort-engine": "numpy"})), "log against the numpy engine")
+
+    def check_in_order(batch, keep: np.ndarray, what: str, ordered: bool = True) -> None:
+        """Per day, the rows `keep` selects, in the order written (or, not
+        ordered, as a set)."""
+        assert batch.num_rows == int(keep.sum()), f"{what}: {batch.num_rows} rows, the oracle has {int(keep.sum())}"
+        for d, day in enumerate(P_DTS):
+            ids = batch.column("id").values[batch.column("dt").values == day]
+            ids = ids if ordered else np.sort(ids)
+            assert np.array_equal(ids, all_ids[keep & (all_ids % 4 == d)]), f"{what}: day {day} differs"
+
+    check_in_order(full, np.ones(C4_ROWS, np.bool_), "log")
+    filtered = {}
+    for label, pred, keep in (("c2 < 10", less_than("c2", 10), all_ids % 97 < 10),
+                              ("id < 100000", less_than("id", 100_000), all_ids < 100_000)):
+        rb = log.new_read_builder().with_filter(pred)
+        t0 = time.perf_counter()
+        splits = rb.new_scan().plan()
+        got = rb.new_read().read_all(splits)
+        seconds = time.perf_counter() - t0
+        check_in_order(got, keep, f"log where {label}")
+        filtered[label] = {"seconds": round(seconds, 4), "rows": got.num_rows,
+                           "files": sum(len(s.files) for s in splits), "files_unfiltered": len(live_files(log))}
+        filtered[label]["files_pruned_by_stats"] = filtered[label]["files_unfiltered"] - filtered[label]["files"]
+    files_before = {f.file_name for f in live_files(log)}
+    t0 = time.perf_counter()
+    deleted = log.delete_where(equal("c2", 3))
+    delete_s = time.perf_counter() - t0
+    files_after = {f.file_name for f in live_files(log)}
+    keep = all_ids % 97 != 3
+    assert deleted == int((~keep).sum()), f"DELETE removed {deleted} rows, the oracle {int((~keep).sum())}"
+    # the rewritten files carry sequence numbers 0 (as in the JAX package),
+    # so a read orders them by file name: compare each day as a set
+    check_in_order(read_all(log), keep, "log after the DELETE", ordered=False)
+    out["log"] = {
+        "table": "bench.py's table plus dt STRING (4 days) as partition key, no primary key, bucket=-1 (unaware)",
+        "commits": C4_COMMITS, "rows_written": C4_ROWS, "write_s": round(write_s, 4), "stream_plan_and_read_s": round(plan_s, 4),
+        "plans": len(plans), "plans_with_splits": sum(1 for p in plans if p[0]),
+        "files_per_bucket": files_per_bucket(log), "filtered_reads": filtered,
+        "delete": {"predicate": "c2 = 3", "seconds": round(delete_s, 4), "rows_deleted": deleted,
+                   "files_rewritten": len(files_before - files_after), "files_written": len(files_after - files_before)},
+        "rows_in_written_order_before_the_delete": True, "equal_to_numpy_engine": True}
+    launches = launch_diff(hk, before)
+    assert not any(launches.values()), f"the append path launched a kernel: {launches}"
+    out["launches"] = {"phase": launches}
+    return out
+
+
+def writes_phase(pt, hk, warehouse: str, bench_path: str, control: dict, checked: tuple) -> dict:
+    """The write surface, one JSON line per part: overwrite, rowkind.field,
+    the local merge buffer, cross-partition upsert and append tables. K1 and
+    K2 must launch in every part but the append one, which launches
+    nothing; then K1 and K2 are held exactly to their plain versions at the
+    path's shapes no earlier check covered. Launch counts are zeroed before
+    the phase."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    parts, seconds = {}, {}
+    with ShapeRecorder(hk) as recorder:
+        for name, run in (("overwrite", lambda: overwrite_part(pt, hk, cat, bench_path)),
+                          ("rowkind", lambda: rowkind_part(pt, hk, cat)),
+                          ("local_merge", lambda: local_merge_part(pt, hk, cat, control)),
+                          ("cross_partition", lambda: cross_partition_part(pt, hk, cat)),
+                          ("append", lambda: append_part(pt, hk, cat))):
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = run()
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "writes", "part": name, **parts[name]})
+    by_part = {name: p["part_launches"] for name, p in parts.items()}
+    for name in ("overwrite", "rowkind", "local_merge", "cross_partition"):
+        for k in K1_K2:
+            assert by_part[name][k] > 0, f"{k} never launched in the {name} part: {by_part[name]}"
+    return {"launches": dict(hk.launches), "launches_by_part": by_part, "seconds_by_part": seconds,
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2030, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

@@ -2,9 +2,9 @@
 H100 (Hopper, sm_90a).
 
 It writes (compacting the LSM levels), commits (batch or streaming) and
-merge-reads primary-key tables under the deduplicate merge engine through
-the Table API. With sort-engine=pallas
-the merge runs on two hand-written CUDA kernels (ops/hopper_kernels.py).
+merge-reads primary-key tables under every merge engine, and writes and
+reads append tables, through the Table API. With sort-engine=pallas the
+merge runs on hand-written CUDA kernels (ops/hopper_kernels.py).
 The warehouse layout, schema, snapshot, manifest and data-file formats are
 the JAX package's, so each package reads the other's tables. The package
 imports torch and numpy and nothing of JAX, pyarrow or paimon_tpu.

@@ -109,6 +109,7 @@ class KeyValueFileWriterFactory:
         compression: str = "zstd",
         per_level_compression: dict[int, str] | None = None,
         target_file_size: int = 128 << 20,
+        keyed: bool = True,
     ):
         if file_format != "parquet":
             raise NotImplementedError(f"file.format={file_format} is not supported by the torch port yet")
@@ -125,6 +126,9 @@ class KeyValueFileWriterFactory:
         self.schema_id = schema_id
         self.compression = compression
         self.target_file_size = target_file_size
+        # keyed=False: an append table's files hold the plain rows, with no
+        # _SEQUENCE_NUMBER / _VALUE_KIND columns and an empty key range
+        self.keyed = keyed
 
     def _estimate_row_bytes(self, batch: ColumnBatch) -> int:
         total = 0
@@ -165,7 +169,7 @@ class KeyValueFileWriterFactory:
         name = new_file_name(prefix, "parquet")
         path = f"{self.bucket_dir}/{name}"
         compression = self.per_level_compression.get(level, self.compression)
-        self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch(), compression))
+        self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch() if self.keyed else kv.data, compression))
         value_stats = collect_stats(kv.data)
         min_key, max_key = self._key_range(kv.data, sorted_input)
         return DataFileMeta(
@@ -196,11 +200,13 @@ class KeyValueFileReaderFactory:
         bucket_dir: str,
         read_schema: RowType,
         schemas_by_id: dict[int, RowType],
+        keyed: bool = True,
     ):
         self.file_io = file_io
         self.bucket_dir = bucket_dir
         self.read_schema = read_schema
         self.schemas_by_id = schemas_by_id
+        self.keyed = keyed
 
     def read(
         self,
@@ -215,10 +221,13 @@ class KeyValueFileReaderFactory:
         predicate: row groups whose statistics cannot match it are skipped;
         the rows left depend on the predicate alone, so two reads of one
         file under one predicate are row-aligned whatever their fields. The
-        predicate filters no row itself."""
+        predicate filters no row itself. An unkeyed (append) file has no
+        system columns: its sequence numbers and kinds read as zeros."""
         ext = meta.file_name.rsplit(".", 1)[-1]
         if ext != "parquet":
             raise NotImplementedError(f"file.format={ext} is not supported by the torch port yet")
+        if not self.keyed:
+            system_columns = False
         data_schema = self.schemas_by_id[meta.schema_id]
         read_fields = self.read_schema.fields if fields is None else tuple(self.read_schema.field(n) for n in fields)
         by_id = {f.id: f for f in data_schema.fields}
@@ -233,7 +242,7 @@ class KeyValueFileReaderFactory:
             mapping.append((f, src))
             if src is not None:
                 wanted.append(src.name)
-        disk_schema = kv_disk_schema(data_schema)
+        disk_schema = kv_disk_schema(data_schema) if self.keyed else data_schema
         if predicate is not None:
             # the file's stats are found by name: prune only where each
             # named field is the file's column of the same name and id

@@ -92,6 +92,16 @@ class MergeExecutor:
         """sort-engine=numpy keeps the planned merge on the host."""
         return torch.device("cpu") if self.effective_sort_engine() == SortEngine.NUMPY else self.device
 
+    def select_last(self, lanes: np.ndarray) -> np.ndarray:
+        """The row indices of each key's last row in input order, in key
+        order, under the table's sort-engine (pallas: K1, or the stock sort
+        + K2 above K1's bound): the local merge buffer's selection."""
+        if self.effective_sort_engine() == SortEngine.NUMPY:
+            return _numpy_dedup_select(lanes, None, self._compress)
+        from ..ops.merge import deduplicate_select
+
+        return deduplicate_select(lanes, None, self._compress, self._backend(), self.device)
+
     def _value_fields(self):
         return [f for f in self.value_schema.fields if f.name not in self.key_names]
 

@@ -1,5 +1,6 @@
-"""The key-value file store: one table's components wired from its schema
-and options (port of paimon_tpu/core/store.py, primary-key tables).
+"""The file stores: one table's components wired from its schema and
+options (port of paimon_tpu/core/store.py). KeyValueFileStore serves
+primary-key tables, AppendOnlyFileStore the tables without one.
 
 A bucket's writer is restored from its live files and deletion vectors;
 its compactions drop the vectors' rows and the rows that record-level TTL
@@ -15,11 +16,13 @@ from typing import Sequence
 
 import torch
 
+from ..data.batch import ColumnBatch, concat_batches
 from ..data.predicate import Predicate, and_, greater_than, is_null, or_
 from ..fs import LocalFileIO
 from ..options import ChangelogProducer, CoreOptions
 from ..types import RowType
 from ..utils import now_millis, partition_path
+from .append import AppendOnlyCompactManager, AppendOnlyWriter
 from .commit import FileStoreCommit
 from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
@@ -34,10 +37,12 @@ from .schema import SchemaManager, TableSchema
 from .snapshot import SnapshotManager
 from .writer import MergeTreeWriter
 
-__all__ = ["KeyValueFileStore"]
+__all__ = ["KeyValueFileStore", "AppendOnlyFileStore"]
 
 
 class KeyValueFileStore:
+    keyed = True
+
     def __init__(
         self,
         file_io: LocalFileIO,
@@ -88,11 +93,12 @@ class KeyValueFileStore:
             compression=co.file_compression,
             per_level_compression=co.file_compression_per_level,
             target_file_size=co.target_file_size,
+            keyed=self.keyed,
         )
 
     def reader_factory(self, partition: tuple, bucket: int) -> KeyValueFileReaderFactory:
         return KeyValueFileReaderFactory(
-            self.file_io, self.bucket_dir(partition, bucket), self.value_schema, self.schemas_by_id()
+            self.file_io, self.bucket_dir(partition, bucket), self.value_schema, self.schemas_by_id(), self.keyed
         )
 
     def new_scan(self) -> FileStoreScan:
@@ -209,3 +215,66 @@ class KeyValueFileStore:
             predicate = expire if predicate is None else and_(predicate, expire)
         read = MergeFileSplitRead(self.reader_factory(partition, bucket), self.merge_executor(), self.key_names)
         return read.read_split(files, predicate, projection, drop_delete, deletion_vectors)
+
+
+class AppendOnlyFileStore(KeyValueFileStore):
+    """A table without a primary key: plain rows, concatenating reads,
+    small-file compaction (core/append.py)."""
+
+    keyed = False
+
+    def new_writer(self, partition: tuple, bucket: int, total_buckets: int | None = None) -> AppendOnlyWriter:
+        """A writer restored from the bucket's live files and deletion
+        vectors; it compacts small files unless the table is write-only."""
+        co = self.options
+        existing, dvs = self.restore_state(partition, bucket)
+        wf = self.writer_factory(partition, bucket)
+        compact_manager = None
+        if not co.write_only:
+            compact_manager = AppendOnlyCompactManager(self.reader_factory(partition, bucket), wf, co, dvs)
+        return AppendOnlyWriter(
+            partition,
+            bucket,
+            total_buckets if total_buckets is not None else max(co.bucket, 1),
+            wf,
+            compact_manager,
+            co,
+            existing_files=existing,
+            restored_max_seq=max((f.max_sequence_number for f in existing), default=-1),
+        )
+
+    def read_bucket(
+        self,
+        partition: tuple,
+        bucket: int,
+        files: list[DataFileMeta],
+        predicate: Predicate | None = None,
+        projection: Sequence[str] | None = None,
+        drop_delete: bool = True,
+        deletion_vectors: dict | None = None,
+    ) -> ColumnBatch:
+        """The files' rows in (min_sequence_number, file_name) order, less
+        the deletion vectors' rows and those the predicate rejects, then
+        projected. A file without a vector skips the row groups the
+        predicate's stats exclude. Record-level TTL does not apply to
+        append tables, as in the JAX package."""
+        dvs = deletion_vectors or {}
+        rf = self.reader_factory(partition, bucket)
+        out = []
+        for f in sorted(files, key=lambda f: (f.min_sequence_number, f.file_name)):
+            dv = dvs.get(f.file_name)
+            kv = rf.read(f, predicate=None if dv is not None else predicate)
+            data = kv.data
+            if dv is not None:
+                alive = ~dv.deleted_mask(kv.num_rows)
+                if not alive.all():
+                    data = data.filter(alive)
+            if predicate is not None and data.num_rows:
+                mask = predicate.eval(data)
+                if not mask.all():
+                    data = data.filter(mask)
+            out.append(data if projection is None else data.select(projection))
+        if not out:
+            schema = self.value_schema if projection is None else self.value_schema.project(projection)
+            return ColumnBatch.empty(schema)
+        return concat_batches(out)

@@ -170,6 +170,10 @@ class CoreOptions:
     WRITE_BUFFER_SIZE = ConfigOption.memory("write-buffer-size", "256 mb")
     WRITE_BUFFER_ROWS = ConfigOption.int_("write-buffer-rows", 1_000_000)
     LOCAL_MERGE_BUFFER_SIZE = ConfigOption.memory("local-merge-buffer-size", "0 b")
+    # read only to refuse them on append tables: the spilling buffer
+    # (core/disk.py) is not ported
+    WRITE_BUFFER_SPILLABLE = ConfigOption.bool_("write-buffer-spillable", False)
+    WRITE_BUFFER_FOR_APPEND = ConfigOption.bool_("write-buffer-for-append", False)
     WRITE_ONLY = ConfigOption.bool_("write-only", False, fallback=("write.compaction-skip",))
     MERGE_ENGINE = ConfigOption.enum("merge-engine", MergeEngine, MergeEngine.DEDUPLICATE)
     IGNORE_DELETE = ConfigOption.bool_(
@@ -188,6 +192,16 @@ class CoreOptions:
     PARTIAL_UPDATE_REMOVE_RECORD_ON_DELETE = ConfigOption.bool_("partial-update.remove-record-on-delete", False)
     AGGREGATE_DEFAULT_FUNC = ConfigOption.string("fields.default-aggregate-function", None)
     ROWKIND_FIELD = ConfigOption.string("rowkind.field", None)
+    # INSERT OVERWRITE without a partition filter replaces only the
+    # partitions the new rows touch (false: the whole table)
+    DYNAMIC_PARTITION_OVERWRITE = ConfigOption.bool_("dynamic-partition-overwrite", True)
+    # cross-partition upsert (table/crosspartition.py): threads reading the
+    # key columns at bootstrap, and the index entries' lifetime (None: no
+    # expiry)
+    CROSS_PARTITION_UPSERT_BOOTSTRAP_PARALLELISM = ConfigOption.int_(
+        "cross-partition-upsert.bootstrap-parallelism", 10
+    )
+    CROSS_PARTITION_UPSERT_INDEX_TTL = ConfigOption.duration("cross-partition-upsert.index-ttl", None)
     # "Deletion-vector mode." (table/delete.py)
     DELETION_VECTORS_ENABLED = ConfigOption.bool_("deletion-vectors.enabled", False)
     BRANCH = ConfigOption.string("branch", "main")
@@ -236,6 +250,8 @@ class CoreOptions:
     COMPACTION_MAX_SIZE_AMP_PERCENT = ConfigOption.int_("compaction.max-size-amplification-percent", 200)
     COMPACTION_SIZE_RATIO = ConfigOption.int_("compaction.size-ratio", 1)
     COMPACTION_MAX_FILE_NUM = ConfigOption.int_("compaction.max.file-num", 50, ("compaction.early-max.file-num",))
+    # append tables: small files concatenated once this many are in a row
+    COMPACTION_MIN_FILE_NUM = ConfigOption.int_("compaction.min.file-num", 5)
     # millis; the JAX package reads this key as a bare int too
     COMPACTION_OPTIMIZATION_INTERVAL = ConfigOption.int_("compaction.optimization-interval", None)
     MANIFEST_TARGET_SIZE = ConfigOption.memory("manifest.target-file-size", "8 mb")
@@ -364,6 +380,10 @@ class CoreOptions:
     def num_levels(self) -> int:
         v = self.options.get(CoreOptions.NUM_LEVELS)
         return v if v is not None else self.num_sorted_runs_compaction_trigger + 1
+
+    @property
+    def compaction_min_file_num(self) -> int:
+        return self.options.get(CoreOptions.COMPACTION_MIN_FILE_NUM)
 
     @property
     def max_size_amplification_percent(self) -> int:

@@ -1,7 +1,13 @@
-"""The Table API (port of paimon_tpu/table/__init__.py, primary-key
-tables): new_read_builder / new_batch_write_builder /
-new_stream_write_builder, copy, with_user, delete_where, tags,
-rollback_to, snapshot expiry, and load_table.
+"""The Table API (port of paimon_tpu/table/__init__.py):
+new_read_builder / new_batch_write_builder / new_stream_write_builder,
+copy, with_user, delete_where, tags, rollback_to, snapshot expiry, and
+load_table.
+
+A table with a primary key is served by the key-value store, one without
+by the append-only store (core/append.py). bucket_mode is the JAX
+package's: a primary-key table with bucket=-1 is "dynamic", an append
+table with bucket=-1 "unaware" (every row to bucket 0 of its partition),
+and any table with bucket=N "fixed".
 
 A branch view (table/branch.py branch_table) resolves its data files in
 the main tree through an instance-level store.bucket_dir; copy and
@@ -18,7 +24,7 @@ from dataclasses import replace
 import torch
 
 from ..core.schema import SchemaManager, TableSchema
-from ..core.store import KeyValueFileStore
+from ..core.store import AppendOnlyFileStore, KeyValueFileStore
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..types import RowType
@@ -40,19 +46,32 @@ class FileStoreTable:
         commit_user: str = "anonymous",
         device: "str | torch.device" = "cuda",
     ):
-        if not schema.primary_keys:
-            raise NotImplementedError("append-only tables are not supported by the torch port yet")
         self.file_io = file_io
         self.path = path
         self.schema = schema
         self.device = torch.device(device)
-        self.store = KeyValueFileStore(file_io, path, schema, commit_user=commit_user, device=self.device)
+        store_cls = KeyValueFileStore if schema.primary_keys else AppendOnlyFileStore
+        self.store = store_cls(file_io, path, schema, commit_user=commit_user, device=self.device)
         self._expire_executor: concurrent.futures.ThreadPoolExecutor | None = None
         self.expire_future: concurrent.futures.Future | None = None
 
     @property
+    def is_primary_key_table(self) -> bool:
+        return bool(self.schema.primary_keys)
+
+    @property
+    def bucket_mode(self) -> str:
+        if self.store.options.bucket != -1:
+            return "fixed"
+        return "dynamic" if self.is_primary_key_table else "unaware"
+
+    @property
     def row_type(self) -> RowType:
         return self.store.value_schema
+
+    @property
+    def primary_keys(self) -> list[str]:
+        return list(self.schema.primary_keys)
 
     @property
     def options(self) -> CoreOptions:
@@ -95,7 +114,8 @@ class FileStoreTable:
 
     def delete_where(self, predicate) -> int:
         """DELETE FROM this table WHERE predicate (table/delete.py): through
-        deletion vectors under deletion-vectors.enabled, else as -D rows;
+        deletion vectors under deletion-vectors.enabled, else as -D rows on
+        a primary-key table and by rewriting the files on an append table;
         returns the number of rows deleted."""
         from .delete import delete_where
 

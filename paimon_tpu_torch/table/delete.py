@@ -1,20 +1,26 @@
-"""DELETE FROM table WHERE <predicate> (port of paimon_tpu/table/delete.py,
-primary-key tables).
+"""DELETE FROM table WHERE <predicate> (port of paimon_tpu/table/delete.py).
 
-Two strategies, as in the JAX package:
+Three strategies, as in the JAX package:
 
-1. deletion-vectors.enabled: the predicate is first resolved against the
-   merged view (a with_filter read), then every stored version of each
-   matching key is marked in its file's deletion vector, so that no older
-   version comes back on merge. Each changed bucket's whole container is
+1. deletion-vectors.enabled: every matching stored row is marked in its
+   file's deletion vector. On a primary-key table the predicate is first
+   resolved against the merged view (a with_filter read), then every
+   stored version of each matching key is marked, so that no older
+   version comes back on merge; on an append table the predicate is
+   evaluated on each file's rows. Each changed bucket's whole container is
    written anew and committed as one index entry, in one APPEND snapshot
    with the batch-delete identifier; no data file is rewritten.
-2. otherwise: the matching merged rows are written back as -D rows, with
-   an input changelog under delete.force-produce-changelog when the table
-   has no changelog producer.
-
-The JAX package's third strategy, the copy-on-write rewrite of append
-tables, waits for append tables in the port.
+2. a primary-key table otherwise: the matching merged rows are written
+   back as -D rows, with an input changelog under
+   delete.force-produce-changelog when the table has no changelog
+   producer.
+3. an append table otherwise: copy-on-write. Each file with a match is
+   rewritten without the matching rows at its level (source "compact"),
+   and one COMPACT snapshot under the batch-delete identifier swaps them.
+   The bucket's existing deletion vectors are applied first, whether or
+   not the option is still set (the JAX package reads them only while it
+   is, and rows it marked come back; ROADMAP Queue 3). update_where and
+   merge_into, the rewrite with a transform, are not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from ..types import RowKind
 if TYPE_CHECKING:
     from . import FileStoreTable
 
-__all__ = ["delete_where"]
+__all__ = ["delete_where", "copy_on_write_rewrite"]
 
 # a DELETE commits under this identifier (the JAX package's
 # Long.MAX_VALUE - 1)
@@ -41,13 +47,11 @@ DELETE_COMMIT_IDENTIFIER = (1 << 63) - 2
 
 def delete_where(table: "FileStoreTable", predicate: Predicate) -> int:
     """Delete the rows the predicate matches; returns how many."""
-    if not table.schema.primary_keys:
-        raise NotImplementedError(
-            "DELETE on an append-only table (copy-on-write rewrite) is not ported to the torch port yet"
-        )
     if table.options.options.get(CoreOptions.DELETION_VECTORS_ENABLED):
         return _delete_with_dvs(table, predicate)
-    return _delete_with_retract(table, predicate)
+    if table.is_primary_key_table:
+        return _delete_with_retract(table, predicate)
+    return copy_on_write_rewrite(table, predicate)
 
 
 def _key_match_mask(batch, key_names, matching) -> np.ndarray:
@@ -66,10 +70,14 @@ def _delete_with_dvs(table: "FileStoreTable", predicate: Predicate) -> int:
         table.file_io, table.path, int(store.options.options.get(CoreOptions.DELETION_VECTOR_INDEX_FILE_TARGET_SIZE))
     )
     plan = store.new_scan().plan()
-    rb = table.new_read_builder().with_filter(predicate)
-    matching = rb.new_read().read_all(rb.new_scan().plan())
-    if matching.num_rows == 0:
-        return 0
+    matching = None
+    deleted = 0
+    if table.is_primary_key_table:
+        rb = table.new_read_builder().with_filter(predicate)
+        matching = rb.new_read().read_all(rb.new_scan().plan())
+        deleted = matching.num_rows
+        if deleted == 0:
+            return 0
     messages: list[CommitMessage] = []
     for partition, buckets in plan.grouped().items():
         for bucket, files in buckets.items():
@@ -80,13 +88,18 @@ def _delete_with_dvs(table: "FileStoreTable", predicate: Predicate) -> int:
             changed = False
             for f in files:
                 kv = reader.read(f)  # every row, in file order: positions count these
-                mask = _key_match_mask(kv.data, store.key_names, matching)
+                if matching is not None:
+                    mask = _key_match_mask(kv.data, store.key_names, matching)
+                else:
+                    mask = predicate.eval(kv.data)
                 existing = restored.get(f.file_name)
                 if existing is not None:
-                    mask &= ~existing.deleted_mask(kv.num_rows)
+                    mask = mask & ~existing.deleted_mask(kv.num_rows)
                 positions = np.flatnonzero(mask)
                 if len(positions):
                     maintainer.notify_deletion(f.file_name, positions.astype(np.uint32))
+                    if matching is None:
+                        deleted += len(positions)
                     changed = True
             if changed:
                 entry = maintainer.prepare_commit(partition, bucket)
@@ -96,7 +109,7 @@ def _delete_with_dvs(table: "FileStoreTable", predicate: Predicate) -> int:
                     )
     if messages:
         store.new_commit().commit(ManifestCommittable(DELETE_COMMIT_IDENTIFIER, messages=messages))
-    return matching.num_rows
+    return deleted
 
 
 def _delete_with_retract(table: "FileStoreTable", predicate: Predicate) -> int:
@@ -116,3 +129,43 @@ def _delete_with_retract(table: "FileStoreTable", predicate: Predicate) -> int:
     w.write(matching, np.full(matching.num_rows, int(RowKind.DELETE), dtype=np.uint8))
     wb.new_commit().commit(w.prepare_commit())
     return matching.num_rows
+
+
+def copy_on_write_rewrite(table: "FileStoreTable", predicate: Predicate) -> int:
+    """Rewrite every file holding a row the predicate matches without those
+    rows, after its deletion vector's rows; returns the rows dropped."""
+    store = table.store
+    plan = store.new_scan().plan()
+    idx = DeletionVectorsIndexFile(table.file_io, table.path)
+    messages: list[CommitMessage] = []
+    affected = 0
+    for partition, buckets in plan.grouped().items():
+        for bucket, files in buckets.items():
+            rf = store.reader_factory(partition, bucket)
+            wf = store.writer_factory(partition, bucket)
+            dv_index = plan.dv_index_for(partition, bucket)
+            dvs = idx.read_all(dv_index) if dv_index else {}
+            before, after = [], []
+            for f in files:
+                kv = rf.read(f)
+                dv = dvs.get(f.file_name)
+                if dv is not None:
+                    alive = ~dv.deleted_mask(kv.num_rows)
+                    if not alive.all():
+                        kv = kv.filter(alive)
+                mask = predicate.eval(kv.data)
+                hits = int(mask.sum())
+                if hits == 0:
+                    continue
+                affected += hits
+                before.append(f)
+                kept = kv.filter(~mask)
+                if kept.num_rows:
+                    after.extend(wf.write(kept, level=f.level, file_source="compact"))
+            if before:
+                messages.append(
+                    CommitMessage(partition, bucket, max(store.options.bucket, 1), compact_before=before, compact_after=after)
+                )
+    if messages:
+        store.new_commit().commit(ManifestCommittable(DELETE_COMMIT_IDENTIFIER, messages=messages))
+    return affected

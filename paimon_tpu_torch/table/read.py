@@ -3,8 +3,10 @@ paimon_tpu/table/read.py; the file-index predicate is not ported yet).
 
 with_filter ANDs predicates. The scan keeps the partitions that the
 predicate's partition-only conjuncts accept and the files whose key stats
-its key-only conjuncts accept; the read pushes the predicate into the
-merge (core/read.py) and applies the split's deletion vectors.
+its key-only conjuncts accept (on an append table, whose rows are all
+final, the files whose value stats the whole predicate accepts); the read
+pushes the predicate into the merge (core/read.py) or the concatenation
+(core/store.py) and applies the split's deletion vectors.
 
 A batch scan plans the latest snapshot or the one the time-travel options
 select: scan.snapshot-id, scan.tag-name, scan.timestamp-millis or
@@ -122,23 +124,28 @@ class ReadBuilder:
         return TableRead(self.table, self._predicate, self._projection, self._limit)
 
 
-def _pack_bucket_splits(files, target: int, open_cost: int) -> list[tuple[list, bool]]:
-    """Bin-pack one bucket's sections (files that must merge together stay
-    in one split) into read splits, weighing each section max(total size,
-    open-file cost); (files, raw_convertible) per pack, raw when each of
-    its sections is one sorted run."""
+def _pack_bucket_splits(files, target: int, open_cost: int, keyed: bool = True) -> list[tuple[list, bool]]:
+    """Bin-pack one bucket's units into read splits, weighing each unit
+    max(total size, open-file cost); (files, raw_convertible) per pack. On
+    a primary-key table a unit is a section (files that must merge together
+    stay in one split), raw when it is one sorted run; on an append table
+    it is one file, in (min_sequence_number, file_name) order, always raw."""
+    if keyed:
+        units = [([f for run in section for f in run.files], len(section) == 1)
+                 for section in IntervalPartition(files).partition()]
+    else:
+        units = [([f], True) for f in sorted(files, key=lambda f: (f.min_sequence_number, f.file_name))]
     packs: list[tuple[list, bool]] = []
     cur: list = []
     cur_raw = True
     cur_weight = 0
-    for section in IntervalPartition(files).partition():
-        unit = [f for run in section for f in run.files]
+    for unit, raw in units:
         w = max(sum(f.file_size for f in unit), open_cost)
         if cur and cur_weight + w > target:
             packs.append((cur, cur_raw))
             cur, cur_raw, cur_weight = [], True, 0
         cur.extend(unit)
-        cur_raw = cur_raw and len(section) == 1
+        cur_raw = cur_raw and raw
         cur_weight += w
     if cur:
         packs.append((cur, cur_raw))
@@ -258,6 +265,7 @@ class TableScan:
             if s2 is None or start >= s2.id:
                 return []  # no snapshot landed between t1 and t2
             return self._incremental_splits(f"{start},{s2.id}")
+        keyed = self.table.is_primary_key_table
         scan = store.new_scan()
         snapshot_id = self._resolve_snapshot()
         if snapshot_id is not None:
@@ -266,6 +274,10 @@ class TableScan:
             key_parts = PredicateBuilder.pick_by_fields(PredicateBuilder.split_and(self.predicate), set(store.key_names))
             if key_parts:
                 scan = scan.with_key_filter(and_(*key_parts))
+            if not keyed:
+                # every row of an append table is final: value stats may
+                # skip whole files
+                scan = scan.with_value_filter(self.predicate)
             accept = self._partition_predicate()
             if accept is not None:
                 scan = scan.with_partition_filter(accept)
@@ -289,7 +301,7 @@ class TableScan:
                         raw_convertible=raw,
                         dv_index_file=plan.dv_index_for(partition, bucket),
                     )
-                    for pack, raw in _pack_bucket_splits(files, target, open_cost)
+                    for pack, raw in _pack_bucket_splits(files, target, open_cost, keyed)
                 ]
             lanes.append(lane)
         if opts.get(CoreOptions.SCAN_PLAN_SORT_PARTITION):

@@ -1,19 +1,28 @@
-"""Batch and streaming write builders (port of paimon_tpu/table/write.py,
-primary-key tables: fixed buckets, dynamic buckets and partitions).
+"""Batch and streaming write builders (port of paimon_tpu/table/write.py).
 
-A TableWrite routes rows to a merge-tree writer per (partition, bucket)
-and keeps the writers across commits; prepare_commit drains them into
+A TableWrite routes rows to one writer per (partition, bucket) and keeps
+the writers across commits; prepare_commit drains them into
 CommitMessages, with the dynamic-bucket assigner's new hash index files.
-A TableCommit turns those into an APPEND snapshot, and a COMPACT snapshot
-when a writer compacted. Streaming commits carry ascending identifiers
-and go through the replay filter; a batch commit carries the one batch
-identifier. After each commit the table's maintenance runs, in the JAX
-package's order: commit callbacks, automatic tags, snapshot expiry and
-partition expiry; a failure there never fails the commit, and is reported
-with warnings.warn. Buckets run one after another (the JAX package's mesh
-and pipeline routes are not ported). Cross-partition upsert, the local
-merge buffer, table-level overwrite and bytes primary keys are not ported
-yet and raise.
+Primary-key tables route by hash(bucket key) % bucket, by the hash-index
+assigner (bucket=-1), or, when the primary key omits a partition key, by
+the global index of table/crosspartition.py; append tables route by
+hash(bucket key) % bucket, or every row to bucket 0 of its partition
+(bucket=-1), to the append writers of core/append.py. Row kinds come from
+write()'s kinds argument or, under rowkind.field, from that column.
+Under local-merge-buffer-size the rows are buffered before routing and
+each key's last row kept (the table's sort-engine selects).
+
+A TableCommit turns messages into an APPEND snapshot, and a COMPACT
+snapshot when a writer compacted. Streaming commits carry ascending
+identifiers and go through the replay filter; a batch commit carries the
+one batch identifier, and under with_overwrite is an OVERWRITE snapshot
+of the partitions the filter selects (under dynamic-partition-overwrite,
+with no filter, those the new rows touch). After each commit the table's
+maintenance runs, in the JAX package's order: commit callbacks, automatic
+tags, snapshot expiry and partition expiry; a failure there never fails
+the commit, and is reported with warnings.warn. Buckets run one after
+another (the JAX package's mesh and pipeline routes are not ported).
+Bytes primary keys raise.
 """
 
 from __future__ import annotations
@@ -27,12 +36,13 @@ import numpy as np
 from ..core.bucket_index import HashIndexFile, SimpleHashBucketAssigner
 from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.manifest import CommitMessage, ManifestCommittable
-from ..core.writer import MergeTreeWriter
-from ..data.batch import ColumnBatch
+from ..data.batch import ColumnBatch, concat_batches
+from ..data.keys import encode_key_lanes_with_pools
 from ..options import ConfigOption, CoreOptions, MergeEngine
 from ..types import RowKind, TypeRoot
 from ..utils import now_millis
 from .bucket import group_by_partition_bucket, key_hashes
+from .crosspartition import CrossPartitionUpsertWrite
 from .maintenance import expire_partitions
 from .tags import TagAutoCreation
 
@@ -65,38 +75,31 @@ def _check_key_types(table: "FileStoreTable") -> None:
 
 
 class TableWrite:
-    """Routes rows to one merge-tree writer per (partition, bucket): by
-    hash(bucket key) % bucket on a fixed-bucket table, and through the
-    hash-index assigner on a dynamic-bucket one (bucket=-1, the default),
-    where each key keeps the bucket it was first given."""
+    """Routes rows to one writer per (partition, bucket): by hash(bucket
+    key) % bucket on a fixed-bucket table, through the hash-index assigner
+    on a dynamic-bucket one (bucket=-1, the default), where each key keeps
+    the bucket it was first given, through the global index when the
+    primary key omits a partition key, and to bucket 0 on an append table
+    with bucket=-1."""
 
     def __init__(self, table: "FileStoreTable"):
         self.table = table
         store = table.store
         co = store.options
-        rowkind_field = co.options.get(CoreOptions.ROWKIND_FIELD)
-        if rowkind_field:
-            raise NotImplementedError(
-                f"rowkind.field={rowkind_field}: the torch port takes row kinds only from write()'s kinds argument yet"
-            )
-        if int(co.options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE)) > 0:
-            if co.merge_engine == MergeEngine.DEDUPLICATE and co.sequence_field:
-                # the JAX package's check: its buffer dedups by arrival, so a
-                # late row could evict one with a higher sequence field
-                raise ValueError("local-merge-buffer-size cannot combine with sequence.field")
-            raise NotImplementedError("local-merge-buffer-size: the torch port has no local merge buffer yet")
         _check_key_types(table)
         self.partition_keys = store.partition_keys
         self.bucket_keys = table.schema.bucket_keys
-        self.dynamic = co.bucket == -1
+        self.dynamic = table.is_primary_key_table and co.bucket == -1
         self.num_buckets = max(co.bucket, 1)
-        if self.dynamic and not set(self.partition_keys) <= set(table.schema.primary_keys):
-            raise NotImplementedError(
-                "cross-partition upsert (bucket=-1 with a primary key that omits a partition key) is not "
-                "ported to the torch port yet"
-            )
-        self._writers: dict[tuple, MergeTreeWriter] = {}
+        self._writers: dict[tuple, object] = {}
         self._assigner = None
+        self._cross = None
+        if self.dynamic and self.partition_keys and not set(self.partition_keys) <= set(table.primary_keys):
+            self._init_local_merge()  # its checks hold here too
+            if self._local_merge_cap:
+                raise ValueError("local-merge-buffer-size is not supported with cross-partition upsert")
+            self._cross = CrossPartitionUpsertWrite(table)
+            return
         if self.dynamic:
             self._assigner = SimpleHashBucketAssigner(
                 HashIndexFile(store.file_io, table.path),
@@ -105,12 +108,70 @@ class TableWrite:
                 num_assigners=co.options.get(CoreOptions.DYNAMIC_BUCKET_ASSIGNER_PARALLELISM) or 1,
             )
             self._bootstrapped: set[tuple] = set()
+        self._init_local_merge()
+
+    def _init_local_merge(self) -> None:
+        """local-merge-buffer-size: rows wait in a buffer before routing,
+        and each key keeps its last row there. The JAX package's checks, in
+        its order and words."""
+        co = self.table.store.options
+        size = int(co.options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE))
+        self._local_merge_bytes = 0
+        self._local_buffer: list[tuple[ColumnBatch, np.ndarray | None]] = []
+        self._local_merge_cap = 0
+        if size > 0:
+            if co.merge_engine != MergeEngine.DEDUPLICATE:
+                raise ValueError("local-merge-buffer-size requires merge-engine=deduplicate")
+            if not self.table.is_primary_key_table:
+                raise ValueError("local-merge-buffer-size requires a primary-key table")
+            if co.sequence_field:
+                # the buffer keeps the last arrival: a late row could evict
+                # one with a higher sequence field
+                raise ValueError("local-merge-buffer-size cannot combine with sequence.field")
+            if co.ignore_delete:
+                # a trailing -D would evict its insert here and then be
+                # dropped downstream
+                raise ValueError("local-merge-buffer-size cannot combine with ignore-delete")
+            self._local_merge_cap = size
+
+    def _local_merge_flush(self) -> None:
+        """Keep each key's last buffered row, with its kind, and route
+        those. The key is the full primary key, partition columns
+        included: the buffer spans partitions."""
+        if not self._local_buffer:
+            return
+        data = concat_batches([b for b, _ in self._local_buffer])
+        kinds = np.concatenate([
+            k if k is not None else np.full(b.num_rows, int(RowKind.INSERT), dtype=np.uint8)
+            for b, k in self._local_buffer
+        ])
+        self._local_buffer = []
+        self._local_merge_bytes = 0
+        lanes = encode_key_lanes_with_pools(data, self.table.primary_keys)
+        take = self.table.store.merge_executor().select_last(lanes)
+        self._route(data.take(take), kinds.take(take))
 
     def write(self, data: "ColumnBatch | dict", kinds: "np.ndarray | Sequence[str] | None" = None) -> None:
         if isinstance(data, dict):
             data = ColumnBatch.from_pydict(self.table.row_type, data)
         if kinds is not None and not isinstance(kinds, np.ndarray):
             kinds = np.array([int(RowKind.from_short_string(k)) for k in kinds], dtype=np.uint8)
+        if kinds is None:
+            rowkind_field = self.table.options.options.get(CoreOptions.ROWKIND_FIELD)
+            if rowkind_field:
+                kinds = _kinds_from_column(data.column(rowkind_field).values)
+        if self._cross is not None:
+            self._cross.write(data, kinds)
+            return
+        if self._local_merge_cap:
+            self._local_buffer.append((data, kinds))
+            self._local_merge_bytes += data.byte_size()
+            if self._local_merge_bytes >= self._local_merge_cap:
+                self._local_merge_flush()
+            return
+        self._route(data, kinds)
+
+    def _route(self, data: ColumnBatch, kinds: "np.ndarray | None") -> None:
         if self.dynamic:
             self._write_dynamic(data, kinds)
             return
@@ -141,7 +202,7 @@ class TableWrite:
         if indexes:
             self._assigner.bootstrap(partition, indexes)
 
-    def _writer(self, partition: tuple, bucket: int) -> MergeTreeWriter:
+    def _writer(self, partition: tuple, bucket: int):
         key = (partition, bucket)
         if key not in self._writers:
             total = -1 if self.dynamic else self.num_buckets
@@ -160,6 +221,10 @@ class TableWrite:
             w.compact(full=full)
 
     def prepare_commit(self) -> list[CommitMessage]:
+        if self._cross is not None:
+            return self._cross.prepare_commit()
+        if self._local_merge_cap:
+            self._local_merge_flush()
         store = self.table.store
         if store.options.options.get(CoreOptions.COMMIT_FORCE_COMPACT) and not store.options.write_only:
             self.compact(full=True)
@@ -174,6 +239,22 @@ class TableWrite:
                         msgs.append(msg)
                     msg.new_index_files.append(e)
         return msgs
+
+
+_SHORT_KINDS = ("+I", "-U", "+U", "-D")
+
+
+def _kinds_from_column(values: np.ndarray) -> np.ndarray:
+    """rowkind.field: each row's kind from its value's text ('+I', '-U',
+    '+U', '-D'), as RowKind.from_short_string(str(value)) reads it; the
+    first value in row order that is none of them raises its KeyError."""
+    text = np.asarray(values).astype(str)
+    short, inverse = np.unique(text, return_inverse=True)
+    known = np.isin(short, _SHORT_KINDS)
+    if not known.all():
+        RowKind.from_short_string(str(values[int(np.argmax(~known[inverse]))]))
+    lut = np.array([int(RowKind.from_short_string(k)) for k in short.tolist()], dtype=np.uint8)
+    return lut[inverse.reshape(-1)]
 
 
 def _take(data: ColumnBatch, kinds: "np.ndarray | None", rows: np.ndarray) -> tuple:
@@ -236,6 +317,16 @@ class TableCommit:
             self._post_commit()
         return len(remaining)
 
+    def overwrite(
+        self, identifier: int, messages: list[CommitMessage], partition_filter: "Callable[[tuple], bool] | None" = None
+    ) -> list[int]:
+        """One OVERWRITE snapshot: the live files of the partitions
+        `partition_filter` selects (all when None) replaced by the
+        messages' new files; maintenance then runs as after any commit."""
+        ids = self._commit.overwrite(ManifestCommittable(identifier, messages=messages), partition_filter)
+        self._post_commit()
+        return ids
+
     def _post_commit(self) -> None:
         """Commit callbacks with the latest snapshot, automatic tags, then
         snapshot and partition expiry."""
@@ -275,10 +366,28 @@ class TableCommit:
 
 
 class BatchTableCommit(TableCommit):
+    def __init__(
+        self, table: "FileStoreTable", overwrite: bool = False, partition_filter: "Callable[[tuple], bool] | None" = None
+    ):
+        super().__init__(table)
+        self._overwrite = overwrite
+        self._partition_filter = partition_filter
+
     def commit(self, messages: list[CommitMessage]) -> list[int]:
-        """Commit under the batch identifier; an empty write commits
-        nothing unless commit.force-create-snapshot is set."""
-        if not messages and not self.table.options.options.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT):
+        """Commit under the batch identifier. An overwrite replaces the
+        partitions its filter selects; with no filter, on a partitioned
+        table under dynamic-partition-overwrite (the default), the
+        partitions the messages touch, else the whole table. Otherwise an
+        empty write commits nothing unless commit.force-create-snapshot is
+        set."""
+        opts = self.table.options.options
+        if self._overwrite:
+            pf = self._partition_filter
+            if pf is None and self.table.partition_keys and opts.get(CoreOptions.DYNAMIC_PARTITION_OVERWRITE):
+                touched = {m.partition for m in messages}
+                pf = touched.__contains__
+            return self.overwrite(BATCH_COMMIT_IDENTIFIER, messages, pf)
+        if not messages and not opts.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT):
             return []
         return self.commit_messages(BATCH_COMMIT_IDENTIFIER, messages)
 
@@ -290,12 +399,21 @@ class BatchWriteBuilder:
 
     def __init__(self, table: "FileStoreTable"):
         self.table = table
+        self._overwrite = False
+        self._partition_filter = None
+
+    def with_overwrite(self, partition_filter: "Callable[[tuple], bool] | None" = None) -> "BatchWriteBuilder":
+        """INSERT OVERWRITE: the commit replaces the partitions
+        `partition_filter` (partition tuple -> bool) selects."""
+        self._overwrite = True
+        self._partition_filter = partition_filter
+        return self
 
     def new_write(self) -> TableWrite:
         return TableWrite(self.table)
 
     def new_commit(self) -> BatchTableCommit:
-        return BatchTableCommit(self.table)
+        return BatchTableCommit(self.table, self._overwrite, self._partition_filter)
 
 
 class StreamWriteBuilder:

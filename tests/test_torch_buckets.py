@@ -493,7 +493,10 @@ def test_split_order_matches(warehouse, sort_partition):
 
 def test_cross_partition_upsert_raises(warehouse):
     """A dynamic-bucket table whose primary key omits the partition key:
-    the JAX package writes it through its global index; the port raises."""
+    the JAX package writes it through its global index, and so does the
+    port, which once raised here (tests/test_torch_write_surface.py holds
+    the rest). The same rows, read by either package; at a fixed bucket
+    count such a table is still refused."""
     rows = {"dt": DTS[[0, 1]], "id": np.array([1, 1]), "a": [1, 2], "d": [0.5, 1.5], "s": ["x", "y"]}
     table = JaxCatalog(warehouse).create_table("db.cross_jax", _table_type(jt), partition_keys=["dt"],
                                                primary_keys=["id"], options={})
@@ -501,8 +504,8 @@ def test_cross_partition_upsert_raises(warehouse):
     assert [r[:2] for r in _read(table)] == [(DTS[1], 1)]  # the key moved partitions
     port = PortCatalog(warehouse, device="cpu").create_table("db.cross_port", _table_type(tt),
                                                              partition_keys=["dt"], primary_keys=["id"], options={})
-    with pytest.raises(NotImplementedError, match="cross-partition upsert"):
-        port.new_batch_write_builder().new_write()
+    _batch_commit(port, rows)
+    assert _read(port) == _read(JaxCatalog(warehouse).get_table("db.cross_port")) == _read(table)
     with pytest.raises(ValueError, match="primary key must contain all partition keys"):
         PortCatalog(warehouse, device="cpu").create_table("db.cross_fixed", _table_type(tt), partition_keys=["dt"],
                                                           primary_keys=["id"], options={"bucket": "2"})
@@ -543,10 +546,12 @@ def test_null_numeric_partition_value_raises(warehouse):
 
 
 def test_predicates_and_local_merge_raise(warehouse):
-    """with_filter, once refused, is ported: on a partitioned dynamic-bucket
-    table written by the port, a partition, a key and a value predicate
-    plan the JAX package's splits and read its rows, in its order. The
-    local merge buffer still raises."""
+    """with_filter and the local merge buffer, both once refused, are
+    ported: on a partitioned dynamic-bucket table written by the port, a
+    partition, a key and a value predicate plan the JAX package's splits
+    and read its rows, in its order; a commit through a 1 mb local merge
+    buffer then reads the same in both packages, each key at its last
+    row."""
     from paimon_tpu.data import predicate as jp
     from paimon_tpu_torch.data import predicate as tp
 
@@ -564,5 +569,13 @@ def test_predicates_and_local_merge_raise(warehouse):
             (s.partition, s.bucket, [f.file_name for f in s.files]) for s in jsplits]
         got = [tuple(_py(v) for v in row) for row in rb.new_read().read_all(splits).to_pylist()]
         assert got and got == [tuple(_py(v) for v in row) for row in jrb.new_read().read_all(jsplits).to_pylist()]
-    with pytest.raises(NotImplementedError, match="local-merge-buffer-size"):
-        table.copy({"local-merge-buffer-size": "1 mb"}).new_batch_write_builder().new_write()
+    merged = table.copy({"local-merge-buffer-size": "1 mb"})
+    w = merged.new_batch_write_builder().new_write()
+    assert w._local_merge_cap == 1 << 20
+    rows = _commit_rows(3)
+    w.write(rows)
+    merged.new_batch_write_builder().new_commit().commit(w.prepare_commit())
+    got = _read(table)
+    assert got == _read(JaxCatalog(warehouse).get_table(ident))
+    last = {(r[0], r[1]): r for r in zip(*(list(rows[c]) for c in ("dt", "id", "a", "d", "s")))}
+    assert {(r[0], r[1]): r for r in got if (r[0], r[1]) in last} == last

@@ -401,16 +401,19 @@ def test_retract_strategy_and_its_changelog(warehouse, force):
 
 
 def test_delete_on_append_table_raises(warehouse):
-    """The copy-on-write strategy of append tables is not ported (the port
-    opens no append table yet); delete_where names the table kind."""
-    from dataclasses import replace
-    from types import SimpleNamespace
-
-    from paimon_tpu_torch.table.delete import delete_where
-
-    t = _make(warehouse, "port", "db.append_guard")
-    with pytest.raises(NotImplementedError, match="append-only"):
-        delete_where(SimpleNamespace(schema=replace(t.schema, primary_keys=[])), tp.equal("id", 1))
+    """DELETE on an append table, once refused by the port, is the JAX
+    package's copy-on-write rewrite: each package deletes from its own
+    table, and each table reads the same rows in both packages
+    (tests/test_torch_append.py holds the rest)."""
+    rows = {"id": np.array([1, 2, 3, 2]), "s": np.array(["a", "b", "c", "d"], dtype=object),
+            "v": np.array([1.0, 2.0, 3.0, 4.0])}
+    seen = {}
+    for who in ("jax", "port"):
+        t = _catalog(who, warehouse).create_table(f"db.append_guard_{who}", _schema(_pkg(who)), options={"bucket": "1"})
+        _commit(t, rows)
+        assert t.delete_where(_preds(who).equal("id", 2)) == 2
+        seen[who] = [_read(_catalog(reader, warehouse).get_table(f"db.append_guard_{who}")) for reader in ("jax", "port")]
+    assert seen["port"] == seen["jax"] == [[(1, "a", 1.0), (3, "c", 3.0)]] * 2
 
 
 # ---------------------------------------------------------------------------

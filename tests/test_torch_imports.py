@@ -77,6 +77,40 @@ def test_history_modules_are_scanned(module):
     test_no_forbidden_import_in_source(path)
 
 
+@pytest.mark.parametrize("module", ["core/append.py", "table/crosspartition.py", "table/write.py", "core/store.py"])
+def test_write_surface_modules_are_scanned(module):
+    """The append writer, the cross-partition writer and the modules that
+    route to them are in the scanned sources (and so in the child
+    process's import closure)."""
+    path = REPO / "paimon_tpu_torch" / module
+    assert path in SOURCES
+    test_no_forbidden_import_in_source(path)
+
+
+def _port_options() -> list:
+    from paimon_tpu_torch.options import ConfigOption, CoreOptions
+
+    return sorted((name, o) for name, o in vars(CoreOptions).items() if isinstance(o, ConfigOption))
+
+
+@pytest.mark.parametrize("name, option", _port_options(), ids=lambda x: x if isinstance(x, str) else "")
+def test_option_has_the_jax_key_and_default(name, option):
+    """Options persist in the table schema as strings, so every option of
+    the port's CoreOptions (those the write surface added among them:
+    dynamic-partition-overwrite, cross-partition-upsert.*,
+    compaction.min.file-num, write-buffer-spillable,
+    write-buffer-for-append) is the JAX package's key, with its default
+    and its fallback keys."""
+    from paimon_tpu.options import ConfigOption as JaxOption
+    from paimon_tpu.options import CoreOptions as JaxCoreOptions
+
+    by_key = {o.key: o for o in vars(JaxCoreOptions).values() if isinstance(o, JaxOption)}
+    assert option.key in by_key, f"{name}: the JAX package has no option {option.key!r}"
+    jax = by_key[option.key]
+    assert option.default == jax.default
+    assert tuple(option.fallback_keys) == tuple(jax.fallback_keys or ())
+
+
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     from paimon_tpu_torch.catalog import FileSystemCatalog
 

@@ -344,10 +344,11 @@ def test_bounded_watermark(tmp_path, bound):
     assert bool(streams.both()) == (bound != "500")
 
 
-def test_streaming_read_overwrite(tmp_path):
-    """OVERWRITE snapshots (written by the JAX package: the port has no
-    table-level overwrite yet) surface only under streaming-read-overwrite."""
-    table = _create("jax", str(tmp_path), "db.ow", {"bucket": "1"})
+@pytest.mark.parametrize("writer", PKGS)
+def test_streaming_read_overwrite(tmp_path, writer):
+    """OVERWRITE snapshots, written by either package, surface only under
+    streaming-read-overwrite."""
+    table = _create(writer, str(tmp_path), "db.ow", {"bucket": "1"})
     w = Writer(table)
     w.commit(*_commits(10, 1)[0])
     wb = table.new_batch_write_builder().with_overwrite()

@@ -577,9 +577,11 @@ def test_scan_snapshot_id_of_the_latest_snapshot_reads(warehouse, travel_table):
 
 
 def test_rowkind_field_raises_naming_the_option(warehouse):
-    """With rowkind.field the JAX package takes each row's kind from a
-    column; the port, which would store a -D row as an insert, refuses to
-    write."""
+    """With rowkind.field each row's kind comes from a column: a table the
+    JAX package wrote that way reads the same in the port, and the port,
+    which once refused rowkind.field, continues it with the same rule (a -D
+    in the op column deletes its key) and writes what the JAX package
+    reads."""
     ident = "db.rowkind"
     row_type = jt.RowType.of(("id", jt.BIGINT(False)), ("v", jt.BIGINT()), ("op", jt.STRING()))
     table = JaxCatalog(warehouse).create_table(ident, row_type, primary_keys=["id"],
@@ -591,8 +593,13 @@ def test_rowkind_field_raises_naming_the_option(warehouse):
         wb.new_commit().commit(w.prepare_commit())
     assert [r[0] for r in _jax_read(table)] == [2]
     port_table = PortCatalog(warehouse, device="cpu").get_table(ident)
-    with pytest.raises(NotImplementedError, match=r"rowkind\.field"):
-        port_table.new_batch_write_builder().new_write()
+    assert _read(port_table) == _jax_read(table) == [(2, 20, "+I")]
+    for data in ({"id": [3, 2], "v": [30, 21], "op": ["+I", "+U"]}, {"id": [2, 1], "v": [21, 11], "op": ["-D", "+I"]}):
+        wb = port_table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(data)
+        wb.new_commit().commit(w.prepare_commit())
+    assert _read(port_table) == _jax_read(JaxCatalog(warehouse).get_table(ident)) == [(1, 11, "+I"), (3, 30, "+I")]
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
