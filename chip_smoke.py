@@ -82,11 +82,17 @@ Phases, one JSON line each on stdout:
               at scale 1 at its own 8 buckets beside the bucket-1 control
               (write, read, a traced read, then a full compaction on a
               write-only=false handle: seconds, input bytes, GB/s, files per
-              bucket). BASELINE config 5's full compaction at its 16 buckets,
-              scale 5: 10M rows in 4 batch commits (id, x, y, v; write-only),
-              a checked and a traced read, then compact(full=True) with no
-              rows written on a write-only=false handle (seconds, input bytes,
-              GB/s, rows/s). The bench table with a dt partition column (4
+              bucket). BASELINE config 5 at its 16 buckets, scale 5: 10M
+              rows in 4 batch commits (id, x, y, v; write-only), a checked
+              and a traced read, then DedicatedCompactor(table).run_once(
+              full=True) (seconds, input bytes, GB/s, rows/s); then its
+              z-order half: the append clone db.c5z (bucket 1) with one
+              commit of 500,000 rows drawn after the four batches,
+              sort_compact by zorder, and by hilbert and order on copies,
+              each held to the rows' multiset, to a sort-engine=numpy
+              sort-compact of another copy row for row, and to curve codes
+              that do not decrease in file order (rows/s each). The bench
+              table with a dt partition column (4
               values) at default options, so dynamic buckets of at most
               100,000 keys: 4 runs and the 100k upsert (write seconds with the
               assigner's host seconds apart, buckets per partition; the upsert
@@ -239,7 +245,32 @@ Phases, one JSON line each on stdout:
               launch there. Seconds, rows, files and launches per part; K1
               and K2 then held exactly to their plain versions at the path's
               shapes no earlier check covered.
-15. timing  - each kernel at its main-path shape against its plain version,
+15. services - the compaction services and schema evolution, one line per
+              part, every read held to a sort-engine=numpy read and an
+              oracle. rescale: a copy of the bench table (bucket 1) through
+              rescale_table to 4 buckets; the read after equals the read
+              before, a read pinned at the snapshot before the rescale too,
+              and every row sits in hash(id) % 4. adaptive: config 4 written
+              write-only while an AdaptiveCompactorService at its default
+              options (ingest gate on) compacts on its own thread; rounds,
+              compactions, the compaction metric group, the largest
+              sorted-run count against the read-amp ceiling; then a
+              DedicatedCompactor round. coordinator: a copy of the writes
+              phase's event log given deletion-vectors.enabled by ALTER TABLE
+              and a DELETE through vectors, then compacted by
+              AppendCompactionCoordinator and execute_compaction_task; the
+              deleted rows stay deleted, no kernel launches. evolution:
+              config 4 with ALTER TABLE ADD src STRING, RENAME tag TO label
+              after commit 10 (compactions merge files of both schemas;
+              reads at both tiles, old rows with src null); the
+              aggregation_fused small table with c_max widened from INT to
+              BIGINT and f_sum from FLOAT to DOUBLE after half its commits,
+              then a full compaction, each read equal across sort engines
+              and to a control table written wide from the start
+              (segment_sum must launch). Seconds, rows, files and launches
+              per part; K1 and K2 then held exactly to their plain versions
+              at the path's shapes no earlier check covered.
+16. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -252,7 +283,7 @@ Phases, one JSON line each on stdout:
 
 Then one JSON line with every kernel's numbers (its launches summed over
 the main, compact, engines, buckets, strings, maintenance, cdc, deletes,
-history and writes paths, and by path), the
+history, writes and services paths, and by path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -269,6 +300,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -833,7 +865,14 @@ def main() -> int:
         checks += writes["shape_checks"]["exact_checks"]
         emit({"phase": "writes", "part": "summary", **writes, "exact_checks_all_phases": checks})
 
-    # 15. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 15. the compaction services and schema evolution
+        checked = tuple(list(checked[i]) + [tuple(s) for s in writes["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        services = services_phase(pt, hk, warehouse, table.path, checked)
+        checks += services["shape_checks"]["exact_checks"]
+        emit({"phase": "services", "part": "summary", **services, "exact_checks_all_phases": checks})
+
+    # 16. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -847,7 +886,8 @@ def main() -> int:
                       "engines": engines["launches"][name], "buckets": buckets["launches"][name],
                       "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
                       "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
-                      "history": history["launches"][name], "writes": writes["launches"][name]}
+                      "history": history["launches"][name], "writes": writes["launches"][name],
+                      "services": services["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -1519,11 +1559,12 @@ def check_c5_read(table, ids_in: np.ndarray, what: str) -> dict:
 
 
 def config5_part(pt, hk, cat) -> dict:
-    """BASELINE config 5's full compaction at its 16 buckets: C5_ROWS rows
-    in 4 batch commits (write-only), a checked and a traced read, then
-    compact(full=True) with no rows written on a write-only=false handle
-    (every live bucket, one after another), and the read after it."""
-    from paimon_tpu_torch.core.snapshot import SnapshotManager
+    """BASELINE config 5 at its 16 buckets: C5_ROWS rows in 4 batch commits
+    (write-only), a checked and a traced read, then
+    DedicatedCompactor(table).run_once(full=True) (every live bucket, one
+    after another) and the read after it; then its z-order half
+    (zorder_part)."""
+    from paimon_tpu_torch.table.compactor import DedicatedCompactor
 
     schema = pt.RowType.of(("id", pt.BIGINT(False)), ("x", pt.BIGINT()), ("y", pt.BIGINT()), ("v", pt.DOUBLE()))
     table = cat.create_table("buckets.c5", schema, primary_keys=["id"], options=dict(C5_OPTIONS))
@@ -1545,10 +1586,7 @@ def config5_part(pt, hk, cat) -> dict:
     del batches
     out = {"config": "BASELINE config 5 (benchmarks/baseline_configs.py:177), scale 5", "options": C5_OPTIONS,
            "rows_written": C5_ROWS, "commits": 4,
-           "cuts": ["1B rows and 64 buckets cut to 10M rows and 16 buckets (the config's own at scale 5)",
-                    "DedicatedCompactor (not ported) replaced by TableWrite.compact(full=True) with no rows "
-                    "written on a write-only=false handle, the reference's dedicated-compact route",
-                    "the z-order half left out: append-only tables and sort_compact are not ported", "no mesh"],
+           "cuts": ["1B rows and 64 buckets cut to 10M rows and 16 buckets (the config's own at scale 5)", "no mesh"],
            "write_s": round(write_s, 4), "write_stages": stages.report(), "files_per_bucket": files_per_bucket(table)}
     before = dict(hk.launches)
     out["read_before"] = check_c5_read(table, ids_in, "config 5 before the compaction")
@@ -1557,15 +1595,14 @@ def config5_part(pt, hk, cat) -> dict:
     files = live_files(table)
     input_bytes = sum(f.file_size for f in files)
     before = dict(hk.launches)
+    snapshots = table.store.snapshot_manager
+    last = snapshots.latest_snapshot_id()
     with CompactionProbe(hk) as probe:
         t0 = time.perf_counter()
-        wb = table.copy({"write-only": "false"}).new_batch_write_builder()
-        w = wb.new_write()
-        w.compact(full=True)
-        kinds = [SnapshotManager(table.file_io, table.path).snapshot(i).commit_kind.value
-                 for i in wb.new_commit().commit(w.prepare_commit())]
+        assert DedicatedCompactor(table).run_once(full=True), "config 5: the dedicated compactor committed nothing"
         torch.cuda.synchronize()
         compact_s = time.perf_counter() - t0
+    kinds = [snapshots.snapshot(i).commit_kind.value for i in range(last + 1, snapshots.latest_snapshot_id() + 1)]
     assert kinds == ["COMPACT"], kinds
     compact_launches = launch_diff(hk, before)
     out["full_compaction"] = {
@@ -1578,8 +1615,91 @@ def config5_part(pt, hk, cat) -> dict:
     out["read_after"] = check_c5_read(table, ids_in, "config 5 after the full compaction")
     for k in hk.launches:
         read_launches[k] += hk.launches[k] - before[k]
+    before = dict(hk.launches)
+    out["zorder"] = zorder_part(hk, cat, rng, schema)
     out["launches"] = {"write": write_launches, "reads": read_launches, "compaction": compact_launches,
-                       "phase": dict(hk.launches)}
+                       "sort_compact": launch_diff(hk, before), "phase": dict(hk.launches)}
+    return out
+
+
+C5Z_ROWS = 500_000  # baseline_configs.py:218: min(rows, 500_000) ids into the append clone
+CURVES = ("zorder", "hilbert", "order")
+
+
+def curve_lanes(out, order: str) -> np.ndarray:
+    """The sort lanes sort_compact orders the rows by: x and y as key lanes,
+    under the curve."""
+    from paimon_tpu_torch.data.keys import encode_key_lanes
+    from paimon_tpu_torch.ops.zorder import hilbert_lanes, z_order_lanes
+
+    lanes = encode_key_lanes(out, ["x", "y"])
+    return {"zorder": z_order_lanes, "hilbert": hilbert_lanes}.get(order, lambda x: x)(lanes)
+
+
+def non_decreasing(lanes: np.ndarray) -> bool:
+    """Rows in lexicographic order of their lanes (ties allowed)."""
+    if len(lanes) < 2:
+        return True
+    gt, lt = lanes[1:] > lanes[:-1], lanes[1:] < lanes[:-1]
+    differ = gt | lt
+    first = np.argmax(differ, axis=1)
+    rows = np.arange(len(first))
+    return bool((~differ.any(axis=1) | gt[rows, first]).all())
+
+
+def zorder_part(hk, cat, rng, schema) -> dict:
+    """Config 5's z-order half (baseline_configs.py:213-226): its append
+    clone db.c5z (bucket 1) with one commit of C5Z_ROWS rows drawn from the
+    same generator after the four batches, then sort_compact by zorder, and
+    by hilbert and order on copies. Each is checked three ways: the rows'
+    multiset is unchanged; their order equals a sort-engine=numpy
+    sort-compact of another copy; the curve's codes do not decrease in
+    file order."""
+    from paimon_tpu_torch.table.sort_compact import sort_compact
+
+    ta = cat.create_table("buckets.c5z", schema, options={"bucket": "1", "sort-engine": "pallas"})
+    ids = rng.integers(0, C5_ROWS, min(C5_ROWS, C5Z_ROWS))
+    t0 = time.perf_counter()
+    wb = ta.new_batch_write_builder()
+    w = wb.new_write()
+    w.write({"id": ids, "x": ids % 4096, "y": (ids * 7) % 4096, "v": ids * 1.0})
+    wb.new_commit().commit(w.prepare_commit())
+    write_s = time.perf_counter() - t0
+    copies = {("zorder", "pallas"): ta}
+    for order in CURVES:
+        for engine in ("pallas", "numpy"):
+            if (order, engine) not in copies:
+                name = f"buckets.c5z_{order}_{engine}"
+                shutil.copytree(ta.path, cat.table_path(name))
+                copies[(order, engine)] = cat.get_table(name).copy({"sort-engine": engine})
+    want_ids = np.sort(ids)
+    out = {"config": "BASELINE config 5's z-order half (benchmarks/baseline_configs.py:213-226)",
+           "rows": len(ids), "write_s": round(write_s, 4), "k1_max_rows": hk._FUSE_MAX_ROWS}
+    for order in CURVES:
+        before = dict(hk.launches)
+        t0 = time.perf_counter()
+        n = sort_compact(copies[(order, "pallas")], ["x", "y"], order=order)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_diff(hk, before)
+        assert n == len(ids), f"{order}: sort_compact rewrote {n} rows"
+        got = read_all(copies[(order, "pallas")])
+        got_ids = got.column("id").values
+        assert np.array_equal(np.sort(got_ids), want_ids), f"{order}: the rows' multiset changed"
+        for name, want in (("x", got_ids % 4096), ("y", (got_ids * 7) % 4096), ("v", got_ids * 1.0)):
+            assert np.array_equal(got.column(name).values, want), f"{order}: {name} no longer matches its id"
+        t1 = time.perf_counter()
+        sort_compact(copies[(order, "numpy")], ["x", "y"], order=order)
+        numpy_s = time.perf_counter() - t1
+        same_rows(got, read_all(copies[(order, "numpy")]), f"{order}: against the numpy engine's sort-compact")
+        assert non_decreasing(curve_lanes(got, order)), f"{order}: the curve codes decrease in file order"
+        table = copies[(order, "pallas")]
+        snap = table.store.snapshot_manager.latest_snapshot()
+        assert snap.commit_kind.value == "COMPACT" and snap.commit_identifier == (1 << 63) - 3, snap
+        out[order] = {"seconds": round(seconds, 4), "rows_per_s": round(n / seconds, 1), "numpy_engine_s": round(numpy_s, 4),
+                      "files_per_bucket": files_per_bucket(table), "launches": launches,
+                      "multiset_unchanged": True, "order_equal_to_numpy_engine": True, "curve_non_decreasing": True}
+        assert launches["keep_last_mask"] > 0 or launches["sort_segments"] > 0, f"{order}: no kernel launched"
     return out
 
 
@@ -3595,6 +3715,326 @@ def writes_phase(pt, hk, warehouse: str, bench_path: str, control: dict, checked
             assert by_part[name][k] > 0, f"{k} never launched in the {name} part: {by_part[name]}"
     return {"launches": dict(hk.launches), "launches_by_part": by_part, "seconds_by_part": seconds,
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2030, checked)}
+
+
+# ---------------------------------------------------------------------------
+# the compaction services and schema evolution: rescale, the adaptive and
+# dedicated compactors under ingest, the append coordinator, ALTER TABLE
+# ---------------------------------------------------------------------------
+
+RS_BUCKETS = 4  # the bench table's copy goes from bucket 1 to this
+EV_ALTER_AFTER = 10  # config 4's ALTER comes after this commit
+
+
+def rescale_part(pt, hk, cat, bench_path: str) -> dict:
+    """A copy of the bench table (1,000,000 rows in 4 sorted runs plus the
+    upsert, bucket 1) rescaled to RS_BUCKETS buckets: the read after equals
+    the read before (and the numpy engine and the oracle), a read pinned at
+    the snapshot before the rescale too, and every row of bucket b hashes to
+    b."""
+    from paimon_tpu_torch.table import load_table
+    from paimon_tpu_torch.table.bucket import bucket_ids
+    from paimon_tpu_torch.table.rescale import rescale_table
+
+    shutil.copytree(bench_path, cat.table_path("services.rescale"))
+    table = cat.get_table("services.rescale")
+    _, up = bench_runs()
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    before = read_all(table)
+    check_output(before, reference, up, "rescale: the read before")
+    pinned = table.store.snapshot_manager.latest_snapshot_id()
+    files_before = files_per_bucket(table)
+    launches = dict(hk.launches)
+    t0 = time.perf_counter()
+    rescaled = rescale_table(table, RS_BUCKETS)
+    torch.cuda.synchronize()
+    rescale_s = time.perf_counter() - t0
+    launches = launch_diff(hk, launches)
+    t0 = time.perf_counter()
+    after = read_all(rescaled)
+    read_s = time.perf_counter() - t0
+    same_rows(after, read_all(rescaled.copy({"sort-engine": "numpy"})), "rescale: after, against the numpy engine")
+    by_id = after.take(np.argsort(after.column("id").values, kind="stable"))
+    check_output(by_id, reference, up, "rescale: the read after, by id")
+    pinned_table = load_table(table.path, dynamic_options={"scan.snapshot-id": str(pinned)}, device=DEVICE)
+    same_rows(read_all(pinned_table), before, "rescale: the read pinned before the rescale")
+    rb = rescaled.new_read_builder()
+    splits = rb.new_scan().plan()
+    assert sorted({sp.bucket for sp in splits}) == list(range(RS_BUCKETS)), [sp.bucket for sp in splits]
+    for sp in splits:
+        rows = rb.new_read().read(sp)
+        assert (bucket_ids(rows, ["id"], RS_BUCKETS) == sp.bucket).all(), f"rescale: a row of bucket {sp.bucket} hashes elsewhere"
+    snap = rescaled.store.snapshot_manager.latest_snapshot()
+    assert snap.commit_kind.value == "OVERWRITE" and rescaled.options.bucket == RS_BUCKETS, snap
+    return {"who": "a table that outgrew one bucket (Paimon's Rescale Bucket)", "rows": after.num_rows,
+            "input_rows": N_ROWS + N_UPSERT, "buckets": [1, RS_BUCKETS], "seconds": round(rescale_s, 4),
+            "read_after_s": round(read_s, 4), "files_per_bucket_before": files_before,
+            "files_per_bucket_after": files_per_bucket(rescaled), "launches": launches,
+            "equal_before_and_after": True, "pinned_read_equal": True, "rows_in_their_hash_bucket": True,
+            "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def c4_table(pt, cat, name: str, options: dict):
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("tag", pt.STRING()))
+    return cat.create_table(name, schema, primary_keys=["id"], options=options)
+
+
+def adaptive_part(pt, hk, cat) -> dict:
+    """Config 4 written write-only (20 streaming commits) while an
+    AdaptiveCompactorService at its default options, with the ingest gate,
+    compacts on its own thread; then a DedicatedCompactor round. The launch
+    counts are read after the service's thread has stopped."""
+    from paimon_tpu_torch.metrics import registry
+    from paimon_tpu_torch.options import CoreOptions
+    from paimon_tpu_torch.table.compactor import AdaptiveCompactorService, DedicatedCompactor
+
+    table = c4_table(pt, cat, "services.c4_adaptive", {**C4_OPTIONS, "write-only": "true"})
+    rng = np.random.default_rng(2)
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    registry.reset()
+    svc = AdaptiveCompactorService(table)
+    svc.start()
+    try:
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        t0 = time.perf_counter()
+        for b in range(C4_COMMITS):
+            batch = c4_batch(rng, b)
+            last_commit[batch["id"]] = b
+            w.write(batch)
+            c.commit_messages(b + 1, w.prepare_commit())
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+    finally:
+        svc.close()
+    assert not [th.name for th in threading.enumerate() if th.name.startswith("paimon-compactor") and th.is_alive()]
+    snapshots = table.store.snapshot_manager
+    kinds = [snapshots.snapshot(i).commit_kind.value for i in range(1, snapshots.latest_snapshot_id() + 1)]
+    shapes = svc.observe()
+    ceiling = table.options.options.get(CoreOptions.COMPACTION_ADAPTIVE_READ_AMP_CEILING)
+    out = {"who": "ingest writers that never compact, with a compaction service beside them",
+           "config": "BASELINE config 4 (benchmarks/baseline_configs.py:148), write-only",
+           "rows_written": C4_ROWS, "write_s": round(write_s, 4), "rounds": svc.rounds, "compactions": svc.compactions,
+           "errors": len(svc._errors), "snapshots": {k: kinds.count(k) for k in sorted(set(kinds))},
+           "metrics": registry.snapshot().get("compaction", {}),
+           "max_sorted_runs_at_end": max(s.runs for s in shapes), "read_amp_ceiling": ceiling,
+           "files_per_bucket": files_per_bucket(table), "levels": level_layout(table)}
+    assert not svc._errors, svc._errors[-1]
+    assert svc.compactions > 0 and out["max_sorted_runs_at_end"] < ceiling, out
+    out["read"] = check_c4_read(table, last_commit, "adaptive: after 20 commits")
+    t0 = time.perf_counter()
+    done = DedicatedCompactor(table).run_once(full=True)
+    torch.cuda.synchronize()
+    out["dedicated"] = {"committed": done, "seconds": round(time.perf_counter() - t0, 4),
+                        "levels_after": level_layout(table)}
+    assert list(out["dedicated"]["levels_after"]) == [str(table.store.options.num_levels - 1)], out["dedicated"]
+    out["dedicated"]["read"] = check_c4_read(table, last_commit, "adaptive: after the dedicated compaction")
+    return out
+
+
+def coordinator_part(pt, hk, cat) -> dict:
+    """The writes phase's unaware-bucket event log, copied, given
+    deletion-vectors.enabled by ALTER TABLE and a DELETE through vectors;
+    then AppendCompactionCoordinator plans, execute_compaction_task rewrites
+    and the coordinator commits. The rows deleted (by this DELETE and the
+    writes phase's copy-on-write one) stay deleted. No merge: 0 launches."""
+    from paimon_tpu_torch.core.schema import SchemaChange
+    from paimon_tpu_torch.data.predicate import equal
+    from paimon_tpu_torch.table.compactor import AppendCompactionCoordinator, execute_compaction_task
+
+    shutil.copytree(cat.table_path("writes.log"), cat.table_path("services.log"))
+    cat.alter_table("services.log", SchemaChange.set_option("deletion-vectors.enabled", "true"))
+    log = cat.get_table("services.log")
+    all_ids = np.arange(C4_ROWS, dtype=np.int64)
+    t0 = time.perf_counter()
+    deleted = log.delete_where(equal("c2", 5))
+    delete_s = time.perf_counter() - t0
+    keep = (all_ids % 97 != 3) & (all_ids % 97 != 5)
+    assert deleted == int((all_ids % 97 == 5).sum()), deleted
+    plan = log.store.new_scan().plan()
+    vectors = len(plan.dv_indexes())
+    files_before = len(plan.entries)
+    assert vectors > 0, "the DELETE wrote no deletion vector"
+
+    def check(what: str) -> int:
+        out = read_all(log)
+        same_rows(out, read_all(log.copy({"sort-engine": "numpy"})), f"{what}, against the numpy engine")
+        assert out.num_rows == int(keep.sum()), f"{what}: {out.num_rows} rows, the oracle has {int(keep.sum())}"
+        for d, day in enumerate(P_DTS):
+            ids = np.sort(out.column("id").values[out.column("dt").values == day])
+            assert np.array_equal(ids, all_ids[keep & (all_ids % 4 == d)]), f"{what}: day {day} differs"
+        return out.num_rows
+
+    rows = check("log before the coordinator")
+    coord = AppendCompactionCoordinator(log)
+    t0 = time.perf_counter()
+    tasks = coord.plan()
+    coord.commit([execute_compaction_task(log, task) for task in tasks])
+    compact_s = time.perf_counter() - t0
+    assert tasks and log.store.snapshot_manager.latest_snapshot().commit_kind.value == "COMPACT"
+    assert check("log after the coordinator") == rows
+    return {"who": "an append-only event log compacted by a separate job", "rows": rows,
+            "delete": {"predicate": "c2 = 5", "rows_deleted": deleted, "seconds": round(delete_s, 4),
+                       "buckets_with_vectors": vectors},
+            "tasks": len(tasks), "files_in_tasks": sum(len(t.files) for t in tasks), "seconds": round(compact_s, 4),
+            "files_before": files_before, "files_per_bucket_after": files_per_bucket(log),
+            "deleted_rows_stay_deleted": True, "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def check_evolved_read(table, last_commit: np.ndarray, what: str) -> dict:
+    """Config 4 after its ALTER against a numpy-engine read and the oracle:
+    each id with its last commit's v and label, and src null where that
+    commit came before the ALTER."""
+    t0 = time.perf_counter()
+    out = read_all(table)
+    read_s = time.perf_counter() - t0
+    same_rows(out, read_all(table.copy({"sort-engine": "numpy"})), f"{what}, against the numpy engine")
+    ids = np.flatnonzero(last_commit >= 0)
+    b = last_commit[ids]
+    assert np.array_equal(out.column("id").values, ids), f"{what}: ids differ from the oracle"
+    assert np.array_equal(out.column("v").values, ids * 0.5 + b), f"{what}: v differs from the oracle"
+    assert out.column("label").to_pylist() == [f"t{x}" for x in b], f"{what}: label differs from the oracle"
+    want_src = [f"s{x}" if x >= EV_ALTER_AFTER else None for x in b]
+    assert out.column("src").to_pylist() == want_src, f"{what}: src differs from the oracle"
+    return {"rows": out.num_rows, "read_s": round(read_s, 4), "rows_before_the_alter": int((b < EV_ALTER_AFTER).sum()),
+            "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def evolution_part(pt, hk, cat) -> dict:
+    """(i) Config 4 with an ALTER after commit EV_ALTER_AFTER: add src
+    STRING, rename tag to label; the later commits write the new schema and
+    the compactions merge files of both; reads at both tiles. (ii) The
+    aggregation_fused small table with c_max widened from INT to BIGINT and
+    f_sum from FLOAT to DOUBLE after half its commits, then a full
+    compaction: each read equal across sort engines and to a control table
+    written under the wide types from the start (segment_sum sums the cast
+    floats)."""
+    from paimon_tpu_torch.core.schema import SchemaChange
+    from paimon_tpu_torch.data.batch import Column, ColumnBatch
+    from paimon_tpu_torch.table.compactor import DedicatedCompactor
+
+    out: dict = {}
+    table = c4_table(pt, cat, "services.c4_evolve", dict(C4_OPTIONS))
+    rng = np.random.default_rng(2)
+    last_commit = np.full(C4_ROWS // 2, -1, dtype=np.int64)
+    before = dict(hk.launches)
+    t0 = time.perf_counter()
+    wb = table.new_stream_write_builder()
+    w, c = wb.new_write(), wb.new_commit()
+    for b in range(C4_COMMITS):
+        batch = c4_batch(rng, b)
+        last_commit[batch["id"]] = b
+        if b == EV_ALTER_AFTER:
+            cat.alter_table("services.c4_evolve", SchemaChange.add_column("src", pt.STRING()),
+                            SchemaChange.rename_column("tag", "label"))
+            table = cat.get_table("services.c4_evolve")
+            wb = table.new_stream_write_builder()
+            w, c = wb.new_write(), wb.new_commit()
+        if b >= EV_ALTER_AFTER:
+            batch["label"] = batch.pop("tag")
+            batch["src"] = np.array([f"s{b}"] * len(batch["id"]), dtype=object)
+        w.write(batch)
+        c.commit_messages(b + 1, w.prepare_commit())
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    schema_ids = sorted({f.schema_id for f in live_files(table)})
+    out["config4"] = {"config": "BASELINE config 4 with ALTER TABLE ADD src STRING, RENAME tag TO label after "
+                                f"commit {EV_ALTER_AFTER}", "write_s": round(write_s, 4),
+                      "live_file_schema_ids": schema_ids, "levels": level_layout(table),
+                      "files_per_bucket": files_per_bucket(table),
+                      "read_default_tile": check_evolved_read(table, last_commit, "evolved config 4"),
+                      f"read_tile_{K1_TILE_ROWS}": check_evolved_read(
+                          table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}), last_commit,
+                          f"evolved config 4 at tile {K1_TILE_ROWS}"),
+                      "launches": launch_diff(hk, before)}
+    snaps = table.store.snapshot_manager
+    compacts = [snaps.snapshot(i) for i in range(1, snaps.latest_snapshot_id() + 1)
+                if snaps.snapshot(i).commit_kind.value == "COMPACT"]
+    assert any(s.schema_id == 1 for s in compacts), "no compaction ran under the new schema"
+
+    options, fields, kinds = SMALL_TABLES["aggregation_fused"]
+    wide = {"c_max": "BIGINT", "f_sum": "DOUBLE"}
+    types = {"BIGINT": pt.BIGINT(), "INT": pt.INT(), "DOUBLE": pt.DOUBLE(), "FLOAT": pt.FLOAT(),
+             "BOOLEAN": pt.BOOLEAN(), "STRING": pt.STRING()}
+    opts = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", **options}
+    tables = {}
+    for name, spec in (("widened", fields), ("control", [(f, wide.get(f, t)) for f, t in fields])):
+        schema = pt.RowType.of(("id", pt.BIGINT(False)), *[(f, types[t]) for f, t in spec])
+        tables[name] = cat.create_table(f"services.agg_{name}", schema, primary_keys=["id"], options=opts)
+    rng = np.random.default_rng(77)
+    before = dict(hk.launches)
+    t0 = time.perf_counter()
+    for b in range(SMALL_COMMITS):
+        if b == SMALL_COMMITS // 2:
+            cat.alter_table("services.agg_widened", SchemaChange.update_column_type("c_max", pt.BIGINT()),
+                            SchemaChange.update_column_type("f_sum", pt.DOUBLE()))
+            tables["widened"] = cat.get_table("services.agg_widened")
+        # ids distinct within a commit: no flush sums at the narrow type, so
+        # the control's float64 sums add the same values in the same order
+        ids = rng.choice(SMALL_ROWS * 3 // 2, SMALL_ROWS, replace=False)
+        cols = {"id": Column(ids), **{f: small_column(rng, f, t, ids, b) for f, t in fields}}
+        if b >= SMALL_COMMITS // 2:  # values only the wide types hold
+            cols["c_max"] = nullable(rng, rng.integers(-(10**12), 10**12, SMALL_ROWS))
+            cols["f_sum"] = nullable(rng, rng.standard_normal(SMALL_ROWS) * 10.0 ** rng.integers(-3, 4, SMALL_ROWS))
+        row_kinds = rng.choice(4, SMALL_ROWS, p=kinds).astype(np.uint8)
+        for name, t in tables.items():
+            data = {f: Column(col.values.astype(t.row_type.field(f).type.numpy_dtype()), col.validity)
+                    for f, col in cols.items()}
+            wb = t.new_batch_write_builder()
+            w = wb.new_write()
+            w.write(ColumnBatch(t.row_type, data), row_kinds)
+            wb.new_commit().commit(w.prepare_commit())
+    write_s = time.perf_counter() - t0
+    reads = {}
+    for step in ("before", "after"):
+        if step == "after":
+            for t in tables.values():
+                assert DedicatedCompactor(t).run_once(full=True)
+        got = engine_reads(tables["widened"], f"widened aggregation {step} the full compaction")
+        same_rows(got, engine_reads(tables["control"], f"control aggregation {step} the full compaction"),
+                  f"widened aggregation {step} the full compaction, against the control")
+        reads[step] = got.num_rows
+    launches = launch_diff(hk, before)
+    out["aggregation_widened"] = {
+        "table": "the aggregation_fused small table, c_max INT to BIGINT and f_sum FLOAT to DOUBLE after "
+                 f"{SMALL_COMMITS // 2} of {SMALL_COMMITS} commits", "write_s": round(write_s, 4),
+        "rows_written": SMALL_ROWS * SMALL_COMMITS, "rows_read": reads,
+        "files_per_bucket": files_per_bucket(tables["widened"]), "equal_across_sort_engines": True,
+        "equal_to_control": True, "launches": launches}
+    assert launches["segment_sum"] > 0, f"segment_sum never launched on the widened sums: {launches}"
+    return out
+
+
+def services_phase(pt, hk, warehouse: str, bench_path: str, checked: tuple) -> dict:
+    """The compaction services and schema evolution, one JSON line per part:
+    rescale, the adaptive and dedicated compactors under ingest, the append
+    coordinator, ALTER TABLE. K1 and K2 must launch in the phase, and
+    segment_sum in the widened aggregation; then K1 and K2 are held exactly
+    to their plain versions at the path's shapes no earlier check covered.
+    Launch counts are zeroed before the phase."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    parts, seconds = {}, {}
+    with ShapeRecorder(hk) as recorder:
+        for name, run in (("rescale", lambda: rescale_part(pt, hk, cat, bench_path)),
+                          ("adaptive", lambda: adaptive_part(pt, hk, cat)),
+                          ("coordinator", lambda: coordinator_part(pt, hk, cat)),
+                          ("evolution", lambda: evolution_part(pt, hk, cat))):
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = run()
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "services", "part": name, **parts[name]})
+    by_part = {name: p["part_launches"] for name, p in parts.items()}
+    launches = dict(hk.launches)
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched on the services path: {by_part}"
+    assert not any(by_part["coordinator"].values()), f"the append coordinator launched a kernel: {by_part}"
+    return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds,
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2031, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

@@ -16,7 +16,25 @@ imports torch and numpy and nothing of JAX, pyarrow or paimon_tpu.
 
 from .data.batch import Column, ColumnBatch
 from .options import CoreOptions, SortEngine
-from .types import BIGINT, BOOLEAN, BYTES, DOUBLE, FLOAT, INT, SMALLINT, STRING, TINYINT, DataField, RowKind, RowType
+from .types import (
+    BIGINT,
+    BOOLEAN,
+    BYTES,
+    CHAR,
+    DATE,
+    DECIMAL,
+    DOUBLE,
+    FLOAT,
+    INT,
+    SMALLINT,
+    STRING,
+    TIMESTAMP,
+    TINYINT,
+    VARCHAR,
+    DataField,
+    RowKind,
+    RowType,
+)
 
 __all__ = [
     "Column",
@@ -35,4 +53,20 @@ __all__ = [
     "BOOLEAN",
     "STRING",
     "BYTES",
+    "CHAR",
+    "VARCHAR",
+    "DATE",
+    "TIMESTAMP",
+    "DECIMAL",
+    "DedicatedCompactor",
 ]
+
+
+def __getattr__(name):
+    """DedicatedCompactor loads table/compactor.py (and torch) on first
+    access, as the JAX package exports it lazily."""
+    if name == "DedicatedCompactor":
+        from .table.compactor import DedicatedCompactor
+
+        return DedicatedCompactor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
 """Catalog: databases and tables in a warehouse directory (port of
-paimon_tpu/catalog/__init__.py, FileSystemCatalog create/get).
+paimon_tpu/catalog/__init__.py, FileSystemCatalog create/get/alter).
 
 Layout: warehouse/<db>.db/<table>/{schema,snapshot,manifest,bucket-N}, the
 JAX package's. The catalog's `device` ("cuda" by default) threads through
@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from ..core.schema import SchemaManager
+from ..core.schema import SchemaManager, TableSchema
 from ..fs import LocalFileIO
 from ..table import FileStoreTable
 from ..types import RowType
@@ -86,3 +86,9 @@ class FileSystemCatalog:
         if schema is None:
             raise FileNotFoundError(f"table {identifier} does not exist")
         return FileStoreTable(self.file_io, path, schema, self.commit_user, self.device)
+
+    def alter_table(self, identifier: "Identifier | str", *changes: dict) -> TableSchema:
+        """ALTER TABLE: commit SchemaChanges as the table's next schema
+        (core/schema.py); a table opened afterwards reads its older files
+        under it."""
+        return SchemaManager(self.file_io, self.table_path(identifier)).commit_changes(*changes)

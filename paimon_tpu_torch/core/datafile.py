@@ -3,7 +3,11 @@ of paimon_tpu/core/datafile.py).
 
 DataFileMeta serializes to the JAX package's JSON fields. Files are
 parquet through format/parquet.py; the reader maps each read field to the
-file's write schema by field id (a missing field reads as nulls).
+file's write schema by field id (a missing field reads as nulls, a field
+whose type widened is cast by data/casting.py cast_column). Statistics of
+an older file prune only where they compare as the cast values would
+(stats_comparable): a renamed, dropped or re-added column, a scale change
+or a cast to another kind of value prunes nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Sequence
 import numpy as np
 
 from ..data.batch import Column, ColumnBatch, concat_batches
+from ..data.casting import cast_column, stats_comparable
 from ..format import FieldStats, collect_stats, stats_from_json, stats_to_json
 from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
 from ..fs import LocalFileIO
@@ -138,15 +143,24 @@ class KeyValueFileWriterFactory:
         return max(total, 1)
 
     def write(
-        self, kv: KVBatch, level: int, file_source: str = "append", prefix: str = "data", sorted_input: bool = True
+        self,
+        kv: KVBatch,
+        level: int,
+        file_source: str = "append",
+        prefix: str = "data",
+        sorted_input: bool = True,
+        measured_row_bytes: float | None = None,
     ) -> list[DataFileMeta]:
         """Rolls into several files at target size. Input must be key-sorted
         unless sorted_input=False (changelog files keep event order: their
-        key range is then computed, not taken from the first and last row)."""
+        key range is then computed, not taken from the first and last row).
+        measured_row_bytes replaces the schema's estimate of a row's width
+        (sort-compaction.range-strategy=size)."""
         n = kv.num_rows
         if n == 0:
             return []
-        rows_per_file = max(1, int(self.target_file_size / self._estimate_row_bytes(kv.data)))
+        row_bytes = measured_row_bytes or self._estimate_row_bytes(kv.data)
+        rows_per_file = max(1, int(self.target_file_size / max(row_bytes, 1)))
         return [
             self._write_one(kv.slice(s, min(s + rows_per_file, n)), level, file_source, prefix, sorted_input)
             for s in range(0, n, rows_per_file)
@@ -237,20 +251,19 @@ class KeyValueFileReaderFactory:
         mapping: list[tuple[DataField, DataField | None]] = []
         for f in read_fields:
             src = by_id.get(f.id)
-            if src is not None and src.type.root != f.type.root:
-                raise NotImplementedError(f"type evolution of field {f.name!r} is not supported by the torch port yet")
             mapping.append((f, src))
             if src is not None:
                 wanted.append(src.name)
         disk_schema = kv_disk_schema(data_schema) if self.keyed else data_schema
         if predicate is not None:
             # the file's stats are found by name: prune only where each
-            # named field is the file's column of the same name and id
+            # named field is the file's column of the same name and id, and
+            # its stats bound the cast values
             read_by_name = {f.name: f for f in self.read_schema.fields}
             for name in predicate.referenced_fields():
                 f = read_by_name.get(name)
                 src = by_id.get(f.id) if f is not None else None
-                if src is None or src.name != name:
+                if src is None or src.name != name or not stats_comparable(src.type, f.type):
                     predicate = None
                     break
         raw = self.file_io.read_bytes(f"{self.bucket_dir}/{meta.file_name}")
@@ -263,8 +276,13 @@ class KeyValueFileReaderFactory:
                 dt = f.type.numpy_dtype()
                 vals = np.full(n, None, dtype=object) if dt == np.dtype(object) else np.zeros(n, dtype=dt)
                 cols[f.name] = Column(vals, np.zeros(n, dtype=np.bool_))
-            else:
+            elif src.type == f.type:
                 cols[f.name] = disk.column(src.name)
+            else:
+                try:
+                    cols[f.name] = cast_column(disk.column(src.name), src.type, f.type)
+                except ValueError as exc:
+                    raise ValueError(f"field {f.name!r} of {meta.file_name}: {exc}") from None
         data = ColumnBatch(RowType(read_fields), cols)
         seq = np.zeros(n, dtype=np.int64)
         kind = np.zeros(n, dtype=np.uint8)

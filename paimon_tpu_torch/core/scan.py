@@ -14,7 +14,10 @@ stats of their metadata. On a primary-key table only a key filter may skip
 a file: a file whose values miss a predicate may still hold the newest
 version of a key whose older version matches, and skipping it would bring
 the older one back. Value filters are for tables whose every row is
-final. A key or value filter never drops index entries.
+final. A key or value filter never drops index entries. A file written
+under an older schema is tested by the stats of its fields that keep
+their id and whose type change keeps them comparable (data/casting.py
+stats_comparable), under today's names; its other fields do not prune.
 """
 
 from __future__ import annotations
@@ -22,12 +25,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+from ..data.casting import stats_comparable
 from ..data.predicate import Predicate
 from ..fs import LocalFileIO
 from ..options import CoreOptions
+from ..types import RowType
+from .datafile import DataFileMeta
 from .deletionvectors import IndexFileEntry
 from .indexmanifest import read_index_manifest
 from .manifest import FileKind, ManifestEntry, ManifestFile, ManifestList, merge_entries
+from .schema import SchemaManager
 from .snapshot import Snapshot, SnapshotManager
 
 __all__ = ["ScanPlan", "FileStoreScan"]
@@ -64,8 +71,14 @@ class ScanPlan:
 
 
 class FileStoreScan:
-    def __init__(self, file_io: LocalFileIO, table_path: str, options: CoreOptions):
+    def __init__(
+        self, file_io: LocalFileIO, table_path: str, options: CoreOptions, value_schema: RowType | None = None
+    ):
         self.file_io = file_io
+        # the schema the filters name fields in; None takes every file's
+        # stats as they are
+        self.value_schema = value_schema
+        self._stats_names: dict[int, dict[str, str] | None] = {}
         self.table_path = table_path
         self.options = options
         self.snapshot_manager = SnapshotManager(file_io, table_path)
@@ -147,6 +160,28 @@ class FileStoreScan:
         return (
             self._accept_slot(e)
             and (self._level is None or e.file.level == self._level)
-            and (self._key_filter is None or self._key_filter.test_stats(e.file.key_stats))
-            and (self._value_filter is None or self._value_filter.test_stats(e.file.value_stats))
+            and (self._key_filter is None or self._key_filter.test_stats(self._stats(e.file, e.file.key_stats)))
+            and (self._value_filter is None or self._value_filter.test_stats(self._stats(e.file, e.file.value_stats)))
         )
+
+    def _stats(self, f: DataFileMeta, stats: dict) -> dict:
+        """The file's stats under the scan schema's names, without those
+        that cannot bound the values as read now."""
+        if self.value_schema is None:
+            return stats
+        if f.schema_id not in self._stats_names:
+            try:
+                written = SchemaManager(self.file_io, self.table_path).schema(f.schema_id).fields
+            except FileNotFoundError:  # a view whose schemas lie elsewhere: the stats as written
+                written = self.value_schema.fields
+            names = None
+            if written != self.value_schema.fields:
+                now = {g.id: g for g in self.value_schema.fields}
+                names = {
+                    g.name: now[g.id].name
+                    for g in written
+                    if g.id in now and stats_comparable(g.type, now[g.id].type)
+                }
+            self._stats_names[f.schema_id] = names
+        names = self._stats_names[f.schema_id]
+        return stats if names is None else {names[k]: v for k, v in stats.items() if k in names}

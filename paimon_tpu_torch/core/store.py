@@ -4,7 +4,9 @@ primary-key tables, AppendOnlyFileStore the tables without one.
 
 A bucket's writer is restored from its live files and deletion vectors;
 its compactions drop the vectors' rows and the rows that record-level TTL
-expires, and every read ANDs the TTL into its predicate.
+expires, and every read ANDs the TTL into its predicate. A write-only
+primary-key writer flushes through the adaptive compactor's debt gate
+when compaction.adaptive.ingest-gate is on (table/compactor.py).
 
 Layout, the JAX package's: table/[k1=v1/k2=v2/]bucket-B/data-*.parquet,
 with the hash index of dynamic-bucket tables under table/index/.
@@ -12,6 +14,7 @@ with the hash index of dynamic-bucket tables under table/index/.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -102,7 +105,7 @@ class KeyValueFileStore:
         )
 
     def new_scan(self) -> FileStoreScan:
-        return FileStoreScan(self.file_io, self.table_path, self.options)
+        return FileStoreScan(self.file_io, self.table_path, self.options, self.value_schema)
 
     def new_commit(self) -> FileStoreCommit:
         return FileStoreCommit(self.file_io, self.table_path, self.commit_user, self.schema.id, self.options)
@@ -162,6 +165,13 @@ class KeyValueFileStore:
                 row_deduplicate=co.options.get(CoreOptions.CHANGELOG_PRODUCER_ROW_DEDUPLICATE),
             )
             compact_manager = MergeTreeCompactManager(Levels(existing, co.num_levels), strategy, rewriter, co)
+        debt_gate = None
+        if co.write_only and co.options.get(CoreOptions.COMPACTION_ADAPTIVE_INGEST_GATE):
+            # resolved at each flush, so a service started after the writer
+            # still bounds it
+            from ..table.compactor import active_debt_gate
+
+            debt_gate = functools.partial(active_debt_gate, self.table_path)
         return MergeTreeWriter(
             partition,
             bucket,
@@ -171,6 +181,7 @@ class KeyValueFileStore:
             co,
             restored_max_seq=max((f.max_sequence_number for f in existing), default=-1),
             compact_manager=compact_manager,
+            debt_gate=debt_gate,
         )
 
     def read_raw(self, partition: tuple, bucket: int, files: list[DataFileMeta]) -> KVBatch:

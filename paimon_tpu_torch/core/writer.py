@@ -1,5 +1,5 @@
 """The merge-tree writer (port of paimon_tpu/core/writer.py, without the
-pipelined flush or admission control).
+pipelined flush or the memory admission control).
 
 Rows get sequence numbers in arrival order and buffer in a memtable; a
 flush merges the buffer through the MergeExecutor (the table's merge
@@ -14,7 +14,12 @@ state after (core/changelog.py). The
 compactions' changelog (full-compaction, or lookup without waiting) comes
 from the compaction manager. prepare_commit flushes and hands the new
 files, the compaction's before and after files and the changelog files
-over as a CommitMessage.
+over as a CommitMessage. A write-only writer under
+compaction.adaptive.ingest-gate resolves the adaptive compactor's debt
+gate at each flush (table/compactor.py): it admits the flush's sorted run
+against the read-amplification ceiling, blocking up to
+compaction.adaptive.ingest-gate-timeout, and settles it once the files
+are written (or the flush failed).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ class MergeTreeWriter:
         options: CoreOptions,
         restored_max_seq: int = -1,
         compact_manager: MergeTreeCompactManager | None = None,
+        debt_gate=None,
     ):
         self.partition = partition
         self.bucket = bucket
@@ -51,6 +57,8 @@ class MergeTreeWriter:
         self.merge = merge_executor
         self.options = options
         self.compact_manager = compact_manager
+        # () -> the running AdaptiveCompactorService of the table, or None
+        self.debt_gate = debt_gate
         self.seq = restored_max_seq + 1
         self._buffer: list[KVBatch] = []
         self._buffered_rows = 0
@@ -81,6 +89,21 @@ class MergeTreeWriter:
         replaces sequence lanes), write level-0 files, then compact."""
         if not self._buffer:
             return
+        gate = self.debt_gate() if self.debt_gate is not None else None
+        if gate is None:
+            self._flush()
+            return
+        # a timeout proceeds: the gate bounds the runs, it never wedges ingest
+        timeout_ms = self.options.options.get(CoreOptions.COMPACTION_ADAPTIVE_INGEST_GATE_TIMEOUT)
+        gate.admit([(self.partition, self.bucket)], timeout_s=timeout_ms / 1000.0)
+        landed = False
+        try:
+            self._flush()
+            landed = True
+        finally:
+            gate.settle([(self.partition, self.bucket)], landed=landed)
+
+    def _flush(self) -> None:
         kv = KVBatch.concat(self._buffer)
         self._buffer = []
         self._buffered_rows = 0

@@ -1,0 +1,138 @@
+"""Metric primitives and the compaction group (port of
+paimon_tpu/metrics.py: Counter, Gauge, Histogram, MetricGroup,
+MetricRegistry, the module's registry and compaction_metrics, with the
+JAX package's member names; the other groups are not ported).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricGroup", "MetricRegistry", "registry", "compaction_metrics"]
+
+
+class Counter:
+    def __init__(self):
+        self._v = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._v += n
+
+    @property
+    def count(self) -> int:
+        return self._v
+
+
+class Gauge:
+    def __init__(self, fn: Callable[[], float] | None = None):
+        self._fn = fn
+        self._v: float = 0.0
+
+    def set(self, v: float) -> None:
+        self._v = v
+
+    @property
+    def value(self) -> float:
+        return self._fn() if self._fn is not None else self._v
+
+
+class Histogram:
+    """Sliding-window histogram (reference uses a 100-sample window)."""
+
+    def __init__(self, window: int = 100):
+        self.window = window
+        self._values: list[float] = []
+        self._lock = threading.Lock()
+
+    def update(self, v: float) -> None:
+        with self._lock:
+            self._values.append(v)
+            if len(self._values) > self.window:
+                self._values.pop(0)
+
+    @property
+    def count(self) -> int:
+        return len(self._values)
+
+    @property
+    def mean(self) -> float:
+        return sum(self._values) / len(self._values) if self._values else 0.0
+
+    @property
+    def max(self) -> float:
+        return max(self._values) if self._values else 0.0
+
+    @property
+    def min(self) -> float:
+        return min(self._values) if self._values else 0.0
+
+    @property
+    def last(self) -> float:
+        """Most recent sample — per-operation readout for benches/tests."""
+        return self._values[-1] if self._values else 0.0
+
+
+class MetricGroup:
+    def __init__(self, name: str, tags: dict[str, str] | None = None):
+        self.name = name
+        self.tags = tags or {}
+        self.metrics: dict[str, object] = {}
+
+    def counter(self, name: str) -> Counter:
+        return self.metrics.setdefault(name, Counter())  # type: ignore[return-value]
+
+    def gauge(self, name: str, fn: Callable[[], float] | None = None) -> Gauge:
+        return self.metrics.setdefault(name, Gauge(fn))  # type: ignore[return-value]
+
+    def histogram(self, name: str, window: int = 100) -> Histogram:
+        return self.metrics.setdefault(name, Histogram(window))  # type: ignore[return-value]
+
+
+class MetricRegistry:
+    def __init__(self):
+        self.groups: dict[tuple, MetricGroup] = {}
+        self._lock = threading.Lock()
+
+    def group(self, name: str, **tags: str) -> MetricGroup:
+        key = (name, tuple(sorted(tags.items())))
+        with self._lock:
+            if key not in self.groups:
+                self.groups[key] = MetricGroup(name, tags)
+            return self.groups[key]
+
+    def snapshot(self) -> dict:
+        out: dict = {}
+        for (name, tags), group in self.groups.items():
+            entry = {}
+            for mname, m in group.metrics.items():
+                if isinstance(m, Counter):
+                    entry[mname] = m.count
+                elif isinstance(m, Gauge):
+                    entry[mname] = m.value
+                elif isinstance(m, Histogram):
+                    entry[mname] = {"count": m.count, "mean": m.mean, "max": m.max}
+            out[name if not tags else f"{name}{dict(tags)}"] = entry
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self.groups.clear()
+
+
+registry = MetricRegistry()
+
+
+def compaction_metrics() -> MetricGroup:
+    """The compaction{...} group, filled by table/compactor.py's
+    AdaptiveCompactorService. Counters: adaptive_runs (buckets it
+    compacted), deferred_buckets (buckets with sorted runs the policy left
+    for later), adaptive_conflicts (rounds abandoned to a rival commit),
+    admission_waits (ingest flushes that blocked in its debt gate). Gauges:
+    debt_files and debt_bytes (files and bytes outside each bucket's top
+    run, summed), read_amplification_p99 (p99 of the buckets' sorted-run
+    counts at the last observation). Resolved per call, so registry.reset()
+    swaps the group out."""
+    return registry.group("compaction")

@@ -31,7 +31,9 @@ unsigned order of the lanes, and equality is unchanged.
 The kernels build at first use with nvcc for sm_90a into
 paimon_tpu_torch/_build/ (one shared library per source, all sources
 compiled in parallel, rebuilt when a source's hash changes) and load via
-ctypes with a plain C interface, each entry bound once. A launch makes the
+ctypes with a plain C interface, each entry bound once; one lock guards
+the build and the binding, so threads that first launch at once (the
+adaptive compactor's and a writer's) build once. A launch makes the
 tensor's device current only when it is not, and takes the current stream
 as a raw pointer, so a call costs the host little more than the launch.
 """
@@ -44,6 +46,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 import torch
@@ -93,6 +96,15 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", 
 launches = {name: 0 for name in KERNEL_SOURCES}
 last_shape: dict[str, tuple] = {}
 _KERNELS: dict[str, ctypes._CFuncPtr] = {}  # kernel -> its bound C entry
+_BUILD_LOCK = threading.RLock()  # the build and the binding, one thread at a time
+
+
+_LAUNCH_LOCK = threading.Lock()  # launches may come from several threads
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
@@ -138,6 +150,11 @@ def _lib_path(src: str) -> str:
 def build_kernels() -> dict[str, str]:
     """Compile every kernel source whose library is missing, one nvcc per
     source, all started together; returns {kernel: library path}."""
+    with _BUILD_LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> dict[str, str]:
     paths = {name: _lib_path(os.path.join(_CSRC, src)) for name, src in KERNEL_SOURCES.items()}
     missing = [name for name in KERNEL_SOURCES if not os.path.exists(paths[name])]
     if not missing:
@@ -174,7 +191,12 @@ def build_log(name: str) -> str:
 def _kernel(name: str):
     """The C entry of `name`'s library, built, loaded and bound on first use."""
     fn = _KERNELS.get(name)
-    if fn is None:
+    if fn is not None:
+        return fn
+    with _BUILD_LOCK:
+        fn = _KERNELS.get(name)
+        if fn is not None:
+            return fn
         lib = ctypes.CDLL(build_kernels()[name])
         if name == "sort_segments":
             fn = lib.paimon_sort_segments
@@ -259,7 +281,7 @@ def sort_segments(stacked: torch.Tensor, num_boundary: int) -> torch.Tensor:
         rc = fn(stacked.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, nl, num_boundary, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sort_segments kernel launch failed with CUDA error {rc}")
-    launches["sort_segments"] += 1
+    _count("sort_segments")
     last_shape["sort_segments"] = (nl, m, num_boundary)
     return out
 
@@ -317,7 +339,7 @@ def keep_last_mask(stacked: torch.Tensor, mask_pad: bool = True) -> torch.Tensor
         rc = fn(stacked.data_ptr(), out.data_ptr(), lanes, m, 1 if mask_pad else 0, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"keep_last_mask kernel launch failed with CUDA error {rc}")
-    launches["keep_last_mask"] += 1
+    _count("keep_last_mask")
     last_shape["keep_last_mask"] = (lanes, m)
     return out
 
@@ -368,6 +390,6 @@ def segment_sum(values: torch.Tensor, seg_start: torch.Tensor, seg_id: torch.Ten
                 1 if values.dtype == torch.float64 else 0, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed with CUDA error {rc}")
-    launches["segment_sum"] += 1
+    _count("segment_sum")
     last_shape["segment_sum"] = (m, str(values.dtype).removeprefix("torch."))
     return out

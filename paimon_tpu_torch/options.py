@@ -305,6 +305,23 @@ class CoreOptions:
     TAG_CALLBACKS = ConfigOption.string("tag.callbacks", None)
     COMMIT_CALLBACKS = ConfigOption.string("commit.callbacks")
     COMMIT_FORCE_CREATE_SNAPSHOT = ConfigOption.bool_("commit.force-create-snapshot", False)
+    # the adaptive background compactor (table/compactor.py
+    # AdaptiveCompactorService) and its ingest gate
+    COMPACTION_ADAPTIVE_ENABLED = ConfigOption.bool_("compaction.adaptive.enabled", False)
+    COMPACTION_ADAPTIVE_INTERVAL = ConfigOption.duration("compaction.adaptive.interval", "200 ms")
+    COMPACTION_ADAPTIVE_READ_AMP_CEILING = ConfigOption.int_("compaction.adaptive.read-amp-ceiling", 12)
+    COMPACTION_ADAPTIVE_TRIGGER = ConfigOption.int_("compaction.adaptive.trigger", 3)
+    COMPACTION_ADAPTIVE_MAX_BUCKETS = ConfigOption.int_("compaction.adaptive.max-buckets-per-round", 2)
+    COMPACTION_ADAPTIVE_DEEP_RUNS = ConfigOption.int_("compaction.adaptive.deep-runs", 8)
+    COMPACTION_ADAPTIVE_PARALLELISM = ConfigOption.int_("compaction.adaptive.parallelism", 2)
+    COMPACTION_ADAPTIVE_INGEST_GATE = ConfigOption.bool_("compaction.adaptive.ingest-gate", True)
+    COMPACTION_ADAPTIVE_INGEST_GATE_TIMEOUT = ConfigOption.duration("compaction.adaptive.ingest-gate-timeout", "30 s")
+    COMPACTION_ADAPTIVE_STARVATION_TIMEOUT = ConfigOption.duration("compaction.adaptive.starvation-timeout", "10 s")
+    # sort-compact (table/sort_compact.py): quantity rolls files by the
+    # schema's row width, size by the measured one
+    SORT_COMPACTION_RANGE_STRATEGY = ConfigOption.string("sort-compaction.range-strategy", "quantity")
+    # bytes a string or bytes column contributes to the z-order interleave
+    ZORDER_VAR_LENGTH_CONTRIBUTION = ConfigOption.int_("zorder.var-length-contribution", 8)
 
     def __init__(self, options: "Options | Mapping[str, Any] | None" = None):
         self.options = options if isinstance(options, Options) else Options(options)

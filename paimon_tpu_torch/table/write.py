@@ -289,9 +289,12 @@ def run_maintenance(what: str, fn: Callable, *args) -> None:
 
 
 class TableCommit:
-    def __init__(self, table: "FileStoreTable"):
+    def __init__(self, table: "FileStoreTable", expire_after_commit: bool = True):
+        """expire_after_commit=False leaves snapshot and partition expiry to
+        another job (callbacks and automatic tags still run)."""
         self.table = table
         self._commit = table.store.new_commit()
+        self.expire_after_commit = expire_after_commit
 
     def commit_messages(self, identifier: int, messages: list[CommitMessage], watermark: int | None = None) -> list[int]:
         """Commit under `identifier`; a streaming identifier this user
@@ -329,14 +332,15 @@ class TableCommit:
 
     def _post_commit(self) -> None:
         """Commit callbacks with the latest snapshot, automatic tags, then
-        snapshot and partition expiry."""
+        (under expire_after_commit) snapshot and partition expiry."""
         table = self.table
         snap = table.store.snapshot_manager.latest_snapshot()
         for fn in load_callbacks(table, CoreOptions.COMMIT_CALLBACKS):
             run_maintenance(f"commit callback {fn.__name__}", fn, table, snap)
         run_maintenance("automatic tag creation", lambda: TagAutoCreation(table).run())
-        run_maintenance("snapshot expiry", table.expire_snapshots)
-        self._maybe_expire_partitions()
+        if self.expire_after_commit:
+            run_maintenance("snapshot expiry", table.expire_snapshots)
+            self._maybe_expire_partitions()
 
     def _maybe_expire_partitions(self) -> None:
         """Sweep expired partitions (partition.expiration-time on a

@@ -1,7 +1,8 @@
 """SQL-style types with field-id based schemas (port of paimon_tpu/types.py).
 
-The slice's subset: the fixed-width roots the primary-key path stores as
-dense numpy vectors, STRING/BYTES as object vectors, and RowKind. Type
+The flat types: the fixed-width roots stored as dense numpy vectors
+(DATE as int32 days, TIMESTAMP as int64 micros, DECIMAL as its unscaled
+int64), the string and bytes roots as object vectors, and RowKind. Type
 strings serialize exactly as the JAX package writes them into the schema
 JSON ("BIGINT NOT NULL", "STRING", ...), so each package reads the other's
 warehouse.
@@ -29,8 +30,14 @@ __all__ = [
     "FLOAT",
     "DOUBLE",
     "BOOLEAN",
+    "CHAR",
+    "VARCHAR",
     "STRING",
     "BYTES",
+    "DATE",
+    "TIME",
+    "TIMESTAMP",
+    "DECIMAL",
     "parse_type",
 ]
 
@@ -136,12 +143,40 @@ def BOOLEAN(nullable: bool = True) -> DataType:
     return DataType(TypeRoot.BOOLEAN, nullable)
 
 
+def CHAR(length: int, nullable: bool = True) -> DataType:
+    return DataType(TypeRoot.CHAR, nullable, length=length)
+
+
+def VARCHAR(length: int, nullable: bool = True) -> DataType:
+    return DataType(TypeRoot.VARCHAR, nullable, length=length)
+
+
 def STRING(nullable: bool = True) -> DataType:
     return DataType(TypeRoot.VARCHAR, nullable, length=_MAX_LEN)
 
 
 def BYTES(nullable: bool = True) -> DataType:
     return DataType(TypeRoot.VARBINARY, nullable, length=_MAX_LEN)
+
+
+def DATE(nullable: bool = True) -> DataType:
+    return DataType(TypeRoot.DATE, nullable)
+
+
+def TIME(nullable: bool = True) -> DataType:
+    return DataType(TypeRoot.TIME, nullable)
+
+
+def TIMESTAMP(precision: int = 6, nullable: bool = True) -> DataType:
+    return DataType(TypeRoot.TIMESTAMP, nullable, precision=precision)
+
+
+def DECIMAL(precision: int = 18, scale: int = 0, nullable: bool = True) -> DataType:
+    """An unscaled int64 with its scale on the type, as the JAX package
+    stores it: precision up to 18."""
+    if precision > 18:
+        raise ValueError("DECIMAL precision above 18 does not fit the unscaled int64")
+    return DataType(TypeRoot.DECIMAL, nullable, precision=precision, scale=scale)
 
 
 _TYPE_RE = re.compile(r"^([A-Z_]+)(?:\((\d+)(?:,\s*(\d+))?\))?( NOT NULL)?$")
