@@ -270,7 +270,35 @@ Phases, one JSON line each on stdout:
               (segment_sum must launch). Seconds, rows, files and launches
               per part; K1 and K2 then held exactly to their plain versions
               at the path's shapes no earlier check covered.
-16. timing  - each kernel at its main-path shape against its plain version,
+16. lookups - point lookups and lookup joins, one line per part. gets: the
+              table of benchmarks/point_get_bench.py (1M rows of id BIGINT
+              NOT NULL, c1, s1, d1; even ids only, 4 sorted runs, bucket 1,
+              write-only, file-index.bloom-filter.primary-key.enabled,
+              sort-engine=pallas): 5 batches of 10,000 keys (about half
+              absent) through LocalTableQuery.get_batch, each held to the
+              generator, the last also to the scalar lookup walk (gets/s of
+              each); 64 absent odd keys on a cold data-file cache with
+              lookup.get.bloom-prune.enabled true and false (files pruned
+              and decoded); a get with 10,000 rows buffered in an attached
+              TableWrite (5,000 updates, 5,000 new ids). star_join: the
+              tables of benchmarks/join_bench.py (a dimension of 100,000
+              customers, cid STRING NOT NULL key, then a commit updating
+              10,000 of them; a fact table of 1M rows in 4 commits with
+              uniform, zipf and hot50 customer keys; merge.dict-domain and
+              the native parquet options cut), and per skew join_batches
+              under auto (the hash probe on the card), sort-merge with
+              sort-engine=pallas (K2 at m = 2^21), xla-segmented and numpy,
+              hot50 also at join.chunk-rows=131072 (K1 per partition), every
+              engine's pairs equal to a host dict loop's. lookup_join:
+              FullCacheLookupTable over the dimension (its bootstrap merges
+              the two commits), lookup_join of the 1M fact rows held to the
+              materialised LEFT join_batches, then 1,000 dimension changes
+              (700 updates, 200 -D rows, 100 new customers), a refresh, and
+              the checks again. Seconds, launches and cache counters per
+              part; K1 and K2 must launch on the join path, and are then
+              held exactly to their plain versions at the path's shapes no
+              earlier check covered.
+17. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -283,7 +311,7 @@ Phases, one JSON line each on stdout:
 
 Then one JSON line with every kernel's numbers (its launches summed over
 the main, compact, engines, buckets, strings, maintenance, cdc, deletes,
-history, writes and services paths, and by path), the
+history, writes, services and lookups paths, and by path), the
 card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
@@ -872,7 +900,14 @@ def main() -> int:
         checks += services["shape_checks"]["exact_checks"]
         emit({"phase": "services", "part": "summary", **services, "exact_checks_all_phases": checks})
 
-    # 16. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 16. point lookups and lookup joins
+        checked = tuple(list(checked[i]) + [tuple(s) for s in services["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        lookups = lookups_phase(pt, hk, warehouse, checked)
+        checks += lookups["shape_checks"]["exact_checks"]
+        emit({"phase": "lookups", "part": "summary", **lookups, "exact_checks_all_phases": checks})
+
+    # 17. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -887,7 +922,7 @@ def main() -> int:
                       "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
                       "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
                       "history": history["launches"][name], "writes": writes["launches"][name],
-                      "services": services["launches"][name]}
+                      "services": services["launches"][name], "lookups": lookups["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -4035,6 +4070,356 @@ def services_phase(pt, hk, warehouse: str, bench_path: str, checked: tuple) -> d
     assert not any(by_part["coordinator"].values()), f"the append coordinator launched a kernel: {by_part}"
     return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds,
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2031, checked)}
+
+
+# the point-get table of benchmarks/point_get_bench.py:41-60 and the star
+# join of benchmarks/join_bench.py:60-100
+LK_ROWS = 1_000_000
+LK_RUNS = 4
+LK_BATCH = 10_000  # keys per get batch, about half of them absent
+LK_BATCHES = 5
+LK_SPARSE = 64  # absent keys of the cold bloom-pruning batch (point_get_bench.py:128)
+LK_RYW_ROWS = 10_000
+LK_OPTIONS = {"bucket": "1", "write-only": "true", "file-index.bloom-filter.primary-key.enabled": "true",
+              "sort-engine": "pallas"}
+J_FACT = 1_000_000
+J_DIM = 100_000
+J_DAILY = 10_000  # customers the daily dimension commit updates
+J_CHANGES = (700, 200, 100)  # the later dimension commit: updates, -D rows, new customers
+J_SKEWS = ("uniform", "zipf", "hot50")
+J_HOT = 4242  # hot50's customer
+J_OPTIONS = {"bucket": "1", "write-only": "true", "sort-engine": "pallas"}
+# 8 partitions of about 137,500 rows pad to 2^18, where K1 still admits the
+# three lanes (pad, key, side); the unpartitioned 1.1M rows pad to 2^21: K2
+J_CHUNK_ROWS = 131_072
+
+
+def lk_values(ids: np.ndarray, tag: str = "") -> dict:
+    return {"id": ids, "c1": ids * 3, "s1": np.array([f"val-{int(x) % 1000:04d}{tag}" for x in ids], dtype=object),
+            "d1": ids.astype(np.float64) * 0.5}
+
+
+def check_gets(res, keys: np.ndarray, what: str) -> int:
+    """A GetResult against the generator: the even ids below 2 * LK_ROWS are
+    there, with their values; every other key is absent."""
+    present = (keys % 2 == 0) & (keys >= 0) & (keys < 2 * LK_ROWS)
+    assert np.array_equal(res.found, present), f"{what}: found differs from the table's ids"
+    assert np.array_equal(res.take, np.flatnonzero(present)), what
+    want = lk_values(keys[present])
+    for name, values in want.items():
+        col = res.rows.column(name)
+        assert col.validity is None and same_values(col.values, values), f"{what}: column {name} differs"
+    return int(present.sum())
+
+
+def point_get_part(pt, hk, cat) -> dict:
+    """The point-get table: 10,000-key batches through get_batch against the
+    generator, one batch against the scalar lookup walk, a sparse batch of
+    absent keys on a cold data-file cache with bloom pruning on and off, and
+    a get with 10,000 rows buffered in an attached TableWrite."""
+    from paimon_tpu_torch.metrics import get_metrics, registry
+    from paimon_tpu_torch.table.query import LocalTableQuery
+    from paimon_tpu_torch.utils.cache import data_file_cache
+
+    table = cat.create_table("lookups.kv", pt.RowType.of(
+        ("id", pt.BIGINT(False)), ("c1", pt.BIGINT()), ("s1", pt.STRING()), ("d1", pt.DOUBLE())),
+        primary_keys=["id"], options=LK_OPTIONS)
+    rng = np.random.default_rng(11)
+    # even ids only: an odd id in the range is absent, and only the key
+    # bloom (never the key range) can prune a file for it
+    ids = rng.permutation(LK_ROWS).astype(np.int64) * 2
+    per = LK_ROWS // LK_RUNS
+    t0 = time.perf_counter()
+    for r in range(LK_RUNS):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(lk_values(np.sort(ids[r * per:(r + 1) * per])))
+        wb.new_commit().commit(w.prepare_commit())
+    write_s = time.perf_counter() - t0
+    files = [e.file for e in table.store.new_scan().plan().entries]
+    assert all(f.embedded_index is not None or f.extra_files for f in files), "a file has no key bloom"
+    g = get_metrics()
+    dcache = registry.group("cache", cache="data-file")
+    h0, m0 = dcache.counter("hits").count, dcache.counter("misses").count
+    t0 = time.perf_counter()
+    q = LocalTableQuery(table, device=DEVICE)
+    open_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    batch_s, found = [], 0
+    for b in range(LK_BATCHES):
+        keys = rng.integers(0, 2 * LK_ROWS, LK_BATCH).astype(np.int64)
+        t0 = time.perf_counter()
+        res = q.get_batch(keys)
+        batch_s.append(time.perf_counter() - t0)
+        found += check_gets(res, keys, f"get batch {b}")
+    t0 = time.perf_counter()
+    scalar = [q.lookup((), int(k)) for k in keys]
+    scalar_s = time.perf_counter() - t0
+    assert [None if r is None else r.to_pylist()[0] for r in scalar] == res.to_pylist(), "get_batch != scalar lookups"
+    warm = batch_s[1:]
+    sparse = np.random.default_rng(13).integers(0, LK_ROWS - 1, LK_SPARSE).astype(np.int64) * 2 + 1
+    bloom = {}
+    for mode, opt in (("pruned", "true"), ("unpruned", "false")):
+        data_file_cache().clear()
+        qb = LocalTableQuery(table.copy({"lookup.get.bloom-prune.enabled": opt}), device=DEVICE)
+        p0, miss0 = g.counter("files_pruned").count, dcache.counter("misses").count
+        t0 = time.perf_counter()
+        res = qb.get_batch(sparse)
+        bloom[mode] = {"ms": round((time.perf_counter() - t0) * 1000, 3),
+                       "files_pruned": g.counter("files_pruned").count - p0,
+                       "files_decoded": dcache.counter("misses").count - miss0}
+        assert not res.found.any(), f"an absent key was found ({mode})"
+    assert bloom["pruned"]["files_pruned"] > 0, f"the key blooms pruned no file: {bloom}"
+    assert bloom["unpruned"]["files_decoded"] == len(files), bloom
+    # read-your-writes: 5,000 updated ids and 5,000 new (odd) ids buffered,
+    # never committed
+    tw = table.new_batch_write_builder().new_write()
+    upd = np.sort(ids[:LK_RYW_ROWS // 2])
+    new = np.sort(rng.choice(LK_ROWS, LK_RYW_ROWS // 2, replace=False).astype(np.int64) * 2 + 1)
+    tw.write(lk_values(np.concatenate([upd, new]), tag="-ryw"))
+    q.attach_write(tw)
+    mem0 = g.counter("memtable_hits").count
+    probe = np.concatenate([upd, new, ids[-2000:], [-1]])
+    t0 = time.perf_counter()
+    res = q.get_batch(probe)
+    ryw_ms = (time.perf_counter() - t0) * 1000
+    buffered = np.concatenate([upd, new])
+    assert res.found.sum() == len(probe) - 1 and not res.found[-1], "read-your-writes lost a row"
+    rows = res.rows
+    n = len(buffered)
+    assert same_values(rows.column("id").values[:n], buffered)
+    assert same_values(rows.column("s1").values[:n], lk_values(buffered, tag="-ryw")["s1"]), "a buffered value lost"
+    assert same_values(rows.column("s1").values[n:], lk_values(ids[-2000:])["s1"]), "a committed value lost"
+    memtable_hits = g.counter("memtable_hits").count - mem0
+    assert memtable_hits == n, memtable_hits
+    q.attach_write(None)
+    q.close()
+    return {"rows": LK_ROWS, "runs": LK_RUNS, "options": LK_OPTIONS, "write_s": round(write_s, 3),
+            "files": len(files), "query_open_s": round(open_s, 4),
+            "batch_keys": LK_BATCH, "batches": LK_BATCHES, "keys_found": found,
+            "first_batch_ms": round(batch_s[0] * 1000, 3),
+            "warm_batch_ms": [round(s * 1000, 3) for s in warm],
+            "warm_gets_per_s_median": round(LK_BATCH / float(np.median(warm)), 1),
+            "scalar_lookups_s": round(scalar_s, 3), "scalar_gets_per_s": round(LK_BATCH / scalar_s, 1),
+            "equal_to_scalar_lookups": True, "bloom_cold_cache": {"keys": LK_SPARSE, **bloom},
+            "read_your_writes": {"buffered_rows": n, "probe_keys": len(probe), "ms": round(ryw_ms, 3),
+                                 "memtable_hits": memtable_hits},
+            "data_file_cache": {"hits": dcache.counter("hits").count - h0,
+                                "misses": dcache.counter("misses").count - m0},
+            "get_metrics": {k: g.counter(k).count for k in ("gets", "keys_probed", "files_pruned", "index_hits",
+                                                           "memtable_hits")}}
+
+
+def star_tables(pt, cat):
+    """The dimension (one commit of 100,000 customers, then a daily commit
+    updating 10,000 of them) and the fact table (1,000,000 rows in 4 commits,
+    three customer-key columns by skew)."""
+    rng = np.random.default_rng(12)
+    dim = cat.create_table("lookups.dim", pt.RowType.of(
+        ("cid", pt.STRING(False)), ("name", pt.STRING()), ("rate", pt.DOUBLE())),
+        primary_keys=["cid"], options=J_OPTIONS)
+    cids = np.array([f"C{i:06d}" for i in range(J_DIM)], dtype=object)
+    t0 = time.perf_counter()
+    names = np.array([f"customer-{i}" for i in range(J_DIM)], dtype=object)
+    rates = rng.random(J_DIM)
+    for rows, tag in ((np.arange(J_DIM), ""), (np.sort(rng.choice(J_DIM, J_DAILY, replace=False)), "-d2")):
+        rates[rows] = rng.random(len(rows))
+        names[rows] = [f"customer-{i}{tag}" for i in rows]
+        wb = dim.new_batch_write_builder()
+        w = wb.new_write()
+        w.write({"cid": cids[rows], "name": names[rows], "rate": rates[rows]})
+        wb.new_commit().commit(w.prepare_commit())
+    dim_write_s = time.perf_counter() - t0
+    fields = [("id", pt.BIGINT(False))] + [(f"cust_{s}", pt.STRING(False)) for s in J_SKEWS]
+    fact = cat.create_table("lookups.fact", pt.RowType.of(*fields, ("amount", pt.DOUBLE()), ("qty", pt.BIGINT())),
+                            primary_keys=["id"], options=J_OPTIONS)
+    keys = {"uniform": rng.integers(0, J_DIM, J_FACT),
+            "zipf": np.minimum((rng.pareto(1.1, J_FACT) * J_DIM / 20).astype(np.int64), J_DIM - 1),
+            "hot50": np.where(rng.random(J_FACT) < 0.5, J_HOT, rng.integers(0, J_DIM, J_FACT))}
+    per = J_FACT // 4
+    t0 = time.perf_counter()
+    for r in range(4):
+        sl = slice(r * per, (r + 1) * per)
+        data = {"id": np.arange(sl.start, sl.stop, dtype=np.int64), "amount": rng.random(per).round(4),
+                "qty": rng.integers(1, 9, per)}
+        for s, k in keys.items():
+            data[f"cust_{s}"] = cids[k[sl]]
+        wb = fact.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(data)
+        wb.new_commit().commit(w.prepare_commit())
+    fact_write_s = time.perf_counter() - t0
+    return dim, fact, {"cid": cids, "name": names, "rate": rates}, keys, dim_write_s, fact_write_s
+
+
+def star_part(pt, hk, cat) -> tuple[dict, dict]:
+    """The star join per skew: join_batches under auto (the hash probe on the
+    card), under sort-merge with sort-engine=pallas (the stock sort and K2 at
+    m = 2^21), under xla-segmented (plain torch sort-merge) and numpy; hot50
+    also partitioned by join.chunk-rows (K1 per partition). Every engine's
+    pairs equal numpy's and a host dict loop's."""
+    from paimon_tpu_torch.ops.join import join_batches
+
+    dim, fact, dim_rows, keys, dim_write_s, fact_write_s = star_tables(pt, cat)
+    t0 = time.perf_counter()
+    dim_batch = read_all(dim)
+    dim_read_s = time.perf_counter() - t0
+    for name, values in dim_rows.items():
+        assert same_values(dim_batch.column(name).values, values), f"dimension read: {name} differs"
+    t0 = time.perf_counter()
+    fact_batch = read_all(fact)
+    fact_read_s = time.perf_counter() - t0
+    assert fact_batch.num_rows == J_FACT
+    pos = {c: j for j, c in enumerate(dim_batch.column("cid").values.tolist())}
+    engines = {
+        "auto": {"sort-engine": "pallas"},
+        "sort_merge_pallas": {"sort-engine": "pallas", "join.algorithm": "sort-merge"},
+        "xla_segmented": {"join.engine": "xla-segmented", "join.algorithm": "sort-merge"},
+        "numpy": {"join.engine": "numpy"},
+    }
+    joins = {}
+    for skew in J_SKEWS:
+        col = f"cust_{skew}"
+        t0 = time.perf_counter()
+        rt = np.fromiter((pos.get(c, -1) for c in fact_batch.column(col).values.tolist()), np.int64, J_FACT)
+        loop_s = time.perf_counter() - t0
+        lt = np.flatnonzero(rt >= 0)
+        rt = rt[lt]
+        runs = dict(engines)
+        if skew == "hot50":
+            runs["sort_merge_pallas_chunked"] = {**engines["sort_merge_pallas"], "join.chunk-rows": str(J_CHUNK_ROWS)}
+        out = {"host_dict_loop_s": round(loop_s, 3), "pairs": int(len(lt))}
+        for label, options in runs.items():
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            res = join_batches(fact_batch, dim_batch, [col], ["cid"], options=options, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert np.array_equal(res.left_take, lt) and np.array_equal(res.right_take, rt), \
+                f"{skew}/{label}: pairs differ from the host dict loop"
+            out[label] = {"ms": round(wall * 1000, 3), "launches": launch_diff(hk, before),
+                          **{k: res.stats[k] for k in ("algorithm", "engine", "partitions", "skew_keys", "lanes")}}
+        assert out["sort_merge_pallas"]["launches"]["keep_last_mask"] > 0, f"{skew}: K2 never launched"
+        joins[skew] = out
+    assert joins["hot50"]["sort_merge_pallas_chunked"]["launches"]["sort_segments"] > 0, "K1 never launched"
+    assert joins["hot50"]["sort_merge_pallas_chunked"]["skew_keys"] >= 1
+    part = {"dimension_rows": J_DIM, "dimension_daily_updates": J_DAILY, "fact_rows": J_FACT,
+            "write_s": {"dimension": round(dim_write_s, 3), "fact": round(fact_write_s, 3)},
+            "read_s": {"dimension": round(dim_read_s, 3), "fact": round(fact_read_s, 3)},
+            "chunk_rows": J_CHUNK_ROWS, "joins": joins, "equal_to_numpy_and_dict_loop": True}
+    return part, {"dim": dim, "fact_batch": fact_batch}
+
+
+def same_batch(a, b, what: str) -> None:
+    assert a.schema.field_names == b.schema.field_names, f"{what}: {a.schema.field_names} != {b.schema.field_names}"
+    assert a.num_rows == b.num_rows, f"{what}: {a.num_rows} != {b.num_rows} rows"
+    for name in a.schema.field_names:
+        x, y = a.column(name), b.column(name)
+        ok = x.valid_mask()
+        assert np.array_equal(ok, y.valid_mask()), f"{what}: validity of {name} differs"
+        assert same_values(x.values[ok], y.values[ok]), f"{what}: column {name} differs"
+
+
+def check_lookup_join(lt, fact_batch, what: str) -> dict:
+    """lookup_join of the fact rows against the cached dimension, held to
+    the materialised LEFT join_batches of the same rows."""
+    from paimon_tpu_torch.lookup.tables import lookup_join
+    from paimon_tpu_torch.ops.join import join_batches, materialize_join
+
+    t0 = time.perf_counter()
+    out = lookup_join(lt, fact_batch, probe_keys=["cust_uniform"])
+    join_s = time.perf_counter() - t0
+    state = lt.state_batch()
+    res = join_batches(fact_batch, state, ["cust_uniform"], ["cid"], how="left", options={"sort-engine": "pallas"},
+                       device=DEVICE)
+    ref = materialize_join(fact_batch, state, res, [(n, n) for n in fact_batch.schema.field_names],
+                           [(n, n) for n in state.schema.field_names])
+    same_batch(out, ref, what)
+    return {"lookup_join_s": round(join_s, 3), "rows": out.num_rows,
+            "unmatched": int((~out.column("cid").valid_mask()).sum())}
+
+
+def lookup_join_part(pt, hk, cat, star: dict) -> dict:
+    """FullCacheLookupTable over the dimension (its bootstrap merges the two
+    commits on the card) and lookup_join of the 1M fact rows; then 1,000
+    dimension changes with -D rows, a refresh, and the checks again."""
+    from paimon_tpu_torch.lookup.tables import FullCacheLookupTable
+
+    dim, fact_batch = star["dim"], star["fact_batch"]
+    t0 = time.perf_counter()
+    lt = FullCacheLookupTable(dim, device=DEVICE)
+    bootstrap_s = time.perf_counter() - t0
+    dim_batch = read_all(dim)
+    same_batch(lt.state_batch(), dim_batch, "bootstrap state")
+    before = check_lookup_join(lt, fact_batch, "lookup join")
+    rng = np.random.default_rng(14)
+    n_up, n_del, n_new = J_CHANGES
+    pick = rng.choice(J_DIM, n_up + n_del, replace=False)
+    up, gone = pick[:n_up], pick[n_up:]
+    cid = lambda ids: np.array([f"C{int(i):06d}" for i in ids], dtype=object)  # noqa: E731
+    changes = {"cid": np.concatenate([cid(up), cid(gone), cid(J_DIM + np.arange(n_new))]),
+               "name": np.array([f"changed-{i}" for i in range(n_up + n_del + n_new)], dtype=object),
+               "rate": rng.random(n_up + n_del + n_new)}
+    kinds = ["+I"] * n_up + ["-D"] * n_del + ["+I"] * n_new
+    wb = dim.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(changes, kinds)
+    wb.new_commit().commit(w.prepare_commit())
+    t0 = time.perf_counter()
+    applied = lt.refresh()
+    refresh_s = time.perf_counter() - t0
+    assert applied == sum(J_CHANGES) and len(lt) == J_DIM - n_del + n_new, (applied, len(lt))
+    state = lt.state_batch()
+    order = np.argsort(state.column("cid").values.astype(str), kind="stable")
+    same_batch(state.take(order), read_all(dim), "refreshed state")
+    after = check_lookup_join(lt, fact_batch, "lookup join after refresh")
+    assert after["unmatched"] > before["unmatched"], "the deleted customers still match"
+    return {"bootstrap_s": round(bootstrap_s, 3), "cached_rows": J_DIM, "before_refresh": before,
+            "changes": {"updates": n_up, "deletes": n_del, "new": n_new}, "refresh_s": round(refresh_s, 4),
+            "refresh_rows_applied": applied, "after_refresh": after, "equal_to_left_join_batches": True}
+
+
+def lookups_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
+    """Point lookups and lookup joins, one JSON line per part. K1 and K2
+    must launch on the join path; then both are held exactly to their plain
+    versions at the path's shapes no earlier check covered. Launch counts
+    are zeroed before the phase."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.metrics import registry
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    counters = ("hits", "misses", "evictions", "invalidations")
+
+    def cache_counts():
+        return {name: {m: registry.group("cache", cache=name).counter(m).count for m in counters}
+                for name in ("manifest", "data-file")}
+
+    caches0 = cache_counts()
+    hk.reset_launches()
+    parts, seconds, star = {}, {}, {}
+
+    def star_run():
+        part, tables = star_part(pt, hk, cat)
+        star.update(tables)
+        return part
+
+    with ShapeRecorder(hk) as recorder:
+        for name, run in (("gets", lambda: point_get_part(pt, hk, cat)),
+                          ("star_join", star_run),
+                          ("lookup_join", lambda: lookup_join_part(pt, hk, cat, star))):
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = run()
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "lookups", "part": name, **parts[name]})
+    by_part = {name: p["part_launches"] for name, p in parts.items()}
+    launches = dict(hk.launches)
+    for k in K1_K2:
+        assert by_part["star_join"][k] > 0, f"{k} never launched on the join path: {by_part}"
+    caches = {name: {m: v - caches0[name][m] for m, v in c.items()} for name, c in cache_counts().items()}
+    return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds, "caches": caches,
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2032, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

@@ -1,5 +1,8 @@
 """Catalog: databases and tables in a warehouse directory (port of
-paimon_tpu/catalog/__init__.py, FileSystemCatalog create/get/alter).
+paimon_tpu/catalog/__init__.py, FileSystemCatalog create, get, alter,
+list, drop and rename). Dropping or renaming drops the tree's metadata from
+the manifest cache (utils/cache.py): a table created again at the path
+mints its snapshot ids again.
 
 Layout: warehouse/<db>.db/<table>/{schema,snapshot,manifest,bucket-N}, the
 JAX package's. The catalog's `device` ("cuda" by default) threads through
@@ -18,6 +21,7 @@ from ..fs import LocalFileIO
 from ..table import FileStoreTable
 from ..types import RowType
 from ..utils import resolve_device
+from ..utils.cache import invalidate_table_path
 
 __all__ = ["FileSystemCatalog", "Identifier"]
 
@@ -57,6 +61,28 @@ class FileSystemCatalog:
                 raise ValueError(f"database {name} exists")
             return
         self.file_io.mkdirs(path)
+
+    def drop_database(self, name: str, cascade: bool = False) -> None:
+        if not cascade and self.list_tables(name):
+            raise ValueError(f"database {name} is not empty")
+        self.file_io.delete(self._db_path(name), recursive=True)
+        invalidate_table_path(self._db_path(name))
+
+    def list_tables(self, database: str) -> list[str]:
+        return sorted(
+            st.path.rsplit("/", 1)[-1]
+            for st in self.file_io.list_status(self._db_path(database))
+            if st.is_dir and self.file_io.exists(f"{st.path}/schema")
+        )
+
+    def drop_table(self, identifier: "Identifier | str") -> None:
+        self.file_io.delete(self.table_path(identifier), recursive=True)
+        invalidate_table_path(self.table_path(identifier))
+
+    def rename_table(self, src: "Identifier | str", dst: "Identifier | str") -> None:
+        if not self.file_io.rename(self.table_path(src), self.table_path(dst)):
+            raise ValueError(f"cannot rename {src} -> {dst} (destination exists)")
+        invalidate_table_path(self.table_path(src))
 
     def table_path(self, identifier: "Identifier | str") -> str:
         ident = Identifier.parse(identifier) if isinstance(identifier, str) else identifier

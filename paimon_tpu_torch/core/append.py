@@ -25,6 +25,7 @@ import numpy as np
 from ..data.batch import ColumnBatch, concat_batches
 from ..options import CoreOptions
 from ..types import RowKind
+from ..utils.cache import invalidate_data_file
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
 from .kv import KVBatch
 from .manifest import CommitMessage
@@ -99,7 +100,11 @@ def concat_rewrite(
     kv = KVBatch.concat(batches)
     base = min(f.min_sequence_number for f in files)
     kv = KVBatch(kv.data, np.arange(base, base + kv.num_rows, dtype=np.int64), kv.kind)
-    return writer_factory.write(kv, level=0, file_source="compact")
+    out = writer_factory.write(kv, level=0, file_source="compact")
+    # the inputs leave the live view: free their data-file cache budget
+    for f in files:
+        invalidate_data_file(f.file_name)
+    return out
 
 
 class AppendOnlyWriter:

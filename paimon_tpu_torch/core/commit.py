@@ -70,7 +70,13 @@ class CommitGiveUpError(RuntimeError):
 
 class FileStoreCommit:
     def __init__(
-        self, file_io: LocalFileIO, table_path: str, commit_user: str, schema_id: int, options: CoreOptions
+        self,
+        file_io: LocalFileIO,
+        table_path: str,
+        commit_user: str,
+        schema_id: int,
+        options: CoreOptions,
+        cache=None,
     ):
         self.file_io = file_io
         self.table_path = table_path
@@ -78,9 +84,15 @@ class FileStoreCommit:
         self.schema_id = schema_id
         self.options = options
         fmt = options.options.get(CoreOptions.MANIFEST_FORMAT)
-        self.snapshot_manager = SnapshotManager(file_io, table_path)
-        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", options.manifest_compression, fmt)
-        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression, fmt)
+        # every commit re-reads the latest snapshot's manifests: through the
+        # manifest cache (utils/cache.py)
+        self.snapshot_manager = SnapshotManager(file_io, table_path, cache=cache)
+        self.manifest_file = ManifestFile(
+            file_io, f"{table_path}/manifest", options.manifest_compression, fmt, cache=cache
+        )
+        self.manifest_list = ManifestList(
+            file_io, f"{table_path}/manifest", options.manifest_compression, fmt, cache=cache
+        )
 
     def filter_committed(self, committables: Sequence[ManifestCommittable]) -> list[ManifestCommittable]:
         """Drop the committables whose identifier this user already committed

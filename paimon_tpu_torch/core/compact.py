@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 
 from ..options import CoreOptions
 from ..utils import now_millis
+from ..utils.cache import invalidate_data_file
 from .changelog import state_changelog
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
 from .kv import KVBatch
@@ -286,9 +287,14 @@ class MergeTreeCompactManager:
         return unit, drop_delete, result, rewrite_sections
 
     def _finish(self, result: CompactResult, rewrite_sections, after: list[DataFileMeta]) -> CompactResult:
-        """Fold the rewrite's outputs into the result and update Levels."""
-        result.before.extend(f for section in rewrite_sections for run in section for f in run.files)
+        """Fold the rewrite's outputs into the result, drop the rewritten
+        inputs from the data-file cache (they left the live view; an
+        upgraded file keeps its name and stays) and update Levels."""
+        rewritten = [f for section in rewrite_sections for run in section for f in run.files]
+        result.before.extend(rewritten)
         result.after.extend(after)
+        for f in rewritten:
+            invalidate_data_file(f.file_name)
         if not result.is_empty():
             self.levels.update(result.before, result.after)
         return result

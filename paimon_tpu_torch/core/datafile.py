@@ -8,6 +8,14 @@ whose type widened is cast by data/casting.py cast_column). Statistics of
 an older file prune only where they compare as the cast values would
 (stats_comparable): a renamed, dropped or re-added column, a scale change
 or a cast to another kind of value prunes nothing.
+
+The writer adds each file's PTIX index (format/fileindex.py) at flush and
+at compaction alike: blooms of file-index.bloom-filter.columns and, under
+file-index.bloom-filter.primary-key.enabled, the composite key bloom. A
+payload up to file-index.in-manifest-threshold rides in the manifest
+entry, a larger one goes to a `.index` sidecar named in extra_files.
+Predicate-free reads go through the data-file cache (utils/cache.py); a
+cached KVBatch is shared, so no reader may change its arrays.
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ from ..utils import new_file_name, now_millis
 from .kv import SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME, KVBatch, kv_disk_schema
 
 __all__ = ["DataFileMeta", "KeyValueFileWriterFactory", "KeyValueFileReaderFactory"]
+
+# the decoder field of the data-file cache's key: the port has one decoder
+_DECODER_ID = "port"
 
 
 @dataclass(frozen=True)
@@ -115,6 +126,11 @@ class KeyValueFileWriterFactory:
         per_level_compression: dict[int, str] | None = None,
         target_file_size: int = 128 << 20,
         keyed: bool = True,
+        bloom_columns: Sequence[str] = (),
+        bloom_fpp: float = 0.05,
+        key_bloom: bool = False,
+        key_bloom_fpp: float = 0.001,
+        index_in_manifest_threshold: int = 500,
     ):
         if file_format != "parquet":
             raise NotImplementedError(f"file.format={file_format} is not supported by the torch port yet")
@@ -134,6 +150,11 @@ class KeyValueFileWriterFactory:
         # keyed=False: an append table's files hold the plain rows, with no
         # _SEQUENCE_NUMBER / _VALUE_KIND columns and an empty key range
         self.keyed = keyed
+        self.bloom_columns = list(bloom_columns)
+        self.bloom_fpp = bloom_fpp
+        self.key_bloom = bool(key_bloom) and keyed and bool(self.key_names)
+        self.key_bloom_fpp = key_bloom_fpp
+        self.index_in_manifest_threshold = index_in_manifest_threshold
 
     def _estimate_row_bytes(self, batch: ColumnBatch) -> int:
         total = 0
@@ -184,6 +205,7 @@ class KeyValueFileWriterFactory:
         path = f"{self.bucket_dir}/{name}"
         compression = self.per_level_compression.get(level, self.compression)
         self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch() if self.keyed else kv.data, compression))
+        extra, embedded = self._write_index(kv, name, path)
         value_stats = collect_stats(kv.data)
         min_key, max_key = self._key_range(kv.data, sorted_input)
         return DataFileMeta(
@@ -201,7 +223,27 @@ class KeyValueFileWriterFactory:
             delete_row_count=int((kv.kind == int(RowKind.DELETE)).sum()),
             creation_time_millis=now_millis(),
             file_source=file_source,
+            extra_files=extra,
+            embedded_index=embedded,
         )
+
+    def _write_index(self, kv: KVBatch, name: str, path: str) -> tuple[tuple[str, ...], bytes | None]:
+        """(extra files, embedded payload) of the file's PTIX index."""
+        if not (self.bloom_columns or self.key_bloom):
+            return (), None
+        from ..format.fileindex import build_index_payload, index_path
+        from ..table.bucket import key_hashes
+
+        hashes = key_hashes(kv.data, self.key_names) if self.key_bloom else None
+        payload = build_index_payload(
+            kv.data, self.bloom_columns, self.bloom_fpp, key_hashes=hashes, key_fpp=self.key_bloom_fpp
+        )
+        if payload is None:
+            return (), None
+        if len(payload) <= self.index_in_manifest_threshold:
+            return (), payload
+        self.file_io.write_bytes(index_path(path), payload, overwrite=True)
+        return (name + ".index",), None
 
 
 class KeyValueFileReaderFactory:
@@ -215,12 +257,15 @@ class KeyValueFileReaderFactory:
         read_schema: RowType,
         schemas_by_id: dict[int, RowType],
         keyed: bool = True,
+        cache=None,
     ):
         self.file_io = file_io
         self.bucket_dir = bucket_dir
         self.read_schema = read_schema
         self.schemas_by_id = schemas_by_id
         self.keyed = keyed
+        # the data-file cache (utils/cache.py), predicate-free reads only
+        self.cache = cache if cache is not None and cache.enabled else None
 
     def read(
         self,
@@ -242,6 +287,22 @@ class KeyValueFileReaderFactory:
             raise NotImplementedError(f"file.format={ext} is not supported by the torch port yet")
         if not self.keyed:
             system_columns = False
+        if predicate is None and self.cache is not None:
+            read_names = self.read_schema.field_names if fields is None else list(fields)
+            # the read-field signature pins the projection and the schema
+            # evolution; the key holds the file name, not its path, so a
+            # branch view or a table copy reading the same file hits
+            sig = tuple((f.id, f.name, repr(f.type)) for f in (self.read_schema.field(n) for n in read_names))
+            key = ("data", meta.file_name, system_columns, sig, fields is None, _DECODER_ID)
+            return self.cache.get_or_load(
+                key,
+                lambda: self._decode(meta, fields, system_columns, None),
+                lambda kv: kv.byte_size(),
+                file_id=meta.file_name,
+            )
+        return self._decode(meta, fields, system_columns, predicate)
+
+    def _decode(self, meta: DataFileMeta, fields, system_columns: bool | str, predicate) -> KVBatch:
         data_schema = self.schemas_by_id[meta.schema_id]
         read_fields = self.read_schema.fields if fields is None else tuple(self.read_schema.field(n) for n in fields)
         by_id = {f.id: f for f in data_schema.fields}

@@ -19,6 +19,7 @@ from typing import Callable, Iterable
 from ..fs import LocalFileIO
 from ..options import CoreOptions
 from ..utils import now_millis, partition_path
+from ..utils.cache import invalidate_data_file, invalidate_manifest_path, invalidate_snapshot, table_caches
 from .manifest import ManifestFile, ManifestList
 from .snapshot import Snapshot, SnapshotManager
 
@@ -38,9 +39,13 @@ class SnapshotExpire:
         self.table_path = table_path
         self.options = options
         self._partition_keys = tuple(partition_keys)
-        self.snapshot_manager = SnapshotManager(file_io, table_path)
-        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest")
-        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest")
+        # reads go through the manifest cache (the scans filled most of it);
+        # the deletes below invalidate through the module's helpers, so a
+        # deleted file leaves the cache whoever cached it
+        cache, _ = table_caches(options)
+        self.snapshot_manager = SnapshotManager(file_io, table_path, cache=cache)
+        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", cache=cache)
+        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", cache=cache)
         self.protected_ids = protected_ids or (lambda: ())
         # deletes that failed; each leaves an unreferenced file behind
         self.cleanup_failures = 0
@@ -141,12 +146,15 @@ class SnapshotExpire:
             d = self._bucket_dir(partition, bucket)
             touched_dirs.add(d)
             self._safe_delete(f"{d}/{file_name}")
+            invalidate_data_file(file_name)
             for x in extra:
                 self._safe_delete(f"{d}/{x}")
         for name in dead_manifests:
             self._safe_delete(f"{self.table_path}/manifest/{name}")
+            invalidate_manifest_path(f"{self.table_path}/manifest/{name}")
         for sid in expire_ids:
             self._safe_delete(sm.snapshot_path(sid))
+            invalidate_snapshot(self.table_path, sid)
         # the smallest SURVIVING id: a protected snapshot inside the expired
         # range stays on disk and must stay reachable through the hint
         sm.commit_earliest_hint(min(retained_ids))
@@ -200,10 +208,13 @@ class SnapshotExpire:
                     for e in self.manifest_file.read(meta.file_name):
                         d = self._bucket_dir(e.partition, e.bucket)
                         self._safe_delete(f"{d}/{e.file.file_name}")
+                        invalidate_data_file(e.file.file_name)
                         for x in e.file.extra_files:
                             self._safe_delete(f"{d}/{x}")
                     self._safe_delete(f"{self.table_path}/manifest/{meta.file_name}")
+                    invalidate_manifest_path(f"{self.table_path}/manifest/{meta.file_name}")
                 self._safe_delete(f"{self.table_path}/manifest/{snap.changelog_manifest_list}")
+                invalidate_manifest_path(f"{self.table_path}/manifest/{snap.changelog_manifest_list}")
             self._safe_delete(sm.changelog_path(cid))
             n += 1
         return n

@@ -90,11 +90,30 @@ class ManifestFileMeta:
 
 
 class _JsonLines:
-    def __init__(self, file_io: LocalFileIO, directory: str, compression: str = "default", fmt: str = "jsonl"):
+    def __init__(
+        self, file_io: LocalFileIO, directory: str, compression: str = "default", fmt: str = "jsonl", cache=None
+    ):
         self.file_io = file_io
         self.directory = directory
         self.compression = str(compression).lower()
         self.format = str(fmt).lower()
+        # the manifest cache (utils/cache.py), keyed by (kind, full path)
+        self.cache = cache if cache is not None and cache.enabled else None
+
+    def _cached_read(self, kind: str, name: str, decode):
+        """Decode once: the cache keeps an immutable tuple and every caller
+        gets a list of its own, so no caller can change what the cache
+        holds."""
+        if self.cache is None:
+            return decode()
+        path = f"{self.directory}/{name}"
+        key = (kind, path)
+        cached = self.cache.get(key)
+        if cached is not None:
+            return list(cached)
+        out = decode()
+        self.cache.put(key, tuple(out), weight=max(len(out) * 512, 256), file_id=path)
+        return list(out)
 
     def _write_lines(self, name: str, dicts: Iterable[dict], track: list[str] | None) -> int:
         if self.format != "jsonl":
@@ -118,6 +137,8 @@ class _JsonLines:
 
     def delete(self, name: str) -> None:
         self.file_io.delete(f"{self.directory}/{name}")
+        if self.cache is not None:
+            self.cache.invalidate_file(f"{self.directory}/{name}")
 
 
 class ManifestFile(_JsonLines):
@@ -128,7 +149,7 @@ class ManifestFile(_JsonLines):
         return ManifestFileMeta(name, size, added, len(entries) - added, schema_id)
 
     def read(self, name: str) -> list[ManifestEntry]:
-        return [ManifestEntry.from_dict(d) for d in self._read_lines(name)]
+        return self._cached_read("manifest", name, lambda: [ManifestEntry.from_dict(d) for d in self._read_lines(name)])
 
 
 class ManifestList(_JsonLines):
@@ -138,7 +159,9 @@ class ManifestList(_JsonLines):
         return name
 
     def read(self, name: str) -> list[ManifestFileMeta]:
-        return [ManifestFileMeta.from_dict(d) for d in self._read_lines(name)]
+        return self._cached_read(
+            "manifest-list", name, lambda: [ManifestFileMeta.from_dict(d) for d in self._read_lines(name)]
+        )
 
 
 def merge_entries(*entry_lists: Iterable[ManifestEntry]) -> list[ManifestEntry]:

@@ -72,7 +72,12 @@ class ScanPlan:
 
 class FileStoreScan:
     def __init__(
-        self, file_io: LocalFileIO, table_path: str, options: CoreOptions, value_schema: RowType | None = None
+        self,
+        file_io: LocalFileIO,
+        table_path: str,
+        options: CoreOptions,
+        value_schema: RowType | None = None,
+        cache=None,
     ):
         self.file_io = file_io
         # the schema the filters name fields in; None takes every file's
@@ -81,9 +86,11 @@ class FileStoreScan:
         self._stats_names: dict[int, dict[str, str] | None] = {}
         self.table_path = table_path
         self.options = options
-        self.snapshot_manager = SnapshotManager(file_io, table_path)
-        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", options.manifest_compression)
-        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression)
+        # the manifest cache (utils/cache.py): repeated plans decode each
+        # snapshot, manifest list and manifest once
+        self.snapshot_manager = SnapshotManager(file_io, table_path, cache=cache)
+        self.manifest_file = ManifestFile(file_io, f"{table_path}/manifest", options.manifest_compression, cache=cache)
+        self.manifest_list = ManifestList(file_io, f"{table_path}/manifest", options.manifest_compression, cache=cache)
         self._snapshot_id: int | None = None
         self._kind = "all"
         self._partition_filter: Callable[[tuple], bool] | None = None

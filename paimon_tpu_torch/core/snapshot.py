@@ -94,10 +94,13 @@ class SnapshotManager:
     LATEST = "LATEST"
     EARLIEST = "EARLIEST"
 
-    def __init__(self, file_io: LocalFileIO, table_path: str):
+    def __init__(self, file_io: LocalFileIO, table_path: str, cache=None):
         self.file_io = file_io
         self.table_path = table_path
         self.snapshot_dir = f"{table_path}/snapshot"
+        # the manifest cache (utils/cache.py): a snapshot file never changes
+        # under its id until it is deleted, and the deleters invalidate it
+        self.cache = cache if cache is not None and cache.enabled else None
 
     def snapshot_path(self, snapshot_id: int) -> str:
         return f"{self.snapshot_dir}/snapshot-{snapshot_id}"
@@ -105,13 +108,21 @@ class SnapshotManager:
     def snapshot(self, snapshot_id: int) -> Snapshot:
         """The snapshot, or its decoupled changelog copy once it expired
         (FileNotFoundError when neither is there)."""
+        key = ("snapshot", self.table_path, snapshot_id)
+        if self.cache is not None:
+            cached = self.cache.get(key)
+            if cached is not None:
+                return cached
         try:
             raw = self.file_io.read_bytes(self.snapshot_path(snapshot_id))
         except FileNotFoundError:
             if self.changelog_exists(snapshot_id):
                 return self.changelog(snapshot_id)
             raise
-        return Snapshot.from_json(raw)
+        snap = Snapshot.from_json(raw)
+        if self.cache is not None:
+            self.cache.put(key, snap, weight=len(raw) * 2, file_id=self.snapshot_path(snapshot_id))
+        return snap
 
     def snapshot_exists(self, snapshot_id: int) -> bool:
         return self.file_io.exists(self.snapshot_path(snapshot_id))
@@ -148,6 +159,20 @@ class SnapshotManager:
         return sorted(out)
 
     def latest_snapshot_id(self) -> int | None:
+        # a cached id L is still the latest while snapshot-L exists and
+        # snapshot-(L+1) does not: two stat calls instead of the hint read
+        # and the walk (a concurrent commit or a rollback fails the test)
+        key = ("latest", self.table_path)
+        if self.cache is not None:
+            cached = self.cache.get(key)
+            if cached is not None and self.snapshot_exists(cached) and not self.snapshot_exists(cached + 1):
+                return cached
+        latest = self._resolve_latest_id()
+        if latest is not None and self.cache is not None:
+            self.cache.put(key, latest, weight=64)
+        return latest
+
+    def _resolve_latest_id(self) -> int | None:
         try:
             hint = int(self.file_io.read_text(f"{self.snapshot_dir}/{self.LATEST}"))
         except (OSError, ValueError):
@@ -219,6 +244,8 @@ class SnapshotManager:
 
     def commit_latest_hint(self, snapshot_id: int) -> None:
         self.file_io.try_overwrite(f"{self.snapshot_dir}/{self.LATEST}", str(snapshot_id).encode())
+        if self.cache is not None:
+            self.cache.put(("latest", self.table_path), snapshot_id, weight=64)
 
     def commit_earliest_hint(self, snapshot_id: int) -> None:
         self.file_io.try_overwrite(f"{self.snapshot_dir}/{self.EARLIEST}", str(snapshot_id).encode())

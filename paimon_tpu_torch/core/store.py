@@ -10,6 +10,11 @@ when compaction.adaptive.ingest-gate is on (table/compactor.py).
 
 Layout, the JAX package's: table/[k1=v1/k2=v2/]bucket-B/data-*.parquet,
 with the hash index of dynamic-bucket tables under table/index/.
+
+The store hands its scans, commits and snapshot manager the process-wide
+manifest cache and its reader factories the data-file cache
+(utils/cache.py), each None where the table set its budget to '0 b'. Its
+writer factories write the file indexes of file-index.*.
 """
 
 from __future__ import annotations
@@ -21,10 +26,12 @@ import torch
 
 from ..data.batch import ColumnBatch, concat_batches
 from ..data.predicate import Predicate, and_, greater_than, is_null, or_
+from ..format.fileindex import resolve_key_bloom
 from ..fs import LocalFileIO
 from ..options import ChangelogProducer, CoreOptions
 from ..types import RowType
 from ..utils import now_millis, partition_path
+from ..utils.cache import table_caches
 from .append import AppendOnlyCompactManager, AppendOnlyWriter
 from .commit import FileStoreCommit
 from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
@@ -64,7 +71,8 @@ class KeyValueFileStore:
         self.key_names = schema.trimmed_primary_keys
         self.partition_keys = list(schema.partition_keys)
         self.schema_manager = SchemaManager(file_io, table_path)
-        self.snapshot_manager = SnapshotManager(file_io, table_path)
+        self.manifest_obj_cache, self.data_file_obj_cache = table_caches(self.options)
+        self.snapshot_manager = SnapshotManager(file_io, table_path, cache=self.manifest_obj_cache)
         # when a commit last swept expired partitions (table/write.py): the
         # store lives as long as the table, a TableCommit only for a commit
         self.last_partition_expire_check = 0
@@ -86,6 +94,7 @@ class KeyValueFileStore:
 
     def writer_factory(self, partition: tuple, bucket: int) -> KeyValueFileWriterFactory:
         co = self.options
+        bloom_cols = co.options.get(CoreOptions.FILE_INDEX_BLOOM_COLUMNS)
         return KeyValueFileWriterFactory(
             self.file_io,
             self.bucket_dir(partition, bucket),
@@ -97,18 +106,32 @@ class KeyValueFileStore:
             per_level_compression=co.file_compression_per_level,
             target_file_size=co.target_file_size,
             keyed=self.keyed,
+            bloom_columns=[c.strip() for c in bloom_cols.split(",")] if bloom_cols else (),
+            bloom_fpp=co.options.get(CoreOptions.FILE_INDEX_BLOOM_FPP),
+            key_bloom=resolve_key_bloom(co.options.get(CoreOptions.FILE_INDEX_BLOOM_KEY_ENABLED)),
+            key_bloom_fpp=co.options.get(CoreOptions.FILE_INDEX_BLOOM_KEY_FPP),
+            index_in_manifest_threshold=int(co.options.get(CoreOptions.FILE_INDEX_IN_MANIFEST_THRESHOLD)),
         )
 
     def reader_factory(self, partition: tuple, bucket: int) -> KeyValueFileReaderFactory:
         return KeyValueFileReaderFactory(
-            self.file_io, self.bucket_dir(partition, bucket), self.value_schema, self.schemas_by_id(), self.keyed
+            self.file_io,
+            self.bucket_dir(partition, bucket),
+            self.value_schema,
+            self.schemas_by_id(),
+            self.keyed,
+            cache=self.data_file_obj_cache,
         )
 
     def new_scan(self) -> FileStoreScan:
-        return FileStoreScan(self.file_io, self.table_path, self.options, self.value_schema)
+        return FileStoreScan(
+            self.file_io, self.table_path, self.options, self.value_schema, cache=self.manifest_obj_cache
+        )
 
     def new_commit(self) -> FileStoreCommit:
-        return FileStoreCommit(self.file_io, self.table_path, self.commit_user, self.schema.id, self.options)
+        return FileStoreCommit(
+            self.file_io, self.table_path, self.commit_user, self.schema.id, self.options, cache=self.manifest_obj_cache
+        )
 
     def new_expire(self, protected_ids=None) -> SnapshotExpire:
         """Snapshot expiry under the table's options; protected_ids() gives

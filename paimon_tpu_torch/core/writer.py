@@ -14,7 +14,10 @@ state after (core/changelog.py). The
 compactions' changelog (full-compaction, or lookup without waiting) comes
 from the compaction manager. prepare_commit flushes and hands the new
 files, the compaction's before and after files and the changelog files
-over as a CommitMessage. A write-only writer under
+over as a CommitMessage. delta_snapshot gives another thread the
+writer's uncommitted state for read-your-writes gets (table/get.py): the
+buffered batches, the batches of a flush in progress, and the level-0
+files no snapshot holds yet. A write-only writer under
 compaction.adaptive.ingest-gate resolves the adaptive compactor's debt
 gate at each flush (table/compactor.py): it admits the flush's sorted run
 against the read-amplification ceiling, blocking up to
@@ -61,6 +64,9 @@ class MergeTreeWriter:
         self.debt_gate = debt_gate
         self.seq = restored_max_seq + 1
         self._buffer: list[KVBatch] = []
+        # the batches a flush is turning into files: readers see them until
+        # the files are in _new_files
+        self._inflight_delta: list[KVBatch] = []
         self._buffered_rows = 0
         self._buffered_bytes = 0
         self._new_files: list[DataFileMeta] = []
@@ -104,6 +110,15 @@ class MergeTreeWriter:
             gate.settle([(self.partition, self.bucket)], landed=landed)
 
     def _flush(self) -> None:
+        try:
+            self._flush_buffer()
+        finally:
+            self._inflight_delta = []
+
+    def _flush_buffer(self) -> None:
+        # in-flight first, then the buffer cleared: a concurrent
+        # delta_snapshot sees the rows in one place or both, never in none
+        self._inflight_delta = list(self._buffer)
         kv = KVBatch.concat(self._buffer)
         self._buffer = []
         self._buffered_rows = 0
@@ -191,6 +206,15 @@ class MergeTreeWriter:
                         self._compact_changelog):
             pending.clear()
         return msg
+
+    def delta_snapshot(self) -> tuple[list[KVBatch], list[DataFileMeta]]:
+        """(buffered and in-flight batches, uncommitted level-0 files): list
+        copies, safe to take from another thread while this writer ingests.
+        Read in this order (buffer, in-flight, files) against the flush's
+        order (in-flight set, buffer cleared, files added, in-flight
+        cleared), a row is always in one of them; a row seen twice has one
+        sequence number and one value, and resolves the same."""
+        return list(self._buffer) + list(self._inflight_delta), list(self._new_files)
 
     @property
     def max_sequence_number(self) -> int:

@@ -69,9 +69,15 @@ class LocalFileIO:
         os.makedirs(_strip_scheme(path), exist_ok=True)
 
     def rename(self, src: str, dst: str) -> bool:
-        """No-clobber move: False (and no partial state) if dst exists."""
+        """No-clobber move: False (and no partial state) if dst exists. A
+        directory (a table renamed by the catalog) moves by os.rename."""
         s, d = _strip_scheme(src), _strip_scheme(dst)
         os.makedirs(os.path.dirname(d), exist_ok=True)
+        if os.path.isdir(s):
+            if os.path.exists(d):
+                return False
+            os.rename(s, d)
+            return True
         try:
             os.link(s, d)
         except FileExistsError:

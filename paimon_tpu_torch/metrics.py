@@ -1,7 +1,9 @@
-"""Metric primitives and the compaction group (port of
+"""Metric primitives and the compaction, join and get groups (port of
 paimon_tpu/metrics.py: Counter, Gauge, Histogram, MetricGroup,
-MetricRegistry, the module's registry and compaction_metrics, with the
-JAX package's member names; the other groups are not ported).
+MetricRegistry, the module's registry, compaction_metrics, join_metrics
+and get_metrics, with the JAX package's member names; the other groups
+are not ported). The cache{cache=manifest|data-file} groups are filled by
+utils/cache.py.
 """
 
 from __future__ import annotations
@@ -9,7 +11,17 @@ from __future__ import annotations
 import threading
 from typing import Callable
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricGroup", "MetricRegistry", "registry", "compaction_metrics"]
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricGroup",
+    "MetricRegistry",
+    "registry",
+    "compaction_metrics",
+    "join_metrics",
+    "get_metrics",
+]
 
 
 class Counter:
@@ -136,3 +148,23 @@ def compaction_metrics() -> MetricGroup:
     counts at the last observation). Resolved per call, so registry.reset()
     swaps the group out."""
     return registry.group("compaction")
+
+
+def join_metrics() -> MetricGroup:
+    """The join{...} group (ops/join.py). Counters: joins (join_batches
+    calls), index_probes (JoinIndex.probe calls), rows_probed,
+    rows_matched, hash_joins, sort_merge_joins, code_domain_joins (always 0
+    in the port: its columns carry no dictionary codes), skew_keys and
+    skew_split_rows; histograms: build_ms (key encode and lane planning)
+    and probe_ms (kernel and pair expansion). Resolved per call."""
+    return registry.group("join")
+
+
+def get_metrics() -> MetricGroup:
+    """The get{...} group (table/get.py, lookup/index.py). Counters: gets
+    (probe keys served), keys_probed (keys times surviving files),
+    files_pruned (files skipped with no data IO, by key range or key
+    bloom), index_hits (files whose key bloom was consulted) and
+    memtable_hits (keys won by the read-your-writes tier); histogram:
+    probe_ms (one get_batch, wall millis). Resolved per call."""
+    return registry.group("get")

@@ -23,6 +23,9 @@ import torch
 __all__ = [
     "LanePlan",
     "plan_lanes",
+    "lane_stats",
+    "plan_lanes_from_stats",
+    "plan_lanes_global",
     "apply_plan",
     "compress_key_lanes",
     "resolve_compress",
@@ -80,6 +83,41 @@ def _truncate_and_group(k: int, los, his):
         groups.append(tuple(cur))
     vbits = max((sum(bits[p] for p in grp) for grp in groups), default=0)
     return keep, bits, lo_kept, groups, vbits
+
+
+def lane_stats(key_lanes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-lane (min, max); zero rows give the neutral element (max mins,
+    zero maxes), which never widens a lane when reduced with others."""
+    key_lanes = np.ascontiguousarray(key_lanes)
+    n, k = key_lanes.shape
+    if n == 0:
+        return np.full(k, 0xFFFFFFFF, dtype=np.uint32), np.zeros(k, dtype=np.uint32)
+    return key_lanes.min(axis=0), key_lanes.max(axis=0)
+
+
+def plan_lanes_from_stats(lanes_in: int, los, his) -> LanePlan:
+    """Truncation and packing from per-lane (min, max) alone, so several
+    inputs planned from one reduction pack comparably. No OVC lane."""
+    keep, bits, lo_kept, groups, _vbits = _truncate_and_group(lanes_in, los, his)
+    if all(len(grp) == 1 for grp in groups):
+        lo_kept = [0] * len(lo_kept)
+    return LanePlan(lanes_in, tuple(keep), tuple(lo_kept), tuple(bits), tuple(groups))
+
+
+def plan_lanes_global(parts) -> LanePlan:
+    """One LanePlan over several inputs (both sides of a join): the lane
+    stats reduced over all of them, so each input applies the same plan and
+    the packed operands compare across inputs."""
+    parts = [np.ascontiguousarray(p) for p in parts]
+    k = parts[0].shape[1] if parts else 0
+    if not parts or all(p.shape[0] == 0 for p in parts):
+        return LanePlan(k, (), (), (), ())
+    los = his = None
+    for p in parts:
+        lo, hi = lane_stats(p)
+        los = lo if los is None else np.minimum(los, lo)
+        his = hi if his is None else np.maximum(his, hi)
+    return plan_lanes_from_stats(k, los, his)
 
 
 def plan_lanes(key_lanes: np.ndarray, enable_ovc: bool = True) -> LanePlan:

@@ -81,6 +81,10 @@ class ConfigOption(Generic[T]):
         return ConfigOption(key, d, lambda v: None if v is None else parse_duration_millis(v), fallback)
 
     @staticmethod
+    def float_(key: str, default: float | None = None):
+        return ConfigOption(key, default, lambda v: None if v is None else float(v))
+
+    @staticmethod
     def memory(key: str, default: str):
         return ConfigOption(key, MemorySize.parse(default), MemorySize.parse)
 
@@ -322,6 +326,36 @@ class CoreOptions:
     SORT_COMPACTION_RANGE_STRATEGY = ConfigOption.string("sort-compaction.range-strategy", "quantity")
     # bytes a string or bytes column contributes to the z-order interleave
     ZORDER_VAR_LENGTH_CONTRIBUTION = ConfigOption.int_("zorder.var-length-contribution", 8)
+    # equi-joins (ops/join.py): the kernel, the backend ('auto' keeps joins
+    # below join.device-rows on the host, larger ones on the caller's
+    # device in the sort-engine's flavour), and the skew-aware partitioning
+    JOIN_ALGORITHM = ConfigOption.string("join.algorithm", "auto")
+    JOIN_ENGINE = ConfigOption.string("join.engine", "auto")
+    JOIN_DEVICE_ROWS = ConfigOption.int_("join.device-rows", 4096)
+    JOIN_CHUNK_ROWS = ConfigOption.int_("join.chunk-rows", 1 << 20)
+    JOIN_PARTITIONS = ConfigOption.int_("join.partitions", 0)
+    JOIN_SKEW_FACTOR = ConfigOption.float_("join.skew-factor", 0.5)
+    # file indexes (format/fileindex.py): per-column blooms, the composite
+    # primary-key bloom the batched gets prune by, and where the payload
+    # lands (embedded in the manifest entry below the threshold, else a
+    # .index sidecar)
+    FILE_INDEX_BLOOM_COLUMNS = ConfigOption.string("file-index.bloom-filter.columns", None)
+    FILE_INDEX_BLOOM_FPP = ConfigOption.float_("file-index.bloom-filter.fpp", 0.05)
+    FILE_INDEX_READ_ENABLED = ConfigOption.bool_("file-index.read.enabled", True)
+    FILE_INDEX_BLOOM_KEY_ENABLED = ConfigOption.bool_("file-index.bloom-filter.primary-key.enabled", False)
+    FILE_INDEX_BLOOM_KEY_FPP = ConfigOption.float_("file-index.bloom-filter.primary-key.fpp", 0.001)
+    FILE_INDEX_IN_MANIFEST_THRESHOLD = ConfigOption.memory("file-index.in-manifest-threshold", "500 b")
+    # the process-wide caches (utils/cache.py); '0 b' opts a table out
+    CACHE_MANIFEST_MAX_MEMORY = ConfigOption.memory("cache.manifest.max-memory-size", "256 mb")
+    CACHE_DATA_FILE_MAX_MEMORY = ConfigOption.memory("cache.data-file.max-memory-size", "128 mb")
+    # point lookups (table/query.py, lookup/)
+    LOOKUP_CACHE_MAX_MEMORY_SIZE = ConfigOption.memory("lookup.cache-max-memory-size", "256 mb")
+    LOOKUP_CACHE_MAX_DISK_SIZE = ConfigOption.memory("lookup.cache-max-disk-size", f"{1 << 50} b")
+    LOOKUP_CACHE_FILE_RETENTION = ConfigOption.duration("lookup.cache-file-retention", "1 h")
+    LOOKUP_CACHE_BLOOM_FILTER_ENABLED = ConfigOption.bool_("lookup.cache.bloom.filter.enabled", True)
+    LOOKUP_CACHE_BLOOM_FILTER_FPP = ConfigOption.float_("lookup.cache.bloom.filter.fpp", 0.05)
+    LOOKUP_HASH_LOAD_FACTOR = ConfigOption.float_("lookup.hash-load-factor", 0.75)
+    LOOKUP_GET_BLOOM_PRUNE = ConfigOption.bool_("lookup.get.bloom-prune.enabled", True)
 
     def __init__(self, options: "Options | Mapping[str, Any] | None" = None):
         self.options = options if isinstance(options, Options) else Options(options)

@@ -20,6 +20,7 @@ from ..core.manifest import ManifestList
 from ..core.schema import SchemaManager
 from ..core.snapshot import Snapshot, SnapshotManager
 from ..fs import LocalFileIO
+from ..utils.cache import invalidate_table_path
 from .tags import TagManager
 
 if TYPE_CHECKING:
@@ -84,6 +85,8 @@ class BranchManager:
 
     def delete(self, name: str) -> None:
         self.file_io.delete(self.branch_path(name), recursive=True)
+        # a branch created again under the name mints its snapshot ids again
+        invalidate_table_path(self.branch_path(name))
 
     def created_from(self, name: str) -> int | None:
         """The snapshot the branch was created from; None for an empty

@@ -1,12 +1,17 @@
 """Read builder: scan planning -> splits -> merge reads (port of
-paimon_tpu/table/read.py; the file-index predicate is not ported yet).
+paimon_tpu/table/read.py).
 
 with_filter ANDs predicates. The scan keeps the partitions that the
 predicate's partition-only conjuncts accept and the files whose key stats
 its key-only conjuncts accept (on an append table, whose rows are all
 final, the files whose value stats the whole predicate accepts); the read
 pushes the predicate into the merge (core/read.py) or the concatenation
-(core/store.py) and applies the split's deletion vectors.
+(core/store.py) and applies the split's deletion vectors. Under
+file-index.read.enabled (the default) the plan also drops the files whose
+bloom index (format/fileindex.py, embedded or a sidecar) proves that no
+row can match: the key conjuncts on a primary-key table, the whole
+predicate on an append table. A missing or unreadable index keeps the
+file.
 
 A batch scan plans the latest snapshot or the one the time-travel options
 select: scan.snapshot-id, scan.tag-name, scan.timestamp-millis or
@@ -286,12 +291,16 @@ class TableScan:
         open_cost = int(opts.get(CoreOptions.SOURCE_SPLIT_OPEN_FILE_COST))
         created_after = opts.get(CoreOptions.SCAN_FILE_CREATION_TIME_MILLIS)
         snapshot = plan.snapshot.id if plan.snapshot else None
+        index_pred = self._file_index_predicate(keyed)
         lanes = []
         for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: kv[0]):
             lane = []
             for bucket, files in sorted(buckets.items()):
                 if created_after is not None:
                     files = [f for f in files if f.creation_time_millis > created_after]
+                if index_pred is not None:
+                    bd = store.bucket_dir(partition, bucket)
+                    files = [f for f in files if self._index_accepts(f, bd, index_pred)]
                 lane += [
                     DataSplit(
                         partition=partition,
@@ -309,6 +318,35 @@ class TableScan:
         # round-robin across the sorted partitions: the i-th split of each
         # partition, then the (i+1)-th
         return [lane[i] for i in range(max(map(len, lanes), default=0)) for lane in lanes if i < len(lane)]
+
+    def _file_index_predicate(self, keyed: bool) -> Predicate | None:
+        """The predicate the files' bloom indexes are tested against, or
+        None. A primary-key table tests its key conjuncts only: a value
+        matching in an old file may be overridden by a newer one, but a key
+        absent from every index cannot exist."""
+        if self.predicate is None:
+            return None
+        if not self.table.store.options.options.get(CoreOptions.FILE_INDEX_READ_ENABLED):
+            return None
+        if not keyed:
+            return self.predicate
+        parts = PredicateBuilder.pick_by_fields(
+            PredicateBuilder.split_and(self.predicate), set(self.table.store.key_names)
+        )
+        return and_(*parts) if parts else None
+
+    def _index_accepts(self, f: DataFileMeta, bucket_dir: str, pred: Predicate) -> bool:
+        """False only where the file's index proves that no row matches."""
+        from ..format.fileindex import FileIndexPredicate
+
+        try:
+            if f.embedded_index is not None:
+                return FileIndexPredicate.from_bytes(f.embedded_index).test(pred)
+            if f"{f.file_name}.index" in f.extra_files:
+                return FileIndexPredicate(self.table.file_io, f"{bucket_dir}/{f.file_name}.index").test(pred)
+        except (OSError, ValueError):
+            return True
+        return True
 
 
 class TableRead:

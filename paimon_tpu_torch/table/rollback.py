@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING
 
 from ..core.manifest import ManifestFile, ManifestList, merge_entries
+from ..utils.cache import invalidate_data_file, invalidate_latest_pointer, invalidate_manifest_path, invalidate_snapshot
 from .tags import TagManager
 
 if TYPE_CHECKING:
@@ -71,10 +72,16 @@ def rollback_to(table: "FileStoreTable", target: "int | str") -> None:
     for partition, bucket, name, extra in drop_files:
         bucket_dir = table.store.bucket_dir(partition, bucket)
         file_io.delete(f"{bucket_dir}/{name}")
+        invalidate_data_file(name)
         for x in extra:
             file_io.delete(f"{bucket_dir}/{x}")
     for name in drop_manifests:
         file_io.delete(f"{table.path}/manifest/{name}")
+        invalidate_manifest_path(f"{table.path}/manifest/{name}")
     for sid in range(target_id + 1, latest + 1):
         file_io.delete(sm.snapshot_path(sid))
+        # later commits mint these ids again with other content: a cached
+        # snapshot would bring the rolled-back history back
+        invalidate_snapshot(table.path, sid)
+    invalidate_latest_pointer(table.path)
     sm.commit_latest_hint(target_id)

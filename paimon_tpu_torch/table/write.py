@@ -209,6 +209,17 @@ class TableWrite:
             self._writers[key] = self.table.store.new_writer(partition, bucket, total)
         return self._writers[key]
 
+    def delta_snapshot(self) -> dict[tuple, tuple]:
+        """{(partition, bucket): (buffered KVBatches, uncommitted level-0
+        files)} of every merge-tree writer this write opened: the
+        read-your-writes tier of LocalTableQuery.attach_write."""
+        out: dict[tuple, tuple] = {}
+        for pb, w in list(self._writers.items()):
+            ds = getattr(w, "delta_snapshot", None)
+            if ds is not None:
+                out[pb] = ds()
+        return out
+
     def compact(self, full: bool = False) -> None:
         """Compact every bucket this write touched or, when no rows were
         written (a dedicated compaction job), every live bucket of the
