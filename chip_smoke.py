@@ -298,7 +298,32 @@ Phases, one JSON line each on stdout:
               part; K1 and K2 must launch on the join path, and are then
               held exactly to their plain versions at the path's shapes no
               earlier check covered.
-17. timing  - each kernel at its main-path shape against its plain version,
+17. sql     - the SQL surface through paimon_tpu_torch.sql.execute, one
+              line per part, every statement timed (seconds, rows, launches,
+              and the scan / join / GROUP BY split) and its result held,
+              outside the timing, to a numpy oracle and to the same
+              statement under the numpy sort engine (float sums of the
+              star join within 1e-12 of it, since numpy adds pairwise).
+              select, on the main phase's bench table: SELECT * beside the
+              Table-API read; SELECT id, c1 WHERE id < 100,000 and its
+              EXPLAIN; count, sum(c1), min(d1), max(d2) and avg(d1) GROUP BY
+              s2 over 1M rows (the stock sort + K2 at 2^20; the float sum
+              through segment_sum), the same WHERE id < 200,000 GROUP BY s1
+              HAVING count(*) > 150 (2^18 padded rows: K1), and GROUP BY c3
+              (217,480 groups: id // 7, and -(id // 7) for the upserted
+              ids) ORDER BY c3 LIMIT 20. join, on the
+              lookups phase's star schema: the grouped inner join by name
+              per skew (zipf, uniform) ORDER BY name LIMIT 50, and a LEFT
+              join WHERE d.rate > 0.5. dml: CREATE TABLE with config 4's
+              options and the bench columns, INSERT ... SELECT of the bench
+              table, UPDATE of 50,000 ids, DELETE WHERE c2 = 0, CALL
+              sys.merge_into of 10,000 source rows (5,000 matched, 5,000
+              new), CALL sys.compact (full), ANALYZE, $snapshots and $files,
+              TRUNCATE, each followed by a read equal to the oracle. K1, K2
+              and segment_sum must each launch in the phase, and K1 and K2
+              are then held exactly to their plain versions at its shapes
+              no earlier check covered.
+18. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -309,10 +334,11 @@ Phases, one JSON line each on stdout:
               and cold (cycling over copies that exceed the L2).
               segment_sum at the engines path's float64 shape.
 
-Then one JSON line with every kernel's numbers (its launches summed over
-the main, compact, engines, buckets, strings, maintenance, cdc, deletes,
-history, writes, services and lookups paths, and by path), the
-card line, and last
+Then a summary line (each phase's wall seconds, its launches of each kernel
+and the first rate it reports), one JSON line with every kernel's numbers
+(its launches summed over the main, compact, engines, buckets, strings,
+maintenance, cdc, deletes, history, writes, services, lookups and sql
+paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -796,6 +822,15 @@ def main() -> int:
           "k2_seconds": round(k2_s, 3), "segment_sum": sum_checks, "max_abs_err": 0})
 
     # 4. main path
+    walls, results = {}, {}
+    mark = [time.perf_counter()]
+
+    def lap(name: str, result: dict) -> None:
+        """The wall seconds since the previous phase ended, and its result."""
+        now = time.perf_counter()
+        walls[name], results[name] = now - mark[0], result
+        mark[0] = now
+
     with tempfile.TemporaryDirectory(prefix="paimon_tpu_torch_smoke_") as warehouse:
         hk.reset_launches()
         table, up, write_s = build_table(pt, warehouse, "t", {})
@@ -837,6 +872,7 @@ def main() -> int:
               "kernel_shapes": {k: list(v) for k, v in main_shapes.items()},
               "uncompressed_write_seconds": round(plain_write_s, 3), "equal_to_numpy_engine": True,
               "upserts_visible": True})
+        lap("main", reads)
 
         # 5. layers, and the device's busy share under the profiler
         emit({"phase": "layers", "default_tile": layer_breakdown(table, 8 << 20),
@@ -846,38 +882,46 @@ def main() -> int:
         device_busy(table)  # the profiler's first use initialises its tracer: not counted
         emit({"phase": "trace", "default_tile": device_busy(table),
               f"tile_{K1_TILE_ROWS}": device_busy(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}))})
+        lap("layers", {})
 
         # 6. the compaction path
         compact = compact_phase(pt, hk, warehouse)
         emit({"phase": "compact", **compact})
+        lap("compact", compact)
 
         # 7. the merge engines
         engines = engines_phase(pt, hk, warehouse)
         emit({"phase": "engines", "part": "summary", **engines})
+        lap("engines", engines)
 
         # 8. buckets and partitions
         buckets = buckets_phase(pt, hk, warehouse)
         emit({"phase": "buckets", "part": "summary", **buckets})
+        lap("buckets", buckets)
 
         # 9. string keys
         strings = strings_phase(pt, hk, warehouse, reads)
         emit({"phase": "strings", "part": "summary", **strings})
+        lap("strings", strings)
 
         # 10. commit-time maintenance
         maintenance = maintenance_phase(pt, hk, warehouse)
         maintenance["sync_write_launches_equal_compact_phase"] = (
             maintenance["sync_write_launches"] == compact["launches"]["streaming_writes"])
         emit({"phase": "maintenance", "part": "summary", **maintenance})
+        lap("maintenance", maintenance)
 
         # 11. CDC sink tables
         cdc = cdc_phase(pt, hk, warehouse, compact)
         checks += cdc["shape_checks"]["exact_checks"]
         emit({"phase": "cdc", "part": "summary", **cdc, "exact_checks_all_phases": checks})
+        lap("cdc", cdc)
 
         # 12. row-level deletes
         deletes = deletes_phase(pt, hk, warehouse, cdc["shape_checks"])
         checks += deletes["shape_checks"]["exact_checks"]
         emit({"phase": "deletes", "part": "summary", **deletes, "exact_checks_all_phases": checks})
+        lap("deletes", deletes)
 
         # 13. table history
         checked = tuple([tuple(s) for p in (cdc, deletes) for s in p["shape_checks"][key]]
@@ -885,6 +929,7 @@ def main() -> int:
         history = history_phase(pt, hk, warehouse, table.path, checked)
         checks += history["shape_checks"]["exact_checks"]
         emit({"phase": "history", "part": "summary", **history, "exact_checks_all_phases": checks})
+        lap("history", history)
 
         # 14. the write surface
         checked = tuple(list(checked[i]) + [tuple(s) for s in history["shape_checks"][key]]
@@ -892,6 +937,7 @@ def main() -> int:
         writes = writes_phase(pt, hk, warehouse, table.path, compact, checked)
         checks += writes["shape_checks"]["exact_checks"]
         emit({"phase": "writes", "part": "summary", **writes, "exact_checks_all_phases": checks})
+        lap("writes", writes)
 
         # 15. the compaction services and schema evolution
         checked = tuple(list(checked[i]) + [tuple(s) for s in writes["shape_checks"][key]]
@@ -899,6 +945,7 @@ def main() -> int:
         services = services_phase(pt, hk, warehouse, table.path, checked)
         checks += services["shape_checks"]["exact_checks"]
         emit({"phase": "services", "part": "summary", **services, "exact_checks_all_phases": checks})
+        lap("services", services)
 
         # 16. point lookups and lookup joins
         checked = tuple(list(checked[i]) + [tuple(s) for s in services["shape_checks"][key]]
@@ -906,8 +953,17 @@ def main() -> int:
         lookups = lookups_phase(pt, hk, warehouse, checked)
         checks += lookups["shape_checks"]["exact_checks"]
         emit({"phase": "lookups", "part": "summary", **lookups, "exact_checks_all_phases": checks})
+        lap("lookups", lookups)
 
-    # 17. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 17. the SQL surface
+        checked = tuple(list(checked[i]) + [tuple(s) for s in lookups["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        sql = sql_phase(pt, hk, warehouse, table, up, checked)
+        checks += sql["shape_checks"]["exact_checks"]
+        emit({"phase": "sql", "part": "summary", **sql, "exact_checks_all_phases": checks})
+        lap("sql", sql)
+
+    # 18. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -922,7 +978,8 @@ def main() -> int:
                       "strings": strings["launches"][name], "maintenance": maintenance["launches"][name],
                       "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
                       "history": history["launches"][name], "writes": writes["launches"][name],
-                      "services": services["launches"][name], "lookups": lookups["launches"][name]}
+                      "services": services["launches"][name], "lookups": lookups["launches"][name],
+                      "sql": sql["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -972,11 +1029,29 @@ def main() -> int:
                                         "plain_ms", "library_ms", "library_device_ms", "library_device_ms_cold")},
           "segment_sum": {k: sum_row[k] for k in ("shape", "ms", "device_ms", "host_ms_per_call", "bound_ms",
                                                   "plain_ms", "library_ms")}})
+    lap("timing", {})
+    emit({"phase": "summary", "card": card, "phases": {
+        name: {"s": round(walls[name], 1), "launches": [by_path[k].get(name) for k in hk.launches],
+               "headline": headline_rate(results[name])} for name in walls},
+        "launch_order": list(hk.launches)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def headline_rate(result, path: str = ""):
+    """The first rate (a key ending in per_s or per_s_median) in a phase's
+    result, depth first, as [path, value]; None if it has none."""
+    if isinstance(result, dict):
+        for key, value in result.items():
+            if isinstance(key, str) and key.endswith(("per_s", "per_s_median")) and isinstance(value, (int, float)):
+                return [f"{path}{key}", value]
+            found = headline_rate(value, f"{path}{key}.")
+            if found is not None:
+                return found
+    return None
 
 
 def c4_batch(rng, b: int) -> dict:
@@ -4420,6 +4495,375 @@ def lookups_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
     caches = {name: {m: v - caches0[name][m] for m, v in c.items()} for name, c in cache_counts().items()}
     return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds, "caches": caches,
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2032, checked)}
+
+
+SQL_WHERE_BELOW = 100_000  # the pushdown query's id bound
+SQL_GROUP_BELOW = 200_000  # the filtered GROUP BY's id bound: 2^18 padded rows, K1
+SQL_HAVING = 150  # its HAVING count(*) bound
+SQL_UPDATE_BELOW = 50_000  # the UPDATE's id bound
+SQL_MERGE_ROWS = 10_000  # merge_into's source rows: half matched, half new
+SQL_C4_OPTIONS = {**C4_OPTIONS}  # config 4's table options (bucket 1, trigger 4, pallas), not write-only
+NUMPY_HINT = "/*+ OPTIONS('sort-engine' = 'numpy') */"
+
+
+class StageClock:
+    """Wall seconds spent in the scan (TableRead.read_all), the join
+    (ops.join.join_batches) and the GROUP BY (sql.select._group_aggregate)
+    while installed; the device is synchronised at the end of each."""
+
+    def __init__(self):
+        import paimon_tpu_torch.ops.join as join_mod
+        import paimon_tpu_torch.sql.select as select_mod
+        import paimon_tpu_torch.table.read as read_mod
+
+        self.targets = ((read_mod.TableRead, "read_all", "scan"), (join_mod, "join_batches", "join"),
+                        (select_mod, "_group_aggregate", "group_by"))
+        self.seconds = dict.fromkeys(("scan", "join", "group_by"), 0.0)
+
+    def __enter__(self):
+        self.saved = [getattr(owner, name) for owner, name, _ in self.targets]
+        for (owner, name, stage), real in zip(self.targets, self.saved):
+            def timed_call(*args, _real=real, _stage=stage, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*args, **kwargs)
+                finally:
+                    torch.cuda.synchronize()
+                    self.seconds[_stage] += time.perf_counter() - t0
+            setattr(owner, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name, _), real in zip(self.targets, self.saved):
+            setattr(owner, name, real)
+
+    def split(self) -> dict:
+        return {k: round(v, 4) for k, v in self.seconds.items()}
+
+
+def sql_run(hk, cat, statement: str):
+    """One statement through paimon_tpu_torch.sql.execute, timed, with its
+    launches and its scan / join / GROUP BY split."""
+    from paimon_tpu_torch.sql import execute
+
+    before = dict(hk.launches)
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        out = execute(cat, statement)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    stats = {"seconds": round(seconds, 4), "launches": launch_diff(hk, before), "split_s": clock.split()}
+    if hasattr(out, "num_rows"):
+        stats["rows"] = out.num_rows
+    return out, stats
+
+
+def numpy_engine(hk, cat, statement: str, table: str):
+    """The statement with the numpy sort engine hinted on `table`; its
+    launches are not counted."""
+    from paimon_tpu_torch.sql import execute
+
+    saved = dict(hk.launches)
+    out = execute(cat, statement.replace(table, f"{table} {NUMPY_HINT}", 1))
+    hk.launches.update(saved)
+    return out
+
+
+def same_result(a, b, what: str, float_rtol: dict | None = None) -> None:
+    """Column names, types, rows and order; floats bit for bit, except the
+    columns of float_rtol, held to that relative tolerance."""
+    assert a.schema.field_names == b.schema.field_names, f"{what}: {a.schema.field_names} != {b.schema.field_names}"
+    assert [f.type.serialize() for f in a.schema.fields] == [f.type.serialize() for f in b.schema.fields], what
+    assert a.num_rows == b.num_rows, f"{what}: {a.num_rows} != {b.num_rows} rows"
+    for name in a.schema.field_names:
+        x, y = a.column(name), b.column(name)
+        ok = x.valid_mask()
+        assert np.array_equal(ok, y.valid_mask()), f"{what}: validity of {name} differs"
+        xv, yv = x.values[ok], y.values[ok]
+        if float_rtol and name in float_rtol:
+            assert np.allclose(xv, yv, rtol=float_rtol[name], atol=0), f"{what}: column {name} differs"
+        else:
+            assert same_values(xv, yv), f"{what}: column {name} differs"
+
+
+def check_rows(out, columns: dict, what: str) -> None:
+    """A result against oracle columns {name: values}, none of them NULL;
+    floats bit for bit."""
+    assert out.schema.field_names == list(columns), f"{what}: {out.schema.field_names}"
+    for name, want in columns.items():
+        col = out.column(name)
+        want = np.asarray(want)
+        assert col.null_count == 0 and len(col) == len(want), f"{what}: {name} has nulls or {len(col)} rows"
+        if want.dtype.kind == "f":
+            assert same_values(col.values.astype(np.float64), want.astype(np.float64)), f"{what}: {name} differs"
+        else:
+            assert col.values.tolist() == want.tolist(), f"{what}: column {name} differs from the oracle"
+
+
+def bench_oracle(up: np.ndarray) -> dict:
+    """The bench table's rows by id: the four runs, then the upsert."""
+    vals = table_values(np.arange(N_ROWS, dtype=np.int64), upsert=False)
+    ups = np.sort(up)
+    new = table_values(ups, upsert=True)
+    for name in vals:
+        vals[name][ups] = new[name]
+    return vals
+
+
+def group_oracle(keys: np.ndarray, cols: dict, order: str = "first"):
+    """GROUP BY keys: per group count(*), sum(c1), min(d1), max(d2), avg(d1)
+    (float sums of these exact binary fractions are exact in any order);
+    groups in first-appearance order or key order."""
+    uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    g = len(uniq)
+    count = np.bincount(inv, minlength=g)
+    c1 = np.zeros(g, np.int64)
+    np.add.at(c1, inv, cols["c1"])
+    d1_sum = np.bincount(inv, weights=cols["d1"], minlength=g)
+    d1_min = np.full(g, np.inf)
+    np.minimum.at(d1_min, inv, cols["d1"])
+    d2_max = np.full(g, -np.inf)
+    np.maximum.at(d2_max, inv, cols["d2"])
+    rank = np.argsort(first, kind="stable") if order == "first" else np.arange(g)
+    return uniq[rank], count[rank], c1[rank], d1_min[rank], d2_max[rank], (d1_sum / count)[rank]
+
+
+def sql_select_part(pt, hk, cat, table, up) -> dict:
+    """SELECT on the main phase's bench table: the queries of
+    benchmarks/sql_overhead.py:54-60 (the star beside the Table-API read, the
+    pushdown query, GROUP BY s2) with more aggregates, two more GROUP BY
+    shapes and EXPLAIN. Each result
+    is held, outside the timing, to a numpy oracle and to the same statement
+    under the numpy sort engine."""
+    oracle = bench_oracle(up)
+    ids = np.arange(N_ROWS, dtype=np.int64)
+    out_stats = {}
+    t0 = time.perf_counter()
+    direct = read_all(table)
+    api_s = time.perf_counter() - t0
+    star, stats = sql_run(hk, cat, "SELECT * FROM bench.t")
+    check_output(star, direct, up, "SELECT *")
+    stats["table_api_read_s"] = round(api_s, 4)
+    stats["output_rows_per_s"] = round(N_ROWS / stats["seconds"], 1)
+    out_stats["star"] = stats
+
+    q = f"SELECT id, c1 FROM bench.t WHERE id < {SQL_WHERE_BELOW}"
+    out, stats = sql_run(hk, cat, q)
+    check_rows(out, {"id": ids[:SQL_WHERE_BELOW], "c1": oracle["c1"][:SQL_WHERE_BELOW]}, q)
+    same_result(out, numpy_engine(hk, cat, q, "bench.t"), q)
+    plan, _ = sql_run(hk, cat, "EXPLAIN " + q)
+    lines = plan.column("plan").to_pylist()
+    assert f"where (pushed): id < {SQL_WHERE_BELOW}" in lines and "projection (pushed): [id, c1]" in lines, lines
+    stats["plan"] = lines
+    out_stats["pushdown"] = stats
+
+    aggs = "count(*), sum(c1), min(d1), max(d2), avg(d1)"
+    q = f"SELECT s2, {aggs} FROM bench.t GROUP BY s2 ORDER BY s2"
+    out, stats = sql_run(hk, cat, q)
+    keys, count, c1, d1_min, d2_max, d1_avg = group_oracle(oracle["s2"].astype(str), oracle, order="key")
+    check_rows(out, {"s2": keys.tolist(), "count(*)": count, "sum(c1)": c1, "min(d1)": d1_min,
+                     "max(d2)": d2_max, "avg(d1)": d1_avg}, q)
+    same_result(out, numpy_engine(hk, cat, q, "bench.t"), q)
+    stats["groups"] = out.num_rows
+    out_stats["group_by_s2"] = stats
+
+    q = (f"SELECT s1, {aggs} FROM bench.t WHERE id < {SQL_GROUP_BELOW} GROUP BY s1 "
+         f"HAVING count(*) > {SQL_HAVING}")
+    out, stats = sql_run(hk, cat, q)
+    sub = {k: v[:SQL_GROUP_BELOW] for k, v in oracle.items()}
+    keys, count, c1, d1_min, d2_max, d1_avg = group_oracle(sub["s1"].astype(str), sub)
+    keep = count > SQL_HAVING
+    check_rows(out, {"s1": keys[keep].tolist(), "count(*)": count[keep], "sum(c1)": c1[keep],
+                     "min(d1)": d1_min[keep], "max(d2)": d2_max[keep], "avg(d1)": d1_avg[keep]}, q)
+    same_result(out, numpy_engine(hk, cat, q, "bench.t"), q)
+    stats["groups_kept"] = out.num_rows
+    stats["groups"] = len(keys)
+    out_stats["group_by_s1_having"] = stats
+
+    q = "SELECT c3, count(*), sum(c1) FROM bench.t GROUP BY c3 ORDER BY c3 LIMIT 20"
+    out, stats = sql_run(hk, cat, q)
+    uniq, inv = np.unique(oracle["c3"], return_inverse=True)
+    c1 = np.zeros(len(uniq), np.int64)
+    np.add.at(c1, inv, oracle["c1"])
+    check_rows(out, {"c3": uniq[:20], "count(*)": np.bincount(inv)[:20], "sum(c1)": c1[:20]}, q)
+    same_result(out, numpy_engine(hk, cat, q, "bench.t"), q)
+    stats["groups"] = len(uniq)
+    out_stats["group_by_c3_limit"] = stats
+    return out_stats
+
+
+def star_oracle(fact, dim, key: str):
+    """The fact rows joined to the dimension by `key` (fact rows in the
+    read's order): (fact row, dimension row) pairs."""
+    pos = {c: j for j, c in enumerate(dim.column("cid").values.tolist())}
+    right = np.fromiter((pos.get(c, -1) for c in fact.column(key).values.tolist()), np.int64, fact.num_rows)
+    left = np.flatnonzero(right >= 0)
+    return left, right[left]
+
+
+def star_group_oracle(fact, dim, left, right, limit: int):
+    """name, count(*), sum(amount), max(qty) over the joined rows, names in
+    order, the first `limit`; each sum adds its group's rows in the joined
+    order from +0.0, as the kernel does."""
+    names = dim.column("name").values[right]
+    uniq, inv = np.unique(names.astype(str), return_inverse=True)
+    amount, qty = fact.column("amount").values[left], fact.column("qty").values[left]
+    sums = [0.0] * len(uniq)
+    for g, a in zip(inv.tolist(), amount.tolist()):
+        sums[g] += a
+    maxq = np.full(len(uniq), np.iinfo(np.int64).min)
+    np.maximum.at(maxq, inv, qty)
+    return {"name": uniq[:limit].tolist(), "count(*)": np.bincount(inv)[:limit], "sum(amount)": sums[:limit],
+            "max(qty)": maxq[:limit]}
+
+
+def sql_join_part(pt, hk, cat) -> dict:
+    """The retail star join of the lookups phase's tables as a SQL user
+    writes it: per skew the grouped inner join, then a LEFT join filtered on
+    the dimension; each held to a host oracle and to the numpy sort engine
+    (float sums within 1e-12, since numpy adds pairwise)."""
+    fact, dim = read_all(cat.get_table("lookups.fact")), read_all(cat.get_table("lookups.dim"))
+    out_stats = {}
+    for skew in ("zipf", "uniform"):
+        key = f"cust_{skew}"
+        q = (f"SELECT d.name, count(*), sum(f.amount), max(f.qty) FROM lookups.fact f JOIN lookups.dim d "
+             f"ON f.{key} = d.cid GROUP BY d.name ORDER BY d.name LIMIT 50")
+        out, stats = sql_run(hk, cat, q)
+        left, right = star_oracle(fact, dim, key)
+        check_rows(out, star_group_oracle(fact, dim, left, right, 50), q)
+        same_result(out, numpy_engine(hk, cat, q, "lookups.fact"), q, {"sum(amount)": 1e-12})
+        stats["joined_rows"] = int(len(left))
+        out_stats[f"group_by_name_{skew}"] = stats
+    q = ("SELECT f.id, d.rate FROM lookups.fact f LEFT JOIN lookups.dim d ON f.cust_uniform = d.cid "
+         "WHERE d.rate > 0.5")
+    out, stats = sql_run(hk, cat, q)
+    left, right = star_oracle(fact, dim, "cust_uniform")
+    rate = dim.column("rate").values[right]
+    keep = rate > 0.5
+    check_rows(out, {"id": fact.column("id").values[left][keep], "rate": rate[keep]}, q)
+    same_result(out, numpy_engine(hk, cat, q, "lookups.fact"), q)
+    plan, _ = sql_run(hk, cat, "EXPLAIN " + q)
+    stats["plan"] = plan.column("plan").to_pylist()
+    stats["where_pushed_to_dimension"] = False  # a LEFT join keeps its right-side conjuncts as a residual
+    out_stats["left_join_rate"] = stats
+    return out_stats
+
+
+def sql_dml_part(pt, hk, cat, up) -> dict:
+    """DDL and DML on a table of config 4's options with the bench table's
+    columns (the UPDATE and DELETE name c1 and c2): CREATE TABLE, INSERT ...
+    SELECT of the bench table, UPDATE, DELETE, CALL sys.merge_into, CALL
+    sys.compact, ANALYZE, $snapshots and $files, TRUNCATE; after each step
+    the table read equals the oracle."""
+    cols = ("id", "c1", "c2", "c3", "d1", "d2", "s1", "s2")
+    state = {k: v.copy() for k, v in bench_oracle(up).items()}
+    state["id"] = np.arange(N_ROWS, dtype=np.int64)
+    alive = np.ones(N_ROWS, np.bool_)
+
+    def check(what: str) -> dict:
+        t0 = time.perf_counter()
+        out = read_all(cat.get_table("sql.c4"))
+        read_s = time.perf_counter() - t0
+        live = np.flatnonzero(alive)
+        order = np.argsort(state["id"][live], kind="stable")
+        check_rows(out, {k: state[k][live][order] for k in cols}, what)
+        return {"rows_after": out.num_rows, "read_s": round(read_s, 4)}
+
+    steps = {}
+    opts = ", ".join(f"'{k}' = '{v}'" for k, v in SQL_C4_OPTIONS.items())
+    ddl = ("CREATE TABLE sql.c4 (id BIGINT NOT NULL, c1 BIGINT, c2 BIGINT, c3 BIGINT, d1 DOUBLE, d2 DOUBLE, "
+           f"s1 STRING, s2 STRING, PRIMARY KEY (id) NOT ENFORCED) WITH ({opts})")
+    res, steps["create"] = sql_run(hk, cat, ddl)
+    assert res == {"created": "sql.c4"}, res
+    res, steps["insert_select"] = sql_run(hk, cat, "INSERT INTO sql.c4 SELECT * FROM bench.t")
+    assert res["inserted"] == N_ROWS, res
+    steps["insert_select"].update(check("insert select"))
+
+    res, steps["update"] = sql_run(hk, cat, f"UPDATE sql.c4 SET c1 = c1 + 1 WHERE id < {SQL_UPDATE_BELOW}")
+    assert res["rows_updated"] == SQL_UPDATE_BELOW, res
+    state["c1"][:SQL_UPDATE_BELOW] += 1
+    steps["update"].update(check("update"))
+
+    res, steps["delete"] = sql_run(hk, cat, "DELETE FROM sql.c4 WHERE c2 = 0")
+    dead = alive & (state["c2"] == 0)
+    assert res["rows_deleted"] == int(dead.sum()), res
+    alive &= ~dead
+    steps["delete"].update(check("delete"))
+
+    # merge_into: half the source rows update live ids, half are new ids
+    rng = np.random.default_rng(19)
+    half = SQL_MERGE_ROWS // 2
+    matched = np.sort(rng.choice(np.flatnonzero(alive), half, replace=False))
+    new_ids = N_ROWS + np.arange(half, dtype=np.int64)
+    src_ids = np.concatenate([matched, new_ids])
+    src = table_values(src_ids, upsert=True)
+    src["s1"] = np.array([f"merged-{i}" for i in range(SQL_MERGE_ROWS)], dtype=object)
+    schema = build_schema(pt)
+    src_table = cat.create_table("sql.src", schema, primary_keys=["id"], options=dict(BENCH_OPTIONS))
+    wb = src_table.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(src)
+    wb.new_commit().commit(w.prepare_commit())
+    res, steps["merge_into"] = sql_run(hk, cat, (
+        "CALL sys.merge_into(target_table => 'sql.c4', source_table => 'sql.src', "
+        "merge_condition => 'c4.id = src.id', matched_upsert_setting => '*', not_matched_insert_values => '*')"))
+    assert res == {"rows_updated": half, "rows_deleted": 0, "rows_inserted": half}, res
+    for k in cols:
+        state[k] = np.concatenate([state[k], src[k][half:]])
+        state[k][matched] = src[k][:half]
+    alive = np.concatenate([alive, np.ones(half, np.bool_)])
+    steps["merge_into"].update(check("merge_into"))
+
+    res, steps["compact"] = sql_run(hk, cat, "CALL sys.compact(`table` => 'sql.c4', `full` => true)")
+    assert res == {"compacted": True, "full": True}, res
+    steps["compact"].update(check("compact"))
+    res, steps["analyze"] = sql_run(hk, cat, "ANALYZE TABLE sql.c4 COMPUTE STATISTICS FOR ALL COLUMNS")
+    assert res["rows"] == int(alive.sum()) and res["columns"] == sorted(cols), res
+    snaps, steps["snapshots"] = sql_run(hk, cat, "SELECT snapshot_id, commit_kind, total_record_count "
+                                                 "FROM sql.c4$snapshots")
+    kinds = snaps.column("commit_kind").to_pylist()
+    assert kinds[-2:] == ["COMPACT", "ANALYZE"] and snaps.column("snapshot_id").to_pylist() == \
+        list(range(1, len(kinds) + 1)), kinds
+    steps["snapshots"]["commit_kinds"] = kinds
+    files, steps["files"] = sql_run(hk, cat, "SELECT level, count(*), sum(record_count) FROM sql.c4$files "
+                                             "GROUP BY level")
+    assert files.column("sum(record_count)").to_pylist() == [int(alive.sum())], files.to_pylist()
+    steps["files"]["levels"] = files.to_pylist()
+    res, steps["truncate"] = sql_run(hk, cat, "TRUNCATE TABLE sql.c4")
+    alive[:] = False
+    steps["truncate"].update(check("truncate"))
+    return steps
+
+
+def sql_phase(pt, hk, warehouse: str, table, up, checked: tuple) -> dict:
+    """The SQL surface through paimon_tpu_torch.sql.execute on the card, one
+    line per part: select (the bench table), join (the lookups phase's star
+    schema) and dml. K1, K2 and segment_sum must each launch in the phase;
+    K1 and K2 are then held exactly to their plain versions at the phase's
+    shapes no earlier check covered. Launch counts are zeroed before it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.metrics import sql_metrics
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    rows0 = sql_metrics().counter("rows_reduced_device").count
+    parts, seconds = {}, {}
+    with ShapeRecorder(hk) as recorder:
+        for name, run in (("select", lambda: sql_select_part(pt, hk, cat, table, up)),
+                          ("join", lambda: sql_join_part(pt, hk, cat)),
+                          ("dml", lambda: sql_dml_part(pt, hk, cat, up))):
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = {"statements": run()}
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "sql", "part": name, **parts[name]})
+    launches = dict(hk.launches)
+    assert all(launches[k] > 0 for k in hk.launches), f"a kernel never launched in the sql phase: {launches}"
+    return {"select_star_output_rows_per_s": parts["select"]["statements"]["star"]["output_rows_per_s"],
+            "launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
+            "seconds_by_part": seconds, "rows_reduced_device": sql_metrics().counter("rows_reduced_device").count
+            - rows0, "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2033, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

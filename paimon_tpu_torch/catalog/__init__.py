@@ -4,6 +4,11 @@ list, drop and rename). Dropping or renaming drops the tree's metadata from
 the manifest cache (utils/cache.py): a table created again at the path
 mints its snapshot ids again.
 
+`get_table("db.t$snapshots")` opens a system table of db.t
+(table/system.py). The database name 'sys' is reserved for the
+catalog-scope system tables, which are not ported yet (ROADMAP Queue 1
+item 15).
+
 Layout: warehouse/<db>.db/<table>/{schema,snapshot,manifest,bucket-N}, the
 JAX package's. The catalog's `device` ("cuda" by default) threads through
 every table it opens down to the merge kernels; without a CUDA device the
@@ -44,6 +49,7 @@ class Identifier:
 
 class FileSystemCatalog:
     DB_SUFFIX = ".db"
+    SYSTEM_SEP = "$"
 
     def __init__(self, warehouse: str, commit_user: str = "anonymous", device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
@@ -54,7 +60,16 @@ class FileSystemCatalog:
     def _db_path(self, name: str) -> str:
         return f"{self.warehouse}/{name}{self.DB_SUFFIX}"
 
+    def list_databases(self) -> list[str]:
+        return sorted(
+            st.path.rsplit("/", 1)[-1][: -len(self.DB_SUFFIX)]
+            for st in self.file_io.list_status(self.warehouse)
+            if st.is_dir and st.path.endswith(self.DB_SUFFIX)
+        )
+
     def create_database(self, name: str, ignore_if_exists: bool = True) -> None:
+        if name == "sys":
+            raise ValueError("'sys' is reserved for catalog system tables")
         path = self._db_path(name)
         if self.file_io.exists(path):
             if not ignore_if_exists:
@@ -106,7 +121,19 @@ class FileSystemCatalog:
         schema = sm.create_table(row_type, partition_keys, primary_keys, options)
         return FileStoreTable(self.file_io, path, schema, self.commit_user, self.device)
 
-    def get_table(self, identifier: "Identifier | str") -> FileStoreTable:
+    def get_table(self, identifier: "Identifier | str"):
+        """The data table, or for "db.t$name" the system table `name` of
+        db.t (table/system.py)."""
+        ident = Identifier.parse(identifier) if isinstance(identifier, str) else identifier
+        if ident.database == "sys":
+            raise NotImplementedError(
+                f"catalog system table sys.{ident.table} is not ported yet (ROADMAP Queue 1 item 15)"
+            )
+        if self.SYSTEM_SEP in ident.table:
+            from ..table.system import system_table
+
+            base, _, sys_name = ident.table.partition(self.SYSTEM_SEP)
+            return system_table(self.get_table(Identifier(ident.database, base)), sys_name)
         path = self.table_path(identifier)
         schema = SchemaManager(self.file_io, path).latest()
         if schema is None:

@@ -267,10 +267,12 @@ class FileStoreCommit:
         entries: list[ManifestEntry],
         committable: ManifestCommittable,
         check_conflicts: bool = False,
+        statistics: str | None = None,
     ) -> int:
         """Publish one snapshot of `kind` over the latest one's (possibly
         merged) base manifests, with the committable's changelog files of
-        that kind; an APPEND snapshot also carries its new index files."""
+        that kind; an APPEND snapshot also carries its new index files, an
+        ANALYZE snapshot the name of its statistics file."""
         changelog = self._changelog_entries(kind, committable)
         index_entries = (
             [e for msg in committable.messages for e in msg.new_index_files] if kind == CommitKind.APPEND else []
@@ -337,6 +339,7 @@ class FileStoreCommit:
                     changelog_record_count=changelog_rows,
                     watermark=committable.watermark,
                     log_offsets=dict(committable.log_offsets),
+                    statistics=statistics,
                 )
                 if self.file_io.try_atomic_write(self.snapshot_manager.snapshot_path(snapshot_id), snapshot.to_json().encode()):
                     tmp_files.clear()

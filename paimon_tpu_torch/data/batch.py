@@ -119,6 +119,10 @@ class ColumnBatch:
         return ColumnBatch(schema, {f.name: Column.from_pylist(data[f.name], f.type) for f in schema.fields})
 
     @staticmethod
+    def from_pylist(schema: RowType, rows: Sequence[Sequence[Any]]) -> "ColumnBatch":
+        return ColumnBatch.from_pydict(schema, {f.name: [r[i] for r in rows] for i, f in enumerate(schema.fields)})
+
+    @staticmethod
     def empty(schema: RowType) -> "ColumnBatch":
         return ColumnBatch(schema, {f.name: Column(np.empty(0, dtype=f.type.numpy_dtype())) for f in schema.fields})
 

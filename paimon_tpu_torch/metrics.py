@@ -1,9 +1,9 @@
-"""Metric primitives and the compaction, join and get groups (port of
+"""Metric primitives and the compaction, join, get and sql groups (port of
 paimon_tpu/metrics.py: Counter, Gauge, Histogram, MetricGroup,
-MetricRegistry, the module's registry, compaction_metrics, join_metrics
-and get_metrics, with the JAX package's member names; the other groups
-are not ported). The cache{cache=manifest|data-file} groups are filled by
-utils/cache.py.
+MetricRegistry, the module's registry, compaction_metrics, join_metrics,
+get_metrics and sql_metrics, with the JAX package's member names; the
+other groups are not ported). The cache{cache=manifest|data-file} groups
+are filled by utils/cache.py.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ __all__ = [
     "compaction_metrics",
     "join_metrics",
     "get_metrics",
+    "sql_metrics",
 ]
 
 
@@ -168,3 +169,16 @@ def get_metrics() -> MetricGroup:
     memtable_hits (keys won by the read-your-writes tier); histogram:
     probe_ms (one get_batch, wall millis). Resolved per call."""
     return registry.group("get")
+
+
+def sql_metrics() -> MetricGroup:
+    """The sql{...} group (the GROUP BY segment-reduce of sql/select.py and
+    ops/aggregates.py). The JAX package's members; the port fills one of
+    them: rows_reduced_device (input rows reduced by segment_reduce on the
+    device or through its torch ops; the numpy twin does not count). The
+    distributed SQL members (fragments, fragments_retried,
+    partials_combined, code_domain_groups, rows_streamed,
+    fragment_cache_hits, shuffle_rounds, parts_exchanged, exchange_bytes,
+    shuffle_retried; scatter_ms, combine_ms, shuffle_ms) belong to the SQL
+    cluster, which is not ported. Resolved per call."""
+    return registry.group("sql")

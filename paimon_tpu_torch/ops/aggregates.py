@@ -1,6 +1,6 @@
 """Field aggregators of the aggregation merge engine, as segment reductions
-over a merge's sorted order (port of paimon_tpu/ops/aggregates.py, without
-the SQL GROUP BY reduce).
+over a merge's sorted order, and the SQL GROUP BY segment-reduce (port of
+paimon_tpu/ops/aggregates.py).
 
 sum, count, max, min, bool_and, bool_or and the first/last picks run on the
 device as torch ops; product and listagg run on the host, as in the JAX
@@ -10,6 +10,15 @@ which adds each segment's rows in sorted order as XLA does on the CPU. Float
 max and min reduce an order-preserving integer image of the values, so that
 +0.0 beats -0.0 in max and loses in min, and a NaN anywhere in a segment
 gives NaN, as XLA's segment_max and segment_min do.
+
+`segment_reduce` is GROUP BY's reduce: group keys as uint32 lanes go
+through the same sorted_segments preamble (K1 or the stock sort plus K2
+under engine "pallas"), and each value column reduces over the segments as
+above: integer sums and counts by index_add_, float sums through
+`segment_sum`, min and max with the same NaN and signed-zero rules. Every
+row contributes (no sequence lanes, no retraction); each group also gets
+its minimum input position, so that SQL output keeps first-appearance
+order.
 
 Retract rows (-U/-D): sum and count subtract; ignore-retract drops them for
 a field; every other function raises ValueError, as in the JAX package.
@@ -26,6 +35,7 @@ import torch
 
 from ..data.batch import Column, gather_column
 from ..types import RowKind
+from ..metrics import sql_metrics
 from ..utils import resolve_device
 from . import hopper_kernels as hk
 from .merge import MergePlan, pack_selected, prepare_lanes_planned, segment_extreme, sorted_segments, upload_lanes
@@ -37,6 +47,8 @@ __all__ = [
     "aggregate_merge",
     "fused_routable",
     "fused_aggregate",
+    "segment_reduce",
+    "segment_reduce_np",
 ]
 
 AGGREGATORS = (
@@ -389,3 +401,101 @@ def fused_aggregate(
             )
             result.append(_result(agg, any_valid, kk, col.values.dtype))
     return result, packed[:kk].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the SQL GROUP BY segment-reduce
+# ---------------------------------------------------------------------------
+
+_SEGMENT_REDUCE_FNS = ("sum", "count", "min", "max")
+
+
+def segment_reduce(
+    key_lanes: np.ndarray,
+    columns: list[tuple[np.ndarray, np.ndarray | None]],
+    fns: tuple[str, ...],
+    pos: np.ndarray | None = None,
+    engine: str = "xla",
+    compress: bool | None = None,
+    device: "str | torch.device" = "cuda",
+):
+    """Segment-reduce `columns` (each (values, valid or None)) over the
+    groups keyed by the rows of `key_lanes` ((n, K) uint32), with fns[i] in
+    sum|count|min|max for column i. Returns (rep, outs, anyv, first_pos),
+    groups in key order: rep[g] one input row of group g, outs[i][g] column
+    i's reduction over g (invalid rows contribute the identity), anyv[i][g]
+    whether any row of g was valid for column i, first_pos[g] the minimum
+    `pos` (default: the row index) over g.
+
+    Engine "numpy", an empty input and a single group (no key lane left
+    after compression) take the exact host twin, as in the JAX package; the
+    other engines run on `device`, float64 included (the JAX package moves
+    float64 to the host only on a TPU)."""
+    n = int(key_lanes.shape[0])
+    if pos is None:
+        pos = np.arange(n, dtype=np.int64)
+    vals = [(v, np.ones(n, np.bool_) if ok is None else ok) for v, ok in columns]
+    if engine == "numpy" or n == 0:
+        return segment_reduce_np(key_lanes, vals, fns, pos)
+    klp, _, pad, _, k, _, m, _ = prepare_lanes_planned(key_lanes, None, compress=compress)
+    if k == 0:
+        return segment_reduce_np(key_lanes, vals, fns, pos)
+    dev = resolve_device(device)
+    sql_metrics().counter("rows_reduced_device").inc(n)
+    klt = upload_lanes(klp, dev)
+    padt = upload_lanes([pad], dev)[0]
+    pad_sorted, perm, seg_start, _, seg_id = sorted_segments(k, 0, klt, [], padt, engine=engine)
+    order = _Sorted(perm, seg_start, seg_id)
+    outs, anyv = [], []
+    for (v, ok), fn in zip(vals, fns):
+        vt, okt = _padded(v, m, 0, dev), _padded(ok, m, False, dev)
+        if fn in ("sum", "count"):
+            agg, any_valid = order.sum(vt, okt, torch.ones(m, dtype=torch.int8, device=dev))
+        elif fn in ("min", "max"):
+            agg, any_valid = order.extreme(vt, okt, fn == "max")
+        else:
+            raise ValueError(f"unknown segment-reduce function {fn!r}; known: {_SEGMENT_REDUCE_FNS}")
+        outs.append(agg)
+        anyv.append(any_valid)
+    first_pos = segment_extreme(_padded(pos.astype(np.int64, copy=False), m, np.iinfo(np.int64).max, dev)[order.p],
+                                order.idx, largest=False)
+    packed, count = pack_selected(seg_start & (pad_sorted == hk.FLIP_ZERO), perm)
+    g = int(count)
+    return (
+        packed[:g].cpu().numpy(),
+        [o[:g].cpu().numpy().astype(v.dtype, copy=False) for o, (v, _) in zip(outs, vals)],
+        [a[:g].cpu().numpy() for a in anyv],
+        first_pos[:g].cpu().numpy(),
+    )
+
+
+def segment_reduce_np(key_lanes: np.ndarray, columns: list[tuple[np.ndarray, np.ndarray]], fns: tuple[str, ...],
+                      pos: np.ndarray):
+    """The exact host twin of segment_reduce: lexsort and reduceat, the same
+    output contract (groups in key order)."""
+    n = int(key_lanes.shape[0])
+    if n == 0:
+        return (
+            np.zeros(0, np.int64),
+            [np.zeros(0, v.dtype) for v, _ in columns],
+            [np.zeros(0, np.bool_) for _ in columns],
+            np.zeros(0, np.int64),
+        )
+    kk = key_lanes.shape[1]
+    order = np.lexsort(tuple(key_lanes[:, i] for i in range(kk - 1, -1, -1)))
+    sk = key_lanes[order]
+    neq = (sk[1:] != sk[:-1]).any(axis=1) if n > 1 else np.zeros(0, np.bool_)
+    starts = np.flatnonzero(np.concatenate([[True], neq]))
+    outs, anyv = [], []
+    for (v, ok), fn in zip(columns, fns):
+        vs, oks = v[order], ok[order]
+        if fn in ("sum", "count"):
+            outs.append(np.add.reduceat(np.where(oks, vs, np.zeros((), v.dtype)), starts))
+        elif fn == "max":
+            fill = np.finfo(v.dtype).min if v.dtype.kind == "f" else np.iinfo(v.dtype).min
+            outs.append(np.maximum.reduceat(np.where(oks, vs, fill), starts))
+        else:
+            fill = np.finfo(v.dtype).max if v.dtype.kind == "f" else np.iinfo(v.dtype).max
+            outs.append(np.minimum.reduceat(np.where(oks, vs, fill), starts))
+        anyv.append(np.maximum.reduceat(oks.astype(np.int8), starts) > 0)
+    return order[starts], outs, anyv, np.minimum.reduceat(pos[order], starts)

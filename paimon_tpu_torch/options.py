@@ -111,6 +111,9 @@ class Options:
     def contains(self, option: "ConfigOption | str") -> bool:
         return (option if isinstance(option, str) else option.key) in self._data
 
+    def to_map(self) -> dict[str, str]:
+        return {k: str(v) for k, v in self._data.items()}
+
     def set_key(self, option: ConfigOption) -> str | None:
         """The key under which option is set (its own or a fallback), or
         None when it is left at its default."""
@@ -335,6 +338,10 @@ class CoreOptions:
     JOIN_CHUNK_ROWS = ConfigOption.int_("join.chunk-rows", 1 << 20)
     JOIN_PARTITIONS = ConfigOption.int_("join.partitions", 0)
     JOIN_SKEW_FACTOR = ConfigOption.float_("join.skew-factor", 0.5)
+    # SELECT ... JOIN planning (sql/select.py): up to this many distinct
+    # keys on the smaller side prune the bigger side's scan with an IN
+    # list, more with a BETWEEN over their range
+    JOIN_PUSHDOWN_IN_LIMIT = ConfigOption.int_("join.pushdown-in-limit", 1024)
     # file indexes (format/fileindex.py): per-column blooms, the composite
     # primary-key bloom the batched gets prune by, and where the payload
     # lands (embedded in the manifest entry below the threshold, else a

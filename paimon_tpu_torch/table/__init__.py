@@ -1,7 +1,7 @@
 """The Table API (port of paimon_tpu/table/__init__.py):
 new_read_builder / new_batch_write_builder / new_stream_write_builder,
-copy, with_user, delete_where, tags, rollback_to, snapshot expiry, and
-load_table.
+copy, with_user, delete_where, update_where, merge_into, tags, rollback_to,
+snapshot expiry, and load_table.
 
 A table with a primary key is served by the key-value store, one without
 by the append-only store (core/append.py). bucket_mode is the JAX
@@ -48,6 +48,7 @@ class FileStoreTable:
     ):
         self.file_io = file_io
         self.path = path
+        self.name = path.rstrip("/").rsplit("/", 1)[-1]
         self.schema = schema
         self.device = torch.device(device)
         store_cls = KeyValueFileStore if schema.primary_keys else AppendOnlyFileStore
@@ -120,6 +121,22 @@ class FileStoreTable:
         from .delete import delete_where
 
         return delete_where(self, predicate)
+
+    def update_where(self, predicate, assignments: dict) -> int:
+        """UPDATE this table SET assignments WHERE predicate
+        (table/rowops.py): +U rows on a primary-key table, a copy-on-write
+        rewrite on an append table. Returns the rows updated."""
+        from .rowops import update_where
+
+        return update_where(self, predicate, assignments)
+
+    def merge_into(self, source):
+        """A MERGE INTO builder (table/rowops.py MergeInto):
+        table.merge_into(source).when_matched_update(...)
+        .when_not_matched_insert().execute()."""
+        from .rowops import MergeInto
+
+        return MergeInto(self, source)
 
     def create_tag(self, name: str, snapshot_id: int | None = None) -> None:
         TagManager(self.file_io, self.path).create(name, snapshot_id)

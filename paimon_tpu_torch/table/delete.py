@@ -19,8 +19,8 @@ Three strategies, as in the JAX package:
    and one COMPACT snapshot under the batch-delete identifier swaps them.
    The bucket's existing deletion vectors are applied first, whether or
    not the option is still set (the JAX package reads them only while it
-   is, and rows it marked come back; ROADMAP Queue 3). update_where and
-   merge_into, the rewrite with a transform, are not ported.
+   is, and rows it marked come back; ROADMAP Queue 3). UPDATE on an
+   append table (table/rowops.py) is the same rewrite with a transform.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from ..core.deletionvectors import DeletionVectorsIndexFile, DeletionVectorsMaintainer
+from ..core.kv import KVBatch
 from ..core.manifest import CommitMessage, ManifestCommittable
 from ..data.predicate import Predicate
 from ..options import ChangelogProducer, CoreOptions
@@ -131,9 +132,11 @@ def _delete_with_retract(table: "FileStoreTable", predicate: Predicate) -> int:
     return matching.num_rows
 
 
-def copy_on_write_rewrite(table: "FileStoreTable", predicate: Predicate) -> int:
-    """Rewrite every file holding a row the predicate matches without those
-    rows, after its deletion vector's rows; returns the rows dropped."""
+def copy_on_write_rewrite(table: "FileStoreTable", predicate: Predicate, transform=None) -> int:
+    """Rewrite every file holding a row the predicate matches, after its
+    deletion vector's rows: without the matching rows, or with them
+    replaced by transform(matching KVBatch) (UPDATE). Returns the rows
+    matched."""
     store = table.store
     plan = store.new_scan().plan()
     idx = DeletionVectorsIndexFile(table.file_io, table.path)
@@ -160,6 +163,9 @@ def copy_on_write_rewrite(table: "FileStoreTable", predicate: Predicate) -> int:
                 affected += hits
                 before.append(f)
                 kept = kv.filter(~mask)
+                if transform is not None:
+                    changed = transform(kv.filter(mask))
+                    kept = changed if kept.num_rows == 0 else KVBatch.concat([kept, changed])
                 if kept.num_rows:
                     after.extend(wf.write(kept, level=f.level, file_source="compact"))
             if before:

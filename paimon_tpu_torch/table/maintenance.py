@@ -1,11 +1,13 @@
-"""Partition expiry and drop (port of paimon_tpu/table/maintenance.py:
-expire_partitions, drop_partition; remove_orphan_files and
-mark_partition_done are not ported yet).
+"""Partition expiry, drop and done markers (port of
+paimon_tpu/table/maintenance.py: expire_partitions, drop_partition and
+mark_partition_done; remove_orphan_files needs resilience/orphan.py and is
+not ported yet, ROADMAP Queue 1 item 15).
 
-Both write one OVERWRITE snapshot that deletes the live files of the
-chosen partitions, under the maintenance commit identifier. The files
+Expiry and drop write one OVERWRITE snapshot that deletes the live files of
+the chosen partitions, under the maintenance commit identifier. The files
 stay on disk until snapshot expiry finds no retained snapshot that
-references them.
+references them. mark_partition_done writes a _SUCCESS file in each named
+partition's directory.
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ import datetime
 from typing import TYPE_CHECKING
 
 from ..core.manifest import ManifestCommittable
-from ..utils import now_millis
+from ..utils import dumps, loads, now_millis, partition_path
 
 if TYPE_CHECKING:
     from . import FileStoreTable
 
-__all__ = ["expire_partitions", "drop_partition", "MAINTENANCE_COMMIT_IDENTIFIER"]
+__all__ = ["expire_partitions", "drop_partition", "mark_partition_done", "MAINTENANCE_COMMIT_IDENTIFIER"]
 
 # the JAX package's identifier for maintenance commits, one of the batch
 # sentinels near the batch identifier, outside any streaming sequence
@@ -84,3 +86,28 @@ def _commit_partition_drop(table: "FileStoreTable", partitions: list[tuple]) -> 
     table.store.new_commit().overwrite(
         ManifestCommittable(MAINTENANCE_COMMIT_IDENTIFIER, messages=[]), partition_filter=lambda p: p in dead
     )
+
+
+def mark_partition_done(table: "FileStoreTable", specs: list[dict[str, str]]) -> list[str]:
+    """Write a _SUCCESS file in each partition directory of `specs` (each a
+    full {partition key: value} map), for schedulers that poll it to learn
+    that the partition takes no more data. The content is the JAX package's
+    JSON {creationTime, modificationTime}; a second mark keeps the creation
+    time. Returns the marker paths."""
+    keys = table.partition_keys
+    if not keys:
+        raise ValueError("mark_partition_done requires a partitioned table")
+    out = []
+    for spec in specs:
+        missing = [k for k in keys if k not in spec]
+        if missing:
+            raise ValueError(f"partition spec {spec} missing keys {missing}")
+        path = f"{table.path}/{partition_path(keys, tuple(spec[k] for k in keys))}/_SUCCESS"
+        now = now_millis()
+        try:
+            created = loads(table.file_io.read_bytes(path)).get("creationTime", now)
+        except (FileNotFoundError, OSError, ValueError):
+            created = now
+        table.file_io.try_overwrite(path, dumps({"creationTime": created, "modificationTime": now}).encode())
+        out.append(path)
+    return out

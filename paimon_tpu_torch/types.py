@@ -114,6 +114,9 @@ class DataType:
             base = r.value
         return base if self.nullable else base + " NOT NULL"
 
+    def __str__(self) -> str:
+        return self.serialize()
+
 
 def TINYINT(nullable: bool = True) -> DataType:
     return DataType(TypeRoot.TINYINT, nullable)
@@ -269,6 +272,10 @@ class RowKind(enum.IntEnum):
     UPDATE_BEFORE = 1
     UPDATE_AFTER = 2
     DELETE = 3
+
+    @property
+    def short_string(self) -> str:
+        return ("+I", "-U", "+U", "-D")[int(self)]
 
     @staticmethod
     def from_short_string(s: str) -> "RowKind":
