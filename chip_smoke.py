@@ -284,8 +284,9 @@ Phases, one JSON line each on stdout:
               tables of benchmarks/join_bench.py (a dimension of 100,000
               customers, cid STRING NOT NULL key, then a commit updating
               10,000 of them; a fact table of 1M rows in 4 commits with
-              uniform, zipf and hot50 customer keys; merge.dict-domain and
-              the native parquet options cut), and per skew join_batches
+              uniform, zipf and hot50 customer keys, read on the value path;
+              the dict_domain phase reads them again under
+              merge.dict-domain), and per skew join_batches
               under auto (the hash probe on the card), sort-merge with
               sort-engine=pallas (K2 at m = 2^21), xla-segmented and numpy,
               hot50 also at join.chunk-rows=131072 (K1 per partition), every
@@ -323,7 +324,37 @@ Phases, one JSON line each on stdout:
               and segment_sum must each launch in the phase, and K1 and K2
               are then held exactly to their plain versions at its shapes
               no earlier check covered.
-18. timing  - each kernel at its main-path shape against its plain version,
+18. dict_domain - merge.dict-domain, one line per part, with the schemas
+              and workloads of benchmarks/dict_domain_bench.py:37-101 and
+              :161-260 at sort-engine=pallas, write-only, no data-file
+              cache: dict_heavy (1M rows in 4 commits; key (k BIGINT, cat
+              STRING of 200 values), STRING payloads of 800, 12, 300 and
+              40 values), mixed and non_dict (400,000 rows each; non_dict
+              never engages the code domain). Per schema, with the option
+              on and off: the merge read of one physical table flipped with
+              table.copy at the default tile (stock sort + K2) and at
+              131072 (K1), 3 reads each, and a staged read split into key
+              decode, key lanes, plan/upload/kernel/download, value decode
+              and gather; the full-compaction rewrite of a copy of the
+              table; sort_compact(order="order") of a copy of an append
+              table at n / 2 rows in 2 commits. Every result equals the
+              option-off result and a sort-engine=numpy read (outside the
+              timed region); the rewritten files re-read with the option
+              off. Seconds, rows/s, the dict counters (rows_code_domain > 0
+              on dict_heavy and mixed, 0 on non_dict and off) and K1/K2
+              launches per workload. star_join: the lookups phase's tables
+              read with the option on, one auto join per skew beside the
+              value path's ms, pairs equal to a host dict loop's, with
+              code_domain_joins and the columns that came back coded.
+              torch_ops: unpack_bits_torch, pack_bits_torch and
+              gather_torch held exactly to their numpy twins at widths 1-32
+              and 1 MiB page sizes, device and host ms per call; dict_heavy
+              read once under set_decode_engine("torch") and its rows
+              written once under set_encode_engine("torch"), equal to the
+              numpy engines (the file bytes identical). K1 and K2 then held
+              exactly to their plain versions at the phase's shapes no
+              earlier check covered.
+19. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -337,8 +368,8 @@ Phases, one JSON line each on stdout:
 Then a summary line (each phase's wall seconds, its launches of each kernel
 and the first rate it reports), one JSON line with every kernel's numbers
 (its launches summed over the main, compact, engines, buckets, strings,
-maintenance, cdc, deletes, history, writes, services, lookups and sql
-paths, and by path), the card line, and last
+maintenance, cdc, deletes, history, writes, services, lookups, sql and
+dict_domain paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -661,10 +692,11 @@ def check_output(out, reference, up: np.ndarray, what: str) -> None:
         assert np.array_equal(vals[old_ids], old[name]), f"{what}: untouched {name} changed"
 
 
-def layer_breakdown(table, tile_rows: int) -> dict:
+def layer_breakdown(table, tile_rows: int, keys: tuple = ("id",), rows: int | None = N_ROWS) -> dict:
     """One keys-only merge read, timed stage by stage (host clock, device
     synchronised at each boundary), and the zstd decompression of every page
-    its two decode stages decode, timed apart."""
+    its two decode stages decode, timed apart. A string key's stage is its
+    pool and ranks."""
     from paimon_tpu_torch.core.kv import VALUE_KIND_FIELD_NAME, KVBatch
     from paimon_tpu_torch.core.levels import IntervalPartition
     from paimon_tpu_torch.core.read import order_runs_for_merge
@@ -672,6 +704,7 @@ def layer_breakdown(table, tile_rows: int) -> dict:
     from paimon_tpu_torch.ops.merge import deduplicate_resolve_tiled, deduplicate_tiled_dispatch
     from paimon_tpu_torch.types import STRING_ROOTS
 
+    keys = list(keys)
     t = table.copy({"merge.read-batch-rows": str(tile_rows)})
     store = t.store
     (split,) = t.new_read_builder().new_scan().plan()
@@ -681,19 +714,19 @@ def layer_breakdown(table, tile_rows: int) -> dict:
     files = [f for run in runs for f in run.files]
     ms = {}
     t0 = time.perf_counter()
-    heads = [rf.read(f, fields=["id"], system_columns="kind") for f in files]
+    heads = [rf.read(f, fields=keys, system_columns="kind" if seq_ascending else True) for f in files]
     kv_keys = KVBatch.concat(heads)
     ms["decode_keys"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    lanes = encode_key_lanes_with_pools(kv_keys.data, ["id"])
-    string_key = rf.read_schema.field("id").type.root in STRING_ROOTS
+    lanes = encode_key_lanes_with_pools(kv_keys.data, keys)
+    string_key = any(rf.read_schema.field(k).type.root in STRING_ROOTS for k in keys)
     ms["pool_and_ranks" if string_key else "encode_lanes"] = (time.perf_counter() - t0) * 1e3
     offsets = np.cumsum([0] + [h.num_rows for h in heads]).tolist()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     take = deduplicate_resolve_tiled(deduplicate_tiled_dispatch(lanes, offsets, tile_rows, "pallas", True, DEVICE))
     ms["plan_upload_kernel_download"] = (time.perf_counter() - t0) * 1e3
-    rest = [n for n in rf.read_schema.field_names if n != "id"]
+    rest = [n for n in rf.read_schema.field_names if n not in keys]
     t0 = time.perf_counter()
     tails = [rf.read(f, fields=rest, system_columns=False) for f in files]
     ms["decode_values"] = (time.perf_counter() - t0) * 1e3
@@ -701,9 +734,9 @@ def layer_breakdown(table, tile_rows: int) -> dict:
     tail = KVBatch.concat(tails).take(take)
     kv_keys.take(take)
     ms["gather"] = (time.perf_counter() - t0) * 1e3
-    assert tail.num_rows == N_ROWS
+    assert rows is None or tail.num_rows == rows
     raws = [store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}") for f in files]
-    decompress = {"keys": decompress_pages(raws, ["id", VALUE_KIND_FIELD_NAME]), "values": decompress_pages(raws, rest)}
+    decompress = {"keys": decompress_pages(raws, keys + [VALUE_KIND_FIELD_NAME]), "values": decompress_pages(raws, rest)}
     return {"tile_rows": tile_rows, "seq_ascending": seq_ascending, "ms": {k: round(v, 3) for k, v in ms.items()},
             "decompress_pages": decompress}
 
@@ -711,14 +744,15 @@ def layer_breakdown(table, tile_rows: int) -> dict:
 def decompress_pages(raws: list, columns: list) -> dict:
     """Every page of `columns` in the data files `raws`, taken apart and
     decompressed as the reader does it, without decoding the values."""
-    from paimon_tpu_torch.format import parquet
+    from paimon_tpu_torch.decode.container import decompress_page, iter_pages, parse_footer
 
     out_bytes = 0
     t0 = time.perf_counter()
     for raw in raws:
-        for _, chunks in parquet._parse_footer(raw):
+        for _, chunks in parse_footer(raw):
             for name in columns:
-                out_bytes += sum(len(page) for _, _, page in parquet._iter_pages(raw, chunks[name]))
+                chunk = chunks[name]
+                out_bytes += sum(len(decompress_page(chunk, kind, hdr, page)) for kind, hdr, page in iter_pages(raw, chunk))
     s = time.perf_counter() - t0
     return {"ms": round(s * 1e3, 3), "out_mb": round(out_bytes / 1e6, 3), "out_mb_per_s": round(out_bytes / 1e6 / s, 1)}
 
@@ -963,7 +997,15 @@ def main() -> int:
         emit({"phase": "sql", "part": "summary", **sql, "exact_checks_all_phases": checks})
         lap("sql", sql)
 
-    # 18. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 18. the dictionary-code domain
+        checked = tuple(list(checked[i]) + [tuple(s) for s in sql["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        dict_domain = dict_domain_phase(pt, hk, warehouse, lookups["star_join_auto_ms"], checked)
+        checks += dict_domain["shape_checks"]["exact_checks"]
+        emit({"phase": "dict_domain", "part": "summary", **dict_domain, "exact_checks_all_phases": checks})
+        lap("dict_domain", dict_domain)
+
+    # 19. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -979,7 +1021,7 @@ def main() -> int:
                       "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
                       "history": history["launches"][name], "writes": writes["launches"][name],
                       "services": services["launches"][name], "lookups": lookups["launches"][name],
-                      "sql": sql["launches"][name]}
+                      "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -4494,6 +4536,7 @@ def lookups_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
         assert by_part["star_join"][k] > 0, f"{k} never launched on the join path: {by_part}"
     caches = {name: {m: v - caches0[name][m] for m, v in c.items()} for name, c in cache_counts().items()}
     return {"launches": launches, "launches_by_part": by_part, "seconds_by_part": seconds, "caches": caches,
+            "star_join_auto_ms": {skew: parts["star_join"]["joins"][skew]["auto"]["ms"] for skew in J_SKEWS},
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2032, checked)}
 
 
@@ -4864,6 +4907,327 @@ def sql_phase(pt, hk, warehouse: str, table, up, checked: tuple) -> dict:
             "launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
             "seconds_by_part": seconds, "rows_reduced_device": sql_metrics().counter("rows_reduced_device").count
             - rows0, "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2033, checked)}
+
+
+# ---------------------------------------------------------------------------
+# the dictionary-code domain (merge.dict-domain): the schemas and workloads
+# of benchmarks/dict_domain_bench.py:37-101 and :161-260 on the card
+# ---------------------------------------------------------------------------
+
+DD_HEAVY_ROWS = 1_000_000  # dict_heavy at the bench table's size
+DD_ROWS = 400_000  # mixed and non_dict at the bench's own N_ROWS
+DD_RUNS = 4
+DD_REPEATS = 3
+DD_BASE = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", "cache.data-file.max-memory-size": "0 b"}
+DD_COUNTERS = ("pools_unified", "codes_remapped", "rows_code_domain", "fallback_expanded")
+DD_WIDTHS = range(1, 33)
+
+
+def dd_schemas(pt) -> dict:
+    """(schema, primary keys, sort-compact columns) per kind, as the bench
+    defines them."""
+    return {
+        "dict_heavy": (pt.RowType.of(("k", pt.BIGINT(False)), ("cat", pt.STRING(False)), ("s1", pt.STRING()),
+                                     ("s2", pt.STRING()), ("s3", pt.STRING()), ("s4", pt.STRING())),
+                       ["k", "cat"], ["cat", "s1"]),
+        "mixed": (pt.RowType.of(("k", pt.BIGINT(False)), ("s1", pt.STRING()), ("s2", pt.STRING()),
+                                ("v1", pt.BIGINT()), ("v2", pt.DOUBLE())), ["k"], ["s1", "v1"]),
+        "non_dict": (pt.RowType.of(("k", pt.BIGINT(False)), ("v1", pt.BIGINT()), ("v2", pt.DOUBLE())),
+                     ["k"], ["v1"]),
+    }
+
+
+def dd_rows(kind: str, n: int, rng) -> dict:
+    """One commit's rows of the bench's generator (k drawn from [0, 2n))."""
+    def labels(prefix: str, width: int, count: int):
+        return np.array([f"{prefix}-{int(x):0{width}d}" for x in rng.integers(0, count, n)], dtype=object)
+
+    k = rng.integers(0, n * 2, n).astype(np.int64)
+    if kind == "dict_heavy":
+        return {"k": k, "cat": labels("category", 3, 200), "s1": labels("city", 4, 800),
+                "s2": labels("status", 2, 12), "s3": labels("device", 3, 300), "s4": labels("plan", 2, 40)}
+    if kind == "mixed":
+        return {"k": k, "s1": labels("region", 3, 100), "s2": labels("tag", 2, 30),
+                "v1": rng.integers(0, 1 << 40, n).astype(np.int64), "v2": rng.random(n)}
+    return {"k": k, "v1": rng.integers(0, 1 << 40, n).astype(np.int64), "v2": rng.random(n)}
+
+
+def dd_write(table, kind: str, n: int, runs: int) -> float:
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(dd_rows(kind, n // runs, rng))
+        wb.new_commit().commit(w.prepare_commit())
+    return time.perf_counter() - t0
+
+
+def dd_counters() -> dict:
+    from paimon_tpu_torch.metrics import dict_metrics
+
+    return {k: dict_metrics().counter(k).count for k in DD_COUNTERS}
+
+
+def dd_same(a, b, what: str) -> None:
+    """Two batches equal column by column (validity, then the valid values);
+    a code-backed column expands here, outside every timed region."""
+    assert a.schema.field_names == b.schema.field_names and a.num_rows == b.num_rows, what
+    for name in a.schema.field_names:
+        x, y = a.column(name), b.column(name)
+        ok = x.valid_mask()
+        assert np.array_equal(ok, y.valid_mask()), f"{what}: validity of {name} differs"
+        assert np.array_equal(x.values[ok], y.values[ok]), f"{what}: column {name} differs"
+
+
+def dd_coded(batch) -> list:
+    return [n for n in batch.schema.field_names if batch.column(n).is_code_backed]
+
+
+def dd_stages(table, keys: list, tile_rows: int) -> dict:
+    """One keys-only merge read split as the strings phase splits it, with
+    the key lanes' and the decode stages' shares."""
+    out = layer_breakdown(table, tile_rows, tuple(keys), None)
+    ms = out["ms"]
+    lanes = ms.get("pool_and_ranks", ms.get("encode_lanes"))
+    return {**out, "key_lane_share": round(lanes / sum(ms.values()), 4),
+            "decode_share": round((ms["decode_keys"] + ms["decode_values"]) / sum(ms.values()), 4)}
+
+
+def dd_workload(hk, run, rows: int) -> dict:
+    """One timed run: seconds, rows/s, the dict counters and the kernels'
+    launches it made."""
+    c0, l0 = dd_counters(), dict(hk.launches)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return {"s": round(s, 4), "rows_per_s": round(rows / s, 1),
+            "dict": {k: v - c0[k] for k, v in dd_counters().items()}, "launches": launch_diff(hk, l0)}, out
+
+
+def dd_schema_part(pt, hk, cat, kind: str) -> dict:
+    """One schema: the merge read at both tiles, the full-compaction rewrite
+    and the sort-compact of an append table, each with merge.dict-domain on
+    and off, each result held to the option-off result and a
+    sort-engine=numpy read; the rewritten files re-read with the option
+    off."""
+    schema, keys, sort_cols = dd_schemas(pt)[kind]
+    n = DD_HEAVY_ROWS if kind == "dict_heavy" else DD_ROWS
+    base = cat.create_table(f"dd.{kind}", schema, primary_keys=keys, options=DD_BASE)
+    write_s = dd_write(base, kind, n, DD_RUNS)
+    reference = read_all(base.copy({"sort-engine": "numpy"}))
+    rows = reference.num_rows
+    reads = {}
+    for tier, opts in (("default_tile", {}), (f"tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        for dd in ("on", "off"):
+            view = base.copy({**opts, "merge.dict-domain": "true" if dd == "on" else "false"})
+            samples, stats = [], None
+            for _ in range(DD_REPEATS):
+                stats, out = dd_workload(hk, lambda: read_all(view), rows)
+                samples.append(stats["s"])
+            coded = dd_coded(out)
+            dd_same(out, reference, f"{kind} {tier} {dd}")
+            reads[f"{tier}_{dd}"] = {"samples_s": samples, "rows_per_s_median": round(rows / float(np.median(samples)), 1),
+                                     "dict_last_read": stats["dict"], "launches_last_read": stats["launches"],
+                                     "coded_columns": coded}
+    kernel = {"default_tile": "keep_last_mask", f"tile_{K1_TILE_ROWS}": "sort_segments"}
+    for tier, name in kernel.items():
+        assert reads[f"{tier}_on"]["launches_last_read"][name] > 0, f"{kind}: {name} never launched at {tier}"
+    for tier in kernel:
+        got = reads[f"{tier}_on"]["dict_last_read"]["rows_code_domain"]
+        assert (got > 0) == (kind != "non_dict"), f"{kind} {tier}: rows_code_domain {got}"
+        assert reads[f"{tier}_off"]["dict_last_read"]["rows_code_domain"] == 0, f"{kind} {tier}: off read coded rows"
+    stages = {f"{tier}_{dd}": dd_stages(base.copy({"merge.dict-domain": "true" if dd == "on" else "false"}), keys, t)
+              for tier, t in (("default_tile", 8 << 20), (f"tile_{K1_TILE_ROWS}", K1_TILE_ROWS)) for dd in ("on", "off")}
+    # the full-compaction rewrite, one copy of the table per option
+    compaction = {}
+    for dd in ("on", "off"):
+        name = f"dd.{kind}_compact_{dd}"
+        shutil.copytree(base.path, cat.table_path(name))
+        t = cat.get_table(name).copy({"write-only": "false", "merge.dict-domain": "true" if dd == "on" else "false"})
+
+        def rewrite():
+            wb = t.new_batch_write_builder()
+            w = wb.new_write()
+            w.compact(full=True)
+            wb.new_commit().commit(w.prepare_commit())
+
+        compaction[dd], _ = dd_workload(hk, rewrite, rows)
+        after = cat.get_table(name).copy({"merge.dict-domain": "false"})
+        assert len(after.store.restore_files((), 0)) >= 1
+        dd_same(read_all(after), reference, f"{kind} compaction {dd}, re-read off")
+        dd_same(read_all(after.copy({"sort-engine": "numpy"})), reference, f"{kind} compaction {dd}, numpy")
+    # sort-compact of an append table at n / 2 rows in 2 commits
+    append = cat.create_table(f"dd.{kind}_append", schema, options=DD_BASE)
+    dd_write(append, kind, n // 2, 2)
+    sorted_views, sort_compact_rows = {}, {}
+    for dd in ("on", "off"):
+        from paimon_tpu_torch.table.sort_compact import sort_compact
+
+        name = f"dd.{kind}_append_{dd}"
+        shutil.copytree(append.path, cat.table_path(name))
+        t = cat.get_table(name).copy({"merge.dict-domain": "true" if dd == "on" else "false"})
+        sort_compact_rows[dd], total = dd_workload(hk, lambda: sort_compact(t, sort_cols, order="order"), n // 2)
+        assert total == n // 2, total
+        sorted_views[dd] = read_all(cat.get_table(name).copy({"merge.dict-domain": "false"}))
+    dd_same(sorted_views["on"], sorted_views["off"], f"{kind} sort-compact on vs off")
+    dd_same(read_all(cat.get_table(f"dd.{kind}_append_on").copy({"sort-engine": "numpy"})), sorted_views["off"],
+            f"{kind} sort-compact numpy read")
+    speed = {w: round(r["on"]["rows_per_s"] / r["off"]["rows_per_s"], 3)
+             for w, r in (("compaction", compaction), ("sort_compact", sort_compact_rows))}
+    for tier in kernel:
+        speed[f"read_{tier}"] = round(reads[f"{tier}_on"]["rows_per_s_median"] / reads[f"{tier}_off"]["rows_per_s_median"], 3)
+    return {"rows": n, "runs": DD_RUNS, "keys": keys, "sort_columns": sort_cols, "options": DD_BASE,
+            "write_s": round(write_s, 3), "merge_read": reads, "stages": stages, "compaction": compaction,
+            "sort_compact": sort_compact_rows, "on_over_off": speed, "equal_to_off_and_numpy": True}
+
+
+def dd_star_part(hk, cat, value_path_ms: dict) -> dict:
+    """The lookups phase's star schema read with merge.dict-domain=true: one
+    auto join per skew beside the value path's, pairs equal to a host dict
+    loop's."""
+    from paimon_tpu_torch.metrics import join_metrics
+    from paimon_tpu_torch.ops.join import join_batches
+
+    on = {"merge.dict-domain": "true", "cache.data-file.max-memory-size": "0 b"}
+    t0 = time.perf_counter()
+    dim = read_all(cat.get_table("lookups.dim").copy(on))
+    fact = read_all(cat.get_table("lookups.fact").copy(on))
+    read_s = time.perf_counter() - t0
+    coded = {"dim": dd_coded(dim), "fact": dd_coded(fact)}
+
+    def plain(col) -> list:
+        """A column's values without expanding it in place."""
+        if col.is_code_backed:
+            pool, codes = col.dict_cache
+            return pool.take(codes).tolist()
+        return col.values.tolist()
+
+    pos = {c: j for j, c in enumerate(plain(dim.column("cid")))}
+    joins = {}
+    for skew in J_SKEWS:
+        col = f"cust_{skew}"
+        rt = np.fromiter((pos.get(c, -1) for c in plain(fact.column(col))), np.int64, fact.num_rows)
+        lt = np.flatnonzero(rt >= 0)
+        j0, l0 = join_metrics().counter("code_domain_joins").count, dict(hk.launches)
+        t0 = time.perf_counter()
+        res = join_batches(fact, dim, [col], ["cid"], options={"sort-engine": "pallas", **on}, device=DEVICE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert np.array_equal(res.left_take, lt) and np.array_equal(res.right_take, rt[lt]), \
+            f"{skew}: code-domain pairs differ from the host dict loop"
+        joins[skew] = {"ms": round(ms, 3), "value_path_ms": value_path_ms.get(skew), "pairs": int(len(lt)),
+                       "code_domain_joins": join_metrics().counter("code_domain_joins").count - j0,
+                       "code_domain_cols": res.stats["code_domain_cols"], "algorithm": res.stats["algorithm"],
+                       "engine": res.stats["engine"], "launches": launch_diff(hk, l0)}
+    return {"read_s_on": round(read_s, 3), "coded_columns": coded, "joins": joins,
+            "dimension_rows": dim.num_rows, "fact_rows": fact.num_rows, "equal_to_dict_loop": True,
+            "note": "value_path_ms: the lookups phase's auto join, before its 1,000 dimension changes"}
+
+
+def dd_torch_ops_part(pt, hk, cat) -> dict:
+    """The torch twins of the JAX package's XLA programs on the card, held
+    exactly to their numpy twins at bit widths 1-32 and the page sizes of
+    this phase's files; dict_heavy read once under the torch decode engine
+    and its merged rows written once under the torch encode engine, each
+    equal to the numpy engine's."""
+    from paimon_tpu_torch.decode import kernels as dk
+    from paimon_tpu_torch.encode import kernels as ek
+    from paimon_tpu_torch.format.parquet import write_parquet
+
+    rng = np.random.default_rng(2035)
+    dev = torch.device(DEVICE)
+    checks = 0
+    for w in DD_WIDTHS:
+        # values a 1 MiB page holds at this width, as the writer sizes pages
+        per_page = min((int((1 << 20) / (max(w, 1) / 8 + 0.125)) // 8) * 8, DD_HEAVY_ROWS)
+        for count in (8, 1000, per_page):
+            vals = rng.integers(0, 1 << w, count, dtype=np.uint64)
+            packed = ek.pack_bits(vals, w)
+            twin = ek.pack_bits_torch(torch.from_numpy(vals.astype(np.int64)).to(dev), w)
+            assert twin.cpu().numpy().tobytes() == packed, f"pack_bits_torch differs at width {w}, {count} values"
+            raw = np.frombuffer(packed, dtype=np.uint8)
+            got = dk.unpack_bits_torch(torch.from_numpy(raw.copy()).to(dev), w, count).cpu().numpy()
+            assert np.array_equal(got, dk.unpack_bits(raw, w, count)), f"unpack_bits_torch differs at width {w}"
+            checks += 2
+    for size in (1, 12, 40, 200, 800, 1 << 16):
+        for dtype in (np.int32, np.int64):
+            dictionary = rng.integers(-(1 << 30), 1 << 30, size).astype(dtype)
+            codes = rng.integers(0, size, DD_HEAVY_ROWS // 4)
+            got = dk.gather_torch(torch.from_numpy(dictionary).to(dev), torch.from_numpy(codes).to(dev))
+            assert np.array_equal(got.cpu().numpy(), dictionary.take(codes)), f"gather_torch differs at {size}"
+            checks += 1
+    # each op's device and host ms per call at a page of 10-bit codes
+    w, count = 10, (int((1 << 20) / (10 / 8 + 0.125)) // 8) * 8
+    vals = torch.from_numpy(rng.integers(0, 1 << w, count).astype(np.int64)).to(dev)
+    raw = ek.pack_bits_torch(vals, w)
+    dictionary = torch.from_numpy(rng.integers(0, 1 << 30, 1 << w).astype(np.int64)).to(dev)
+    ops = {"pack_bits_torch": lambda: ek.pack_bits_torch(vals, w),
+           "unpack_bits_torch": lambda: dk.unpack_bits_torch(raw, w, count),
+           "gather_torch": lambda: dk.gather_torch(dictionary, vals)}
+    timing = {name: {"shape": [w, count], "device_ms": device_ms(fn, {"ms": ""})["ms"], "host_ms_per_call": host_ms(fn),
+                     "events_ms": round(cuda_ms(fn, iters=20, warmup=3), 5)} for name, fn in ops.items()}
+    # dict_heavy through the torch engines
+    table = cat.get_table("dd.dict_heavy").copy({"merge.dict-domain": "true"})
+    want = read_all(table)
+    dk.set_decode_engine("torch", DEVICE)
+    try:
+        t0 = time.perf_counter()
+        got = read_all(table)
+        torch_read_s = time.perf_counter() - t0
+    finally:
+        dk.set_decode_engine("numpy")
+    t0 = time.perf_counter()
+    numpy_bytes = write_parquet(want, "zstd")
+    numpy_write_s = time.perf_counter() - t0
+    ek.set_encode_engine("torch", DEVICE)
+    try:
+        t0 = time.perf_counter()
+        torch_bytes = write_parquet(want, "zstd")
+        torch_write_s = time.perf_counter() - t0
+    finally:
+        ek.set_encode_engine("numpy")
+    assert torch_bytes == numpy_bytes, "the torch encode engine wrote other bytes"
+    dd_same(got, want, "dict_heavy read under the torch decode engine")
+    return {"exact_checks": checks, "widths": [1, 32], "ops": timing,
+            "dict_heavy_read_s": {"torch_engine": round(torch_read_s, 3)},
+            "dict_heavy_write_s": {"numpy_engine": round(numpy_write_s, 3), "torch_engine": round(torch_write_s, 3)},
+            "file_bytes": len(numpy_bytes), "equal_to_numpy_engines": True}
+
+
+def dict_domain_phase(pt, hk, warehouse: str, value_path_ms: dict, checked: tuple) -> dict:
+    """merge.dict-domain on the card, one line per part: dict_heavy, mixed
+    and non_dict (the merge read at both tiles, the compaction rewrite, the
+    sort-compact; on and off), the star join read with the option on, and
+    the torch twins. K1 and K2 must launch on the code lanes; both are then
+    held exactly to their plain versions at the phase's shapes no earlier
+    check covered. Launch counts are zeroed before it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    parts, seconds = {}, {}
+    with ShapeRecorder(hk) as recorder:
+        for name, run in (("dict_heavy", lambda: dd_schema_part(pt, hk, cat, "dict_heavy")),
+                          ("mixed", lambda: dd_schema_part(pt, hk, cat, "mixed")),
+                          ("non_dict", lambda: dd_schema_part(pt, hk, cat, "non_dict")),
+                          ("star_join", lambda: dd_star_part(hk, cat, value_path_ms)),
+                          ("torch_ops", lambda: dd_torch_ops_part(pt, hk, cat))):
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = run()
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "dict_domain", "part": name, **parts[name]})
+    launches = dict(hk.launches)
+    for k in K1_K2:
+        assert launches[k] > 0, f"{k} never launched in the dict_domain phase: {launches}"
+    heavy = parts["dict_heavy"]["merge_read"]
+    return {"dict_heavy_read_rows_per_s": {k: v["rows_per_s_median"] for k, v in heavy.items()},
+            "launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
+            "seconds_by_part": seconds, "cuts": [],
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2034, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

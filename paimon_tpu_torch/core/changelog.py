@@ -76,11 +76,20 @@ def _lane_view(lanes: np.ndarray) -> np.ndarray:
 
 def _rows_differ(a: KVBatch, b: KVBatch) -> np.ndarray:
     """A row changed where some field's validity differs or both values
-    are valid and differ; the bytes of a null slot do not count."""
+    are valid and differ; the bytes of a null slot do not count. Where
+    both sides carry dictionary codes and one is code-backed, the two
+    pools unify once and the remapped codes compare."""
+    from ..ops.dicts import cache_usable, remap_codes, unify_pools
+
     out = np.zeros(a.num_rows, dtype=np.bool_)
     for name in a.data.schema.field_names:
         ca, cb = a.data.column(name), b.data.column(name)
         ok_a, ok_b = ca.valid_mask(), cb.valid_mask()
+        if cache_usable(ca) and cache_usable(cb) and (ca.is_code_backed or cb.is_code_backed):
+            _, (ra, rb) = unify_pools([ca.dict_cache[0], cb.dict_cache[0]])
+            neq = remap_codes(ra, ca.dict_cache[1]) != remap_codes(rb, cb.dict_cache[1])
+            out |= (neq & ok_a & ok_b) | (ok_a != ok_b)
+            continue
         va, vb = ca.values, cb.values
         if va.dtype == np.dtype(object):
             neq = np.fromiter((x != y for x, y in zip(va, vb)), dtype=np.bool_, count=len(va))

@@ -16,6 +16,13 @@ payload up to file-index.in-manifest-threshold rides in the manifest
 entry, a larger one goes to a `.index` sidecar named in extra_files.
 Predicate-free reads go through the data-file cache (utils/cache.py); a
 cached KVBatch is shared, so no reader may change its arrays.
+
+The writer passes the table's parquet writer options (parquet.page-size,
+parquet.row-group.rows, file.block-size, parquet.enable.dictionary,
+parquet.data-page-version) to the encoder. Under merge.dict-domain the
+reader asks the decoder for code-backed columns (dictionary-encoded chunks
+as a sorted pool and uint32 codes); the flag is part of the data-file
+cache's key, so a code-backed batch never stands in for an expanded one.
 """
 
 from __future__ import annotations
@@ -37,8 +44,18 @@ from .kv import SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME, KVBatch, kv_disk_sch
 
 __all__ = ["DataFileMeta", "KeyValueFileWriterFactory", "KeyValueFileReaderFactory"]
 
-# the decoder field of the data-file cache's key: the port has one decoder
+# the decoder field of the data-file cache's key: the port has one decoder,
+# with or without the code domain
 _DECODER_ID = "port"
+
+# the table options the parquet writer honours
+WRITER_OPTION_KEYS = (
+    "parquet.page-size",
+    "parquet.row-group.rows",
+    "file.block-size",
+    "parquet.enable.dictionary",
+    "parquet.data-page-version",
+)
 
 
 @dataclass(frozen=True)
@@ -110,6 +127,12 @@ def _py(x):
     return x.item() if hasattr(x, "item") else x
 
 
+def _sort_key(col: Column) -> np.ndarray:
+    if col.is_code_backed and col.validity is None:
+        return col.dict_cache[1]
+    return col.values
+
+
 class KeyValueFileWriterFactory:
     """Writes key-sorted KVBatches as parquet data files with stats,
     rolling at the target file size."""
@@ -131,6 +154,7 @@ class KeyValueFileWriterFactory:
         key_bloom: bool = False,
         key_bloom_fpp: float = 0.001,
         index_in_manifest_threshold: int = 500,
+        format_options: dict | None = None,
     ):
         if file_format != "parquet":
             raise NotImplementedError(f"file.format={file_format} is not supported by the torch port yet")
@@ -155,6 +179,7 @@ class KeyValueFileWriterFactory:
         self.key_bloom = bool(key_bloom) and keyed and bool(self.key_names)
         self.key_bloom_fpp = key_bloom_fpp
         self.index_in_manifest_threshold = index_in_manifest_threshold
+        self.format_options = dict(format_options or {})
 
     def _estimate_row_bytes(self, batch: ColumnBatch) -> int:
         total = 0
@@ -190,7 +215,8 @@ class KeyValueFileWriterFactory:
     def _key_range(self, data: ColumnBatch, sorted_input: bool) -> tuple[tuple, tuple]:
         first = last = 0
         if self.key_names and not sorted_input:
-            order = np.lexsort([data.column(k).values for k in reversed(self.key_names)])
+            # codes are rank-preserving stand-ins for the values
+            order = np.lexsort([_sort_key(data.column(k)) for k in reversed(self.key_names)])
             first, last = int(order[0]), int(order[-1])
         else:
             last = data.num_rows - 1
@@ -204,7 +230,8 @@ class KeyValueFileWriterFactory:
         name = new_file_name(prefix, "parquet")
         path = f"{self.bucket_dir}/{name}"
         compression = self.per_level_compression.get(level, self.compression)
-        self.file_io.write_bytes(path, write_parquet(kv.to_disk_batch() if self.keyed else kv.data, compression))
+        disk = kv.to_disk_batch() if self.keyed else kv.data
+        self.file_io.write_bytes(path, write_parquet(disk, compression, self.format_options))
         extra, embedded = self._write_index(kv, name, path)
         value_stats = collect_stats(kv.data)
         min_key, max_key = self._key_range(kv.data, sorted_input)
@@ -258,12 +285,16 @@ class KeyValueFileReaderFactory:
         schemas_by_id: dict[int, RowType],
         keyed: bool = True,
         cache=None,
+        dict_domain: bool = False,
+        pool_limit: int | None = None,
     ):
         self.file_io = file_io
         self.bucket_dir = bucket_dir
         self.read_schema = read_schema
         self.schemas_by_id = schemas_by_id
         self.keyed = keyed
+        self.dict_domain = dict_domain
+        self.pool_limit = pool_limit
         # the data-file cache (utils/cache.py), predicate-free reads only
         self.cache = cache if cache is not None and cache.enabled else None
 
@@ -277,11 +308,13 @@ class KeyValueFileReaderFactory:
         """fields: subset of read-schema fields to decode. system_columns:
         True reads _SEQUENCE_NUMBER + _VALUE_KIND, "kind" only _VALUE_KIND
         (seq zeros), False neither (the caller holds them already).
-        predicate: row groups whose statistics cannot match it are skipped;
-        the rows left depend on the predicate alone, so two reads of one
-        file under one predicate are row-aligned whatever their fields. The
-        predicate filters no row itself. An unkeyed (append) file has no
-        system columns: its sequence numbers and kinds read as zeros."""
+        predicate: row groups whose statistics cannot match it are skipped,
+        and rows whose dictionary codes fail one of its value conjuncts are
+        dropped; the rows left depend on the predicate alone, so two reads
+        of one file under one predicate are row-aligned whatever their
+        fields. Rows it leaves may still fail it: the caller filters. An
+        unkeyed (append) file has no system columns: its sequence numbers
+        and kinds read as zeros."""
         ext = meta.file_name.rsplit(".", 1)[-1]
         if ext != "parquet":
             raise NotImplementedError(f"file.format={ext} is not supported by the torch port yet")
@@ -293,7 +326,8 @@ class KeyValueFileReaderFactory:
             # evolution; the key holds the file name, not its path, so a
             # branch view or a table copy reading the same file hits
             sig = tuple((f.id, f.name, repr(f.type)) for f in (self.read_schema.field(n) for n in read_names))
-            key = ("data", meta.file_name, system_columns, sig, fields is None, _DECODER_ID)
+            decoder = _DECODER_ID + ("+dict" if self.dict_domain else "")
+            key = ("data", meta.file_name, system_columns, sig, fields is None, decoder)
             return self.cache.get_or_load(
                 key,
                 lambda: self._decode(meta, fields, system_columns, None),
@@ -328,7 +362,7 @@ class KeyValueFileReaderFactory:
                     predicate = None
                     break
         raw = self.file_io.read_bytes(f"{self.bucket_dir}/{meta.file_name}")
-        parts = read_parquet(raw, disk_schema, wanted, predicate)
+        parts = read_parquet(raw, disk_schema, wanted, predicate, self.dict_domain, self.pool_limit)
         disk = concat_batches(parts) if parts else ColumnBatch.empty(disk_schema.project(wanted))
         n = disk.num_rows
         cols: dict[str, Column] = {}

@@ -3,9 +3,11 @@ paimon_tpu/core/mergefn.py).
 
 One MergeExecutor call feeds every same-key group through the table's
 merge function at once: encode keys into lanes (string keys as ranks in a
-pool over the whole merge input), sort and segment them on
-the device (K1 or K2 under sort-engine=pallas), apply the engine as segment
-selections or reductions, and gather on the host. Engines: deduplicate,
+pool over the whole merge input, taken from their dictionary codes when
+the columns are code-backed under merge.dict-domain), sort and segment
+them on the device (K1 or K2 under sort-engine=pallas), apply the engine
+as segment selections or reductions, and gather on the host (a
+code-backed column gathers its codes). Engines: deduplicate,
 partial-update (with sequence groups), aggregation (every function but
 collect, merge_map and nested_update) and first-row. A sequence.field
 orders each key's rows before the system sequence number: its lanes go
@@ -108,7 +110,7 @@ class MergeExecutor:
     def _key_lanes(self, kv: KVBatch) -> np.ndarray:
         """Key lanes; a string or bytes key ranks against a pool built over
         kv, which holds every run of the merge (merge-wide, as the JAX
-        package builds it)."""
+        package builds it), from its codes where it carries them."""
         return encode_key_lanes_with_pools(kv.data, self.key_names)
 
     def _seq_lanes(self, kv: KVBatch, seq_ascending: bool) -> np.ndarray | None:

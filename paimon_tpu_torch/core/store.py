@@ -35,7 +35,8 @@ from ..utils.cache import table_caches
 from .append import AppendOnlyCompactManager, AppendOnlyWriter
 from .commit import FileStoreCommit
 from .compact import MergeTreeCompactManager, MergeTreeCompactRewriter, UniversalCompaction
-from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
+from ..ops.dicts import resolve_dict_domain
+from .datafile import WRITER_OPTION_KEYS, DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
 from .deletionvectors import DeletionVectorsIndexFile
 from .expire import SnapshotExpire
 from .kv import KVBatch
@@ -111,6 +112,7 @@ class KeyValueFileStore:
             key_bloom=resolve_key_bloom(co.options.get(CoreOptions.FILE_INDEX_BLOOM_KEY_ENABLED)),
             key_bloom_fpp=co.options.get(CoreOptions.FILE_INDEX_BLOOM_KEY_FPP),
             index_in_manifest_threshold=int(co.options.get(CoreOptions.FILE_INDEX_IN_MANIFEST_THRESHOLD)),
+            format_options={k: co.options._data.get(k) for k in WRITER_OPTION_KEYS},
         )
 
     def reader_factory(self, partition: tuple, bucket: int) -> KeyValueFileReaderFactory:
@@ -121,6 +123,8 @@ class KeyValueFileStore:
             self.schemas_by_id(),
             self.keyed,
             cache=self.data_file_obj_cache,
+            dict_domain=resolve_dict_domain(self.options.options.get(CoreOptions.MERGE_DICT_DOMAIN)),
+            pool_limit=self.options.options.get(CoreOptions.MERGE_DICT_DOMAIN_POOL_LIMIT),
         )
 
     def new_scan(self) -> FileStoreScan:

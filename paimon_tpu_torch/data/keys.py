@@ -18,6 +18,16 @@ stable lexsort of the words then gives the sorted distinct values and
 every row's rank, where the JAX package uses np.unique and searchsorted
 over objects (and pyarrow's hash table from 65,536 rows on): the pools
 are equal element for element and the ranks bit for bit.
+
+A column that carries dictionary codes (code-backed under
+merge.dict-domain, or with a dict_cache) stays in the code domain: its
+pool is pruned to the codes in use and unified with the others'
+(`exact_string_pool`, object work the size of the pools), and its ranks
+come from a search of its pool in the merge pool plus one uint32 gather
+through the codes (`_ranks_from_cache`). A fixed-width code-backed key
+encodes its pool once and gathers each lane through the codes. String key
+columns keep their (pool, ranks) as `dict_cache`, which the page encoder
+writes as the dictionary page.
 """
 
 from __future__ import annotations
@@ -132,16 +142,25 @@ def _pool_and_ranks(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return values.take(order[starts]), ranks
 
 
-def _ranks_in_pool(values: np.ndarray, pool: np.ndarray) -> np.ndarray:
-    """uint32 rank of each value in the sorted pool (its first equal entry);
-    a value not in the pool raises."""
+def pool_positions(pool: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """int64 index of each value in the sorted pool (its first equal entry),
+    -1 where the value is not there: one sort of pool and values together,
+    no object comparison."""
     if len(values) == 0:
-        return np.empty(0, dtype=np.uint32)
+        return np.empty(0, dtype=np.int64)
+    if len(pool) == 0:
+        return np.full(len(values), -1, dtype=np.int64)
     _, ranks = _pool_and_ranks(np.concatenate([pool, values]))
     pool_ranks, value_ranks = ranks[: len(pool)], ranks[len(pool) :]
     slot = np.full(int(ranks.max()) + 1, -1, dtype=np.int64)
     slot[pool_ranks[::-1]] = np.arange(len(pool) - 1, -1, -1)
-    out = slot[value_ranks]
+    return slot[value_ranks]
+
+
+def _ranks_in_pool(values: np.ndarray, pool: np.ndarray) -> np.ndarray:
+    """uint32 rank of each value in the sorted pool; a value not in the pool
+    raises."""
+    out = pool_positions(pool, values)
     if (out < 0).any():
         raise ValueError(_MISSING)
     return out.astype(np.uint32)
@@ -158,8 +177,37 @@ def build_string_pool(column_values: Sequence[np.ndarray]) -> np.ndarray:
 
 
 def exact_string_pool(cols: Sequence[Column]) -> np.ndarray:
-    """build_string_pool over the columns' values."""
+    """Sorted distinct present values across the columns: build_string_pool
+    over their values, computed in the code domain when every column
+    carries codes (each pool pruned to its valid rows' codes, then the
+    pruned pools unified)."""
+    from ..ops.dicts import cache_usable, prune_pool, unify_pools
+
+    cols = list(cols)
+    if cols and all(cache_usable(c) for c in cols):
+        pruned = [prune_pool(c.dict_cache[0], c.dict_cache[1], c.validity)[0] for c in cols]
+        return unify_pools(pruned)[0]
     return build_string_pool([c.values for c in cols])
+
+
+def _ranks_from_cache(pool: np.ndarray, cache: tuple, validity: np.ndarray | None = None) -> np.ndarray:
+    """Ranks of a (pool_c, codes) column in the sorted merge pool: a search
+    the size of pool_c, then one uint32 gather through the codes. A valid
+    row whose value is missing from the pool raises; a null row ranks 0."""
+    from ..ops.dicts import remap_codes
+
+    pool_c, codes = cache
+    if pool_c is pool:
+        return codes.astype(np.uint32, copy=False)
+    live = codes if validity is None else codes[validity]
+    if len(pool) == 0 or len(pool_c) == 0:
+        if len(live) == 0:
+            return np.zeros(len(codes), dtype=np.uint32)
+        raise ValueError(_MISSING)
+    idx = pool_positions(pool, pool_c)
+    if len(live) and bool((idx.take(live.astype(np.int64)) < 0).any()):
+        raise ValueError(_MISSING)
+    return remap_codes(np.maximum(idx, 0).astype(np.uint32), np.minimum(codes, len(pool_c) - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -205,32 +253,64 @@ def _stack(lanes: list[np.ndarray], num_rows: int) -> np.ndarray:
     return np.stack(lanes, axis=1)
 
 
+def _fixed_lanes(col: Column, root: TypeRoot) -> list[np.ndarray]:
+    """A fixed-width key's lanes; a code-backed one encodes its pool and
+    gathers each lane through the codes (the same numbers)."""
+    if col.is_code_backed:
+        pool, codes = col.dict_cache
+        return [lane.take(codes) for lane in _encode_column(pool, root, None)]
+    return _encode_column(col.values, root, None)
+
+
 def encode_key_lanes(
     batch: ColumnBatch,
     key_names: Sequence[str],
     string_pools: Mapping[str, np.ndarray] | None = None,
 ) -> np.ndarray:
     """(N, L) uint32 lanes for the given (non-null) key columns; each string
-    or bytes column ranks against its pool in string_pools."""
+    or bytes column ranks against its pool in string_pools and keeps
+    (pool, ranks) as its dict_cache."""
+    from ..ops.dicts import cache_usable
+
     lanes: list[np.ndarray] = []
     for name in key_names:
         col, root = _checked_column(batch, name)
         pool = None if string_pools is None else string_pools.get(name)
-        lanes.extend(_encode_column(col.values, root, pool))
+        if root in STRING_ROOTS and pool is not None:
+            if cache_usable(col):
+                ranks = _ranks_from_cache(pool, col.dict_cache)
+            else:
+                ranks = _encode_column(col.values, root, pool)[0]
+            col.dict_cache = (pool, ranks)
+            lanes.append(ranks)
+        elif root in STRING_ROOTS:
+            lanes.extend(_encode_column(col.values, root, pool))
+        else:
+            lanes.extend(_fixed_lanes(col, root))
     return _stack(lanes, batch.num_rows)
 
 
 def encode_key_lanes_with_pools(batch: ColumnBatch, key_names: Sequence[str]) -> np.ndarray:
     """encode_key_lanes with each string or bytes key column's pool built
     over the batch itself, so the batch must hold every input of the merge.
-    The pool and the ranks come from one sort of the column."""
+    The pool and the ranks come from one sort of the column, or from its
+    codes when it carries them; either way the column keeps them as its
+    dict_cache."""
+    from ..ops.dicts import cache_usable
+
     lanes: list[np.ndarray] = []
     for name in key_names:
         col, root = _checked_column(batch, name)
         if root in STRING_ROOTS:
-            lanes.append(_pool_and_ranks(col.values)[1])
+            if cache_usable(col):
+                pool = exact_string_pool([col])
+                ranks = _ranks_from_cache(pool, col.dict_cache)
+            else:
+                pool, ranks = _pool_and_ranks(col.values)
+            col.dict_cache = (pool, ranks)
+            lanes.append(ranks)
         else:
-            lanes.extend(_encode_column(col.values, root, None))
+            lanes.extend(_fixed_lanes(col, root))
     return _stack(lanes, batch.num_rows)
 
 

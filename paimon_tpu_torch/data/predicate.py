@@ -132,6 +132,14 @@ class LeafPredicate(Predicate):
             return ~col.valid_mask()
         if self.function == "isNotNull":
             return col.valid_mask().copy()
+        if col.is_code_backed:
+            # every other leaf is value-determined and fails on NULL: one
+            # eval over the pool, one gather of the verdicts through the codes
+            pool, codes = col.dict_cache
+            if len(pool) == 0:
+                return np.zeros(len(col), dtype=np.bool_)
+            verdict = self._eval_values(pool, np.ones(len(pool), dtype=np.bool_))
+            return verdict.take(np.minimum(codes, len(pool) - 1)) & col.valid_mask()
         return self._eval_values(col.values, col.valid_mask())
 
     def _eval_values(self, v: np.ndarray, valid: np.ndarray) -> np.ndarray:

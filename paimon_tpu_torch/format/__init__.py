@@ -59,9 +59,16 @@ def _truncate_max(x, limit: int):
     return x
 
 
+def _coded(col) -> bool:
+    from ..ops.dicts import cache_usable
+
+    return cache_usable(col)
+
+
 def collect_stats(batch: ColumnBatch, truncate: int = _TRUNCATE_LEN) -> dict[str, FieldStats]:
     """Vectorized per-field min/max/null-count; strings truncated to
-    `truncate` chars (metadata.stats-mode truncate(16))."""
+    `truncate` chars (metadata.stats-mode truncate(16)). A column carrying
+    dictionary codes reads min and max off its sorted pool."""
     out: dict[str, FieldStats] = {}
     n = batch.num_rows
     for f in batch.schema.fields:
@@ -69,6 +76,17 @@ def collect_stats(batch: ColumnBatch, truncate: int = _TRUNCATE_LEN) -> dict[str
         nulls = col.null_count
         if nulls >= n or n == 0:
             out[f.name] = FieldStats(None, None, nulls, n)
+            continue
+        if col.dtype.kind != "f" and _coded(col):
+            # a sorted pool: min/max are a reduction over the valid codes,
+            # no value expanded
+            pool, codes = col.dict_cache
+            if nulls:
+                codes = codes[col.validity]
+            lo, hi = pool[int(codes.min())], pool[int(codes.max())]
+            if pool.dtype == np.dtype(object):
+                lo, hi = _truncate_min(lo, truncate), _truncate_max(hi, truncate)
+            out[f.name] = FieldStats(_to_py(lo), _to_py(hi), nulls, n)
             continue
         v = col.values[col.valid_mask()] if nulls else col.values
         if v.dtype == np.dtype(object):

@@ -9,7 +9,9 @@ manifest entry and the composite key bloom of the file's PTIX index
 (format/fileindex.py, written under
 file-index.bloom-filter.primary-key.enabled). The surviving files' batches
 come through the reader factory, so from the data-file cache
-(utils/cache.py) once decoded.
+(utils/cache.py) once decoded. Under merge.dict-domain a file's key
+columns come back code-backed and JoinIndex ranks them through their
+dictionary: the index's build side never expands a string.
 
 The level resolution is the caller's (table/get.py): each match carries
 its (sequence, kind); the highest sequence wins per key and a delete

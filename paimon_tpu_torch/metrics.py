@@ -1,9 +1,10 @@
-"""Metric primitives and the compaction, join, get and sql groups (port of
-paimon_tpu/metrics.py: Counter, Gauge, Histogram, MetricGroup,
-MetricRegistry, the module's registry, compaction_metrics, join_metrics,
-get_metrics and sql_metrics, with the JAX package's member names; the
-other groups are not ported). The cache{cache=manifest|data-file} groups
-are filled by utils/cache.py.
+"""Metric primitives and the compaction, join, get, sql, decode, dict and
+encode groups (port of paimon_tpu/metrics.py: Counter, Gauge, Histogram,
+MetricGroup, MetricRegistry, the module's registry, compaction_metrics,
+join_metrics, get_metrics, sql_metrics, decode_metrics, dict_metrics and
+encode_metrics, with the JAX package's member names; the other groups are
+not ported). The cache{cache=manifest|data-file} groups are filled by
+utils/cache.py.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ __all__ = [
     "join_metrics",
     "get_metrics",
     "sql_metrics",
+    "decode_metrics",
+    "dict_metrics",
+    "encode_metrics",
 ]
 
 
@@ -154,9 +158,9 @@ def compaction_metrics() -> MetricGroup:
 def join_metrics() -> MetricGroup:
     """The join{...} group (ops/join.py). Counters: joins (join_batches
     calls), index_probes (JoinIndex.probe calls), rows_probed,
-    rows_matched, hash_joins, sort_merge_joins, code_domain_joins (always 0
-    in the port: its columns carry no dictionary codes), skew_keys and
-    skew_split_rows; histograms: build_ms (key encode and lane planning)
+    rows_matched, hash_joins, sort_merge_joins, code_domain_joins (joins
+    with at least one key column matched on dictionary codes), skew_keys
+    and skew_split_rows; histograms: build_ms (key encode and lane planning)
     and probe_ms (kernel and pair expansion). Resolved per call."""
     return registry.group("join")
 
@@ -182,3 +186,32 @@ def sql_metrics() -> MetricGroup:
     shuffle_retried; scatter_ms, combine_ms, shuffle_ms) belong to the SQL
     cluster, which is not ported. Resolved per call."""
     return registry.group("sql")
+
+
+def decode_metrics() -> MetricGroup:
+    """The decode{...} group (decode/: the native page decoder). Counters:
+    pages_decoded, pages_skipped (dead under the compressed-domain
+    pushdown, never expanded), bytes_expanded (value bytes materialized),
+    rows_pruned (rows the pushdown dropped), files_native (files decoded);
+    histograms: file_ms (one file's decode, wall millis) and pushdown_ms
+    (one row group's gate). Resolved per call."""
+    return registry.group("decode")
+
+
+def dict_metrics() -> MetricGroup:
+    """The dict{...} group (ops/dicts.py and the code-domain reader of
+    decode/). Counters: pools_unified (sorted pools merged into one
+    domain), codes_remapped (rows whose codes went through a unify or sort
+    gather), rows_code_domain (rows a reader delivered as dictionary codes),
+    fallback_expanded (rows that left the code domain: a chunk with PLAIN
+    pages, a pool past merge.dict-domain.pool-limit, or a consumer that
+    needed the values); histogram: unify_ms. Resolved per call."""
+    return registry.group("dict")
+
+
+def encode_metrics() -> MetricGroup:
+    """The encode{...} group (encode/: the page encoder). Counters:
+    pages_written (data pages), dict_pages (dictionary pages),
+    files_native and bytes_written; histograms: encode_ms (one file) and
+    stats_ms (its chunk statistics). Resolved per call."""
+    return registry.group("encode")

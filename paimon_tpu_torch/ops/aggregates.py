@@ -272,29 +272,30 @@ def aggregate_merge(
     """Aggregate one value column over the plan's segments. Returns a Column
     of plan.num_segments rows (key order)."""
     m, k = plan.m, plan.num_segments
-    values = column.values
     valid = column.valid_mask()
     fn = spec.function
     dev = resolve_device(device)
 
     if fn in ("listagg",) + NESTED_AGGREGATORS:
-        return _host_aggregate(plan, values, valid, spec, row_kind)
+        return _host_aggregate(plan, column.values, valid, spec, row_kind)
 
     if fn == "primary-key":
         # always the latest arrival, null or not, retract rows included
-        src = _Sorted.of_plan(plan, dev).pick(_padded(np.ones(len(values), np.bool_), m, False, dev), last=True)
+        src = _Sorted.of_plan(plan, dev).pick(_padded(np.ones(len(column), np.bool_), m, False, dev), last=True)
         return gather_column(column, src[:k].cpu().numpy())
 
-    sign, include = _signs(row_kind, spec, values.dtype if values.dtype != np.dtype(object) else np.int64)
+    sign, include = _signs(row_kind, spec, column.dtype if column.dtype != np.dtype(object) else np.int64)
     eff_valid = valid & include
 
     if fn in _PICK_FNS:
         # *_value picks may land on a null row; *_non_null_value needs a
-        # valid one. Both leave retract rows out under ignore-retract.
+        # valid one. Both leave retract rows out under ignore-retract. A
+        # code-backed column's pick gathers its codes (gather_column).
         candidate = eff_valid if "non_null" in fn else include
         src = _Sorted.of_plan(plan, dev).pick(_padded(candidate, m, False, dev), last=fn.startswith("last"))
         return gather_column(column, src[:k].cpu().numpy())
 
+    values = column.values
     if values.dtype == np.dtype(object):
         raise ValueError(f"aggregate {fn!r} unsupported for string/bytes columns")
 
@@ -339,9 +340,9 @@ def fused_routable(specs: list[AggregateSpec], columns: list[Column]) -> bool:
             continue
         if spec.function not in _DEVICE_FNS:
             return False
-        if col.values.dtype == np.dtype(object):
+        if col.dtype == np.dtype(object):
             return False
-        if f64_off_device and col.values.dtype == np.float64 and spec.function != "count":
+        if f64_off_device and col.dtype == np.float64 and spec.function != "count":
             return False
     return True
 
@@ -371,7 +372,7 @@ def fused_aggregate(
     result: list[Column] = []
     for spec, col in zip(specs, columns):
         fn = spec.function
-        sign, include = _signs(row_kind, spec, col.values.dtype if col.values.dtype != np.dtype(object) else np.int64)
+        sign, include = _signs(row_kind, spec, col.dtype if col.dtype != np.dtype(object) else np.int64)
         valid = col.valid_mask()
         if fn in _PICK_FNS:
             candidate = (valid & include) if "non_null" in fn else include

@@ -1,33 +1,40 @@
-"""The value domain of dictionary pools (port of paimon_tpu/ops/dicts.py:
-sort_dictionary, unify_pools, remap_codes, cache_usable, unify_columns,
-encode_column and prune_pool).
+"""Dictionary codes as the merge currency (port of paimon_tpu/ops/dicts.py:
+resolve_dict_domain, resolve_pool_limit, sort_dictionary, unify_pools,
+remap_codes, cache_usable, unify_columns, encode_column and prune_pool).
 
 A pool is the sorted distinct value set of a column and its codes are the
-values' ranks in it, so codes compare as the values do. GROUP BY encodes
-each group column through `encode_column`: NULL rows take the sentinel code
-len(pool). `unify_pools` merges sorted pools into one and returns each
-input's gather table; `remap_codes` is that |rows|-sized gather, on the
-host for a numpy array and as a torch gather for a tensor (the JAX
-package's `remap_codes_jax`).
+values' ranks in it, so codes compare as the values do. Under the table
+option merge.dict-domain the reader (decode/) hands dictionary-encoded
+chunks over as code-backed Columns; `unify_pools` merges the inputs' pools
+into one and returns each input's gather table, `remap_codes` is that
+|rows|-sized gather (on the host for a numpy array, as a torch gather on
+the codes' device for a tensor, the JAX package's `remap_codes_jax`), and
+`unify_columns` is Column.concat's code-domain seam. The codes then
+become key lanes (data/keys.py), join keys (ops/join.py), GROUP BY codes
+(`encode_column`, NULL rows coded as the sentinel len(pool)) and, pruned
+by `prune_pool`, the dictionary pages of the files written (encode/).
 
-The port's columns carry no dictionary codes (ROADMAP Queue 1 item 9), so
-`cache_usable` is always false and `encode_column` always encodes the
-values with np.unique; the code-domain branches wait for item 9, and so
-does `unify_columns`' caller, Column.concat. The large-pool route of
-`unify_pools` through pyarrow's hash table is not ported (the port does
-not import pyarrow): every pool set goes through np.unique, whose output
-the JAX package's arrow route equals. `pool_value_hashes` and
+The options are read as the table gives them; the JAX package's
+PAIMON_TPU_DICT_* environment overrides are not copied. The large-pool
+route of `unify_pools` through pyarrow's hash table is not ported (the
+port does not import pyarrow): every pool set goes through np.unique, whose
+output the JAX package's arrow route equals. `pool_value_hashes` and
 `partition_rows*` belong to the SQL cluster's shuffle and wait with it.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..metrics import dict_metrics
+
 __all__ = [
+    "resolve_dict_domain",
+    "resolve_pool_limit",
     "sort_dictionary",
     "unify_pools",
     "remap_codes",
@@ -40,6 +47,23 @@ __all__ = [
 ]
 
 DEFAULT_POOL_LIMIT = 1 << 20  # codes stay far inside uint32/int32 range
+
+
+def resolve_dict_domain(enabled: "bool | str | None") -> bool:
+    """merge.dict-domain as given (a bool or its string form); off when
+    absent."""
+    if enabled is None:
+        return False
+    if isinstance(enabled, str):
+        return enabled.strip().lower() in ("1", "on", "true")
+    return bool(enabled)
+
+
+def resolve_pool_limit(limit: "int | str | None") -> int:
+    """merge.dict-domain.pool-limit as given; 1 << 20 when absent. It bounds
+    a single file's dictionary (reader admission) and a unified merge
+    domain (the concat fallback) alike."""
+    return DEFAULT_POOL_LIMIT if limit is None else int(limit)
 
 
 def sort_dictionary(dictionary: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -58,6 +82,8 @@ def unify_pools(pools: Sequence[np.ndarray]) -> tuple[np.ndarray, list[np.ndarra
     """Merge sorted pools into one sorted pool; returns each input's gather
     table from its ranks to the unified ranks (None = identity, when every
     pool holds the same values)."""
+    g = dict_metrics()
+    t0 = time.perf_counter()
     first = pools[0]
     same = all(p is first for p in pools)
     if not same and all(len(p) == len(first) for p in pools):
@@ -65,7 +91,9 @@ def unify_pools(pools: Sequence[np.ndarray]) -> tuple[np.ndarray, list[np.ndarra
             same = all(bool(np.asarray(p == first).all()) for p in pools[1:])
         except (TypeError, ValueError):
             same = False
+    g.counter("pools_unified").inc(len(pools))
     if same:
+        g.histogram("unify_ms").update((time.perf_counter() - t0) * 1000)
         return first, [None] * len(pools)
     merged = np.concatenate(list(pools))
     if len(merged) == 0:
@@ -78,6 +106,7 @@ def unify_pools(pools: Sequence[np.ndarray]) -> tuple[np.ndarray, list[np.ndarra
     for p in pools:
         remaps.append(inverse[off : off + len(p)])
         off += len(p)
+    g.histogram("unify_ms").update((time.perf_counter() - t0) * 1000)
     return unified, remaps
 
 
@@ -99,41 +128,56 @@ def remap_codes(remap, codes):
             return codes
         return remap_codes_torch(torch.as_tensor(remap, dtype=torch.int64, device=codes.device), codes.long())
     codes = codes.astype(np.uint32, copy=False)
-    if remap is None or len(codes) == 0:
+    if remap is None or len(codes) == 0 or len(remap) == 0:
         return codes
+    dict_metrics().counter("codes_remapped").inc(len(codes))
     return remap_codes_np(remap, codes)
 
 
 def cache_usable(col) -> bool:
-    """True when a Column carries a full-length (pool, codes) cache. The
-    port's columns carry none (ROADMAP Queue 1 item 9)."""
+    """True when a Column carries a full-length (pool, codes) cache: the
+    precondition every code-domain consumer checks."""
     cache = getattr(col, "dict_cache", None)
     return cache is not None and len(cache[1]) == len(col)
 
 
 def unify_columns(pools_and_codes: Sequence[tuple[np.ndarray, np.ndarray]], limit: int | None = None):
     """Concatenate (pool, codes) pairs without leaving the code domain:
-    unify the pools and re-map and concatenate the codes. Returns (pool,
-    codes), or None when the unified domain would pass the pool limit."""
+    unify the pools and re-map and concatenate the codes (Column.concat of
+    code-backed columns). Returns (pool, codes), or None when the unified
+    domain would pass the pool limit; the rows then count as
+    fallback_expanded."""
     pools = [p for p, _ in pools_and_codes]
-    cap = DEFAULT_POOL_LIMIT if limit is None else int(limit)
+    cap = resolve_pool_limit(limit)
+    rows = sum(len(c) for _, c in pools_and_codes)
     if sum(len(p) for p in pools) > cap and len(set(map(id, pools))) > 1:
+        # the cheap upper bound first: the exact size needs the unify itself
+        dict_metrics().counter("fallback_expanded").inc(rows)
         return None
     unified, remaps = unify_pools(pools)
     if len(unified) > cap:
+        dict_metrics().counter("fallback_expanded").inc(rows)
         return None
     return unified, np.concatenate([remap_codes(r, c) for r, (_, c) in zip(remaps, pools_and_codes)])
 
 
 def encode_column(col) -> tuple[np.ndarray, np.ndarray]:
     """One Column -> (sorted pool, uint32 codes), NULL rows coded as the
-    sentinel len(pool): the GROUP BY key currency. The values encode with
+    sentinel len(pool): the GROUP BY key currency. A column carrying codes
+    stays in the code domain: its pool is pruned to the entries valid rows
+    use and the codes re-rank, no value expanded. Other columns encode with
     np.unique over the valid rows (fixed-width pools keep their dtype,
     strings are object pools); a mixed-type object column that numpy cannot
     sort falls back to a first-seen walk, whose pool is then unsorted,
     which grouping does not mind."""
     n = len(col)
     valid = col.valid_mask()
+    if cache_usable(col):
+        pool, codes = col.dict_cache
+        pool, codes = prune_pool(pool, codes, None if valid.all() else valid)
+        codes = codes.astype(np.uint32, copy=True)
+        codes[~valid] = len(pool)
+        return pool, codes
     values = col.values
     live = values[valid]
     codes = np.empty(n, dtype=np.uint32)

@@ -39,10 +39,14 @@ Output pairs are probe-major, build rows ascending within a probe row, as
 a host nested loop gives them. NULL keys never match: an inner join drops
 them, a left join keeps the probe row unmatched.
 
-Not ported: the code domain (ops/dicts.py). The port's columns carry no
-dictionary codes, so string keys always take the expanded branch and
-`join{code_domain_joins}` stays 0; nor the distributed partition executor
-of the SQL cluster.
+The code domain (merge.dict-domain): a key column pair whose two sides
+both carry dictionary codes matches on them, the two pools unified and
+both code vectors remapped (ops/dicts.py), no value expanded; such a join
+counts in `join{code_domain_joins}` and its result's `code_domain_cols`.
+A pair past merge.dict-domain.pool-limit takes the expanded branch.
+`materialize_join` keeps code-backed columns code-backed, and JoinIndex
+ranks a coded build column and probes a coded probe column through their
+pools. Not ported: the distributed partition executor of the SQL cluster.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from ..data.keys import _encode_column, _pool_and_ranks
+from ..data.keys import _fixed_lanes, _pool_and_ranks, _ranks_from_cache, exact_string_pool, pool_positions
+from ..ops.dicts import cache_usable, remap_codes, resolve_pool_limit, unify_pools
 from ..metrics import join_metrics
 from ..types import STRING_ROOTS, DataField, RowType, TypeRoot
 from ..utils import resolve_device
@@ -119,6 +124,7 @@ class _EncodedKeys:
     right: np.ndarray  # (n_r, L) uint32
     left_live: np.ndarray  # bool: a non-null key, which may match
     right_live: np.ndarray
+    code_domain_cols: int = 0  # key columns matched on dictionary codes
 
 
 def _shared_ranks(cols) -> tuple[list[np.ndarray], np.ndarray]:
@@ -144,18 +150,39 @@ def _pool_slots(pool: np.ndarray, col) -> tuple[np.ndarray, np.ndarray]:
     present value's index in the pool, and whether it is there at all. One
     sort of pool and values together instead of an object searchsorted; a
     row not found (or null) gets lane 0, and its mask keeps it from
-    matching, so the pairs are the JAX package's."""
+    matching, so the pairs are the JAX package's. A probe column carrying
+    codes locates its own pool's entries and gathers through the codes."""
     valid = col.valid_mask()
-    values = col.values[valid]
-    _, ranks = _pool_and_ranks(np.concatenate([pool, values]))
-    slot = np.full(int(ranks.max()) + 1 if len(ranks) else 0, -1, dtype=np.int64)
-    slot[ranks[: len(pool)]] = np.arange(len(pool))
-    idx = slot[ranks[len(pool) :]]
+    if cache_usable(col):
+        ppool, codes = col.dict_cache
+        if len(ppool) == 0:
+            return np.zeros(len(col), dtype=np.uint32), np.zeros(len(col), dtype=np.bool_)
+        entry = pool_positions(pool, ppool)
+        idx = entry.take(np.minimum(codes, len(ppool) - 1).astype(np.int64))
+        return np.maximum(idx, 0).astype(np.uint32), valid & (idx >= 0)
+    idx = pool_positions(pool, col.values[valid])
     lane = np.zeros(len(col), dtype=np.uint32)
     lane[valid] = np.maximum(idx, 0)
     found = np.zeros(len(col), dtype=np.bool_)
     found[valid] = idx >= 0
     return lane, found
+
+
+def _try_code_domain(lc, rc, limit) -> tuple[np.ndarray, np.ndarray] | None:
+    """One key column pair on its dictionary codes: both sides carry codes
+    -> unify the two pools and remap both code vectors. (left lane, right
+    lane) as uint32, or None for the expanded branch."""
+    if not (cache_usable(lc) and cache_usable(rc)):
+        return None
+    lp, lcodes = lc.dict_cache
+    rp, rcodes = rc.dict_cache
+    cap = resolve_pool_limit(limit)
+    if len(lp) + len(rp) > cap:
+        return None
+    unified, (lmap, rmap) = unify_pools([lp, rp])
+    if len(unified) > cap:
+        return None
+    return remap_codes(lmap, lcodes), remap_codes(rmap, rcodes)
 
 
 def _stack(lanes: list[np.ndarray], n: int) -> np.ndarray:
@@ -164,10 +191,12 @@ def _stack(lanes: list[np.ndarray], n: int) -> np.ndarray:
     return np.stack(lanes, axis=1).astype(np.uint32, copy=False)
 
 
-def _encode_join_keys(left, right, left_keys, right_keys) -> _EncodedKeys:
+def _encode_join_keys(left, right, left_keys, right_keys, pool_limit=None) -> _EncodedKeys:
     """Lanes for the key columns of both sides in one space: equal lane
     tuples are equal key tuples, string ranks taken against one pool over
-    both sides (the JAX package's lanes, from one sort instead of three)."""
+    both sides (the JAX package's lanes, from one sort instead of three),
+    or, where both sides carry dictionary codes, the codes remapped into
+    their unified pool."""
     if len(left_keys) != len(right_keys) or not left_keys:
         raise JoinError(f"key arity mismatch: {list(left_keys)} vs {list(right_keys)}")
     n_l, n_r = left.num_rows, right.num_rows
@@ -175,6 +204,7 @@ def _encode_join_keys(left, right, left_keys, right_keys) -> _EncodedKeys:
     right_live = np.ones(n_r, dtype=np.bool_)
     lanes_l: list[np.ndarray] = []
     lanes_r: list[np.ndarray] = []
+    code_cols = 0
     for lname, rname in zip(left_keys, right_keys):
         lf, rf = left.schema.field(lname), right.schema.field(rname)
         if lf.type.root != rf.type.root:
@@ -184,6 +214,12 @@ def _encode_join_keys(left, right, left_keys, right_keys) -> _EncodedKeys:
             left_live &= lc.validity
         if rc.validity is not None:
             right_live &= rc.validity
+        coded = _try_code_domain(lc, rc, pool_limit)
+        if coded is not None:
+            lanes_l.append(coded[0])
+            lanes_r.append(coded[1])
+            code_cols += 1
+            continue
         root = lf.type.root
         if root in STRING_ROOTS:
             (lane_l, lane_r), pool = _shared_ranks([lc, rc])
@@ -193,9 +229,9 @@ def _encode_join_keys(left, right, left_keys, right_keys) -> _EncodedKeys:
             lanes_l.append(lane_l)
             lanes_r.append(lane_r)
         else:
-            lanes_l.extend(_encode_column(lc.values, root, None))
-            lanes_r.extend(_encode_column(rc.values, root, None))
-    return _EncodedKeys(_stack(lanes_l, n_l), _stack(lanes_r, n_r), left_live, right_live)
+            lanes_l.extend(_fixed_lanes(lc, root))
+            lanes_r.extend(_fixed_lanes(rc, root))
+    return _EncodedKeys(_stack(lanes_l, n_l), _stack(lanes_r, n_r), left_live, right_live, code_cols)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +463,8 @@ def join_batches(
     dev = resolve_device(device)
     g = join_metrics()
     t0 = time.perf_counter()
-    enc = _encode_join_keys(left, right, list(left_keys), list(right_keys))
+    pool_limit = _opt(options, "merge.dict-domain.pool-limit", 0) or None
+    enc = _encode_join_keys(left, right, list(left_keys), list(right_keys), pool_limit)
     n_l, n_r = left.num_rows, right.num_rows
     engine = engine or resolve_join_engine(options, rows=n_l + n_r)
     comp_opt = _opt(options, "merge.lane-compression", True) if options is not None else None
@@ -492,7 +529,7 @@ def join_batches(
             "partitions": num_parts,
             "skew_keys": skew_keys,
             "skew_split_rows": skew_rows,
-            "code_domain_cols": 0,
+            "code_domain_cols": enc.code_domain_cols,
             "lanes": ll.shape[1],
         },
     )
@@ -500,6 +537,8 @@ def join_batches(
     g.counter("rows_probed").inc(n_l)
     g.counter("rows_matched").inc(int(res.matched.sum()))
     g.counter("hash_joins" if algorithm == "hash" else "sort_merge_joins").inc()
+    if enc.code_domain_cols:
+        g.counter("code_domain_joins").inc()
     if skew_keys:
         g.counter("skew_keys").inc(skew_keys)
         g.counter("skew_split_rows").inc(skew_rows)
@@ -514,16 +553,20 @@ def join_batches(
 
 
 def _take_nullable(col, take: np.ndarray, matched: np.ndarray):
-    """col.take(take) with the unmatched rows of a left join null."""
+    """col.take(take) with the unmatched rows of a left join null; a
+    code-backed column gathers its codes."""
     from ..data.batch import Column
 
     if matched.all():
         return col.take(take)
     if len(col) == 0:  # nothing to gather: every row is an unmatched one
-        dt = col.values.dtype
+        dt = col.dtype
         vals = np.full(len(take), None, dtype=object) if dt == np.dtype(object) else np.zeros(len(take), dtype=dt)
         return Column(vals, np.zeros(len(take), dtype=np.bool_))
     out = col.take(np.where(matched, take, 0))
+    if out.is_code_backed:
+        pool, codes = out.dict_cache
+        return Column.from_codes(pool, codes, out.valid_mask() & matched)
     return Column(out.values, out.valid_mask() & matched)
 
 
@@ -573,12 +616,18 @@ class JoinIndex:
             if col.validity is not None:
                 live &= col.validity
             if root in STRING_ROOTS:
-                got, pool = _shared_ranks([col])
+                if cache_usable(col):
+                    # the build's pool from its codes (pruned to the valid
+                    # rows), its ranks through one gather
+                    pool = exact_string_pool([col])
+                    got = [_ranks_from_cache(pool, col.dict_cache, col.validity)]
+                else:
+                    got, pool = _shared_ranks([col])
                 self.pools[name] = pool
                 if len(pool) == 0:  # an all-null build column: nothing matches
                     live &= False
             else:
-                got = _encode_column(col.values, root, None)
+                got = _fixed_lanes(col, root)
             lanes.extend(got)
             self._col_lanes.append((name, root, len(got)))
         self.lanes = _stack(lanes, n)
@@ -624,7 +673,7 @@ class JoinIndex:
                 present &= found
                 lanes.append(lane)
             else:
-                lanes.extend(_encode_column(col.values, root, None))
+                lanes.extend(_fixed_lanes(col, root))
         return _stack(lanes, n), present
 
     def probe(self, batch, keys: Sequence[str] | None = None, how: str = "inner") -> JoinResult:

@@ -195,6 +195,11 @@ class CoreOptions:
     SORT_ENGINE = ConfigOption.enum("sort-engine", SortEngine, SortEngine.XLA_SEGMENTED)
     MERGE_LANE_COMPRESSION = ConfigOption.bool_("merge.lane-compression", True)
     MERGE_READ_BATCH_ROWS = ConfigOption.int_("merge.read-batch-rows", 8 << 20)
+    # the code domain: readers hand dictionary-encoded chunks over as
+    # (sorted pool, uint32 codes) columns; a dictionary or unified merge pool
+    # past the limit expands instead
+    MERGE_DICT_DOMAIN = ConfigOption.bool_("merge.dict-domain", False)
+    MERGE_DICT_DOMAIN_POOL_LIMIT = ConfigOption.int_("merge.dict-domain.pool-limit", 1 << 20)
     SEQUENCE_FIELD = ConfigOption.string("sequence.field", None)
     PARTIAL_UPDATE_REMOVE_RECORD_ON_DELETE = ConfigOption.bool_("partial-update.remove-record-on-delete", False)
     AGGREGATE_DEFAULT_FUNC = ConfigOption.string("fields.default-aggregate-function", None)

@@ -27,9 +27,11 @@ ops/aggregates.segment_reduce, in the engine `_engine_for` picks: the
 table's explicit sort-engine (pallas: the hand kernels; numpy: the host
 twin), else plain torch ops. Output rows come in first-appearance order.
 
-Not ported: the code-domain branches (the port's columns carry no
-dictionary codes, ROADMAP Queue 1 item 9) and the SQL cluster that shares
-SelectPlan and the GROUP BY plan with this module (sql/cluster.py).
+Under merge.dict-domain the tables hand over code-backed columns: a join
+key prunes the other side from its pool, joins match on the codes, and
+GROUP BY takes encode_column's code branch, so a coded group key never
+expands. Not ported: the SQL cluster that shares SelectPlan and the GROUP
+BY plan with this module (sql/cluster.py).
 """
 
 from __future__ import annotations
@@ -560,21 +562,26 @@ def _estimate_rows(splits) -> int:
 def _key_prune_predicate(batch, src_col: str, target_col: str, in_limit: int):
     """The small side's join keys as a predicate on the big side: an exact
     IN list up to in_limit distinct keys, a BETWEEN envelope above it.
-    None when the side has no key (the caller then prunes nothing). (The
-    JAX package's code-backed branch reads the pool instead; the port's
-    columns carry no codes.)"""
+    None when the side has no key (the caller then prunes nothing). A
+    code-backed key column gives its pool pruned to the valid rows' codes,
+    no row expanded."""
     from ..data import predicate as P
+    from ..ops.dicts import prune_pool
 
     col = batch.column(src_col)
-    v = col.values
-    if col.validity is not None:
-        v = v[col.validity]
-    if len(v) == 0:
-        return None
-    try:
-        vals = np.unique(v).tolist()
-    except TypeError:
-        vals = sorted(set(v.tolist()))
+    if col.is_code_backed:
+        pool, codes = col.dict_cache
+        vals = prune_pool(pool, codes, col.validity)[0].tolist() if col.null_count < len(col) else []
+    else:
+        v = col.values
+        if col.validity is not None:
+            v = v[col.validity]
+        if len(v) == 0:
+            return None
+        try:
+            vals = np.unique(v).tolist()
+        except TypeError:
+            vals = sorted(set(v.tolist()))
     if not vals:
         return None
     if len(vals) <= in_limit:

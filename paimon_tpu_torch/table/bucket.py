@@ -19,10 +19,20 @@ __all__ = ["key_hashes", "bucket_ids", "group_by_partition_bucket"]
 
 
 def key_hashes(batch: ColumnBatch, key_names: Sequence[str]) -> np.ndarray:
-    """(n,) uint64 combined hash of the key columns."""
+    """(n,) uint64 combined hash of the key columns. A null-free column
+    carrying dictionary codes hashes its pool once and gathers through the
+    codes (the same hashes, no value expanded)."""
+    from ..ops.dicts import cache_usable
+
     h = np.zeros(batch.num_rows, dtype=np.uint64)
     for name in key_names:
-        h = h * np.uint64(0x100000001B3) ^ _hash64(batch.column(name).values)
+        col = batch.column(name)
+        if cache_usable(col) and col.validity is None:
+            pool, codes = col.dict_cache
+            hv = _hash64(pool)[codes] if len(pool) else np.zeros(len(col), dtype=np.uint64)
+        else:
+            hv = _hash64(col.values)
+        h = h * np.uint64(0x100000001B3) ^ hv
     return h
 
 

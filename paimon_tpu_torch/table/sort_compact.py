@@ -4,11 +4,12 @@ is not ported).
 
 Each bucket's rows, read in (min_sequence_number, file_name) order, are
 encoded as key lanes over the named columns (a string column by its rank
-in the bucket's pool), mapped to z-order or Hilbert codes (ops/zorder.py)
-or kept as they are (order), and stably sorted by those lanes: through
-merge_plan under the table's sort-engine, so sort-engine=pallas takes K1
-when the padded bucket passes `fusable` and the library sort plus K2
-otherwise, and sort-engine=numpy a host lexsort with the same permutation.
+in the bucket's pool, built from the codes when the column is code-backed
+under merge.dict-domain: the same pool, so the same permutation), mapped
+to z-order or Hilbert codes (ops/zorder.py) or kept as they are (order),
+and stably sorted by those lanes: through merge_plan under the table's
+sort-engine, so sort-engine=pallas takes K1 when the padded bucket passes
+`fusable` and the library sort plus K2 otherwise, and sort-engine=numpy a host lexsort with the same permutation.
 The sorted rows are written as level-0 files and committed as one COMPACT
 snapshot under identifier (1 << 63) - 3. Unlike the JAX package, the rows
 the bucket's deletion vectors mark are dropped: the COMPACT commit drops

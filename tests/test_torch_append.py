@@ -527,14 +527,17 @@ def test_append_only_projection_and_order(tmp_path, pkg):
 @pytest.mark.parametrize("pkg", PKGS)
 def test_append_table_split_packing(tmp_path, pkg):
     """tests/test_table.py::test_append_table_split_packing: one split per
-    file under a tiny target."""
+    file under a target below every file's size (the port's files of this
+    data, with RLE runs in their pages, are about 440 bytes; pyarrow's
+    about 1.3 kb)."""
     m = _mod(pkg)
     schema = m.RowType.of(("id", m.BIGINT()), ("region", m.STRING()), ("amount", m.DOUBLE()))
     t = _catalog(pkg, str(tmp_path)).create_table("db.packapp", schema, options={"bucket": "1", "write-only": "true"})
     for r in range(5):
         _commit(t, {"id": list(range(100)), "region": ["x"] * 100, "amount": [float(r)] * 100})
-    small = t.copy({"source.split.target-size": "1 kb", "source.split.open-file-cost": "1 b"})
+    small = t.copy({"source.split.target-size": "256 b", "source.split.open-file-cost": "1 b"})
     splits = small.new_read_builder().new_scan().plan()
+    assert all(f.file_size > 256 for s in splits for f in s.files)
     assert len(splits) == 5
     assert small.new_read_builder().new_read().read_all(splits).num_rows == 500
 

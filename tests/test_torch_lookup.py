@@ -18,9 +18,9 @@ table/get.py, lookup/) against the JAX package, on the CPU (device="cpu").
   lookup_join, against the JAX package's on the same table, across a
   refresh with deletes.
 
-Left out of the JAX package's cases: the KV server, Flight and the
-code-domain (merge.dict-domain) tables, which the port does not have yet
-(ROADMAP Queue 1 items 9 and 15).
+Left out of the JAX package's cases: the KV server and Flight, which the
+port does not have yet (ROADMAP Queue 1 item 15). Lookups over code-domain
+(merge.dict-domain) tables are in tests/test_torch_dict_domain.py.
 
 Tolerance: exact. Every value is copied, never computed.
 """

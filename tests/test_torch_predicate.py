@@ -413,9 +413,11 @@ def test_partition_pruning_plans_the_reference_splits(warehouse, writer):
 
 def test_row_group_skipping_keeps_the_rows(warehouse):
     """A file of 16 row groups written by the JAX package: under a key
-    predicate the port decodes only the row groups that may match, two
-    projections of one read stay row-aligned, and the table reads equal
-    the JAX package's."""
+    predicate the port decodes only the row groups that may match, and in
+    them drops the rows whose dictionary codes fail it (the JAX package's
+    native decoder drops the same rows); two projections of one read stay
+    row-aligned, and the table reads equal the JAX package's."""
+    from paimon_tpu.decode import read_native as jax_read_native
     ident = "db.row_groups"
     table = JaxCatalog(warehouse).create_table(ident, _row_type(jt), primary_keys=["id"],
                                                options={"bucket": "1", "write-only": "true",
@@ -430,13 +432,21 @@ def test_row_group_skipping_keeps_the_rows(warehouse):
     pred = tp.between("id", 130, 200)
     keys = reader.read(big, fields=["id"], predicate=pred)
     values = reader.read(big, fields=["s", "d"], system_columns=False, predicate=pred)
-    assert keys.num_rows == values.num_rows == 128  # row groups 2 and 3 of 16
-    first = int(np.flatnonzero(whole.data.column("id").values == keys.data.column("id").values[0])[0])
+    # row groups 2 and 3 of 16 open; their dictionary pages keep ids 130-200
+    assert keys.num_rows == values.num_rows == 71
+    alive = np.flatnonzero((whole.data.column("id").values >= 130) & (whole.data.column("id").values <= 200))
+    assert keys.data.column("id").to_pylist() == whole.data.column("id").values[alive].tolist()
     for name in ("s", "d"):
-        assert values.data.column(name).to_pylist() == whole.data.column(name).to_pylist()[first : first + 128]
+        assert values.data.column(name).to_pylist() == whole.data.column(name).take(alive).to_pylist()
     raw = open(f"{port.store.bucket_dir((), 0)}/{big.file_name}", "rb").read()
     disk = port.store.reader_factory((), 0)
     assert len(read_parquet(raw, disk.read_schema, ["id"], pred)) == 2
+    from paimon_tpu.core.kv import kv_disk_schema as jax_disk_schema
+
+    want = jax_read_native(table.file_io, f"{port.store.bucket_dir((), 0)}/{big.file_name}",
+                           jax_disk_schema(_row_type(jt)), projection=["id"], predicate=jp.between("id", 130, 200))
+    assert [b.column("id").to_pylist() for b in want] == [
+        b.column("id").to_pylist() for b in read_parquet(raw, disk.read_schema, ["id"], pred)]
     assert len(read_parquet(raw, disk.read_schema, ["id"])) == 16
     jax = JaxCatalog(warehouse).get_table(ident)
     for jpred, ppred in ((jp.between("id", 130, 200), pred), (jp.in_("id", [5, 550, 1000]), tp.in_("id", [5, 550, 1000])),

@@ -675,6 +675,11 @@ def test_ingest_gate_wired_into_writer(tmp_warehouse, rng):
     svc = tc.AdaptiveCompactorService(t).start()
     try:
         assert tc.active_debt_gate(t.path) is svc
+        # the service's first round runs as it starts; let it end on the
+        # empty table, or it can meet the runs below and compact them
+        deadline = time.monotonic() + 30
+        while svc.rounds == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
         _write_rounds(t, rng, 3, rows=64)
         done = []
         th = threading.Thread(target=lambda: (_write_rounds(t, rng, 1, rows=64), done.append(True)))

@@ -20,8 +20,9 @@ and ORDER BY over joined names, and the join errors.
 The JAX package's Pallas kernels run in interpret mode; the port's
 wrappers take the plain versions of K1, K2 and segment_sum. The JAX writer
 needs pyarrow warmed on the main thread first (ROADMAP Queue 3 item 7).
-Left out: cluster_query (sql/cluster.py is not ported) and the code-domain
-tables of merge.dict-domain (ROADMAP Queue 1 item 9).
+Left out: cluster_query (sql/cluster.py is not ported). SELECT, GROUP BY
+and joins over the code-domain tables of merge.dict-domain are in
+tests/test_torch_dict_domain.py.
 
 Tolerance: exact. Integers and strings equal; floats bit for bit, any NaN
 equal to any NaN (the packages may produce other NaN payloads for one sum).

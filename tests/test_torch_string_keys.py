@@ -20,7 +20,7 @@ with the same file metadata (key ranges and key stats, truncated to 16
 characters). Each package continues the other's table in streaming commits
 with compaction, where both plan the same sections. A merge past 65,536
 rows, and a table written under merge.dict-domain=true, read the same in
-both packages.
+both packages (the port's reads of it in the code domain).
 
 Guards: a BYTES primary key (the JAX package fails to commit such a table)
 and record-level TTL on read raise NotImplementedError naming what is
@@ -428,9 +428,12 @@ def test_merge_past_the_pool_switch(warehouse):
 
 
 def test_dict_domain_table_reads_the_same(warehouse):
-    """merge.dict-domain=true changes how the JAX package carries string
-    keys through its merges, not the rows: the port, which has one path,
-    reads and continues that table the same way."""
+    """merge.dict-domain=true changes how both packages carry string keys
+    through their merges (as dictionary codes), not the rows: the port
+    reads and continues that table the same way, and its reads run in the
+    code domain."""
+    from paimon_tpu_torch.metrics import dict_metrics, registry
+
     ident = "db.dict_domain"
     catalogs = _catalogs(warehouse)
     _create("jax", catalogs["jax"], ident, "bucket_1",
@@ -439,7 +442,9 @@ def test_dict_domain_table_reads_the_same(warehouse):
     for c, rows in enumerate(commits):
         writer = "jax" if c < 4 else "port"
         _stream_commit(catalogs[writer].get_table(ident), rows, c + 1)
+        registry.reset()
         got = _read(catalogs["port"].get_table(ident))
+        assert dict_metrics().counter("rows_code_domain").count > 0, c
         assert got == _read(catalogs["jax"].get_table(ident)), c
         assert sorted(got) == _oracle("deduplicate", commits[: c + 1], ("name",))
 
