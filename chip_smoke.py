@@ -9,7 +9,8 @@ Phases, one JSON line each on stdout:
 2. build    - nvcc builds the three kernels from paimon_tpu_torch/csrc
               (seconds), and each kernel's registers, shared memory and
               spills as `-Xptxas -v` reports them (no spills allowed); cc
-              builds the zstd codec from paimon_tpu_torch/native/zstd.c.
+              builds the zstd, snappy and Avro codecs from
+              paimon_tpu_torch/native/ (zstd.c, snappy.c, avrodec.c).
 3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
               PyTorch versions on the card, exact integer equality. K1: m in
               {2, 4, 64, T/2, T, 2T, 4096, 2^17, 2^18} (T its block-sort
@@ -354,7 +355,31 @@ Phases, one JSON line each on stdout:
               numpy engines (the file bytes identical). K1 and K2 then held
               exactly to their plain versions at the phase's shapes no
               earlier check covered.
-19. timing  - each kernel at its main-path shape against its plain version,
+19. buffers_formats - the write-buffer surface and the reference's other
+              files, one line per part, at the bench table's width (1M
+              rows, 4 overlapping runs and the 100k upsert, bucket 1,
+              sort-engine=pallas, write-only). throttled: the ingest in
+              50,000-row writes under write.buffer.max-memory at a quarter
+              of its buffered bytes (writes_throttled > 0, none rejected,
+              nothing left reserved after each commit), rows equal to the
+              main table's. parquet_snappy, parquet_gzip, avro: the table
+              in those pages or Avro data files, all with Avro manifests
+              (each file's codec or container checked), read twice with
+              pallas and once with numpy, plus a staged read (decode,
+              lanes, merge, gather; page decompression apart for parquet).
+              key_columns: data-file.include-key-columns=true (_KEY_id
+              leads every file). spill: a 1M-row append table in one
+              commit of 50,000-row writes under write-buffer-spillable
+              with write-buffer-spill.rows 262,144 (bytes spilled, files'
+              rows, every row in written order, no launch).
+              null_partitions: the table partitioned by dt STRING and h
+              INT, each null for 5% of the ids, bucket 2 (the
+              default-name directories, a dt IS NULL read, the partitions
+              system table). Every read equals the numpy engine and the
+              oracle. K1 must launch in every part but spill; then K1 and
+              K2 are held exactly to their plain versions at the phase's
+              shapes no earlier check covered.
+20. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -368,8 +393,8 @@ Phases, one JSON line each on stdout:
 Then a summary line (each phase's wall seconds, its launches of each kernel
 and the first rate it reports), one JSON line with every kernel's numbers
 (its launches summed over the main, compact, engines, buckets, strings,
-maintenance, cdc, deletes, history, writes, services, lookups, sql and
-dict_domain paths, and by path), the card line, and last
+maintenance, cdc, deletes, history, writes, services, lookups, sql,
+dict_domain and buffers_formats paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -694,9 +719,9 @@ def check_output(out, reference, up: np.ndarray, what: str) -> None:
 
 def layer_breakdown(table, tile_rows: int, keys: tuple = ("id",), rows: int | None = N_ROWS) -> dict:
     """One keys-only merge read, timed stage by stage (host clock, device
-    synchronised at each boundary), and the zstd decompression of every page
-    its two decode stages decode, timed apart. A string key's stage is its
-    pool and ranks."""
+    synchronised at each boundary), and, for parquet files, the
+    decompression of every page its two decode stages decode, timed apart.
+    A string key's stage is its pool and ranks."""
     from paimon_tpu_torch.core.kv import VALUE_KIND_FIELD_NAME, KVBatch
     from paimon_tpu_torch.core.levels import IntervalPartition
     from paimon_tpu_torch.core.read import order_runs_for_merge
@@ -735,8 +760,10 @@ def layer_breakdown(table, tile_rows: int, keys: tuple = ("id",), rows: int | No
     kv_keys.take(take)
     ms["gather"] = (time.perf_counter() - t0) * 1e3
     assert rows is None or tail.num_rows == rows
-    raws = [store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}") for f in files]
-    decompress = {"keys": decompress_pages(raws, keys + [VALUE_KIND_FIELD_NAME]), "values": decompress_pages(raws, rest)}
+    decompress = "not parquet"  # an Avro block is one deflate stream, inside decode
+    if all(f.file_name.endswith(".parquet") for f in files):
+        raws = [store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}") for f in files]
+        decompress = {"keys": decompress_pages(raws, keys + [VALUE_KIND_FIELD_NAME]), "values": decompress_pages(raws, rest)}
     return {"tile_rows": tile_rows, "seq_ascending": seq_ascending, "ms": {k: round(v, 3) for k, v in ms.items()},
             "decompress_pages": decompress}
 
@@ -793,7 +820,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paimon_tpu_torch as pt
-    from paimon_tpu_torch.native import build_zstd
+    from paimon_tpu_torch.native import build_native
     from paimon_tpu_torch.ops import hopper_kernels as hk
 
     dev = torch.device(DEVICE)
@@ -811,7 +838,7 @@ def main() -> int:
     hk.build_kernels()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    build_zstd()
+    native_libraries = build_native()
     codec_build_s = time.perf_counter() - t0
     k1_usage = ptxas_usage(hk.build_log("sort_segments"))
     k2_usage = ptxas_usage(hk.build_log("keep_last_mask"))
@@ -826,7 +853,8 @@ def main() -> int:
     spilled = {k: v for k, v in usage.items() if v[2] or v[3]}
     columns = ["registers", "static_smem_bytes", "spill_store_bytes", "spill_load_bytes"]
     emit({"phase": "build", "seconds": round(build_s, 3), "kernels": list(hk.KERNEL_SOURCES),
-          "zstd_codec_seconds": round(codec_build_s, 3), "k1_tile": tile,
+          "native_codecs_seconds": round(codec_build_s, 3),
+          "native_codecs": [os.path.basename(p) for p in native_libraries], "k1_tile": tile,
           "k1_ptxas": {"columns": columns, **k1_usage}, "k2_ptxas": {"columns": columns, **k2_usage},
           "segment_sum_ptxas": {"columns": columns, **sum_usage}})
     assert not spilled, f"kernels spill: {spilled}"
@@ -1005,7 +1033,15 @@ def main() -> int:
         emit({"phase": "dict_domain", "part": "summary", **dict_domain, "exact_checks_all_phases": checks})
         lap("dict_domain", dict_domain)
 
-    # 19. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 19. the write-buffer surface and the reference's Avro, snappy and gzip files
+        checked = tuple(list(checked[i]) + [tuple(s) for s in dict_domain["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        buffers = buffers_formats_phase(pt, hk, warehouse, reference, checked)
+        checks += buffers["shape_checks"]["exact_checks"]
+        emit({"phase": "buffers_formats", "part": "summary", **buffers, "exact_checks_all_phases": checks})
+        lap("buffers_formats", buffers)
+
+    # 20. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -1021,7 +1057,8 @@ def main() -> int:
                       "cdc": cdc["launches"][name], "deletes": deletes["launches"][name],
                       "history": history["launches"][name], "writes": writes["launches"][name],
                       "services": services["launches"][name], "lookups": lookups["launches"][name],
-                      "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name]}
+                      "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name],
+                      "buffers_formats": buffers["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -5228,6 +5265,273 @@ def dict_domain_phase(pt, hk, warehouse: str, value_path_ms: dict, checked: tupl
             "launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
             "seconds_by_part": seconds, "cuts": [],
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2034, checked)}
+
+
+# ---------------------------------------------------------------------------
+# the write-buffer surface and the reference's other files: admission
+# control over the offloaded flush, Avro data files and manifests, snappy
+# and gzip pages, _KEY_ columns, the spilling append buffer, null partitions
+# ---------------------------------------------------------------------------
+
+BF_BATCH_ROWS = 50_000  # rows per write of the throttled ingest and the spilled log
+BF_SPILL_ROWS = 262_144  # write-buffer-spill.rows of the spilled append table
+BF_NULL_SHARE = 0.05  # null dt and null h partition values
+BF_FORMATS = {
+    "parquet_snappy": {"file.compression": "snappy", "manifest.format": "avro"},
+    "parquet_gzip": {"file.compression": "gzip", "manifest.format": "avro"},
+    "avro": {"file.format": "avro", "manifest.format": "avro"},
+}
+
+
+def bench_runs_and_upsert() -> tuple[list, np.ndarray]:
+    """build_table's four sorted runs of the seed-7 permutation and its
+    seed-8 upsert ids."""
+    ids = np.random.default_rng(7).permutation(N_ROWS).astype(np.int64)
+    per = N_ROWS // N_RUNS
+    up = np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
+    return [np.sort(ids[r * per : (r + 1) * per]) for r in range(N_RUNS)], up
+
+
+def throttled_part(pt, hk, cat, control) -> dict:
+    """The bench table's ingest (the same runs and upsert) in 50,000-row
+    writes under write.buffer.max-memory at a quarter of the ingest's
+    buffered bytes: writes throttle while the paimon-flush worker encodes,
+    none is rejected, every reserved byte comes back, and the rows equal
+    the unthrottled table's."""
+    from paimon_tpu_torch.core.kv import KVBatch
+    from paimon_tpu_torch.data.batch import ColumnBatch
+    from paimon_tpu_torch.metrics import soak_metrics
+
+    runs, up = bench_runs_and_upsert()
+    schema = build_schema(pt)
+    first = KVBatch.from_rows(ColumnBatch.from_pydict(schema, table_values(runs[0][:BF_BATCH_ROWS], False)), 0)
+    ingest = first.byte_size() * (N_ROWS + N_UPSERT) // BF_BATCH_ROWS
+    cap = ingest // 4
+    opts = {"write.buffer.max-memory": f"{cap} b", "write.buffer.block-timeout": "60 s"}
+    table = cat.create_table("buffers.throttled", schema, primary_keys=["id"], options={**BENCH_OPTIONS, **opts})
+    g = soak_metrics()
+    throttled0, rejected0 = g.counter("writes_throttled").count, g.counter("writes_rejected").count
+    blocked0 = g.histogram("backpressure_ms").count
+    health = []
+    t0 = time.perf_counter()
+    for r, run_ids in enumerate(runs + [up]):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        for s in range(0, len(run_ids), BF_BATCH_ROWS):
+            w.write(table_values(run_ids[s : s + BF_BATCH_ROWS], upsert=r == N_RUNS))
+        wb.new_commit().commit(w.prepare_commit())
+        health.append(w.health())
+        assert w.admission.in_use == 0, f"commit {r + 1} left {w.admission.in_use} bytes reserved"
+        w.close()
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    throttled = g.counter("writes_throttled").count - throttled0
+    rejected = g.counter("writes_rejected").count - rejected0
+    assert throttled > 0 and rejected == 0, (throttled, rejected)
+    out, samples = timed_reads(table, 2)
+    check_output(out, control, up, "throttled ingest")
+    check_output(read_all(table.copy({"sort-engine": "numpy"})), control, up, "throttled ingest, numpy engine")
+    return {
+        "options": opts, "ingest_bytes_estimate": int(ingest), "max_memory": int(cap),
+        "stop_trigger_bytes": health[0]["stop_trigger_bytes"], "batch_rows": BF_BATCH_ROWS,
+        "write_s": round(write_s, 4), "writes_throttled": throttled, "writes_rejected": rejected,
+        "backpressure_blocks": g.histogram("backpressure_ms").count - blocked0,
+        "backpressure_ms_per_commit": [h["backpressure_ms"] for h in health],
+        "files": len(live_files(table)), "read": read_stats(samples), "equal_to_unthrottled_table": True,
+        "equal_to_numpy_engine": True}
+
+
+def is_avro(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(4) == b"Obj\x01"
+
+
+def format_part(pt, hk, cat, warehouse: str, control, label: str, options: dict) -> dict:
+    """The bench table under `options` (build_table: four runs and the
+    upsert), its files and manifests checked to be what the options name,
+    read twice with sort-engine=pallas and once with numpy, each equal to
+    the oracle and to the zstd table's rows, and one staged read (decode,
+    lanes, merge, gather) beside the zstd table's."""
+    from paimon_tpu_torch.decode.container import CODEC_NAMES, parse_footer
+
+    table, up, write_s = build_table(pt, warehouse, f"bf_{label}", options)
+    torch.cuda.synchronize()
+    files = [f"{table.path}/bucket-0/{f.file_name}" for f in live_files(table)]
+    manifests = [os.path.join(table.path, "manifest", n) for n in os.listdir(f"{table.path}/manifest")]
+    assert manifests and all(is_avro(m) for m in manifests), "a manifest is not Avro"
+    codecs = set()
+    for path in files:
+        if options.get("file.format") == "avro":
+            assert path.endswith(".avro") and is_avro(path), path
+        else:
+            with open(path, "rb") as f:
+                groups = parse_footer(f.read())
+            codecs |= {CODEC_NAMES.get(c.codec, "none") for _, cols in groups for c in cols.values()}
+    if "file.compression" in options:
+        assert codecs == {options["file.compression"]}, codecs
+    out, samples = timed_reads(table, 2)
+    check_output(out, control, up, label)
+    numpy_out, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
+    check_output(numpy_out, control, up, f"{label}, numpy engine")
+    return {"options": options, "write_s": round(write_s, 4), "files": len(files), "manifests": len(manifests),
+            "page_codecs": sorted(codecs), "bytes_on_disk": sum(os.path.getsize(p) for p in files),
+            "read": read_stats(samples), "numpy_read_s": round(numpy_s[0], 4),
+            "stages": layer_breakdown(table, 8 << 20, rows=N_ROWS), "equal_to_numpy_engine": True,
+            "equal_to_oracle": True}
+
+
+def key_columns_part(pt, hk, cat, warehouse: str, control) -> dict:
+    """data-file.include-key-columns=true on the bench table: every data
+    file leads with _KEY_id, the reads (pallas twice, numpy once) equal the
+    oracle, and the key stats are the id column's."""
+    from paimon_tpu_torch.decode.container import parse_footer
+
+    table, up, write_s = build_table(pt, warehouse, "bf_key_columns", {"data-file.include-key-columns": "true"})
+    entries = table.store.new_scan().plan().entries
+    for e in entries:
+        with open(f"{table.path}/bucket-0/{e.file.file_name}", "rb") as f:
+            names = list(parse_footer(f.read())[0][1])
+        assert names[:3] == ["_KEY_id", "_SEQUENCE_NUMBER", "_VALUE_KIND"], names
+        assert list(e.file.key_stats) == ["id"] and e.file.key_stats["id"].min == e.file.min_key[0]
+    out, samples = timed_reads(table, 2)
+    check_output(out, control, up, "key columns")
+    check_output(read_all(table.copy({"sort-engine": "numpy"})), control, up, "key columns, numpy engine")
+    return {"write_s": round(write_s, 4), "files": len(entries), "leading_columns": names[:3],
+            "read": read_stats(samples), "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def spill_part(pt, hk, cat) -> dict:
+    """A 1M-row append table (the bench schema, no primary key, bucket 1)
+    written in one commit of 50,000-row writes under write-buffer-spillable
+    with write-buffer-spill.rows 262,144: the writer spills segments to
+    local disk and, when the buffer reaches write-buffer-rows (1M, the last
+    write), streams them to files. Bytes spilled, the files' rows, and
+    every row read back in written order. No merge runs, so no kernel may
+    launch."""
+    before = dict(hk.launches)
+    opts = {"bucket": "1", "write-only": "true", "write-buffer-spillable": "true",
+            "write-buffer-spill.rows": str(BF_SPILL_ROWS)}
+    table = cat.create_table("buffers.spill_log", build_schema(pt), options=opts)
+    ids = np.random.default_rng(7).permutation(N_ROWS).astype(np.int64)
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    t0 = time.perf_counter()
+    for s in range(0, N_ROWS, BF_BATCH_ROWS):
+        w.write(table_values(ids[s : s + BF_BATCH_ROWS], False))
+    write_s = time.perf_counter() - t0
+    (writer,) = w._writers.values()
+    spilled = writer.spilled_bytes_total
+    t0 = time.perf_counter()
+    wb.new_commit().commit(w.prepare_commit())
+    commit_s = time.perf_counter() - t0
+    w.close()
+    assert spilled > 0, "the append buffer never spilled"
+    got = read_all(table)
+    assert np.array_equal(got.column("id").values, ids), "spilled log: rows out of written order"
+    want = table_values(ids, False)
+    for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+        assert np.array_equal(got.column(name).values, want[name]), f"spilled log: {name} differs"
+    launches = launch_diff(hk, before)
+    assert not any(launches.values()), f"the append path launched a kernel: {launches}"
+    return {"options": opts, "rows": int(got.num_rows), "bytes_spilled": int(spilled),
+            "files_rows": [f.row_count for f in sorted(live_files(table), key=lambda f: f.min_sequence_number)],
+            "write_s": round(write_s, 4), "commit_s": round(commit_s, 4), "rows_in_written_order": True}
+
+
+def null_partition_values(ids: np.ndarray, upsert: bool, null_dt: np.ndarray, null_h: np.ndarray) -> dict:
+    dt = P_DTS[ids % len(P_DTS)].copy()
+    dt[null_dt[ids]] = None
+    h = [None if n else int(v) for v, n in zip(ids % 3, null_h[ids])]
+    return {"dt": dt, "h": h, **table_values(ids, upsert)}
+
+
+def null_partitions_part(pt, hk, cat) -> dict:
+    """The bench table partitioned by dt STRING (4 days) and h INT (3
+    values), each null for a seeded 5% of the ids, bucket 2: 1M rows and
+    the 100k upsert, read (pallas and numpy) against the oracle row by row;
+    the null values land in partition.default-name directories, and a
+    partition filter on dt IS NULL plans only those partitions."""
+    from paimon_tpu_torch.data.predicate import is_null
+
+    rng = np.random.default_rng(13)
+    null_dt, null_h = rng.random(N_ROWS) < BF_NULL_SHARE, rng.random(N_ROWS) < BF_NULL_SHARE
+    schema = pt.RowType.of(("dt", pt.STRING()), ("h", pt.INT()), *[(f.name, f.type) for f in build_schema(pt).fields])
+    table = cat.create_table("buffers.null_parts", schema, partition_keys=["dt", "h"], primary_keys=["dt", "h", "id"],
+                             options={**BENCH_OPTIONS, "bucket": "2"})
+    ids = np.random.default_rng(7).permutation(N_ROWS).astype(np.int64)
+    up = np.random.default_rng(8).choice(N_ROWS, N_UPSERT, replace=False).astype(np.int64)
+    t0 = time.perf_counter()
+    for batch_ids, upsert in ((ids, False), (up, True)):
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(null_partition_values(batch_ids, upsert, null_dt, null_h))
+        wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    out, samples = timed_reads(table, 2)
+    same_rows(out, read_all(table.copy({"sort-engine": "numpy"})), "null partitions against the numpy engine")
+    order = np.argsort(out.column("id").values, kind="stable")
+    got = out.take(order)
+    all_ids = np.arange(N_ROWS, dtype=np.int64)
+    assert np.array_equal(got.column("id").values, all_ids), "null partitions: ids are not the key range"
+    want_old, want_new = null_partition_values(all_ids, False, null_dt, null_h), table_values(all_ids, True)
+    is_up = np.zeros(N_ROWS, np.bool_)
+    is_up[up] = True
+    assert np.array_equal(got.column("dt").valid_mask(), ~null_dt), "null partitions: dt nulls differ"
+    assert np.array_equal(got.column("h").valid_mask(), ~null_h), "null partitions: h nulls differ"
+    for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
+        want = np.where(is_up, want_new[name], want_old[name])
+        assert np.array_equal(got.column(name).values, want), f"null partitions: {name} differs"
+    partitions = set(table.store.new_scan().plan().grouped())
+    assert (None, None) in partitions and len(partitions) == (len(P_DTS) + 1) * 4, sorted(partitions, key=str)
+    assert os.path.isdir(f"{table.path}/dt=__DEFAULT_PARTITION__/h=__DEFAULT_PARTITION__"), "no default-name directory"
+    rb = table.new_read_builder().with_filter(is_null("dt"))
+    splits = rb.new_scan().plan()
+    assert {s.partition[0] for s in splits} == {None}
+    assert rb.new_read().read_all(splits).num_rows == int(null_dt.sum())
+    sys_rows = cat.get_table("buffers.null_parts$partitions").to_pylist()
+    assert len(sys_rows) == len(partitions) and sum(r[1] for r in sys_rows) > N_ROWS
+    return {"partitions": len(partitions), "null_dt_rows": int(null_dt.sum()), "null_h_rows": int(null_h.sum()),
+            "write_s": round(write_s, 4), "read": read_stats(samples), "files": len(live_files(table)),
+            "equal_to_numpy_engine": True, "equal_to_oracle": True}
+
+
+def buffers_formats_phase(pt, hk, warehouse: str, control, checked: tuple) -> dict:
+    """The write-buffer surface and the reference's Avro, snappy and gzip
+    files, one line per part: throttled, parquet_snappy, parquet_gzip,
+    avro, key_columns, spill, null_partitions. K1 and K2 must launch in
+    the merge parts (the spill part launches nothing); then they are held
+    exactly to their plain versions at the phase's shapes no earlier check
+    covered. Launch counts are zeroed before it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    parts, seconds = {}, {}
+    runs = [("throttled", lambda: throttled_part(pt, hk, cat, control))]
+    runs += [(label, lambda label=label, o=o: format_part(pt, hk, cat, warehouse, control, label, o))
+             for label, o in BF_FORMATS.items()]
+    runs += [("key_columns", lambda: key_columns_part(pt, hk, cat, warehouse, control)),
+             ("spill", lambda: spill_part(pt, hk, cat)),
+             ("null_partitions", lambda: null_partitions_part(pt, hk, cat))]
+    with ShapeRecorder(hk) as recorder:
+        for name, run in runs:
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = run()
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "buffers_formats", "part": name, **parts[name]})
+    by_part = {name: p["part_launches"] for name, p in parts.items()}
+    for name in by_part:
+        if name != "spill":  # every flush merges through K1
+            assert by_part[name]["sort_segments"] > 0, f"K1 never launched in the {name} part: {by_part[name]}"
+    for k in K1_K2:
+        assert sum(p[k] for p in by_part.values()) > 0, f"{k} never launched in the buffers_formats phase"
+    return {"launches": dict(hk.launches), "launches_by_part": by_part, "seconds_by_part": seconds,
+            "reads_rows_per_s": {n: p["read"]["output_rows_per_s_median"] for n, p in parts.items() if "read" in p},
+            "stages_ms": {n: parts[n]["stages"]["ms"] for n in BF_FORMATS},
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2035, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

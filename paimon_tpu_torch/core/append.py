@@ -14,8 +14,16 @@ One difference from the JAX package: the bucket's deletion vectors are
 applied when files are concatenated, so a row a DELETE marked stays
 deleted (the JAX package's writer concatenates without them, and its
 COMPACT commit then drops the vectors: the rows come back; ROADMAP Queue
-3). The spilling write buffer (write-buffer-spillable,
-write-buffer-for-append) is not ported and raises.
+3).
+
+Under write-buffer-spillable or write-buffer-for-append the buffer is a
+SpillableBuffer (core/disk.py): batches past write-buffer-spill.rows rows
+or write-buffer-spill.size bytes go to local disk as segments, and the
+buffer flushes at write-buffer-rows rows or once
+write-buffer-spill.max-disk-size of segments are on disk. A flush streams
+each segment, and then each batch still in memory, into files of its own,
+so its peak memory stays near the spill cap; the files, and their rows,
+are the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from ..options import CoreOptions
 from ..types import RowKind
 from ..utils.cache import invalidate_data_file
 from .datafile import DataFileMeta, KeyValueFileReaderFactory, KeyValueFileWriterFactory
+from .disk import IOManager, SpillableBuffer
 from .kv import KVBatch
 from .manifest import CommitMessage
 
@@ -122,11 +131,6 @@ class AppendOnlyWriter:
         existing_files: list[DataFileMeta] | None = None,
         restored_max_seq: int = -1,
     ):
-        for option in (CoreOptions.WRITE_BUFFER_SPILLABLE, CoreOptions.WRITE_BUFFER_FOR_APPEND):
-            if options.options.get(option):
-                raise NotImplementedError(
-                    f"{option.key}=true: the spilling write buffer of append tables is not ported to the torch port yet"
-                )
         self.partition = partition
         self.bucket = bucket
         self.total_buckets = total_buckets
@@ -138,6 +142,15 @@ class AppendOnlyWriter:
         self._buffer: list[ColumnBatch] = []
         self._buffered_rows = 0
         self._buffered_bytes = 0
+        self._spill: SpillableBuffer | None = None
+        opts = options.options
+        if opts.get(CoreOptions.WRITE_BUFFER_SPILLABLE) or opts.get(CoreOptions.WRITE_BUFFER_FOR_APPEND):
+            self._spill = SpillableBuffer(
+                IOManager(),
+                in_memory_rows=opts.get(CoreOptions.WRITE_BUFFER_SPILL_ROWS),
+                in_memory_bytes=int(opts.get(CoreOptions.WRITE_BUFFER_SPILL_SIZE)),
+                max_disk_bytes=int(opts.get(CoreOptions.WRITE_BUFFER_SPILL_MAX_DISK_SIZE)),
+            )
         self._new_files: list[DataFileMeta] = []
         self._compact_before: list[DataFileMeta] = []
         self._compact_after: list[DataFileMeta] = []
@@ -147,25 +160,49 @@ class AppendOnlyWriter:
             raise ValueError("append-only tables accept only +I records")
         if data.num_rows == 0:
             return
-        self._buffer.append(data)
-        self._buffered_rows += data.num_rows
-        self._buffered_bytes += data.byte_size()
-        if self._buffered_rows >= self.options.write_buffer_rows or self._buffered_bytes >= self.options.write_buffer_size:
+        if self._spill is not None:
+            # the spill caps bound the memory; only rows and the disk cap
+            # flush, as in the JAX package
+            self._spill.add(data)
+            self._buffered_rows = self._spill.num_rows
+        else:
+            self._buffer.append(data)
+            self._buffered_rows += data.num_rows
+            self._buffered_bytes += data.byte_size()
+        if (
+            self._buffered_rows >= self.options.write_buffer_rows
+            or self._buffered_bytes >= self.options.write_buffer_size
+            or (self._spill is not None and self._spill.disk_full)
+        ):
             self.flush()
+
+    @property
+    def spilled_bytes_total(self) -> int:
+        """Bytes of every spill segment this writer has written."""
+        return 0 if self._spill is None else self._spill.spilled_bytes_total
 
     def flush(self) -> None:
         """Write the buffer as level-0 files, then compact small files
         unless the table is write-only."""
-        if not self._buffer:
-            return
-        data = concat_batches(self._buffer)
+        wrote = False
+        if self._spill is not None:
+            for segment in self._spill.batches():
+                self._write_rows(segment)
+                wrote = True
+            self._spill.clear()
+            self._spill.io_manager.close()
+        elif self._buffer:
+            self._write_rows(concat_batches(self._buffer))
+            wrote = True
         self._buffer.clear()
         self._buffered_rows = self._buffered_bytes = 0
+        if wrote and self.compact_manager is not None and not self.options.write_only:
+            self._maybe_compact()
+
+    def _write_rows(self, data: ColumnBatch) -> None:
         kv = KVBatch.from_rows(data, self.seq)
         self.seq += data.num_rows
         self._new_files.extend(self.writer_factory.write(kv, level=0, file_source="append"))
-        if self.compact_manager is not None and not self.options.write_only:
-            self._maybe_compact()
 
     def _maybe_compact(self, full: bool = False) -> None:
         consumed = {f.file_name for f in self._compact_before}
@@ -200,3 +237,11 @@ class AppendOnlyWriter:
         self._compact_before.clear()
         self._compact_after.clear()
         return msg
+
+    def close(self) -> None:
+        """Drop the buffer without writing it, and its spill segments."""
+        self._buffer.clear()
+        self._buffered_rows = self._buffered_bytes = 0
+        if self._spill is not None:
+            self._spill.clear()
+            self._spill.io_manager.close()

@@ -2,8 +2,10 @@
 of paimon_tpu/core/datafile.py).
 
 DataFileMeta serializes to the JAX package's JSON fields. Files are
-parquet through format/parquet.py; the reader maps each read field to the
-file's write schema by field id (a missing field reads as nulls, a field
+parquet through format/parquet.py or Avro through format/avro.py
+(file.format, and file.format.per.level for the levels it names; the
+reader picks the format off each file's extension); the reader maps each
+read field to the file's write schema by field id (a missing field reads as nulls, a field
 whose type widened is cast by data/casting.py cast_column). Statistics of
 an older file prune only where they compare as the cast values would
 (stats_comparable): a renamed, dropped or re-added column, a scale change
@@ -16,6 +18,11 @@ payload up to file-index.in-manifest-threshold rides in the manifest
 entry, a larger one goes to a `.index` sidecar named in extra_files.
 Predicate-free reads go through the data-file cache (utils/cache.py); a
 cached KVBatch is shared, so no reader may change its arrays.
+
+Under data-file.include-key-columns the writer puts the trimmed primary
+key in front of each key-value file again, as _KEY_<name> columns (the
+reference's layout); readers project them away, whoever wrote the file,
+and the key stats stay those of the value columns.
 
 The writer passes the table's parquet writer options (parquet.page-size,
 parquet.row-group.rows, file.block-size, parquet.enable.dictionary,
@@ -36,6 +43,7 @@ import numpy as np
 from ..data.batch import Column, ColumnBatch, concat_batches
 from ..data.casting import cast_column, stats_comparable
 from ..format import FieldStats, collect_stats, stats_from_json, stats_to_json
+from ..format.avro import read_avro, write_avro
 from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
 from ..fs import LocalFileIO
 from ..types import DataField, RowKind, RowType
@@ -47,6 +55,9 @@ __all__ = ["DataFileMeta", "KeyValueFileWriterFactory", "KeyValueFileReaderFacto
 # the decoder field of the data-file cache's key: the port has one decoder,
 # with or without the code domain
 _DECODER_ID = "port"
+
+# the data file formats the port reads and writes
+_FORMATS = ("parquet", "avro")
 
 # the table options the parquet writer honours
 WRITER_OPTION_KEYS = (
@@ -147,6 +158,8 @@ class KeyValueFileWriterFactory:
         file_format: str = "parquet",
         compression: str = "zstd",
         per_level_compression: dict[int, str] | None = None,
+        per_level_format: dict[int, str] | None = None,
+        include_key_columns: bool = False,
         target_file_size: int = 128 << 20,
         keyed: bool = True,
         bloom_columns: Sequence[str] = (),
@@ -156,8 +169,15 @@ class KeyValueFileWriterFactory:
         index_in_manifest_threshold: int = 500,
         format_options: dict | None = None,
     ):
-        if file_format != "parquet":
-            raise NotImplementedError(f"file.format={file_format} is not supported by the torch port yet")
+        self.file_format = str(file_format).lower()
+        self.per_level_format = {lv: str(f).lower() for lv, f in (per_level_format or {}).items()}
+        for option, fmt in [("file.format", self.file_format)] + [
+            ("file.format.per.level", f) for f in self.per_level_format.values()
+        ]:
+            if fmt not in _FORMATS:
+                raise NotImplementedError(
+                    f"{option}={fmt} is not supported by the torch port; it writes {', '.join(_FORMATS)}"
+                )
         self.per_level_compression = dict(per_level_compression or {})
         lacking = {lv: c for lv, c in self.per_level_compression.items() if c.lower() not in WRITE_CODECS}
         if lacking:
@@ -174,6 +194,7 @@ class KeyValueFileWriterFactory:
         # keyed=False: an append table's files hold the plain rows, with no
         # _SEQUENCE_NUMBER / _VALUE_KIND columns and an empty key range
         self.keyed = keyed
+        self.include_key_columns = bool(include_key_columns) and keyed
         self.bloom_columns = list(bloom_columns)
         self.bloom_fpp = bloom_fpp
         self.key_bloom = bool(key_bloom) and keyed and bool(self.key_names)
@@ -227,11 +248,19 @@ class KeyValueFileWriterFactory:
     def _write_one(
         self, kv: KVBatch, level: int, file_source: str, prefix: str = "data", sorted_input: bool = True
     ) -> DataFileMeta:
-        name = new_file_name(prefix, "parquet")
+        fmt = self.per_level_format.get(level, self.file_format)
+        name = new_file_name(prefix, fmt)
         path = f"{self.bucket_dir}/{name}"
         compression = self.per_level_compression.get(level, self.compression)
-        disk = kv.to_disk_batch() if self.keyed else kv.data
-        self.file_io.write_bytes(path, write_parquet(disk, compression, self.format_options))
+        if not self.keyed:
+            disk = kv.data
+        else:
+            disk = kv.to_disk_batch(self.key_names if self.include_key_columns else None)
+        if fmt == "avro":
+            payload = write_avro(disk, compression)
+        else:
+            payload = write_parquet(disk, compression, self.format_options)
+        self.file_io.write_bytes(path, payload)
         extra, embedded = self._write_index(kv, name, path)
         value_stats = collect_stats(kv.data)
         min_key, max_key = self._key_range(kv.data, sorted_input)
@@ -316,8 +345,8 @@ class KeyValueFileReaderFactory:
         unkeyed (append) file has no system columns: its sequence numbers
         and kinds read as zeros."""
         ext = meta.file_name.rsplit(".", 1)[-1]
-        if ext != "parquet":
-            raise NotImplementedError(f"file.format={ext} is not supported by the torch port yet")
+        if ext not in _FORMATS:
+            raise NotImplementedError(f"file.format={ext} is not supported by the torch port; it reads {', '.join(_FORMATS)}")
         if not self.keyed:
             system_columns = False
         if predicate is None and self.cache is not None:
@@ -362,7 +391,11 @@ class KeyValueFileReaderFactory:
                     predicate = None
                     break
         raw = self.file_io.read_bytes(f"{self.bucket_dir}/{meta.file_name}")
-        parts = read_parquet(raw, disk_schema, wanted, predicate, self.dict_domain, self.pool_limit)
+        if meta.file_name.endswith(".avro"):
+            # row-major: no statistics inside the file to prune by
+            parts = [read_avro(raw, disk_schema, wanted)]
+        else:
+            parts = read_parquet(raw, disk_schema, wanted, predicate, self.dict_domain, self.pool_limit)
         disk = concat_batches(parts) if parts else ColumnBatch.empty(disk_schema.project(wanted))
         n = disk.num_rows
         cols: dict[str, Column] = {}

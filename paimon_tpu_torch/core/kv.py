@@ -3,7 +3,10 @@ paimon_tpu/core/kv.py).
 
 On disk a key-value data file holds `_SEQUENCE_NUMBER BIGINT,
 _VALUE_KIND TINYINT` and then the value fields; the primary key is a subset
-of the value fields and is not duplicated.
+of the value fields and is not duplicated, unless
+data-file.include-key-columns asks for the reference's layout: then the
+trimmed primary key comes first again, as `_KEY_<name>` columns whose field
+ids are the key fields' plus 1,000,000,000.
 """
 
 from __future__ import annotations
@@ -16,11 +19,13 @@ import numpy as np
 from ..data.batch import Column, ColumnBatch, concat_batches
 from ..types import BIGINT, TINYINT, DataField, RowKind, RowType
 
-__all__ = ["KVBatch", "SEQUENCE_FIELD_NAME", "VALUE_KIND_FIELD_NAME", "kv_disk_schema"]
+__all__ = ["KVBatch", "SEQUENCE_FIELD_NAME", "VALUE_KIND_FIELD_NAME", "KEY_FIELD_PREFIX", "kv_disk_schema"]
 
 SEQUENCE_FIELD_NAME = "_SEQUENCE_NUMBER"
 VALUE_KIND_FIELD_NAME = "_VALUE_KIND"
 LEVEL_FIELD_ID_BASE = 2147480000
+KEY_FIELD_PREFIX = "_KEY_"
+KEY_FIELD_ID_OFFSET = 1_000_000_000  # keeps the _KEY_ ids apart from the value ids
 
 
 def kv_disk_schema(value_schema: RowType) -> RowType:
@@ -79,10 +84,19 @@ class KVBatch:
             kinds = np.full(n, int(RowKind.INSERT), dtype=np.uint8)
         return KVBatch(data, seq, kinds)
 
-    def to_disk_batch(self) -> ColumnBatch:
-        cols = {SEQUENCE_FIELD_NAME: Column(self.seq), VALUE_KIND_FIELD_NAME: Column(self.kind.astype(np.int8))}
+    def to_disk_batch(self, key_names: Sequence[str] | None = None) -> ColumnBatch:
+        """The on-disk layout; with key_names, those key columns again in
+        front as _KEY_<name>."""
+        disk_schema = kv_disk_schema(self.data.schema)
+        fields, cols = [], {}
+        for name in key_names or ():
+            f = self.data.schema.field(name)
+            fields.append(DataField(KEY_FIELD_ID_OFFSET + f.id, KEY_FIELD_PREFIX + name, f.type))
+            cols[KEY_FIELD_PREFIX + name] = self.data.column(name)
+        cols[SEQUENCE_FIELD_NAME] = Column(self.seq)
+        cols[VALUE_KIND_FIELD_NAME] = Column(self.kind.astype(np.int8))
         cols.update(self.data.columns)
-        return ColumnBatch(kv_disk_schema(self.data.schema), cols)
+        return ColumnBatch(RowType([*fields, *disk_schema.fields]) if fields else disk_schema, cols)
 
     def drop_deletes(self) -> "KVBatch":
         """Batch reads strip -D/-U rows after merging."""

@@ -1,12 +1,15 @@
-"""The manifest metadata tree (port of paimon_tpu/core/manifest.py: the
-JSON-lines container).
+"""The manifest metadata tree (port of paimon_tpu/core/manifest.py).
 
-A manifest file holds ManifestEntry lines (ADD/DELETE of a DataFileMeta at
-a partition and bucket); a manifest list holds ManifestFileMeta lines. As
-in the JAX package, each file is one zstd frame of JSON lines unless
-manifest.compression=none, and readers sniff the zstd magic. The Avro
-container (manifest.format=avro) is not ported yet and raises
-NotImplementedError naming manifest.format.
+A manifest file holds ManifestEntry records (ADD/DELETE of a DataFileMeta
+at a partition and bucket); a manifest list holds ManifestFileMeta
+records. As in the JAX package, each file is one zstd frame of JSON lines
+unless manifest.compression=none; under manifest.format=avro it is the
+reference's Avro layout instead (interop/manifest_codec.py: the null codec
+under manifest.compression=none, else deflate), whose positional stats
+decode under the schema that wrote each file (read from the schema/
+directory beside the manifest/ one, so a branch resolves its own). Every
+read sniffs the magic bytes (zstd, Avro, else plain JSON lines), so a
+table whose option changed mid-life reads both kinds.
 """
 
 from __future__ import annotations
@@ -16,6 +19,13 @@ from dataclasses import dataclass, field
 from typing import Iterable, Sequence
 
 from ..fs import LocalFileIO
+from ..interop.manifest_codec import (
+    StatsContext,
+    read_entries_avro,
+    read_metas_avro,
+    write_entries_avro,
+    write_metas_avro,
+)
 from ..utils import dumps, loads, new_file_name
 from ..utils.compression import ZSTD_MAGIC, zstd_compress, zstd_decompress
 from .datafile import DataFileMeta
@@ -99,6 +109,34 @@ class _JsonLines:
         self.format = str(fmt).lower()
         # the manifest cache (utils/cache.py), keyed by (kind, full path)
         self.cache = cache if cache is not None and cache.enabled else None
+        self._resolver_fn = None
+
+    def _resolver(self):
+        """schema id -> StatsContext of the table whose manifest/ directory
+        this is, or None when it has no schema yet. A failed read is not
+        kept, so a passing IO error never sticks."""
+        if self._resolver_fn is None:
+            from .schema import SchemaManager
+
+            sm = SchemaManager(self.file_io, self.directory.rsplit("/", 1)[0])
+            latest = sm.latest()
+            if latest is None:
+                return None
+            contexts = {latest.id: StatsContext.from_table_schema(latest)}
+
+            def resolve(schema_id: int) -> StatsContext:
+                if schema_id not in contexts:
+                    try:
+                        contexts[schema_id] = StatsContext.from_table_schema(sm.schema(schema_id))
+                    except Exception:  # noqa: BLE001 - a missing schema file: the JAX package's fallback
+                        contexts[schema_id] = contexts[latest.id]
+                return contexts[schema_id]
+
+            self._resolver_fn = resolve
+        return self._resolver_fn
+
+    def _avro_codec(self) -> str:
+        return "null" if self.compression == "none" else "deflate"
 
     def _cached_read(self, kind: str, name: str, decode):
         """Decode once: the cache keeps an immutable tuple and every caller
@@ -116,23 +154,27 @@ class _JsonLines:
         return list(out)
 
     def _write_lines(self, name: str, dicts: Iterable[dict], track: list[str] | None) -> int:
-        if self.format != "jsonl":
-            raise NotImplementedError(f"manifest.format={self.format} is not supported by the torch port yet")
         data = "\n".join(dumps(d) for d in dicts).encode()
         if self.compression != "none":  # every other value means zstd, as in the JAX package
             data = zstd_compress(data)
+        return self._write_payload(name, data, track)
+
+    def _write_payload(self, name: str, data: bytes, track: list[str] | None) -> int:
         if track is not None:
             track.append(name)
         if not self.file_io.try_atomic_write(f"{self.directory}/{name}", data):
             raise OSError(f"manifest {name} unexpectedly already exists")
         return len(data)
 
-    def _read_lines(self, name: str) -> list[dict]:
-        data = self.file_io.read_bytes(f"{self.directory}/{name}")
+    def _avro_resolver(self):
+        """The resolver when this accessor writes Avro, else None (JSON
+        lines; also when the table has no schema, as in the JAX package)."""
+        return self._resolver() if self.format == "avro" else None
+
+    @staticmethod
+    def _lines(data: bytes) -> list[dict]:
         if data[:4] == ZSTD_MAGIC:
             data = bytes(zstd_decompress(data))
-        elif data[:4] == _AVRO_MAGIC:
-            raise NotImplementedError(f"manifest {name} is Avro (manifest.format=avro), not supported by the torch port yet")
         return [loads(line) for line in data.decode().splitlines() if line]
 
     def delete(self, name: str) -> None:
@@ -144,24 +186,45 @@ class _JsonLines:
 class ManifestFile(_JsonLines):
     def write(self, entries: Sequence[ManifestEntry], schema_id: int, track: list[str] | None = None) -> ManifestFileMeta:
         name = new_file_name("manifest")
-        size = self._write_lines(name, (e.to_dict() for e in entries), track)
+        resolver = self._avro_resolver()
+        if resolver is not None:
+            size = self._write_payload(name, write_entries_avro(entries, resolver, self._avro_codec()), track)
+        else:
+            size = self._write_lines(name, (e.to_dict() for e in entries), track)
         added = sum(1 for e in entries if e.kind == FileKind.ADD)
         return ManifestFileMeta(name, size, added, len(entries) - added, schema_id)
 
     def read(self, name: str) -> list[ManifestEntry]:
-        return self._cached_read("manifest", name, lambda: [ManifestEntry.from_dict(d) for d in self._read_lines(name)])
+        return self._cached_read("manifest", name, lambda: self._decode(name))
+
+    def _decode(self, name: str) -> list[ManifestEntry]:
+        data = self.file_io.read_bytes(f"{self.directory}/{name}")
+        if data[:4] == _AVRO_MAGIC:
+            resolver = self._resolver()
+            if resolver is None:
+                raise ValueError(f"avro manifest {name} needs the table schema for decoding")
+            return read_entries_avro(data, resolver)
+        return [ManifestEntry.from_dict(d) for d in self._lines(data)]
 
 
 class ManifestList(_JsonLines):
     def write(self, metas: Sequence[ManifestFileMeta], track: list[str] | None = None) -> str:
         name = new_file_name("manifest-list")
-        self._write_lines(name, (m.to_dict() for m in metas), track)
+        resolver = self._avro_resolver()
+        if resolver is not None:
+            self._write_payload(name, write_metas_avro(metas, resolver, self._avro_codec()), track)
+        else:
+            self._write_lines(name, (m.to_dict() for m in metas), track)
         return name
 
     def read(self, name: str) -> list[ManifestFileMeta]:
-        return self._cached_read(
-            "manifest-list", name, lambda: [ManifestFileMeta.from_dict(d) for d in self._read_lines(name)]
-        )
+        return self._cached_read("manifest-list", name, lambda: self._decode(name))
+
+    def _decode(self, name: str) -> list[ManifestFileMeta]:
+        data = self.file_io.read_bytes(f"{self.directory}/{name}")
+        if data[:4] == _AVRO_MAGIC:
+            return read_metas_avro(data)
+        return [ManifestFileMeta.from_dict(d) for d in self._lines(data)]
 
 
 def merge_entries(*entry_lists: Iterable[ManifestEntry]) -> list[ManifestEntry]:

@@ -105,6 +105,8 @@ class KeyValueFileStore:
             file_format=co.file_format,
             compression=co.file_compression,
             per_level_compression=co.file_compression_per_level,
+            per_level_format=co.file_format_per_level,
+            include_key_columns=co.options.get(CoreOptions.DATA_FILE_INCLUDE_KEY_COLUMNS),
             target_file_size=co.target_file_size,
             keyed=self.keyed,
             bloom_columns=[c.strip() for c in bloom_cols.split(",")] if bloom_cols else (),
@@ -156,9 +158,12 @@ class KeyValueFileStore:
         dvs = DeletionVectorsIndexFile(self.file_io, self.table_path).read_all(dv_index) if dv_index else {}
         return [e.file for e in plan.entries], dvs
 
-    def new_writer(self, partition: tuple, bucket: int, total_buckets: int | None = None) -> MergeTreeWriter:
+    def new_writer(
+        self, partition: tuple, bucket: int, total_buckets: int | None = None, admission=None
+    ) -> MergeTreeWriter:
         """A writer restored from the bucket's live files; it compacts unless
-        the table is write-only."""
+        the table is write-only, and reserves its buffer against
+        `admission` (a WriteBufferController) when one is given."""
         co = self.options
         if co.write_only and co.changelog_producer == ChangelogProducer.LOOKUP:
             raise ValueError(
@@ -209,6 +214,7 @@ class KeyValueFileStore:
             restored_max_seq=max((f.max_sequence_number for f in existing), default=-1),
             compact_manager=compact_manager,
             debt_gate=debt_gate,
+            admission=admission,
         )
 
     def read_raw(self, partition: tuple, bucket: int, files: list[DataFileMeta]) -> KVBatch:
@@ -261,9 +267,14 @@ class AppendOnlyFileStore(KeyValueFileStore):
 
     keyed = False
 
-    def new_writer(self, partition: tuple, bucket: int, total_buckets: int | None = None) -> AppendOnlyWriter:
+    def new_writer(
+        self, partition: tuple, bucket: int, total_buckets: int | None = None, admission=None
+    ) -> AppendOnlyWriter:
         """A writer restored from the bucket's live files and deletion
-        vectors; it compacts small files unless the table is write-only."""
+        vectors; it compacts small files unless the table is write-only.
+        `admission` is taken for the merge-tree writer's signature: as in
+        the JAX package, an append writer reserves nothing (its buffer
+        spills instead, under write-buffer-spillable)."""
         co = self.options
         existing, dvs = self.restore_state(partition, bucket)
         wf = self.writer_factory(partition, bucket)

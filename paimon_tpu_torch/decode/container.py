@@ -3,8 +3,9 @@ codecs and chunk statistics (port of paimon_tpu/decode/container.py).
 
 Envelope: flat schemas; physical types BOOLEAN, INT32, INT64, FLOAT,
 DOUBLE and BYTE_ARRAY (UTF8 or raw); REQUIRED or OPTIONAL leaves; data
-pages v1 and v2; codecs UNCOMPRESSED and ZSTD (the port's own codec,
-utils/compression.py). Any other codec raises NotImplementedError naming
+pages v1 and v2; codecs UNCOMPRESSED, SNAPPY, GZIP and ZSTD (the port's
+own snappy and zstd codecs and zlib, utils/compression.py). Any other
+codec (lzo, brotli, lz4) raises NotImplementedError naming
 file.compression; a malformed file or a feature outside the envelope
 raises ParquetFormatError.
 """
@@ -19,7 +20,7 @@ import numpy as np
 from ..format import FieldStats
 from ..format.thrift import ThriftError, read_struct
 from ..types import STRING_ROOTS, DataType, TypeRoot
-from ..utils.compression import zstd_decompress
+from ..utils.compression import gzip_decompress, snappy_decompress, zstd_decompress
 
 __all__ = [
     "ParquetFormatError",
@@ -38,8 +39,10 @@ T_BOOLEAN, T_INT32, T_INT64, T_INT96, T_FLOAT, T_DOUBLE, T_BYTE_ARRAY, T_FLBA = 
 ENC_PLAIN, ENC_PLAIN_DICTIONARY, ENC_RLE, ENC_DELTA_BINARY_PACKED, ENC_RLE_DICTIONARY = 0, 2, 3, 5, 8
 PAGE_DATA, PAGE_INDEX, PAGE_DICTIONARY, PAGE_DATA_V2 = 0, 1, 2, 3
 REQUIRED, OPTIONAL, REPEATED = 0, 1, 2
-CODEC_NONE, CODEC_ZSTD = 0, 6
+CODEC_NONE, CODEC_SNAPPY, CODEC_GZIP, CODEC_ZSTD = 0, 1, 2, 6
 CODEC_NAMES = {1: "snappy", 2: "gzip", 3: "lzo", 4: "brotli", 5: "lz4", 6: "zstd", 7: "lz4_raw"}
+# codec -> (bytes, expected size) -> decompressed bytes
+DECOMPRESSORS = {CODEC_SNAPPY: snappy_decompress, CODEC_GZIP: gzip_decompress, CODEC_ZSTD: zstd_decompress}
 
 PLAIN_DTYPES = {T_INT32: np.dtype("<i4"), T_INT64: np.dtype("<i8"), T_FLOAT: np.dtype("<f4"), T_DOUBLE: np.dtype("<f8")}
 
@@ -52,7 +55,7 @@ def codec_error(codec: int) -> NotImplementedError:
     name = CODEC_NAMES.get(codec, f"codec {codec}")
     return NotImplementedError(
         f"parquet {name} compression cannot be decoded by the torch port "
-        f"(file.compression={name}); it reads file.compression=zstd or none"
+        f"(file.compression={name}); it reads file.compression=zstd, snappy, gzip or none"
     )
 
 
@@ -127,9 +130,10 @@ def parse_footer(data: bytes) -> list[tuple[int, dict[str, ChunkInfo]]]:
 
 
 def decompress_page(chunk: ChunkInfo, kind: int, hdr: dict, payload: memoryview) -> memoryview:
-    """A page's payload as the encodings see it. zstd compresses a v1 data
-    page or a dictionary page whole; a v2 data page keeps its level bytes
-    raw and compresses the rest only when is_compressed (default true)."""
+    """A page's payload as the encodings see it. The codec compresses a v1
+    data page or a dictionary page whole; a v2 data page keeps its level
+    bytes raw and compresses the rest only when is_compressed (default
+    true)."""
     if chunk.codec == CODEC_NONE:
         return payload
     size, levels = hdr[2], 0
@@ -141,9 +145,9 @@ def decompress_page(chunk: ChunkInfo, kind: int, hdr: dict, payload: memoryview)
         if not 0 <= levels <= min(len(payload), size):
             raise ParquetFormatError(f"column {chunk.name}: v2 page levels of {levels} bytes")
     try:
-        values = zstd_decompress(payload[levels:], size - levels)
+        values = DECOMPRESSORS[chunk.codec](payload[levels:], size - levels)
     except ValueError as e:
-        raise ParquetFormatError(f"column {chunk.name}: zstd page: {e}") from e
+        raise ParquetFormatError(f"column {chunk.name}: {CODEC_NAMES[chunk.codec]} page: {e}") from e
     if not levels:
         return values
     out = np.empty(size, dtype=np.uint8)
@@ -156,7 +160,7 @@ def iter_pages(data: bytes, chunk: ChunkInfo):
     """(kind, header dict, raw payload) for each dictionary and data page
     of a chunk; the payload is decompressed by decompress_page only when
     the page is decoded, so a skipped page costs its header alone."""
-    if chunk.codec not in (CODEC_NONE, CODEC_ZSTD):
+    if chunk.codec != CODEC_NONE and chunk.codec not in DECOMPRESSORS:
         raise codec_error(chunk.codec)
     mv = memoryview(data)
     pos = chunk.start

@@ -22,7 +22,7 @@ import struct
 import time
 
 from ..data.batch import ColumnBatch
-from ..decode.container import CODEC_NONE, CODEC_ZSTD, MAGIC, physical_type
+from ..decode.container import CODEC_GZIP, CODEC_NONE, CODEC_SNAPPY, CODEC_ZSTD, MAGIC, physical_type
 from ..format.thrift import build_struct
 from ..metrics import encode_metrics
 from ..types import TypeRoot
@@ -31,7 +31,13 @@ from .pages import encode_chunk
 __all__ = ["encode_parquet_bytes", "WRITE_CODECS"]
 
 # file.compression values the writer takes -> parquet codec
-WRITE_CODECS = {"none": CODEC_NONE, "uncompressed": CODEC_NONE, "zstd": CODEC_ZSTD}
+WRITE_CODECS = {
+    "none": CODEC_NONE,
+    "uncompressed": CODEC_NONE,
+    "zstd": CODEC_ZSTD,
+    "snappy": CODEC_SNAPPY,
+    "gzip": CODEC_GZIP,
+}
 
 _BOOL, _I32, _I64, _BINARY, _LIST, _STRUCT = 1, 5, 6, 8, 9, 12
 _CONVERTED_UTF8, _CONVERTED_INT8, _CONVERTED_INT16 = 0, 15, 16

@@ -31,9 +31,12 @@ from ..data.batch import Column
 from ..format.thrift import append_uvarint, build_struct
 from ..ops.dicts import cache_usable, prune_pool
 from ..types import DataType
-from ..utils.compression import zstd_compress
+from ..utils.compression import gzip_compress, snappy_compress, zstd_compress
 from . import kernels
 from ..decode.container import (
+    CODEC_GZIP,
+    CODEC_NONE,
+    CODEC_SNAPPY,
     CODEC_ZSTD,
     ENC_DELTA_BINARY_PACKED,
     ENC_PLAIN,
@@ -102,6 +105,9 @@ def _min_max(compact: np.ndarray, physical: int):
     return compact.min(), compact.max()
 
 
+_COMPRESSORS = {CODEC_ZSTD: zstd_compress, CODEC_SNAPPY: snappy_compress, CODEC_GZIP: gzip_compress}
+
+
 class _PageSink:
     """Accumulates one chunk's pages, v1 or v2."""
 
@@ -111,7 +117,7 @@ class _PageSink:
         self.page_v2 = page_v2
 
     def _compress(self, raw: bytes) -> bytes:
-        return zstd_compress(raw) if self.codec == CODEC_ZSTD else raw
+        return raw if self.codec == CODEC_NONE else _COMPRESSORS[self.codec](raw)
 
     def add_dict_page(self, payload: bytes, num_values: int) -> None:
         body = self._compress(payload)
@@ -133,7 +139,7 @@ class _PageSink:
                     (4, _I32, enc),
                     (5, _I32, len(levels)),
                     (6, _I32, 0),
-                    (7, _BOOL, self.codec == CODEC_ZSTD),
+                    (7, _BOOL, self.codec != CODEC_NONE),
                 ]
             )
             header = build_struct(

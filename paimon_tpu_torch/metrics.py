@@ -26,6 +26,8 @@ __all__ = [
     "decode_metrics",
     "dict_metrics",
     "encode_metrics",
+    "soak_metrics",
+    "pipeline_metrics",
 ]
 
 
@@ -215,3 +217,23 @@ def encode_metrics() -> MetricGroup:
     files_native and bytes_written; histograms: encode_ms (one file) and
     stats_ms (its chunk statistics). Resolved per call."""
     return registry.group("encode")
+
+
+def soak_metrics() -> MetricGroup:
+    """The soak{...} group's writer flow-control members
+    (core/admission.py). Counters: writes_throttled (admissions that
+    blocked at the stop trigger or the pending-flush cap), writes_rejected
+    (throttled writes that reached write.buffer.block-timeout and raised
+    WriterBackpressureError); histogram: backpressure_ms (millis writers
+    spent blocked in admission). The soak harness's members belong to the
+    services, which are not ported. Resolved per call."""
+    return registry.group("soak")
+
+
+def pipeline_metrics() -> MetricGroup:
+    """The pipeline{...} group's flush-offload members (core/writer.py).
+    Counter: splits_prefetched (flushes handed to the paimon-flush worker);
+    histogram: flush_busy_ms (one offloaded flush, wall millis). The split
+    pipeline's members come with parallel/pipeline.py's SplitPipeline,
+    which is not ported. Resolved per call."""
+    return registry.group("pipeline")

@@ -96,6 +96,18 @@ class ConfigOption(Generic[T]):
         return ConfigOption(key, default, parse, fallback)
 
 
+def _per_level(spec: str | None, key: str) -> dict[int, str]:
+    out: dict[int, str] = {}
+    for part in (spec or "").split(","):
+        if not part.strip():
+            continue
+        level, _, value = part.strip().partition(":")
+        if not value:
+            raise ValueError(f"{key} needs 'level:value' pairs, got {part!r}")
+        out[int(level)] = value.strip()
+    return out
+
+
 class Options:
     """A string->value map with typed access via ConfigOption."""
 
@@ -171,16 +183,37 @@ class CoreOptions:
     # the rows, and nothing the port writes
     FILE_COMPRESSION_ZSTD_LEVEL = ConfigOption.int_("file.compression.zstd-level", 1)
     FILE_COMPRESSION_PER_LEVEL = ConfigOption.string("file.compression.per.level", None)
+    # '0:avro,5:parquet': the data file format of the levels it names
+    FILE_FORMAT_PER_LEVEL = ConfigOption.string("file.format.per.level", None)
+    # the reference's key-value layout: the trimmed primary key again in
+    # front of each data file, as _KEY_<name> columns
+    DATA_FILE_INCLUDE_KEY_COLUMNS = ConfigOption.bool_("data-file.include-key-columns", False)
     MANIFEST_FORMAT = ConfigOption.string("manifest.format", "jsonl")
     MANIFEST_COMPRESSION = ConfigOption.string("manifest.compression", "default")
     TARGET_FILE_SIZE = ConfigOption.memory("target-file-size", "128 mb")
     WRITE_BUFFER_SIZE = ConfigOption.memory("write-buffer-size", "256 mb")
     WRITE_BUFFER_ROWS = ConfigOption.int_("write-buffer-rows", 1_000_000)
     LOCAL_MERGE_BUFFER_SIZE = ConfigOption.memory("local-merge-buffer-size", "0 b")
-    # read only to refuse them on append tables: the spilling buffer
-    # (core/disk.py) is not ported
+    # admission control (core/admission.py): a byte budget over every
+    # buffered memtable and offloaded flush of a write (0 = off); past
+    # stop-trigger x max-memory a write blocks up to block-timeout, then is
+    # rejected; at most max-pending-flushes memtables wait for the flush
+    # worker (0 = no cap)
+    WRITE_BUFFER_MAX_MEMORY = ConfigOption.memory("write.buffer.max-memory", "0 b")
+    WRITE_BUFFER_STOP_TRIGGER = ConfigOption.float_("write.buffer.stop-trigger", 0.9)
+    WRITE_BUFFER_BLOCK_TIMEOUT = ConfigOption.duration("write.buffer.block-timeout", "10 s")
+    WRITE_BUFFER_MAX_PENDING_FLUSHES = ConfigOption.int_("write.buffer.max-pending-flushes", 4)
+    # the spilling write buffer of append tables (core/disk.py): segments
+    # of write-buffer-spill.rows rows or .size bytes go to local disk, up
+    # to .max-disk-size on disk, past which the buffer flushes
     WRITE_BUFFER_SPILLABLE = ConfigOption.bool_("write-buffer-spillable", False)
     WRITE_BUFFER_FOR_APPEND = ConfigOption.bool_("write-buffer-for-append", False)
+    WRITE_BUFFER_SPILL_ROWS = ConfigOption.int_("write-buffer-spill.rows", 256 * 1024)
+    WRITE_BUFFER_SPILL_SIZE = ConfigOption.memory("write-buffer-spill.size", "64 mb")
+    WRITE_BUFFER_SPILL_MAX_DISK_SIZE = ConfigOption.memory("write-buffer-spill.max-disk-size", f"{1 << 50} b")
+    # the writer's flush offload (core/writer.py): 0 flushes inline, more
+    # hands auto-flushes to one paimon-flush worker (parallel/pipeline.py)
+    SCAN_PREFETCH_SPLITS = ConfigOption.int_("scan.prefetch-splits", 2)
     WRITE_ONLY = ConfigOption.bool_("write-only", False, fallback=("write.compaction-skip",))
     MERGE_ENGINE = ConfigOption.enum("merge-engine", MergeEngine, MergeEngine.DEDUPLICATE)
     IGNORE_DELETE = ConfigOption.bool_(
@@ -387,16 +420,20 @@ class CoreOptions:
     @property
     def file_compression_per_level(self) -> dict[int, str]:
         """'0:zstd,5:none' -> {0: 'zstd', 5: 'none'}."""
-        spec = self.options.get(CoreOptions.FILE_COMPRESSION_PER_LEVEL)
-        out: dict[int, str] = {}
-        for part in (spec or "").split(","):
-            if not part.strip():
-                continue
-            level, _, codec = part.strip().partition(":")
-            if not codec:
-                raise ValueError(f"file.compression.per.level needs 'level:codec' pairs, got {part!r}")
-            out[int(level)] = codec.strip()
-        return out
+        return _per_level(self.options.get(CoreOptions.FILE_COMPRESSION_PER_LEVEL), "file.compression.per.level")
+
+    @property
+    def file_format_per_level(self) -> dict[int, str]:
+        """'0:avro,5:parquet' -> {0: 'avro', 5: 'parquet'}."""
+        return _per_level(self.options.get(CoreOptions.FILE_FORMAT_PER_LEVEL), "file.format.per.level")
+
+    @property
+    def write_buffer_max_memory(self) -> int:
+        return int(self.options.get(CoreOptions.WRITE_BUFFER_MAX_MEMORY))
+
+    @property
+    def write_buffer_block_timeout_ms(self) -> int:
+        return self.options.get(CoreOptions.WRITE_BUFFER_BLOCK_TIMEOUT)
 
     @property
     def manifest_compression(self) -> str:

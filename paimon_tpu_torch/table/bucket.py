@@ -49,29 +49,40 @@ def group_by_partition_bucket(
 ) -> list[tuple[tuple, int, np.ndarray]]:
     """[(partition, bucket, row indices)], grouped in the JAX package's order
     (by bucket, then by each partition column's sorted values). A null
-    partition value raises: the JAX package fails on it (np.unique cannot
-    order None among strings, and a null number would be written as 0), so
-    the port refuses it rather than choose a layout."""
+    partition value, of any type, is a partition value of its own, None,
+    after every other value of its column; its rows go to the
+    partition.default-name directory (utils.partition_path). The JAX
+    package does otherwise: np.unique fails on a None among strings, and a
+    null number is grouped with 0."""
     n = batch.num_rows
     buckets = bucket_ids(batch, bucket_keys, num_buckets) if num_buckets > 1 else np.zeros(n, dtype=np.int32)
     if not partition_keys:
         return [((), int(b), np.flatnonzero(buckets == b)) for b in np.unique(buckets)]
     codes = buckets.astype(np.int64)
+    nulls = {}
     for name in partition_keys:
         col = batch.column(name)
-        if col.validity is not None or (col.values.dtype == np.dtype(object) and (col.values == None).any()):  # noqa: E711
-            raise NotImplementedError(
-                f"null value in partition column {name!r}: the torch port does not write null partition values "
-                "(the partition.default-name directory) yet"
-            )
-        u, inv = np.unique(col.values, return_inverse=True)
-        codes = codes * np.int64(len(u)) + inv
+        values = col.values
+        null = ~col.valid_mask()
+        if values.dtype == np.dtype(object):
+            null |= np.asarray(values == None, dtype=np.bool_)  # noqa: E711 - elementwise
+        nulls[name] = null
+        if null.any():
+            u, inv_valid = np.unique(values[~null], return_inverse=True)
+            inv = np.full(n, len(u), dtype=np.int64)
+            inv[~null] = inv_valid.reshape(-1)
+            size = len(u) + 1
+        else:
+            u, inv = np.unique(values, return_inverse=True)
+            size = len(u)
+        codes = codes * np.int64(size) + inv.reshape(-1)
     out = []
     for code in np.unique(codes):
         rows = np.flatnonzero(codes == code)
         r0 = rows[0]
         partition = tuple(
-            v.item() if hasattr((v := batch.column(k).values[r0]), "item") else v for k in partition_keys
+            None if nulls[k][r0] else v.item() if hasattr((v := batch.column(k).values[r0]), "item") else v
+            for k in partition_keys
         )
         out.append((partition, int(buckets[r0]), rows))
     return out

@@ -47,6 +47,7 @@ from ..data.batch import ColumnBatch, concat_batches
 from ..data.predicate import Predicate, PredicateBuilder, and_
 from ..options import CoreOptions
 from ..types import RowKind
+from ..utils import partition_sort_key
 from .tags import TagManager
 
 if TYPE_CHECKING:
@@ -250,7 +251,7 @@ class TableScan:
                 scan = scan.with_partition_filter(accept)
             splits += [
                 DataSplit(partition=partition, bucket=bucket, files=files, snapshot_id=sid, is_changelog=True)
-                for partition, buckets in sorted(scan.plan().grouped().items())
+                for partition, buckets in sorted(scan.plan().grouped().items(), key=lambda kv: partition_sort_key(kv[0]))
                 for bucket, files in sorted(buckets.items())
             ]
         return splits
@@ -293,7 +294,7 @@ class TableScan:
         snapshot = plan.snapshot.id if plan.snapshot else None
         index_pred = self._file_index_predicate(keyed)
         lanes = []
-        for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: kv[0]):
+        for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: partition_sort_key(kv[0])):
             lane = []
             for bucket, files in sorted(buckets.items()):
                 if created_after is not None:

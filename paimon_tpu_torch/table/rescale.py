@@ -31,6 +31,7 @@ from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.deletionvectors import DeletionVectorsIndexFile
 from ..core.manifest import CommitMessage, ManifestCommittable
 from ..core.schema import SchemaChange, SchemaManager
+from ..utils import partition_sort_key
 from .bucket import bucket_ids
 from .write import TableWrite
 
@@ -71,7 +72,7 @@ def rescale_messages(
     dv_file = DeletionVectorsIndexFile(table.file_io, table.path)
     tw = TableWrite(table.copy({"bucket": str(new_buckets), "write-only": "true"}))
     rows = 0
-    for partition, pbuckets in sorted(plan.grouped().items()):
+    for partition, pbuckets in sorted(plan.grouped().items(), key=lambda kv: partition_sort_key(kv[0])):
         for bucket, files in sorted(pbuckets.items()):
             if want is not None and bucket not in want:
                 continue

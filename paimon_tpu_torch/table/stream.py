@@ -35,7 +35,7 @@ from ..core.levels import IntervalPartition
 from ..core.snapshot import CommitKind, Snapshot
 from ..data.predicate import Predicate
 from ..options import ChangelogProducer, CoreOptions, StartupMode
-from ..utils import now_millis
+from ..utils import now_millis, partition_sort_key
 from .consumer import ConsumerManager
 from .read import DataSplit
 
@@ -216,7 +216,7 @@ class StreamTableScan:
                 raw_convertible=all(len(s) == 1 for s in IntervalPartition(files).partition()),
                 dv_index_file=plan.dv_index_for(partition, bucket),
             )
-            for partition, buckets in sorted(plan.grouped().items())
+            for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: partition_sort_key(kv[0]))
             for bucket, files in sorted(buckets.items())
         ]
 
@@ -251,6 +251,6 @@ class StreamTableScan:
                 dv_index_file=plan.dv_index_for(partition, bucket) if with_dv else None,
                 is_changelog=kind == "changelog",
             )
-            for partition, buckets in sorted(plan.grouped().items())
+            for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: partition_sort_key(kv[0]))
             for bucket, files in sorted(buckets.items())
         ]

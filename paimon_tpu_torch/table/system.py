@@ -17,6 +17,7 @@ import numpy as np
 
 from ..data.batch import ColumnBatch
 from ..types import BIGINT, INT, STRING, RowKind, RowType
+from ..utils import partition_sort_key
 
 if TYPE_CHECKING:
     from . import FileStoreTable
@@ -264,7 +265,7 @@ class _ReadOptimizedTable:
         max_level = store.options.num_levels - 1
         plan = store.new_scan().with_level(max_level).plan()
         batches = []
-        for partition, buckets in sorted(plan.grouped().items()):
+        for partition, buckets in sorted(plan.grouped().items(), key=lambda kv: partition_sort_key(kv[0])):
             for bucket, files in sorted(buckets.items()):
                 batches.append(store.read_bucket(partition, bucket, files))
         from ..data.batch import concat_batches

@@ -10,7 +10,12 @@ hash(bucket key) % bucket, or every row to bucket 0 of its partition
 (bucket=-1), to the append writers of core/append.py. Row kinds come from
 write()'s kinds argument or, under rowkind.field, from that column.
 Under local-merge-buffer-size the rows are buffered before routing and
-each key's last row kept (the table's sort-engine selects).
+each key's last row kept (the table's sort-engine selects). Under
+write.buffer.max-memory (or with a WriteBufferController passed in, which
+several writes may share) every merge-tree writer reserves its buffered
+bytes against that budget (core/admission.py); close() returns what the
+writers still hold, and health() reports the controller's state and each
+writer's buffer.
 
 A TableCommit turns messages into an APPEND snapshot, and a COMPACT
 snapshot when a writer compacted. Streaming commits carry ascending
@@ -33,6 +38,7 @@ from typing import TYPE_CHECKING, Callable, Sequence
 
 import numpy as np
 
+from ..core.admission import WriteBufferController
 from ..core.bucket_index import HashIndexFile, SimpleHashBucketAssigner
 from ..core.commit import BATCH_COMMIT_IDENTIFIER
 from ..core.manifest import CommitMessage, ManifestCommittable
@@ -82,11 +88,14 @@ class TableWrite:
     primary key omits a partition key, and to bucket 0 on an append table
     with bucket=-1."""
 
-    def __init__(self, table: "FileStoreTable"):
+    def __init__(self, table: "FileStoreTable", buffer_controller: WriteBufferController | None = None):
         self.table = table
         store = table.store
         co = store.options
         _check_key_types(table)
+        # built from write.buffer.max-memory (None when 0, the default), or
+        # shared with other writes
+        self.admission = buffer_controller if buffer_controller is not None else WriteBufferController.from_options(co)
         self.partition_keys = store.partition_keys
         self.bucket_keys = table.schema.bucket_keys
         self.dynamic = table.is_primary_key_table and co.bucket == -1
@@ -206,7 +215,7 @@ class TableWrite:
         key = (partition, bucket)
         if key not in self._writers:
             total = -1 if self.dynamic else self.num_buckets
-            self._writers[key] = self.table.store.new_writer(partition, bucket, total)
+            self._writers[key] = self.table.store.new_writer(partition, bucket, total, admission=self.admission)
         return self._writers[key]
 
     def delta_snapshot(self) -> dict[tuple, tuple]:
@@ -250,6 +259,31 @@ class TableWrite:
                         msgs.append(msg)
                     msg.new_index_files.append(e)
         return msgs
+
+    def close(self) -> None:
+        """Tear every writer down without committing: each returns what it
+        still holds reserved to the (possibly shared) controller, once."""
+        for w in self._writers.values():
+            close = getattr(w, "close", None)
+            if close is not None:
+                close()
+        self._writers.clear()
+
+    def health(self) -> dict:
+        """The flow-control state in the JAX package's schema: the
+        controller's health_dict (when there is one) and each writer's
+        buffer and flush depth."""
+        writers = {}
+        for (partition, bucket), w in self._writers.items():
+            h = getattr(w, "health", None)
+            if h is not None:
+                writers[f"{partition}/{bucket}"] = h()
+        out = {"state": "ok", "writers": writers}
+        if self.admission is not None:
+            out.update(self.admission.health_dict())
+        out["buffered_rows"] = sum(w.get("buffered_rows", 0) for w in writers.values())
+        out["pending_flushes_writers"] = sum(w.get("pending_flushes", 0) for w in writers.values())
+        return out
 
 
 _SHORT_KINDS = ("+I", "-U", "+U", "-D")

@@ -11,7 +11,7 @@ from typing import Any, Sequence
 
 import torch
 
-__all__ = ["new_file_name", "partition_path", "now_millis", "dumps", "loads", "resolve_device"]
+__all__ = ["new_file_name", "partition_path", "partition_sort_key", "now_millis", "dumps", "loads", "resolve_device"]
 
 
 def new_file_name(prefix: str, ext: str | None = None) -> str:
@@ -32,6 +32,12 @@ def partition_path(
         f"{k}={default_name if v is None or v == '' else v}"
         for k, v in zip(partition_keys, partition)
     )
+
+
+def partition_sort_key(partition: Sequence[Any]) -> tuple:
+    """Sort key of a partition tuple: each value's own order, a null value
+    after every other value of its field."""
+    return tuple((v is None, v) for v in partition)
 
 
 def now_millis() -> int:

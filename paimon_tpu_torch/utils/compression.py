@@ -1,4 +1,5 @@
-"""zstd for the port (port of paimon_tpu/utils/compression.py, same names).
+"""zstd, snappy and gzip for the port (port of paimon_tpu/utils/compression.py,
+same names for zstd).
 
 The JAX package gets its zstd from `zstandard` or pyarrow; the port may
 import neither, so both directions run through its own C codec
@@ -13,17 +14,30 @@ A malformed frame raises ValueError.
 
 The encoder has one strength: `level` is taken for the JAX package's
 signature and changes nothing.
+
+snappy is the raw block format of Parquet's SNAPPY pages, through the
+port's own C codec (native/snappy.c); gzip goes through the standard
+library's zlib, writing gzip members and reading gzip or zlib streams.
 """
 
 from __future__ import annotations
 
 import ctypes
+import zlib
 
 import numpy as np
 
-from ..native import zstd_library
+from ..native import snappy_library, zstd_library
 
-__all__ = ["ZSTD_MAGIC", "zstd_compress", "zstd_decompress"]
+__all__ = [
+    "ZSTD_MAGIC",
+    "zstd_compress",
+    "zstd_decompress",
+    "snappy_compress",
+    "snappy_decompress",
+    "gzip_compress",
+    "gzip_decompress",
+]
 
 ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
@@ -73,3 +87,49 @@ def zstd_decompress(data, size: int | None = None) -> memoryview:
         if want is not None and n != want:
             raise ValueError(f"zstd frames decompress to {n} bytes, not the {want} expected")
         return memoryview(out)[:n]
+
+
+def snappy_compress(data) -> bytes:
+    """One snappy raw block holding `data`."""
+    lib = snappy_library()
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = lib.ps_compress_bound(len(src))
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.ps_compress(src.ctypes.data, len(src), out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"snappy encoder failed ({n})")
+    return out[:n].tobytes()
+
+
+def snappy_decompress(data, size: int | None = None) -> memoryview:
+    """The content of a snappy raw block. `size`, when given, is the exact
+    length the caller expects; a malformed block or another length raises
+    ValueError."""
+    lib = snappy_library()
+    src = np.frombuffer(data, dtype=np.uint8)
+    declared = lib.ps_uncompressed_length(src.ctypes.data, len(src))
+    if declared < 0 or (size is not None and declared != size):
+        raise ValueError(f"snappy block declares {declared} bytes, not the {size} expected")
+    out = np.empty(declared, dtype=np.uint8)
+    n = lib.ps_decompress(src.ctypes.data, len(src), out.ctypes.data, declared)
+    if n != declared:
+        raise ValueError(f"malformed snappy block ({n})")
+    return memoryview(out)
+
+
+def gzip_compress(data) -> bytes:
+    """One gzip member holding `data`."""
+    c = zlib.compressobj(6, zlib.DEFLATED, 31)
+    return c.compress(data) + c.flush()
+
+
+def gzip_decompress(data, size: int | None = None) -> memoryview:
+    """The content of a gzip (or zlib) stream; `size`, when given, must
+    match."""
+    try:
+        out = zlib.decompress(data, 47)
+    except zlib.error as e:
+        raise ValueError(f"malformed gzip stream: {e}") from None
+    if size is not None and len(out) != size:
+        raise ValueError(f"gzip stream holds {len(out)} bytes, not the {size} expected")
+    return memoryview(out)

@@ -418,22 +418,29 @@ def test_bucket_mode_and_reopen(tmp_path, pkg):
 
 @pytest.mark.parametrize("option", ["write-buffer-spillable", "write-buffer-for-append"])
 def test_spill_options_raise_naming_them(tmp_path, option):
-    """The JAX package's spilling append buffer (core/disk.py) is not
-    ported: the port raises naming the option when an append writer is made,
-    and writes nothing."""
-    jax = _create("jax", str(tmp_path), "db.spill_jax", {"bucket": "1", option: "true"})
-    _commit(jax, _batch(1))
-    assert len(_read(jax)) == 30
-    port = _create("port", str(tmp_path), "db.spill_port", {"bucket": "1", option: "true"})
-    with pytest.raises(NotImplementedError, match=option):
-        _commit(port, _batch(1))
-    assert _read(port) == []
+    """The spilling append buffer (core/disk.py) under either option: both
+    packages write five 30-row batches through a 40-row spill cap, and
+    write the same files (rows per file, in order) and read the same rows
+    in the same order."""
+    files, rows = {}, {}
+    for pkg in PKGS:
+        t = _create(pkg, str(tmp_path), f"db.spill_{pkg}", {"bucket": "1", option: "true", "write-buffer-spill.rows": "40"})
+        wb = t.new_batch_write_builder()
+        w = wb.new_write()
+        for seed in range(1, 6):
+            w.write(_batch(seed))
+        wb.new_commit().commit(w.prepare_commit())
+        files[pkg] = [f.row_count for f in sorted(t.store.restore_files((), 0), key=lambda f: f.min_sequence_number)]
+        rows[pkg] = _read(t)
+    assert files["port"] == files["jax"] == [60, 60, 30]
+    assert rows["port"] == rows["jax"] and len(rows["port"]) == 150
 
 
 def test_null_partition_value_on_an_append_table_raises(tmp_path):
     """A null partition value: the JAX package fails (np.unique orders no
-    None among strings); the port raises naming partition.default-name
-    (ROADMAP Queue 3 item 8)."""
+    None among strings); the port writes the row to the
+    partition.default-name directory and reads it back under a None
+    partition."""
     rows = {"dt": np.array(["2024-05-01", None], dtype=object), "id": [1, 2], "v": [1.0, 2.0], "s": ["a", "b"]}
     m = jt
     jax = _catalog("jax", str(tmp_path)).create_table(
@@ -445,9 +452,10 @@ def test_null_partition_value_on_an_append_table_raises(tmp_path):
     port = _catalog("port", str(tmp_path)).create_table(
         "db.null_port", m.RowType.of(("dt", m.STRING()), ("id", m.BIGINT()), ("v", m.DOUBLE()), ("s", m.STRING())),
         partition_keys=["dt"], options={"bucket": "-1"})
-    with pytest.raises(NotImplementedError, match=r"partition\.default-name"):
-        _commit(port, rows)
-    assert _read(port) == []
+    _commit(port, rows)
+    assert sorted(_read(port), key=lambda r: r[1]) == [("2024-05-01", 1, 1.0, "a"), (None, 2, 2.0, "b")]
+    assert sorted(port.store.new_scan().plan().grouped(), key=str) == [("2024-05-01",), (None,)]
+    assert (tmp_path / "db.db" / "null_port" / "dt=__DEFAULT_PARTITION__" / "bucket-0").is_dir()
 
 
 # ---------------------------------------------------------------------------

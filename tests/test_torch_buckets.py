@@ -22,10 +22,11 @@ key read twice. The JAX package writes with its numpy engine and reads
 with numpy and xla-segmented; the port runs its kernels' plain versions
 (sort-engine=pallas).
 
-Guards: cross-partition upsert and null partition values raise
-NotImplementedError naming what is missing (the JAX package is first shown
-to write the former and to fail on the latter), predicates and the local
-merge buffer raise naming them.
+Guards: cross-partition upsert raises NotImplementedError naming what is
+missing (the JAX package is first shown to write it), predicates and the
+local merge buffer raise naming them. Null partition values, on which the
+JAX package fails (STRING) or files under 0 (INT), are written by the port
+to the partition.default-name directory and read back as None.
 
 Tolerance: exact. Keys, hashes, bucket numbers and row values (integers,
 doubles and strings copied or summed in the same order) are compared for
@@ -514,24 +515,41 @@ def test_cross_partition_upsert_raises(warehouse):
 @pytest.mark.parametrize("layout", ["bucket_2", "dynamic"])
 def test_null_partition_value_raises(warehouse, layout):
     """The JAX package fails on a null partition value (np.unique cannot
-    order None among strings); the port raises naming
-    partition.default-name, and writes nothing."""
+    order None among strings). The port files the row under a None
+    partition in the partition.default-name directory; a second commit
+    upserts it there (the dynamic layout bootstraps that partition's hash
+    index), and reads, partition predicates and sys.partitions see the
+    partition as None."""
+    from paimon_tpu_torch.data import predicate as tp
+
     rows = {"dt": np.array(["2024-01-01", None], dtype=object), "id": np.array([1, 2]), "a": [1, 2],
             "d": [0.5, 1.5], "s": ["x", "y"]}
     jax_table = _create("jax", JaxCatalog(warehouse), f"db.null_part_jax_{layout}", True,
                         _options(layout, "deduplicate", "jax"))
     with pytest.raises(TypeError):
         _batch_commit(jax_table, rows)
-    table = _create("port", PortCatalog(warehouse, device="cpu"), f"db.null_part_port_{layout}", True,
-                    _options(layout, "deduplicate", "port"))
-    with pytest.raises(NotImplementedError, match=r"partition\.default-name"):
-        _batch_commit(table, rows)
-    assert _read(table) == []
+    cat = PortCatalog(warehouse, device="cpu")
+    table = _create("port", cat, f"db.null_part_port_{layout}", True, _options(layout, "deduplicate", "port"))
+    _batch_commit(table, rows)
+    _batch_commit(table, {"dt": np.array([None], dtype=object), "id": np.array([2]), "a": [20], "d": [2.5], "s": ["z"]})
+    want = [("2024-01-01", 1, 1, 0.5, "x"), (None, 2, 20, 2.5, "z")]
+    assert sorted(_read(table), key=lambda r: r[1]) == want
+    assert os.path.isdir(f"{table.path}/dt=__DEFAULT_PARTITION__")
+    assert sorted({e.partition for e in table.store.new_scan().plan().entries}, key=str) == [("2024-01-01",), (None,)]
+    for pred, rows_in in ((tp.is_null("dt"), want[1:]), (tp.equal("dt", "2024-01-01"), want[:1])):
+        rb = table.new_read_builder().with_filter(pred)
+        splits = rb.new_scan().plan()
+        assert {s.partition for s in splits} == {rows_in[0][:1]}
+        assert [tuple(_py(v) for v in r) for r in rb.new_read().read_all(splits).to_pylist()] == rows_in
+    parts = sorted(r[0] for r in cat.get_table(f"db.null_part_port_{layout}$partitions").to_pylist())
+    assert parts == ["['2024-01-01']", "[None]"]
 
 
 def test_null_numeric_partition_value_raises(warehouse):
     """A null in an INT partition column: the JAX package files the row
-    under the partition of value 0; the port raises."""
+    under the partition of value 0; the port files it under None, in the
+    partition.default-name directory, and both read the row with a null
+    p."""
     rows = {"p": [None, 1], "id": np.array([1, 2]), "v": np.array([5, 6])}
     made = {}
     for writer, catalog in _catalogs(warehouse).items():
@@ -539,10 +557,11 @@ def test_null_numeric_partition_value_raises(warehouse):
         made[writer] = catalog.create_table(
             f"db.null_int_part_{writer}", pkg.RowType.of(("p", pkg.INT()), ("id", pkg.BIGINT(False)), ("v", pkg.BIGINT())),
             partition_keys=["p"], primary_keys=["p", "id"], options={"bucket": "2", "write-only": "true"})
-    _batch_commit(made["jax"], rows)
+        _batch_commit(made[writer], rows)
     assert sorted(e.partition for e in made["jax"].store.new_scan().plan().entries) == [(0,), (1,)]
-    with pytest.raises(NotImplementedError, match=r"partition\.default-name"):
-        _batch_commit(made["port"], rows)
+    assert sorted((e.partition for e in made["port"].store.new_scan().plan().entries), key=str) == [(1,), (None,)]
+    assert os.path.isdir(f"{made['port'].path}/p=__DEFAULT_PARTITION__")
+    assert sorted(_read(made["port"]), key=lambda r: r[1]) == [(None, 1, 5), (1, 2, 6)]
 
 
 def test_predicates_and_local_merge_raise(warehouse):

@@ -99,8 +99,10 @@ def test_option_has_the_jax_key_and_default(name, option):
     the port's CoreOptions (those the write surface added among them:
     dynamic-partition-overwrite, cross-partition-upsert.*,
     compaction.min.file-num, write-buffer-spillable,
-    write-buffer-for-append) is the JAX package's key, with its default
-    and its fallback keys."""
+    write-buffer-for-append, write-buffer-spill.*, write.buffer.*,
+    data-file.include-key-columns, file.format.per.level,
+    scan.prefetch-splits) is the JAX package's key, with its default and
+    its fallback keys."""
     from paimon_tpu.options import ConfigOption as JaxOption
     from paimon_tpu.options import CoreOptions as JaxCoreOptions
 
