@@ -9,8 +9,9 @@ Phases, one JSON line each on stdout:
 2. build    - nvcc builds the three kernels from paimon_tpu_torch/csrc
               (seconds), and each kernel's registers, shared memory and
               spills as `-Xptxas -v` reports them (no spills allowed); cc
-              builds the zstd, snappy and Avro codecs from
-              paimon_tpu_torch/native/ (zstd.c, snappy.c, avrodec.c).
+              builds the zstd, snappy, Avro, lz4 and ORC codecs from
+              paimon_tpu_torch/native/ (zstd.c, snappy.c, avrodec.c, lz4.c,
+              orcdec.c).
 3. kernels  - K1 (sort_segments) and K2 (keep_last_mask) against their plain
               PyTorch versions on the card, exact integer equality. K1: m in
               {2, 4, 64, T/2, T, 2T, 4096, 2^17, 2^18} (T its block-sort
@@ -69,10 +70,12 @@ Phases, one JSON line each on stdout:
               encode, merge, gather) and one read under torch.profiler;
               every read equal to the numpy and xla-segmented engines and
               to the oracle. BASELINE config 3
-              at scale 1 (4M rows, sum/max, parquet, bucket 1): write, read,
+              at scale 1 (4M rows, sum/max, ORC, bucket 1): write, read,
               then a full compaction in one batch commit (seconds, input
               bytes, GB/s), each read equal to the numpy engine and the
-              oracle. Then one small table per engine (partial-update with
+              oracle; before and after the compaction the ORC files'
+              stripes, bytes on disk and the decode ms of reading them
+              whole. Then one small table per engine (partial-update with
               remove-record-on-delete and -D rows; aggregation with every
               fused function and retractions; aggregation with product,
               listagg and primary-key; first-row), 5 commits of 20,000 rows
@@ -362,11 +365,14 @@ Phases, one JSON line each on stdout:
               50,000-row writes under write.buffer.max-memory at a quarter
               of its buffered bytes (writes_throttled > 0, none rejected,
               nothing left reserved after each commit), rows equal to the
-              main table's. parquet_snappy, parquet_gzip, avro: the table
-              in those pages or Avro data files, all with Avro manifests
-              (each file's codec or container checked), read twice with
-              pallas and once with numpy, plus a staged read (decode,
-              lanes, merge, gather; page decompression apart for parquet).
+              main table's. parquet_snappy, parquet_gzip, avro, orc_zstd,
+              orc_lz4, parquet_lz4: the table in those pages, Avro data
+              files or ORC files, all with Avro manifests (each file's
+              codec or container checked; ORC stripes counted), read twice
+              with pallas at the default tile (K2), once at 131072 (K1)
+              and once with numpy, plus a staged read (decode, lanes,
+              merge, gather; page or stream decompression apart for
+              parquet and ORC, with its output MB/s).
               key_columns: data-file.include-key-columns=true (_KEY_id
               leads every file). spill: a 1M-row append table in one
               commit of 50,000-row writes under write-buffer-spillable
@@ -434,7 +440,7 @@ C2_OPTIONS = {"bucket": "1", "merge-engine": "partial-update", "write-only": "tr
 # BASELINE config 3 (:107) at scale 1: an aggregation table, 4 commits of 1M
 # rows over ids in [0, 500,000) from default_rng(1)
 C3_ROWS = 4_000_000
-C3_OPTIONS = {"bucket": "1", "file.format": "parquet", "merge-engine": "aggregation",
+C3_OPTIONS = {"bucket": "1", "file.format": "orc", "merge-engine": "aggregation",
               "fields.sum_col.aggregate-function": "sum", "fields.max_col.aggregate-function": "max",
               "write-only": "true", "sort-engine": "pallas"}
 # BASELINE config 5 (:177) at scale 5: 4 batch commits of 2.5M rows over ids
@@ -760,10 +766,11 @@ def layer_breakdown(table, tile_rows: int, keys: tuple = ("id",), rows: int | No
     kv_keys.take(take)
     ms["gather"] = (time.perf_counter() - t0) * 1e3
     assert rows is None or tail.num_rows == rows
-    decompress = "not parquet"  # an Avro block is one deflate stream, inside decode
-    if all(f.file_name.endswith(".parquet") for f in files):
-        raws = [store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}") for f in files]
-        decompress = {"keys": decompress_pages(raws, keys + [VALUE_KIND_FIELD_NAME]), "values": decompress_pages(raws, rest)}
+    decompress = "not parquet or ORC"  # an Avro block is one deflate stream, inside decode
+    for ext, fn in ((".parquet", decompress_pages), (".orc", decompress_orc_streams)):
+        if all(f.file_name.endswith(ext) for f in files):
+            raws = [store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}") for f in files]
+            decompress = {"keys": fn(raws, keys + [VALUE_KIND_FIELD_NAME]), "values": fn(raws, rest)}
     return {"tile_rows": tile_rows, "seq_ascending": seq_ascending, "ms": {k: round(v, 3) for k, v in ms.items()},
             "decompress_pages": decompress}
 
@@ -780,6 +787,17 @@ def decompress_pages(raws: list, columns: list) -> dict:
             for name in columns:
                 chunk = chunks[name]
                 out_bytes += sum(len(decompress_page(chunk, kind, hdr, page)) for kind, hdr, page in iter_pages(raw, chunk))
+    s = time.perf_counter() - t0
+    return {"ms": round(s * 1e3, 3), "out_mb": round(out_bytes / 1e6, 3), "out_mb_per_s": round(out_bytes / 1e6 / s, 1)}
+
+
+def decompress_orc_streams(raws: list, columns: list) -> dict:
+    """Every stream of `columns` in the ORC files `raws`, located and
+    decompressed as the reader does it, without decoding the values."""
+    from paimon_tpu_torch.format.orc import decompress_column_streams
+
+    t0 = time.perf_counter()
+    out_bytes = sum(decompress_column_streams(raw, columns) for raw in raws)
     s = time.perf_counter() - t0
     return {"ms": round(s * 1e3, 3), "out_mb": round(out_bytes / 1e6, 3), "out_mb_per_s": round(out_bytes / 1e6 / s, 1)}
 
@@ -1508,9 +1526,32 @@ def check_c3_read(table, ids_in: np.ndarray, what: str) -> dict:
     return {"rows": out.num_rows, "read_s": round(read_s, 4), "equal_to_numpy_engine": True, "equal_to_oracle": True}
 
 
-C3_CUTS = ["file.format=parquet, not orc: ORC is not ported (ROADMAP Queue 1 item 11)",
-           "no mesh (ROADMAP Queue 1 item 13)",
+C3_CUTS = ["no mesh (ROADMAP Queue 1 item 13)",
            "the compaction runs on a copy of the table with write-only=false, as a dedicated compaction job would"]
+
+
+def orc_files(table) -> dict:
+    """The live data files' format, ORC stripes and bytes on disk, and the
+    staged read's decode: every file read whole (system columns too) through
+    reader factories without the data-file cache, file read + decompress +
+    decode on the host clock."""
+    from paimon_tpu_torch.format.orc_meta import read_tail
+
+    stripes = nbytes = 0
+    formats, decode_s = set(), 0.0
+    for split in table.new_read_builder().new_scan().plan():
+        rf = table.store.reader_factory(split.partition, split.bucket)
+        rf.cache = None
+        for f in split.files:
+            formats.add(f.file_name.rsplit(".", 1)[1])
+            raw = table.store.file_io.read_bytes(f"{rf.bucket_dir}/{f.file_name}")
+            nbytes += len(raw)
+            stripes += read_tail(raw).nstripes
+            t0 = time.perf_counter()
+            rf.read(f)
+            decode_s += time.perf_counter() - t0
+    assert formats == {"orc"}, f"data files in {formats}, not ORC"
+    return {"stripes": stripes, "bytes_on_disk": nbytes, "decode_ms": round(decode_s * 1e3, 3)}
 
 
 def config3_phase(pt, hk, cat, ident: str = "engines.c3", options: dict = C3_OPTIONS,
@@ -1543,6 +1584,7 @@ def config3_phase(pt, hk, cat, ident: str = "engines.c3", options: dict = C3_OPT
     out = {"config": "BASELINE config 3 (benchmarks/baseline_configs.py:107), scale 1",
            "options": options, "rows_written": C3_ROWS, "commits": 4, "cuts": [*cuts, *C3_CUTS],
            "write_s": round(write_s, 4), "write_stages": stages.report(), "files_per_bucket": files_per_bucket(table)}
+    out["orc"] = orc_files(table)
     before = dict(hk.launches)
     out["read"] = check_c3_read(table, ids_in, what)
     if trace:
@@ -1567,6 +1609,7 @@ def config3_phase(pt, hk, cat, ident: str = "engines.c3", options: dict = C3_OPT
         "seconds": round(compact_s, 4), "input_files": len(files), "input_bytes": input_bytes,
         "gb_per_s": round(input_bytes / compact_s / 1e9, 4), "snapshots": kinds,
         "levels_after": level_layout(table), "launches": compact_launches, "stages": probe.report()}
+    out["full_compaction"]["orc"] = orc_files(table)
     before = dict(hk.launches)
     out["full_compaction"]["read"] = check_c3_read(table, ids_in, f"{what} after the full compaction")
     for k in hk.launches:
@@ -5280,6 +5323,9 @@ BF_FORMATS = {
     "parquet_snappy": {"file.compression": "snappy", "manifest.format": "avro"},
     "parquet_gzip": {"file.compression": "gzip", "manifest.format": "avro"},
     "avro": {"file.format": "avro", "manifest.format": "avro"},
+    "orc_zstd": {"file.format": "orc", "manifest.format": "avro"},
+    "orc_lz4": {"file.format": "orc", "file.compression": "lz4", "manifest.format": "avro"},
+    "parquet_lz4": {"file.compression": "lz4", "manifest.format": "avro"},
 }
 
 
@@ -5349,35 +5395,52 @@ def is_avro(path: str) -> bool:
 def format_part(pt, hk, cat, warehouse: str, control, label: str, options: dict) -> dict:
     """The bench table under `options` (build_table: four runs and the
     upsert), its files and manifests checked to be what the options name,
-    read twice with sort-engine=pallas and once with numpy, each equal to
-    the oracle and to the zstd table's rows, and one staged read (decode,
-    lanes, merge, gather) beside the zstd table's."""
+    read twice with sort-engine=pallas at the default tile (K2) and once at
+    131072 (K1), and once with numpy, each equal to the oracle and to the
+    zstd table's rows, and one staged read (decode, lanes, merge, gather;
+    the decompression apart, for parquet and ORC)."""
     from paimon_tpu_torch.decode.container import CODEC_NAMES, parse_footer
+    from paimon_tpu_torch.format.orc_meta import read_tail
 
     table, up, write_s = build_table(pt, warehouse, f"bf_{label}", options)
     torch.cuda.synchronize()
     files = [f"{table.path}/bucket-0/{f.file_name}" for f in live_files(table)]
     manifests = [os.path.join(table.path, "manifest", n) for n in os.listdir(f"{table.path}/manifest")]
     assert manifests and all(is_avro(m) for m in manifests), "a manifest is not Avro"
-    codecs = set()
+    fmt = options.get("file.format", "parquet")
+    codecs, stripes = set(), 0
     for path in files:
-        if options.get("file.format") == "avro":
-            assert path.endswith(".avro") and is_avro(path), path
+        assert path.endswith(f".{fmt}"), path
+        if fmt == "avro":
+            assert is_avro(path), path
+            continue
+        with open(path, "rb") as f:
+            raw = f.read()
+        if fmt == "orc":
+            tail = read_tail(raw)
+            codecs.add(tail.compression)
+            stripes += tail.nstripes
         else:
-            with open(path, "rb") as f:
-                groups = parse_footer(f.read())
-            codecs |= {CODEC_NAMES.get(c.codec, "none") for _, cols in groups for c in cols.values()}
-    if "file.compression" in options:
-        assert codecs == {options["file.compression"]}, codecs
+            codecs |= {CODEC_NAMES.get(c.codec, "none") for _, cols in parse_footer(raw) for c in cols.values()}
+    if fmt != "avro":
+        want = options.get("file.compression", "zstd")
+        assert codecs == {{"lz4": "lz4_raw"}.get(want, want) if fmt == "parquet" else want}, codecs
     out, samples = timed_reads(table, 2)
     check_output(out, control, up, label)
+    k1_out, k1_samples = timed_reads(table.copy({"merge.read-batch-rows": str(K1_TILE_ROWS)}), 1)
+    check_output(k1_out, control, up, f"{label} at tile {K1_TILE_ROWS}")
     numpy_out, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
     check_output(numpy_out, control, up, f"{label}, numpy engine")
-    return {"options": options, "write_s": round(write_s, 4), "files": len(files), "manifests": len(manifests),
-            "page_codecs": sorted(codecs), "bytes_on_disk": sum(os.path.getsize(p) for p in files),
-            "read": read_stats(samples), "numpy_read_s": round(numpy_s[0], 4),
-            "stages": layer_breakdown(table, 8 << 20, rows=N_ROWS), "equal_to_numpy_engine": True,
-            "equal_to_oracle": True}
+    result = {"options": options, "write_s": round(write_s, 4), "files": len(files), "manifests": len(manifests),
+              "page_codecs": sorted(codecs), "bytes_on_disk": sum(os.path.getsize(p) for p in files),
+              "read": read_stats(samples), "k1_tile_read": read_stats(k1_samples),
+              "numpy_read_s": round(numpy_s[0], 4),
+              # without the data-file cache, which holds what the reads above decoded
+              "stages": layer_breakdown(table.copy({"cache.data-file.max-memory-size": "0 b"}), 8 << 20, rows=N_ROWS),
+              "equal_to_numpy_engine": True, "equal_to_oracle": True}
+    if fmt == "orc":
+        result["orc_stripes"] = stripes
+    return result
 
 
 def key_columns_part(pt, hk, cat, warehouse: str, control) -> dict:

@@ -2,9 +2,9 @@
 of paimon_tpu/core/datafile.py).
 
 DataFileMeta serializes to the JAX package's JSON fields. Files are
-parquet through format/parquet.py or Avro through format/avro.py
-(file.format, and file.format.per.level for the levels it names; the
-reader picks the format off each file's extension); the reader maps each
+parquet through format/parquet.py, Avro through format/avro.py or ORC
+through format/orc.py (file.format, and file.format.per.level for the
+levels it names; the reader picks the format off each file's extension); the reader maps each
 read field to the file's write schema by field id (a missing field reads as nulls, a field
 whose type widened is cast by data/casting.py cast_column). Statistics of
 an older file prune only where they compare as the cast values would
@@ -24,12 +24,13 @@ key in front of each key-value file again, as _KEY_<name> columns (the
 reference's layout); readers project them away, whoever wrote the file,
 and the key stats stay those of the value columns.
 
-The writer passes the table's parquet writer options (parquet.page-size,
+The writer passes the table's writer options (parquet.page-size,
 parquet.row-group.rows, file.block-size, parquet.enable.dictionary,
-parquet.data-page-version) to the encoder. Under merge.dict-domain the
-reader asks the decoder for code-backed columns (dictionary-encoded chunks
-as a sorted pool and uint32 codes); the flag is part of the data-file
-cache's key, so a code-backed batch never stands in for an expanded one.
+parquet.data-page-version; orc.stripe.size) to the encoder. Under
+merge.dict-domain the reader asks the parquet decoder for code-backed
+columns (dictionary-encoded chunks as a sorted pool and uint32 codes); the
+flag is part of the data-file cache's key, so a code-backed batch never
+stands in for an expanded one.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from ..data.batch import Column, ColumnBatch, concat_batches
 from ..data.casting import cast_column, stats_comparable
 from ..format import FieldStats, collect_stats, stats_from_json, stats_to_json
 from ..format.avro import read_avro, write_avro
+from ..format.orc import read_orc, write_orc
 from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
 from ..fs import LocalFileIO
 from ..types import DataField, RowKind, RowType
@@ -57,15 +59,16 @@ __all__ = ["DataFileMeta", "KeyValueFileWriterFactory", "KeyValueFileReaderFacto
 _DECODER_ID = "port"
 
 # the data file formats the port reads and writes
-_FORMATS = ("parquet", "avro")
+_FORMATS = ("parquet", "avro", "orc")
 
-# the table options the parquet writer honours
+# the table options the parquet and ORC writers honour
 WRITER_OPTION_KEYS = (
     "parquet.page-size",
     "parquet.row-group.rows",
     "file.block-size",
     "parquet.enable.dictionary",
     "parquet.data-page-version",
+    "orc.stripe.size",
 )
 
 
@@ -258,6 +261,8 @@ class KeyValueFileWriterFactory:
             disk = kv.to_disk_batch(self.key_names if self.include_key_columns else None)
         if fmt == "avro":
             payload = write_avro(disk, compression)
+        elif fmt == "orc":
+            payload = write_orc(disk, compression, self.format_options)
         else:
             payload = write_parquet(disk, compression, self.format_options)
         self.file_io.write_bytes(path, payload)
@@ -394,6 +399,8 @@ class KeyValueFileReaderFactory:
         if meta.file_name.endswith(".avro"):
             # row-major: no statistics inside the file to prune by
             parts = [read_avro(raw, disk_schema, wanted)]
+        elif meta.file_name.endswith(".orc"):
+            parts = read_orc(raw, disk_schema, wanted, predicate)
         else:
             parts = read_parquet(raw, disk_schema, wanted, predicate, self.dict_domain, self.pool_limit)
         disk = concat_batches(parts) if parts else ColumnBatch.empty(disk_schema.project(wanted))

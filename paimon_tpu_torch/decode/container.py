@@ -3,11 +3,12 @@ codecs and chunk statistics (port of paimon_tpu/decode/container.py).
 
 Envelope: flat schemas; physical types BOOLEAN, INT32, INT64, FLOAT,
 DOUBLE and BYTE_ARRAY (UTF8 or raw); REQUIRED or OPTIONAL leaves; data
-pages v1 and v2; codecs UNCOMPRESSED, SNAPPY, GZIP and ZSTD (the port's
-own snappy and zstd codecs and zlib, utils/compression.py). Any other
-codec (lzo, brotli, lz4) raises NotImplementedError naming
-file.compression; a malformed file or a feature outside the envelope
-raises ParquetFormatError.
+pages v1 and v2; codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW (the
+port's own snappy, zstd and lz4 codecs and zlib, utils/compression.py).
+Any other codec (lzo, brotli, the Hadoop-framed LZ4 that the JAX package
+does not read either) raises NotImplementedError naming file.compression;
+a malformed file or a feature outside the envelope raises
+ParquetFormatError.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from ..format import FieldStats
 from ..format.thrift import ThriftError, read_struct
 from ..types import STRING_ROOTS, DataType, TypeRoot
-from ..utils.compression import gzip_decompress, snappy_decompress, zstd_decompress
+from ..utils.compression import gzip_decompress, lz4_decompress, snappy_decompress, zstd_decompress
 
 __all__ = [
     "ParquetFormatError",
@@ -39,10 +40,11 @@ T_BOOLEAN, T_INT32, T_INT64, T_INT96, T_FLOAT, T_DOUBLE, T_BYTE_ARRAY, T_FLBA = 
 ENC_PLAIN, ENC_PLAIN_DICTIONARY, ENC_RLE, ENC_DELTA_BINARY_PACKED, ENC_RLE_DICTIONARY = 0, 2, 3, 5, 8
 PAGE_DATA, PAGE_INDEX, PAGE_DICTIONARY, PAGE_DATA_V2 = 0, 1, 2, 3
 REQUIRED, OPTIONAL, REPEATED = 0, 1, 2
-CODEC_NONE, CODEC_SNAPPY, CODEC_GZIP, CODEC_ZSTD = 0, 1, 2, 6
+CODEC_NONE, CODEC_SNAPPY, CODEC_GZIP, CODEC_ZSTD, CODEC_LZ4_RAW = 0, 1, 2, 6, 7
 CODEC_NAMES = {1: "snappy", 2: "gzip", 3: "lzo", 4: "brotli", 5: "lz4", 6: "zstd", 7: "lz4_raw"}
 # codec -> (bytes, expected size) -> decompressed bytes
-DECOMPRESSORS = {CODEC_SNAPPY: snappy_decompress, CODEC_GZIP: gzip_decompress, CODEC_ZSTD: zstd_decompress}
+DECOMPRESSORS = {CODEC_SNAPPY: snappy_decompress, CODEC_GZIP: gzip_decompress, CODEC_ZSTD: zstd_decompress,
+                 CODEC_LZ4_RAW: lz4_decompress}
 
 PLAIN_DTYPES = {T_INT32: np.dtype("<i4"), T_INT64: np.dtype("<i8"), T_FLOAT: np.dtype("<f4"), T_DOUBLE: np.dtype("<f8")}
 
@@ -55,7 +57,7 @@ def codec_error(codec: int) -> NotImplementedError:
     name = CODEC_NAMES.get(codec, f"codec {codec}")
     return NotImplementedError(
         f"parquet {name} compression cannot be decoded by the torch port "
-        f"(file.compression={name}); it reads file.compression=zstd, snappy, gzip or none"
+        f"(file.compression={name}); it reads file.compression=zstd, snappy, gzip, lz4 or none"
     )
 
 

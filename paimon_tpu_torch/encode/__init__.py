@@ -22,7 +22,7 @@ import struct
 import time
 
 from ..data.batch import ColumnBatch
-from ..decode.container import CODEC_GZIP, CODEC_NONE, CODEC_SNAPPY, CODEC_ZSTD, MAGIC, physical_type
+from ..decode.container import CODEC_GZIP, CODEC_LZ4_RAW, CODEC_NONE, CODEC_SNAPPY, CODEC_ZSTD, MAGIC, physical_type
 from ..format.thrift import build_struct
 from ..metrics import encode_metrics
 from ..types import TypeRoot
@@ -37,6 +37,7 @@ WRITE_CODECS = {
     "zstd": CODEC_ZSTD,
     "snappy": CODEC_SNAPPY,
     "gzip": CODEC_GZIP,
+    "lz4": CODEC_LZ4_RAW,  # LZ4_RAW, as the JAX package's writers write it
 }
 
 _BOOL, _I32, _I64, _BINARY, _LIST, _STRUCT = 1, 5, 6, 8, 9, 12

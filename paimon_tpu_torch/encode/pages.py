@@ -31,10 +31,11 @@ from ..data.batch import Column
 from ..format.thrift import append_uvarint, build_struct
 from ..ops.dicts import cache_usable, prune_pool
 from ..types import DataType
-from ..utils.compression import gzip_compress, snappy_compress, zstd_compress
+from ..utils.compression import gzip_compress, lz4_compress, snappy_compress, zstd_compress
 from . import kernels
 from ..decode.container import (
     CODEC_GZIP,
+    CODEC_LZ4_RAW,
     CODEC_NONE,
     CODEC_SNAPPY,
     CODEC_ZSTD,
@@ -105,7 +106,8 @@ def _min_max(compact: np.ndarray, physical: int):
     return compact.min(), compact.max()
 
 
-_COMPRESSORS = {CODEC_ZSTD: zstd_compress, CODEC_SNAPPY: snappy_compress, CODEC_GZIP: gzip_compress}
+_COMPRESSORS = {CODEC_ZSTD: zstd_compress, CODEC_SNAPPY: snappy_compress, CODEC_GZIP: gzip_compress,
+                CODEC_LZ4_RAW: lz4_compress}
 
 
 class _PageSink:

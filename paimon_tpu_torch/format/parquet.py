@@ -13,11 +13,12 @@ Envelope, both directions: flat schemas; physical types BOOLEAN, INT32,
 INT64, FLOAT, DOUBLE and BYTE_ARRAY (UTF8 or raw); REQUIRED or OPTIONAL
 leaves; PLAIN, dictionary (PLAIN dictionary page + RLE/bit-packed codes)
 and DELTA_BINARY_PACKED integer encodings; data pages v1 and v2; codecs
-UNCOMPRESSED, SNAPPY, GZIP and ZSTD (the port's own snappy and zstd
-codecs and zlib, utils/compression.py). It reads the files pyarrow and the
-JAX package write with those codecs, and both read the files it writes.
-Any other codec (lzo, brotli, lz4), on read or as file.compression on
-write, raises NotImplementedError naming file.compression.
+UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW (file.compression=lz4; the
+port's own snappy, zstd and lz4 codecs and zlib, utils/compression.py). It
+reads the files pyarrow and the JAX package write with those codecs, and
+both read the files it writes. Any other codec (lzo, brotli), on read or
+as file.compression on write, raises NotImplementedError naming
+file.compression.
 """
 
 from __future__ import annotations

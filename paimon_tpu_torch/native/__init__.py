@@ -5,6 +5,10 @@ counterpart of paimon_tpu/native/).
 - `snappy.c`: the snappy raw block codec of Parquet's SNAPPY pages.
 - `avrodec.c`: the Avro block decoder and encoder of format/avro.py (the
   counterpart of the JAX package's native/avrodec.c).
+- `lz4.c`: the LZ4 raw block codec of Parquet's LZ4_RAW pages and ORC's
+  LZ4 chunks.
+- `orcdec.c`: ORC's run-length codes (integer RLE v1 and v2, byte and
+  boolean RLE, base-128 varints) of format/orc.py, both directions.
 
 Each source is compiled with `cc -O3 -shared -fPIC` into
 paimon_tpu_torch/_build/, under a name keyed by the hash of the source and
@@ -33,6 +37,8 @@ __all__ = [
     "build_zstd",
     "snappy_library",
     "avro_library",
+    "lz4_library",
+    "orc_library",
     "build_native",
     "avro_decoder",
     "avro_encoder",
@@ -47,11 +53,13 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCE = os.path.join(_DIR, "zstd.c")
 _SNAPPY_SOURCE = os.path.join(_DIR, "snappy.c")
 _AVRO_SOURCE = os.path.join(_DIR, "avrodec.c")
+_LZ4_SOURCE = os.path.join(_DIR, "lz4.c")
+_ORC_SOURCE = os.path.join(_DIR, "orcdec.c")
 _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
 _FLAGS = ["-O3", "-shared", "-fPIC"]
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None  # zstd
-_LIBS: dict[str, ctypes.CDLL] = {}  # snappy, avro
+_LIBS: dict[str, ctypes.CDLL] = {}  # snappy, avro, lz4, orc
 
 # Avro field type codes; must match avrodec.c
 CODE_LONG = 0
@@ -92,7 +100,8 @@ def build_zstd() -> str:
 
 def build_native() -> list[str]:
     """Build every C source of the port; returns the library paths."""
-    return [build_zstd(), _build(_SNAPPY_SOURCE, "snappy_codec"), _build(_AVRO_SOURCE, "avro_codec")]
+    return [build_zstd(), _build(_SNAPPY_SOURCE, "snappy_codec"), _build(_AVRO_SOURCE, "avro_codec"),
+            _build(_LZ4_SOURCE, "lz4_codec"), _build(_ORC_SOURCE, "orc_codec")]
 
 
 def zstd_library() -> ctypes.CDLL:
@@ -140,6 +149,44 @@ def avro_library() -> ctypes.CDLL:
             lib.decode_block.restype = ctypes.c_int
             lib.encode_block.restype = ctypes.c_int64
             _LIBS["avro"] = lib
+        return lib
+
+
+def lz4_library() -> ctypes.CDLL:
+    """The LZ4 raw block codec, built and bound on first use."""
+    with _LOCK:
+        lib = _LIBS.get("lz4")
+        if lib is None:
+            lib = ctypes.CDLL(_build(_LZ4_SOURCE, "lz4_codec"))
+            u8p, size, i64 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int64
+            lib.pl_compress_bound.argtypes = [size]
+            lib.pl_compress.argtypes = [u8p, size, u8p, size]
+            lib.pl_decompress.argtypes = [u8p, size, u8p, size]
+            for fn in (lib.pl_compress_bound, lib.pl_compress, lib.pl_decompress):
+                fn.restype = i64
+            _LIBS["lz4"] = lib
+        return lib
+
+
+def orc_library() -> ctypes.CDLL:
+    """ORC's run-length codes, built and bound on first use."""
+    with _LOCK:
+        lib = _LIBS.get("orc")
+        if lib is None:
+            lib = ctypes.CDLL(_build(_ORC_SOURCE, "orc_codec"))
+            p, size, i64, i32 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int
+            lib.po_int_decode.argtypes = [p, size, i64, i32, i32, p, p]
+            lib.po_byte_decode.argtypes = [p, size, i64, p]
+            lib.po_bool_decode.argtypes = [p, size, i64, p]
+            lib.po_varint_decode.argtypes = [p, size, i64, p]
+            lib.po_int_encode.argtypes = [p, i64, i32, p, size]
+            lib.po_byte_encode.argtypes = [p, i64, p, size]
+            lib.po_bool_encode.argtypes = [p, i64, p, size]
+            lib.po_varint_encode.argtypes = [p, i64, p, size]
+            for fn in (lib.po_int_decode, lib.po_byte_decode, lib.po_bool_decode, lib.po_varint_decode,
+                       lib.po_int_encode, lib.po_byte_encode, lib.po_bool_encode, lib.po_varint_encode):
+                fn.restype = i64
+            _LIBS["orc"] = lib
         return lib
 
 

@@ -1,4 +1,4 @@
-"""zstd, snappy and gzip for the port (port of paimon_tpu/utils/compression.py,
+"""zstd, snappy, lz4 and gzip for the port (port of paimon_tpu/utils/compression.py,
 same names for zstd).
 
 The JAX package gets its zstd from `zstandard` or pyarrow; the port may
@@ -16,8 +16,10 @@ The encoder has one strength: `level` is taken for the JAX package's
 signature and changes nothing.
 
 snappy is the raw block format of Parquet's SNAPPY pages, through the
-port's own C codec (native/snappy.c); gzip goes through the standard
-library's zlib, writing gzip members and reading gzip or zlib streams.
+port's own C codec (native/snappy.c); lz4 is the raw block format of
+Parquet's LZ4_RAW pages and of ORC's LZ4 chunks (native/lz4.c); gzip goes
+through the standard library's zlib, writing gzip members and reading gzip
+or zlib streams.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import zlib
 
 import numpy as np
 
-from ..native import snappy_library, zstd_library
+from ..native import lz4_library, snappy_library, zstd_library
 
 __all__ = [
     "ZSTD_MAGIC",
@@ -35,6 +37,8 @@ __all__ = [
     "zstd_decompress",
     "snappy_compress",
     "snappy_decompress",
+    "lz4_compress",
+    "lz4_decompress",
     "gzip_compress",
     "gzip_decompress",
 ]
@@ -115,6 +119,41 @@ def snappy_decompress(data, size: int | None = None) -> memoryview:
     if n != declared:
         raise ValueError(f"malformed snappy block ({n})")
     return memoryview(out)
+
+
+_LZ4_E_DST_TOO_SMALL = -2  # PL_E_DST_TOO_SMALL in native/lz4.c
+
+
+def lz4_compress(data) -> bytes:
+    """One LZ4 raw block holding `data`."""
+    lib = lz4_library()
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = lib.pl_compress_bound(len(src))
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.pl_compress(src.ctypes.data, len(src), out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"lz4 encoder failed ({n})")
+    return out[:n].tobytes()
+
+
+def lz4_decompress(data, size: int | None = None, limit: int | None = None) -> memoryview:
+    """The content of an LZ4 raw block, which declares no length. `size`,
+    when given, is the exact length the caller expects; else `limit`, when
+    given, bounds it (an ORC chunk's compression block size); else the
+    buffer grows until the block fits. A malformed block, another length or
+    one past the limit raises ValueError."""
+    lib = lz4_library()
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = size if size is not None else limit if limit is not None else max(_FIRST_GUESS, 4 * len(src))
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        n = lib.pl_decompress(src.ctypes.data, len(src), out.ctypes.data, cap)
+        if n == _LZ4_E_DST_TOO_SMALL and size is None and limit is None:
+            cap *= 2
+            continue
+        if n < 0 or (size is not None and n != size):
+            raise ValueError(f"malformed lz4 block ({n}; {size} bytes expected)")
+        return memoryview(out)[:n]
 
 
 def gzip_compress(data) -> bytes:

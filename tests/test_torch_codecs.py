@@ -1,16 +1,17 @@
-"""Parquet's SNAPPY and GZIP pages in the port (paimon_tpu_torch) against the
-JAX package and pyarrow, on the CPU (device="cpu" for the port).
+"""Parquet's SNAPPY, GZIP and LZ4_RAW pages in the port (paimon_tpu_torch)
+against the JAX package and pyarrow, on the CPU (device="cpu" for the port).
 
-The snappy codec is the port's own (native/snappy.c), held to pyarrow's
-snappy on edge cases: empty input, one byte, incompressible bytes, copies
-whose offset is shorter than their length, literals past 60 bytes and
-inputs past one 64 KiB fragment; malformed blocks raise. gzip goes through
-zlib and reads pyarrow's members. Files: the JAX package's native encoder
-and pyarrow write snappy and gzip files the port reads, and the port
-writes files both of them read, at page versions 1.0 and 2.0, with
-dictionaries on and off; tables written by one package under
-file.compression snappy or gzip (and file.compression.per.level) read the
-same in the other. lz4 and brotli still raise, naming the option. They
+The snappy and lz4 codecs are the port's own (native/snappy.c,
+native/lz4.c), held to pyarrow's on edge cases: empty input, one byte,
+incompressible bytes, copies whose offset is shorter than their length
+(offset 1 among them), literals past 60 (snappy) and 15 + 255 (lz4) bytes
+and inputs past one 64 KiB fragment; malformed blocks raise. gzip goes
+through zlib and reads pyarrow's members. Files: the JAX package's native
+encoder and pyarrow write snappy, gzip and lz4 files the port reads, and
+the port writes files both of them read, at page versions 1.0 and 2.0,
+with dictionaries on and off; tables written by one package under
+file.compression snappy, gzip or lz4 (and file.compression.per.level)
+read the same in the other. brotli still raises, naming the option. They
 mirror tests/test_decode.py:219 and tests/test_encode.py:204, :475.
 
 Tolerance: exact.
@@ -33,12 +34,19 @@ from paimon_tpu.encode import encode_parquet_bytes as jax_encode
 from paimon_tpu.fs import LocalFileIO as JaxIO
 from paimon_tpu_torch.catalog import FileSystemCatalog as PortCatalog
 from paimon_tpu_torch.data.batch import ColumnBatch, concat_batches
-from paimon_tpu_torch.decode.container import CODEC_GZIP, CODEC_SNAPPY, parse_footer
+from paimon_tpu_torch.decode.container import CODEC_GZIP, CODEC_LZ4_RAW, CODEC_SNAPPY, parse_footer
 from paimon_tpu_torch.format.parquet import read_parquet, write_parquet
-from paimon_tpu_torch.utils.compression import gzip_compress, gzip_decompress, snappy_compress, snappy_decompress
+from paimon_tpu_torch.utils.compression import (
+    gzip_compress,
+    gzip_decompress,
+    lz4_compress,
+    lz4_decompress,
+    snappy_compress,
+    snappy_decompress,
+)
 
 PKGS = ("jax", "port")
-CODECS = {"snappy": CODEC_SNAPPY, "gzip": CODEC_GZIP}
+CODECS = {"snappy": CODEC_SNAPPY, "gzip": CODEC_GZIP, "lz4": CODEC_LZ4_RAW}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -65,6 +73,8 @@ def _edge_inputs() -> dict:
         "overlap_offset_1": b"a" * 70_000,
         "overlap_offset_3": b"xyz" * 5000,
         "long_literal_then_repeat": bytes(range(200)) + bytes(range(200)) * 3,
+        "literal_run_past_270": rng.integers(0, 256, 600, dtype=np.uint8).tobytes() + b"q" * 40,
+        "tail_under_13": b"abcdabcdabcda",
         "fragments": (b"paimon-" * 40_000)[:200_001],
         "text": " ".join(f"key-{i % 977:05d}" for i in range(30_000)).encode(),
     }
@@ -91,6 +101,46 @@ def test_snappy_malformed_blocks_raise():
         snappy_decompress(b"\x05\x02\x10\x00")  # a copy before any output
     with pytest.raises(ValueError):
         snappy_decompress(b"\xff\xff\xff\xff\xff\xff\xff\xff\xff\xff\xff")  # no length
+
+
+@pytest.mark.parametrize("case", list(_edge_inputs()))
+def test_lz4_edge_cases_against_pyarrow(case):
+    """The port's LZ4 raw blocks decode in pyarrow (lz4_raw) and pyarrow's
+    in the port, with the size given and without it."""
+    data = _edge_inputs()[case]
+    ours = lz4_compress(data)
+    assert bytes(lz4_decompress(ours, len(data))) == data
+    assert pa.Codec("lz4_raw").decompress(ours, decompressed_size=len(data), asbytes=True) == data
+    theirs = pa.Codec("lz4_raw").compress(data, asbytes=True)
+    assert bytes(lz4_decompress(theirs, len(data))) == data
+    assert bytes(lz4_decompress(theirs)) == data
+    assert len(ours) <= len(data) + len(data) // 255 + 16
+    # the end rules: the last 5 bytes are literals, the last sequence has no match
+    if len(data) >= 5:
+        assert ours[-5:] == data[-5:]
+
+
+def test_lz4_overlapping_matches_and_long_lengths():
+    """A hand-built block: an offset-1 match of 1,000 bytes (15 + 255 + 255 +
+    255 + 216 + 4), an offset-3 match, then a final literal run."""
+    block = bytes([0x1F]) + b"a" + b"\x01\x00" + bytes([255, 255, 255, 216])  # "a" then 1,000 more
+    block += bytes([0x32]) + b"xyz" + b"\x03\x00"  # 'xyz' then 6 more at offset 3
+    block += bytes([0x80]) + b"the-tail"  # the format's end rules: 12 bytes after the last match starts
+    want = b"a" * 1001 + b"xyz" * 3 + b"the-tail"
+    assert bytes(lz4_decompress(block, len(want))) == want
+    assert pa.Codec("lz4_raw").decompress(block, decompressed_size=len(want), asbytes=True) == want
+
+
+def test_lz4_malformed_blocks_raise():
+    block = lz4_compress(b"abcabcabcabcabcabc" * 10)
+    with pytest.raises(ValueError):
+        lz4_decompress(block, 7)  # another size
+    with pytest.raises(ValueError):
+        lz4_decompress(block[:-3], 180)  # cut short
+    with pytest.raises(ValueError):
+        lz4_decompress(b"\x10a\x05\x00")  # an offset past the output
+    with pytest.raises(ValueError):
+        lz4_decompress(b"\x10a\x00\x00")  # offset 0
 
 
 @pytest.mark.parametrize("case", ["empty", "one_byte", "text", "incompressible"])
@@ -197,8 +247,9 @@ def _read(table) -> list[tuple]:
 @pytest.mark.parametrize(
     "opts",
     [{"file.compression": "snappy"}, {"file.compression": "gzip"},
-     {"file.compression": "snappy", "file.compression.per.level": "0:gzip"}],
-    ids=["snappy", "gzip", "per_level"],
+     {"file.compression": "snappy", "file.compression.per.level": "0:gzip"}, {"file.compression": "lz4"},
+     {"file.compression": "lz4", "file.compression.per.level": "0:gzip"}],
+    ids=["snappy", "gzip", "per_level", "lz4", "lz4_per_level"],
 )
 @pytest.mark.parametrize("writer", PKGS)
 def test_tables_each_way(tmp_path, writer, opts):
@@ -223,7 +274,7 @@ def test_tables_each_way(tmp_path, writer, opts):
         with open(f"{t.path}/bucket-0/{name}", "rb") as f:
             codecs |= {c.codec for _, cols in parse_footer(f.read()) for c in cols.values()}
     want = {CODECS[opts["file.compression"]]}
-    if "file.compression.per.level" in opts:  # level 0 gzip, the compacted levels snappy
+    if "file.compression.per.level" in opts:  # level 0 gzip, the compacted levels file.compression
         want.add(CODEC_GZIP)
     assert codecs == want
     for pkg in PKGS:
@@ -232,9 +283,11 @@ def test_tables_each_way(tmp_path, writer, opts):
 
 @pytest.mark.parametrize("codec", ["lz4", "brotli"])
 def test_other_codecs_still_raise_naming_the_option(tmp_path, codec):
-    """A JAX table under lz4 or brotli pages: the port's read raises naming
-    file.compression; a port table under the codec refuses its first
-    write the same way."""
+    """A JAX table under lz4 or brotli pages. lz4 is ported: the port reads
+    the JAX package's rows, and a port table under lz4 writes LZ4_RAW pages
+    the JAX package reads. brotli still raises naming file.compression: on
+    the port's read of the JAX table, and at the first write of a port
+    table."""
     wh = str(tmp_path)
     t = _catalog("jax", wh).create_table("db.j", _kv_schema("jax"), primary_keys=["k"],
                                          options={"bucket": "1", "file.compression": codec})
@@ -242,12 +295,22 @@ def test_other_codecs_still_raise_naming_the_option(tmp_path, codec):
     w = wb.new_write()
     w.write({"k": [1, 2], "s": ["a", None], "d": [0.5, 1.5]})
     wb.new_commit().commit(w.prepare_commit())
-    with pytest.raises(NotImplementedError, match=r"file\.compression"):
-        _read(_catalog("port", wh).get_table("db.j"))
+    if codec == "lz4":
+        assert _read(_catalog("port", wh).get_table("db.j")) == [(1, "a", 0.5), (2, None, 1.5)]
+    else:
+        with pytest.raises(NotImplementedError, match=r"file\.compression"):
+            _read(_catalog("port", wh).get_table("db.j"))
     port = _catalog("port", wh).create_table("db.p", _kv_schema("port"), primary_keys=["k"],
                                              options={"bucket": "1", "file.compression": codec})
     wb = port.new_batch_write_builder()
     w = wb.new_write()
     w.write({"k": [1], "s": ["a"], "d": [0.5]})
+    if codec == "lz4":
+        wb.new_commit().commit(w.prepare_commit())
+        (name,) = os.listdir(f"{port.path}/bucket-0")
+        with open(f"{port.path}/bucket-0/{name}", "rb") as f:
+            assert {c.codec for _, cols in parse_footer(f.read()) for c in cols.values()} == {CODEC_LZ4_RAW}
+        assert _read(_catalog("jax", wh).get_table("db.p")) == [(1, "a", 0.5)]
+        return
     with pytest.raises(NotImplementedError, match=r"file\.compression"):
         w.prepare_commit()

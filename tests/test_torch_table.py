@@ -342,16 +342,12 @@ def test_compressed_tables_raise_naming_the_option(warehouse, option):
     "option, value", [("file.compression", "snappy"), ("file.compression", "lz4"), ("manifest.format", "avro")]
 )
 def test_unported_codecs_raise_naming_the_option(warehouse, option, value):
-    """A table the JAX package writes under `option`: snappy pages and Avro
-    manifests are ported, and the port reads the JAX package's rows; lz4 is
-    not, and its read raises naming the option."""
+    """A table the JAX package writes under `option`: snappy and lz4 pages
+    and Avro manifests are ported, and the port reads the JAX package's
+    rows."""
     ident = f"db.unported_{value}"
     jax_table = _small_jax_table(warehouse, ident, **{option: value, "manifest.compression": None})
     port_table = PortCatalog(warehouse, device="cpu").get_table(ident)
-    if value == "lz4":
-        with pytest.raises(NotImplementedError, match=option.replace(".", r"\.")):
-            _read(port_table)
-        return
     want = [tuple(_py(v) for v in row) for row in zip(*[list(c) for c in _values(np.arange(150), False).values()])]
     assert _read(port_table) == want == _jax_read(jax_table)
 
@@ -378,10 +374,32 @@ def test_write_requires_write_only(warehouse):
     assert _read(cat.get_table("db.compacting")) == want == _jax_read(JaxCatalog(warehouse).get_table("db.compacting"))
 
 
+def _page_codecs(table) -> set:
+    from paimon_tpu_torch.decode.container import parse_footer
+
+    codecs = set()
+    for name in os.listdir(f"{table.path}/bucket-0"):
+        with open(f"{table.path}/bucket-0/{name}", "rb") as f:
+            codecs |= {c.codec for _, cols in parse_footer(f.read()) for c in cols.values()}
+    return codecs
+
+
 def test_compressed_write_option_raises(warehouse):
+    """file.compression=lz4 on a port table writes LZ4_RAW pages (parquet
+    codec 7) that the JAX package reads back; brotli still raises naming
+    the option at the first write."""
     cat = PortCatalog(warehouse, device="cpu")
     table = cat.create_table("db.lz4_write", _row_type(tt), primary_keys=["id"],
                              options={**OPTIONS, "file.compression": "lz4"})
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(_values(np.arange(10, dtype=np.int64), False))
+    wb.new_commit().commit(w.prepare_commit())
+    assert _page_codecs(table) == {7}
+    want = [tuple(_py(v) for v in row) for row in zip(*[list(c) for c in _values(np.arange(10), False).values()])]
+    assert _jax_read(JaxCatalog(warehouse).get_table("db.lz4_write")) == want == _read(table)
+    table = cat.create_table("db.brotli_write", _row_type(tt), primary_keys=["id"],
+                             options={**OPTIONS, "file.compression": "brotli"})
     w = table.new_batch_write_builder().new_write()
     w.write(_values(np.arange(10, dtype=np.int64), False))
     with pytest.raises(NotImplementedError, match=r"file\.compression"):
@@ -389,9 +407,21 @@ def test_compressed_write_option_raises(warehouse):
 
 
 def test_per_level_codec_the_port_lacks_raises(warehouse):
+    """file.compression.per.level=0:lz4 writes level-0 files as LZ4_RAW
+    pages the JAX package reads; a level naming brotli still raises naming
+    the option."""
     cat = PortCatalog(warehouse, device="cpu")
     table = cat.create_table("db.per_level_lz4", _row_type(tt), primary_keys=["id"],
                              options={**OPTIONS, "file.compression.per.level": "0:lz4"})
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.write(_values(np.arange(10, dtype=np.int64), False))
+    wb.new_commit().commit(w.prepare_commit())
+    assert _page_codecs(table) == {7}
+    want = [tuple(_py(v) for v in row) for row in zip(*[list(c) for c in _values(np.arange(10), False).values()])]
+    assert _jax_read(JaxCatalog(warehouse).get_table("db.per_level_lz4")) == want == _read(table)
+    table = cat.create_table("db.per_level_brotli", _row_type(tt), primary_keys=["id"],
+                             options={**OPTIONS, "file.compression.per.level": "0:brotli"})
     w = table.new_batch_write_builder().new_write()
     with pytest.raises(NotImplementedError, match=r"file\.compression\.per\.level"):
         w.write(_values(np.arange(10, dtype=np.int64), False))
