@@ -385,7 +385,27 @@ Phases, one JSON line each on stdout:
               oracle. K1 must launch in every part but spill; then K1 and
               K2 are held exactly to their plain versions at the phase's
               shapes no earlier check covered.
-20. timing  - each kernel at its main-path shape against its plain version,
+20. nested  - ARRAY, MAP and ROW columns in Parquet zstd (bucket 1,
+              sort-engine=pallas, write-only), one line per part.
+              aggregation: a profile table of the kind the reference's
+              nested aggregators serve, 250,000 BIGINT keys in 4 commits of
+              250,000 rows (every key once per commit: 1M rows in 4
+              overlapping sorted runs): tags ARRAY<STRING> collect with
+              distinct (0-4 of 1,000 strings), attrs MAP<STRING, BIGINT>
+              merge_map (0-4 of 64 keys), items ARRAY<ROW<sku BIGINT, qty
+              INT>> nested_update keyed by sku (0-3 of 10,000 skus), spend
+              DOUBLE sum (segment_sum); 5% of the nested values null and 5%
+              empty. dedup: the bench table's rows (4 runs and the 100k
+              upsert) with tags and attrs added. Each table written (s,
+              bytes on disk), read at the default tile (K2) and at 131072,
+              fully compacted and read again; every read equal row for row
+              to the numpy engine's. A staged read per table: the leaves'
+              levels, the assembly, the merge (plan, upload, kernel,
+              download) and, for the aggregation, the host aggregate per
+              column. K1, K2 and segment_sum must launch in the phase; then
+              K1 and K2 are held exactly to their plain versions at the
+              phase's shapes no earlier check covered.
+21. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -400,7 +420,7 @@ Then a summary line (each phase's wall seconds, its launches of each kernel
 and the first rate it reports), one JSON line with every kernel's numbers
 (its launches summed over the main, compact, engines, buckets, strings,
 maintenance, cdc, deletes, history, writes, services, lookups, sql,
-dict_domain and buffers_formats paths, and by path), the card line, and last
+dict_domain, buffers_formats and nested paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -698,11 +718,11 @@ def timed_reads(table, repeats: int):
     return out, samples
 
 
-def read_stats(samples: list, launches: dict | None = None) -> dict:
+def read_stats(samples: list, launches: dict | None = None, rows: int = N_ROWS, input_rows: int | None = None) -> dict:
     median = float(np.median(samples))
     out = {"samples_s": [round(s, 4) for s in samples], "median_s": round(median, 4),
-           "output_rows_per_s_median": round(N_ROWS / median, 1),
-           "input_rows_per_s_median": round((N_ROWS + N_UPSERT) / median, 1)}
+           "output_rows_per_s_median": round(rows / median, 1),
+           "input_rows_per_s_median": round((N_ROWS + N_UPSERT if input_rows is None else input_rows) / median, 1)}
     return out if launches is None else {**out, "launches": launches}
 
 
@@ -784,8 +804,8 @@ def decompress_pages(raws: list, columns: list) -> dict:
     t0 = time.perf_counter()
     for raw in raws:
         for _, chunks in parse_footer(raw):
-            for name in columns:
-                chunk = chunks[name]
+            # a nested column's chunks are its leaves, keyed by column path
+            for chunk in (c for path, c in chunks.items() if path.split(".")[0] in columns):
                 out_bytes += sum(len(decompress_page(chunk, kind, hdr, page)) for kind, hdr, page in iter_pages(raw, chunk))
     s = time.perf_counter() - t0
     return {"ms": round(s * 1e3, 3), "out_mb": round(out_bytes / 1e6, 3), "out_mb_per_s": round(out_bytes / 1e6 / s, 1)}
@@ -1059,7 +1079,15 @@ def main() -> int:
         emit({"phase": "buffers_formats", "part": "summary", **buffers, "exact_checks_all_phases": checks})
         lap("buffers_formats", buffers)
 
-    # 20. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 20. nested columns and the nested aggregates
+        checked = tuple(list(checked[i]) + [tuple(s) for s in buffers["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        nested = nested_phase(pt, hk, warehouse, checked)
+        checks += nested["shape_checks"]["exact_checks"]
+        emit({"phase": "nested", "part": "summary", **nested, "exact_checks_all_phases": checks})
+        lap("nested", nested)
+
+    # 21. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -1076,7 +1104,7 @@ def main() -> int:
                       "history": history["launches"][name], "writes": writes["launches"][name],
                       "services": services["launches"][name], "lookups": lookups["launches"][name],
                       "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name],
-                      "buffers_formats": buffers["launches"][name]}
+                      "buffers_formats": buffers["launches"][name], "nested": nested["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -5595,6 +5623,228 @@ def buffers_formats_phase(pt, hk, warehouse: str, control, checked: tuple) -> di
             "reads_rows_per_s": {n: p["read"]["output_rows_per_s_median"] for n, p in parts.items() if "read" in p},
             "stages_ms": {n: parts[n]["stages"]["ms"] for n in BF_FORMATS},
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2035, checked)}
+
+
+NS_KEYS = 250_000  # the aggregation table's keys: each commit writes every key once
+NS_COMMITS = 4
+NS_TAGS, NS_ATTR_KEYS, NS_SKUS = 1_000, 64, 10_000
+NS_NULL_SHARE, NS_EMPTY_SHARE = 0.05, 0.05
+NS_AGG_OPTIONS = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", "merge-engine": "aggregation",
+                  "fields.tags.aggregate-function": "collect", "fields.tags.distinct": "true",
+                  "fields.attrs.aggregate-function": "merge_map",
+                  "fields.items.aggregate-function": "nested_update", "fields.items.nested-key": "sku",
+                  "fields.spend.aggregate-function": "sum"}
+
+
+def ns_lengths(rng, n: int, most: int) -> tuple:
+    """Lengths of n nested values, 1..most, with NS_NULL_SHARE of them null
+    and NS_EMPTY_SHARE empty (length 0); and the null mask."""
+    r = rng.random(n)
+    null = r < NS_NULL_SHARE
+    lens = rng.integers(1, most + 1, n)
+    lens[r < NS_NULL_SHARE + NS_EMPTY_SHARE] = 0
+    return lens, null
+
+
+def ns_split(flat: list, lens: np.ndarray, null: np.ndarray, make=list) -> np.ndarray:
+    """The values of `flat` cut into runs of `lens` (each made by `make`),
+    None where null, as an object vector."""
+    offs = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    bounds = zip(offs[:-1].tolist(), offs[1:].tolist())
+    out = np.fromiter((make(flat[a:b]) for a, b in bounds), dtype=object, count=len(lens))
+    out[null] = None
+    return out
+
+
+def ns_tags(rng, n: int) -> np.ndarray:
+    lens, null = ns_lengths(rng, n, 4)
+    pool = [f"tag-{i:04d}" for i in range(NS_TAGS)]
+    return ns_split([pool[i] for i in rng.integers(0, NS_TAGS, int(lens.sum())).tolist()], lens, null)
+
+
+def ns_attrs(rng, n: int) -> np.ndarray:
+    """0-4 distinct keys of NS_ATTR_KEYS per map: a start and an odd
+    stride per map walk the keys without repeating."""
+    lens, null = ns_lengths(rng, n, 4)
+    owner = np.repeat(np.arange(n), lens)
+    pos = np.arange(len(owner)) - np.repeat(np.cumsum(lens) - lens, lens)
+    start, stride = rng.integers(0, NS_ATTR_KEYS, n), rng.integers(0, NS_ATTR_KEYS // 2, n) * 2 + 1
+    keys = (start[owner] + pos * stride[owner]) % NS_ATTR_KEYS
+    names = [f"attr-{i:02d}" for i in range(NS_ATTR_KEYS)]
+    pairs = list(zip([names[k] for k in keys.tolist()], rng.integers(-1000, 1000, len(owner)).tolist()))
+    return ns_split(pairs, lens, null, dict)
+
+
+def ns_items(rng, n: int) -> np.ndarray:
+    lens, null = ns_lengths(rng, n, 3)
+    m = int(lens.sum())
+    rows = [{"sku": s, "qty": q} for s, q in zip(rng.integers(0, NS_SKUS, m).tolist(), rng.integers(1, 10, m).tolist())]
+    return ns_split(rows, lens, null)
+
+
+def ns_schema(pt, agg: bool):
+    from paimon_tpu_torch.types import ArrayType, MapType
+
+    nested = [("tags", ArrayType(pt.STRING())), ("attrs", MapType(pt.STRING(), pt.BIGINT()))]
+    if not agg:
+        return pt.RowType.of(*[(f.name, f.type) for f in build_schema(pt).fields], *nested)
+    item = pt.RowType.of(("sku", pt.BIGINT()), ("qty", pt.INT()))
+    return pt.RowType.of(("id", pt.BIGINT(False)), *nested, ("items", ArrayType(item)), ("spend", pt.DOUBLE()))
+
+
+def ns_write(table, batches: list) -> float:
+    t0 = time.perf_counter()
+    for data in batches:
+        wb = table.new_batch_write_builder()
+        w = wb.new_write()
+        w.write(data)
+        wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def ns_agg_batches() -> list:
+    """NS_COMMITS commits, each every key once in key order, from seed 21."""
+    rng = np.random.default_rng(21)
+    ids = np.arange(NS_KEYS, dtype=np.int64)
+    return [{"id": ids, "tags": ns_tags(rng, NS_KEYS), "attrs": ns_attrs(rng, NS_KEYS), "items": ns_items(rng, NS_KEYS),
+             "spend": rng.integers(0, 4000, NS_KEYS) / 4.0} for _ in range(NS_COMMITS)]
+
+
+def ns_dedup_batches() -> list:
+    """build_table's four runs and upsert, with tags and attrs from seed 22."""
+    rng = np.random.default_rng(22)
+    runs, up = bench_runs_and_upsert()
+    return [{**table_values(ids, r == N_RUNS), "tags": ns_tags(rng, len(ids)), "attrs": ns_attrs(rng, len(ids))}
+            for r, ids in enumerate(runs + [up])]
+
+
+def ns_stages(table, agg: bool) -> dict:
+    """One merge read of the table's single section, stage by stage (host
+    clock, device synchronised at each boundary), without the data-file
+    cache: file decode with its nested part split into the leaves' levels
+    and the assembly, lane encode, merge (plan, upload, kernel, download),
+    then the aggregates column by column (agg) or the winners' gather."""
+    from paimon_tpu_torch.core.kv import KVBatch
+    from paimon_tpu_torch.core.levels import IntervalPartition
+    from paimon_tpu_torch.core.read import order_runs_for_merge
+    from paimon_tpu_torch.metrics import decode_metrics
+    from paimon_tpu_torch.ops.aggregates import aggregate_merge
+    from paimon_tpu_torch.ops.merge import merge_plan
+
+    t = table.copy({"cache.data-file.max-memory-size": "0 b"})
+    store = t.store
+    (split,) = t.new_read_builder().new_scan().plan()
+    rf = store.reader_factory(split.partition, split.bucket)
+    (section,) = IntervalPartition(split.files).partition()
+    runs, seq_ascending = order_runs_for_merge(section)
+    files = [f for run in runs for f in run.files]
+    g = decode_metrics()
+    levels0, assembly0 = g.counter("levels_us").count, g.counter("assembly_us").count
+    ms = {}
+    t0 = time.perf_counter()
+    kv = KVBatch.concat([rf.read(f, system_columns="kind" if seq_ascending else True) for f in files])
+    ms["decode"] = (time.perf_counter() - t0) * 1e3
+    ms["decode_nested_levels"] = (g.counter("levels_us").count - levels0) / 1e3
+    ms["decode_nested_assembly"] = (g.counter("assembly_us").count - assembly0) / 1e3
+    mx = store.merge_executor()
+    t0 = time.perf_counter()
+    lanes, seq = mx._key_lanes(kv), mx._seq_lanes(kv, seq_ascending)
+    ms["encode_lanes"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = merge_plan(lanes, seq, compress=mx._compress, engine="pallas", device=DEVICE)
+    torch.cuda.synchronize()
+    ms["plan_upload_kernel_download"] = (time.perf_counter() - t0) * 1e3
+    if agg:
+        for f in mx._value_fields():
+            t0 = time.perf_counter()
+            aggregate_merge(plan, kv.data.column(f.name), mx._agg_spec(f.name), kv.kind, DEVICE)
+            torch.cuda.synchronize()
+            ms[f"aggregate_{f.name}"] = (time.perf_counter() - t0) * 1e3
+        host = sum(ms[f"aggregate_{n}"] for n in ("tags", "attrs", "items"))
+        ms["host_aggregate_share_of_read"] = host / sum(v for k, v in ms.items() if not k.startswith("decode_nested"))
+    else:
+        t0 = time.perf_counter()
+        kv.take(plan.perm[plan.keep_last & plan.valid_sorted])
+        ms["gather"] = (time.perf_counter() - t0) * 1e3
+    return {"files": len(files), "input_rows": kv.num_rows, "m": plan.m,
+            "ms": {k: round(v, 3) for k, v in ms.items()}}
+
+
+def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
+    """One nested table: written, read at both tiles, staged, compacted and
+    read again, every read against the numpy engine's."""
+    batches = ns_agg_batches() if agg else ns_dedup_batches()
+    options = NS_AGG_OPTIONS if agg else BENCH_OPTIONS
+    table = cat.create_table(f"nested.{name}", ns_schema(pt, agg), primary_keys=["id"], options=options)
+    write_s = ns_write(table, batches)
+    del batches
+    rows, input_rows = (NS_KEYS, NS_KEYS * NS_COMMITS) if agg else (N_ROWS, N_ROWS + N_UPSERT)
+    reference, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
+    assert reference.num_rows == rows, reference.num_rows
+    reads = {}
+    for label, opts in (("pallas_default_tile", {}), (f"pallas_tile_{K1_TILE_ROWS}",
+                                                      {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        before = dict(hk.launches)
+        # one sample a tile: the phase runs near the end of the call's time
+        out, samples = timed_reads(table.copy(opts), 1)
+        same_rows(out, reference, f"nested {name}, {label} against the numpy engine")
+        reads[label] = read_stats(samples, launch_diff(hk, before), rows, input_rows)
+    stages = ns_stages(table, agg)
+    nulls = {n: int(reference.column(n).null_count) for n in ("tags", "attrs")}
+    empties = {n: int(sum(1 for v in reference.column(n).values if v is not None and len(v) == 0))
+               for n in ("tags", "attrs")}
+    bytes_before = table_bytes(table)["data_bytes"]
+    t0 = time.perf_counter()
+    wb = table.copy({"write-only": "false"}).new_batch_write_builder()
+    w = wb.new_write()
+    w.compact(full=True)
+    wb.new_commit().commit(w.prepare_commit())
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    after, after_samples = timed_reads(table, 1)
+    same_rows(after, reference, f"nested {name} after the full compaction, against the numpy engine before it")
+    same_rows(after, read_all(table.copy({"sort-engine": "numpy"})),
+              f"nested {name} after the full compaction, against the numpy engine")
+    return {"options": options, "rows_written": input_rows, "output_rows": rows,
+            "commits": NS_COMMITS if agg else N_RUNS + 1, "write_s": round(write_s, 3),
+            "bytes_on_disk": bytes_before, "null_values": nulls, "empty_values": empties,
+            "numpy_read_s": round(numpy_s[0], 4), "reads": reads, "stages": stages,
+            "compact_s": round(compact_s, 3), "files_after_compaction": len(live_files(table)),
+            "bytes_after_compaction": table_bytes(table)["data_bytes"],
+            "read_after_compaction": read_stats(after_samples, rows=rows, input_rows=rows),
+            "equal_to_numpy_engine": True}
+
+
+def nested_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
+    """ARRAY, MAP and ROW columns and the nested aggregates: the aggregation
+    table and the dedup table, one line each. K1 (the flushes, the 131072
+    tile), K2 (the default tile, the compactions) and segment_sum (the
+    spend sum) must launch; then K1 and K2 are held exactly to their plain
+    versions at the phase's shapes no earlier check covered. Launch counts
+    are zeroed before it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    hk.reset_launches()
+    parts, seconds = {}, {}
+    with ShapeRecorder(hk) as recorder:
+        for name, agg in (("aggregation", True), ("dedup", False)):
+            before = dict(hk.launches)
+            t0 = time.perf_counter()
+            parts[name] = ns_part(pt, hk, cat, warehouse, name, agg)
+            seconds[name] = parts[name]["part_s"] = round(time.perf_counter() - t0, 3)
+            parts[name]["part_launches"] = launch_diff(hk, before)
+            emit({"phase": "nested", "part": name, **parts[name]})
+    launches = dict(hk.launches)
+    for k in K1_K2 + ("segment_sum",):
+        assert launches[k] > 0, f"{k} never launched in the nested phase: {launches}"
+    assert parts["aggregation"]["part_launches"]["segment_sum"] > 0, "the spend sum never launched segment_sum"
+    return {"launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
+            "seconds_by_part": seconds, "stages_ms": {n: p["stages"]["ms"] for n, p in parts.items()},
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2036, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

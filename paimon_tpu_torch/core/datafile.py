@@ -24,6 +24,10 @@ key in front of each key-value file again, as _KEY_<name> columns (the
 reference's layout); readers project them away, whoever wrote the file,
 and the key stats stay those of the value columns.
 
+A nested (ARRAY, MAP or ROW) column is written in parquet only: a writer
+for ORC or Avro, through file.format or file.format.per.level, raises
+NotImplementedError naming the format and the column when it is created.
+
 The writer passes the table's writer options (parquet.page-size,
 parquet.row-group.rows, file.block-size, parquet.enable.dictionary,
 parquet.data-page-version; orc.stripe.size) to the encoder. Under
@@ -48,7 +52,7 @@ from ..format.avro import read_avro, write_avro
 from ..format.orc import read_orc, write_orc
 from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
 from ..fs import LocalFileIO
-from ..types import DataField, RowKind, RowType
+from ..types import NESTED_ROOTS, DataField, RowKind, RowType
 from ..utils import new_file_name, now_millis
 from .kv import SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME, KVBatch, kv_disk_schema
 
@@ -180,6 +184,15 @@ class KeyValueFileWriterFactory:
             if fmt not in _FORMATS:
                 raise NotImplementedError(
                     f"{option}={fmt} is not supported by the torch port; it writes {', '.join(_FORMATS)}"
+                )
+        nested = [f.name for f in value_schema.fields if f.type.root in NESTED_ROOTS]
+        for option, fmt in [("file.format", self.file_format)] + [
+            ("file.format.per.level", f) for f in self.per_level_format.values()
+        ]:
+            if nested and fmt != "parquet":
+                raise NotImplementedError(
+                    f"{option}={fmt}: column {nested[0]!r} is nested, and the torch port writes nested columns "
+                    f"in parquet only"
                 )
         self.per_level_compression = dict(per_level_compression or {})
         lacking = {lv: c for lv, c in self.per_level_compression.items() if c.lower() not in WRITE_CODECS}

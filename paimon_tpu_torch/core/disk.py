@@ -13,7 +13,8 @@ A segment is the port's own columnar dump, private to this module: an
 dtype and whether it has a validity mask), then each column's buffers as
 (8-byte length, bytes): fixed-width values as they lie in memory; strings
 and bytes as int64 lengths and their concatenated payload; the validity
-mask bit-packed.
+mask bit-packed; an ARRAY, MAP or ROW column as a one-column parquet file
+(format/parquet.py), its validity inside.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 from ..data.batch import Column, ColumnBatch, concat_batches
 from ..encode.kernels import byte_array_parts
 from ..format.avro import strings_from_offsets
-from ..types import TypeRoot
+from ..types import NESTED_ROOTS, RowType, TypeRoot
 
 __all__ = ["IOManager", "SpillableBuffer"]
 
@@ -66,6 +67,13 @@ def _write_segment(path: str, batch: ColumnBatch) -> None:
         col = batch.column(f.name)
         values = col.values
         valid = col.validity
+        if f.type.root in NESTED_ROOTS:
+            # a nested column travels as a one-column parquet file
+            from ..format.parquet import write_parquet
+
+            columns.append({"name": f.name, "kind": "nested", "valid": False})
+            buffers.append(write_parquet(ColumnBatch(RowType([f]), {f.name: col}), "none"))
+            continue
         if values.dtype == np.dtype(object):
             if valid is not None:
                 values = values.copy()
@@ -104,6 +112,12 @@ def _read_segment(path: str, schema) -> ColumnBatch:
     cols = {}
     for c in header["columns"]:
         dtype = schema.field(c["name"]).type
+        if c["kind"] == "nested":
+            from ..format.parquet import read_parquet
+
+            one = RowType([schema.field(c["name"])])
+            cols[c["name"]] = concat_batches(read_parquet(take(), one, one.field_names)).column(c["name"])
+            continue
         if c["kind"] == "strings":
             lengths = np.frombuffer(take(), dtype="<i8")
             payload = np.frombuffer(take(), dtype=np.uint8)

@@ -8,15 +8,17 @@ the columns are code-backed under merge.dict-domain), sort and segment
 them on the device (K1 or K2 under sort-engine=pallas), apply the engine
 as segment selections or reductions, and gather on the host (a
 code-backed column gathers its codes). Engines: deduplicate,
-partial-update (with sequence groups), aggregation (every function but
-collect, merge_map and nested_update) and first-row. A sequence.field
+partial-update (with sequence groups), aggregation (every function; the
+nested ones, collect, merge_map and nested_update, build their values on
+the host from the plan, and take ARRAY, MAP and ARRAY columns only) and
+first-row. A sequence.field
 orders each key's rows before the system sequence number: its lanes go
 ahead of the seqno lanes (a string field as ranks in a pool over the
 merge's column). Partial-update without sequence groups and routable
 aggregations take one fused device call; first-row, sequence groups (one
 extra plan per group, ordered by the group's own sequence column), the
-numpy engine and the host aggregates (product, listagg) go through
-merge_plan. Under sort-engine=numpy every step runs on the host.
+numpy engine and the host aggregates (product, listagg and the nested
+ones) go through merge_plan. Under sort-engine=numpy every step runs on the host.
 """
 
 from __future__ import annotations
@@ -28,12 +30,18 @@ import torch
 
 from ..data.batch import Column, ColumnBatch, gather_column
 from ..data.keys import _encode_column, _pool_and_ranks, encode_key_lanes_with_pools, lexsort_rows, split_int64_lanes
-from ..ops.aggregates import NESTED_AGGREGATORS, AggregateSpec, aggregate_merge, fused_aggregate, fused_routable
+from ..ops.aggregates import AggregateSpec, aggregate_merge, fused_aggregate, fused_routable
 from ..options import CoreOptions, MergeEngine, SortEngine
-from ..types import STRING_ROOTS, RowKind, RowType
+from ..types import STRING_ROOTS, RowKind, RowType, TypeRoot
 from .kv import KVBatch
 
 __all__ = ["MergeExecutor"]
+
+# the column type each nested aggregate takes, as upstream Paimon's
+# FieldCollectAgg, FieldNestedUpdateAgg and FieldMergeMapAgg do (the JAX
+# package also runs collect and nested_update over flat columns, storing
+# lists in them, and fails merge_map on them: ROADMAP Queue 3 item 26)
+_NESTED_INPUT = {"collect": TypeRoot.ARRAY, "nested_update": TypeRoot.ARRAY, "merge_map": TypeRoot.MAP}
 
 
 def _numpy_dedup_select(lanes: np.ndarray, seq_lanes: np.ndarray | None, compress: bool | None = None) -> np.ndarray:
@@ -71,13 +79,12 @@ class MergeExecutor:
         if engine == MergeEngine.AGGREGATE:
             for f in self._value_fields():
                 fn = self._agg_spec(f.name).function
-                if fn in NESTED_AGGREGATORS:
+                want = _NESTED_INPUT.get(fn)
+                if want is not None and f.type.root != want:
                     key = f"fields.{f.name}.aggregate-function"
                     if self.options.field_option(f.name, "aggregate-function") is None:
                         key = CoreOptions.AGGREGATE_DEFAULT_FUNC.key
-                    raise NotImplementedError(
-                        f"{key}={fn}: aggregates over ARRAY or MAP columns are not supported by the torch port yet"
-                    )
+                    raise ValueError(f"{key}={fn} aggregates {want.value} columns; column {f.name!r} is {f.type}")
 
     @property
     def _compress(self) -> bool:
@@ -344,7 +351,11 @@ class MergeExecutor:
             fn = self.options.options.get(CoreOptions.AGGREGATE_DEFAULT_FUNC) or "last_non_null_value"
         ignore_retract = (self.options.field_option(field_name, "ignore-retract") or "false").lower() == "true"
         delim = self.options.field_option(field_name, "list-agg-delimiter") or ","
-        return AggregateSpec(fn, ignore_retract, delim)
+        distinct = (self.options.field_option(field_name, "distinct") or "false").lower() == "true"
+        nested_key = tuple(
+            s.strip() for s in (self.options.field_option(field_name, "nested-key") or "").split(",") if s.strip()
+        )
+        return AggregateSpec(fn, ignore_retract, delim, distinct, nested_key)
 
     def _aggregate_rows(self, kv: KVBatch, agg_cols: dict, last_take) -> KVBatch:
         cols: dict[str, Column] = {k: kv.data.column(k).take(last_take) for k in self.key_names}

@@ -161,7 +161,7 @@ class SchemaManager:
         self._validate(row_type, partition_keys, primary_keys, options)
         fields = []
         for i, f in enumerate(row_type.fields):
-            t = f.type.with_nullable(False) if f.name in primary_keys else f.type
+            t = f.type.with_nullable(False) if f.name in primary_keys and f.type.nullable else f.type
             fields.append(DataField(i, f.name, t, f.description))
         schema = TableSchema(
             id=0,

@@ -2,8 +2,10 @@
 
 A ColumnBatch is a RowType plus one dense numpy vector per field and an
 optional validity vector (True = present). Strings and bytes are object
-vectors with no arrow backing. Structural ops (take/slice/filter/concat)
-are O(columns) numpy calls.
+vectors with no arrow backing; an ARRAY, MAP or ROW column is an object
+vector of the Python values the JAX package reads back (a list, a dict, a
+dict by field name), never code-backed. Structural ops
+(take/slice/filter/concat) are O(columns) numpy calls.
 
 A Column may be code-backed (`from_codes`, the reader's form under
 merge.dict-domain): a sorted pool and full-length uint32 codes, no values.

@@ -5,7 +5,10 @@ paimon_tpu/decode/__init__.py).
   kernels.py   — bit-unpack, RLE/bit-packed hybrid, PLAIN, DELTA and the
                  dictionary gather (numpy engine, torch twins)
   pages.py     — page -> column assembly with page skipping; the code-
-                 domain read of a dictionary-encoded chunk
+                 domain read of a dictionary-encoded chunk; a nested
+                 leaf's repetition and definition levels
+  nested.py    — record assembly of ARRAY, MAP and ROW columns from
+                 their leaves' levels
   pushdown.py  — compressed-domain predicates: chunk statistics and
                  dictionary codes decide which pages ever expand
 
@@ -15,7 +18,11 @@ merge.dict-domain) a dictionary-encoded STRING/BYTES chunk, or an
 INT32/INT64 chunk of an INT, DATE, BIGINT or TIMESTAMP column, comes back
 as a code-backed Column: a sorted pool and uint32 codes, no value per row.
 A dictionary past `pool_limit`, or a chunk with a PLAIN page, expands as
-before (counted in dict{fallback_expanded}).
+before (counted in dict{fallback_expanded}). A nested column reads every
+leaf of its group (and a projection without it reads none of them); it is
+never code-backed, and the pushdown never prunes on its leaves. Metrics
+(group decode): the counters levels_us and assembly_us add up the time of
+its two stages, the leaves' pages to levels and values, and the records.
 """
 
 from __future__ import annotations
@@ -24,9 +31,10 @@ import time
 
 from ..data.batch import Column, ColumnBatch
 from ..metrics import decode_metrics, dict_metrics
-from ..types import STRING_ROOTS, RowType, TypeRoot
-from .container import T_BYTE_ARRAY, T_INT32, T_INT64, ParquetFormatError, parse_footer
-from .pages import chunk_codes, decode_chunk
+from ..types import NESTED_ROOTS, STRING_ROOTS, RowType, TypeRoot
+from .container import T_BYTE_ARRAY, T_INT32, T_INT64, ParquetFormatError, read_footer
+from .nested import assemble_column, check_layout, leaf_types
+from .pages import chunk_codes, decode_chunk, decode_leaf
 from .pushdown import row_group_keep_mask
 
 __all__ = ["read_native", "ParquetFormatError"]
@@ -57,11 +65,16 @@ def read_native(data: bytes, schema: RowType, projection, predicate=None, dict_d
     limit = resolve_pool_limit(pool_limit)
     read_schema = schema.project(projection)
     out = []
-    for num_rows, cols in parse_footer(data):
+    footer = read_footer(data)
+    for f in read_schema.fields:
+        if (f.type.root in NESTED_ROOTS) != (f.name in footer.nested):
+            raise ParquetFormatError(f"column {f.name!r} of type {f.type} is {'not ' * (f.name not in footer.nested)}"
+                                     f"a nested group in the file")
+    for num_rows, cols in footer.row_groups:
         if num_rows == 0:
             continue
         for f in read_schema.fields:
-            if f.name not in cols:
+            if f.name not in footer.nested and f.name not in cols:
                 raise ParquetFormatError(f"column {f.name!r} not in file")
         tp = time.perf_counter()
         code_cache = {} if dict_domain else None
@@ -71,6 +84,9 @@ def read_native(data: bytes, schema: RowType, projection, predicate=None, dict_d
             continue
         columns = {}
         for f in read_schema.fields:
+            if f.name in footer.nested:
+                columns[f.name] = _nested_column(data, cols, footer.nested[f.name], f, num_rows, keep, metrics)
+                continue
             col = None
             if dict_domain:
                 col = _code_domain_column(data, cols[f.name], f, num_rows, keep, limit, code_cache, metrics)
@@ -85,6 +101,24 @@ def read_native(data: bytes, schema: RowType, projection, predicate=None, dict_d
     metrics.counter("files_native").inc()
     metrics.histogram("file_ms").update((time.perf_counter() - t0) * 1000)
     return out
+
+
+def _nested_column(data, cols, node, f, num_rows, keep, metrics):
+    t0 = time.perf_counter()
+    check_layout(node, f.type)
+    leaves = {}
+    for path, dtype in leaf_types(node, f.type).items():
+        if path not in cols:
+            raise ParquetFormatError(f"column {path!r} not in file")
+        leaves[path] = decode_leaf(data, cols[path], dtype, metrics)
+    t1 = time.perf_counter()
+    values, validity = assemble_column(node, f.type, leaves, num_rows)
+    if keep is not None:
+        values = values[keep]
+        validity = None if validity is None else validity[keep]
+    metrics.counter("levels_us").inc(int((t1 - t0) * 1e6))
+    metrics.counter("assembly_us").inc(int((time.perf_counter() - t1) * 1e6))
+    return Column(values, validity)
 
 
 def _code_domain_column(data, chunk, f, num_rows, keep, limit, code_cache, metrics):

@@ -14,7 +14,9 @@ Encoding per chunk:
   * BOOLEAN / FLOAT / DOUBLE: PLAIN.
 `enable_dict` False (parquet.enable.dictionary=false) writes no dictionary.
 Definition levels are always written (every leaf is OPTIONAL); an all-valid
-page's levels are one RLE run. Pages hold about `page_size` bytes of values
+page's levels are one RLE run. A nested leaf (`encode_leaf`) writes its
+repetition and definition levels the same way (one run, or one
+bit-packed span a page), and its pages cut only at record starts. Pages hold about `page_size` bytes of values
 (parquet.page-size); `page_v2` writes DATA_PAGE_V2 headers
 (parquet.data-page-version=2.0).
 """
@@ -55,7 +57,7 @@ from ..decode.container import (
     T_INT64,
 )
 
-__all__ = ["EncodedChunk", "encode_chunk"]
+__all__ = ["EncodedChunk", "encode_chunk", "encode_leaf"]
 
 _BOOL, _I32, _I64, _BINARY, _STRUCT = 1, 5, 6, 8, 12
 _DICT_RATIO_NUM, _DICT_RATIO_DEN = 2, 3
@@ -130,20 +132,26 @@ class _PageSink:
         self.chunk.total_uncompressed += len(header) + len(payload)
         self.chunk.total_compressed += len(header) + len(body)
 
-    def add_data_page(self, levels: bytes, values: bytes, n: int, n_valid: int, enc: int) -> None:
+    def add_data_page(self, levels: bytes, values: bytes, n: int, n_valid: int, enc: int, rep: bytes | None = None,
+                      rows: int | None = None) -> None:
+        """One data page of n level entries (rows, in a flat column), n_valid
+        of them values: its definition levels, its repetition levels (None
+        in a flat column) and its rows (the entries at repetition level 0)."""
         if self.page_v2:
             body = self._compress(values)
+            rep = rep or b""
             dh = build_struct(
                 [
                     (1, _I32, n),
                     (2, _I32, n - n_valid),
-                    (3, _I32, n),
+                    (3, _I32, n if rows is None else rows),
                     (4, _I32, enc),
                     (5, _I32, len(levels)),
-                    (6, _I32, 0),
+                    (6, _I32, len(rep)),
                     (7, _BOOL, self.codec != CODEC_NONE),
                 ]
             )
+            levels = rep + levels
             header = build_struct(
                 [(1, _I32, PAGE_DATA_V2), (2, _I32, len(levels) + len(values)), (3, _I32, len(levels) + len(body)), (8, _STRUCT, dh)]
             )
@@ -151,6 +159,8 @@ class _PageSink:
             self.chunk.total_uncompressed += len(header) + len(levels) + len(values)
         else:
             raw = struct.pack("<I", len(levels)) + levels + values
+            if rep is not None:
+                raw = struct.pack("<I", len(rep)) + rep + raw
             body = self._compress(raw)
             dh = build_struct([(1, _I32, n), (2, _I32, enc), (3, _I32, ENC_RLE), (4, _I32, ENC_RLE)])
             header = build_struct([(1, _I32, PAGE_DATA), (2, _I32, len(raw)), (3, _I32, len(body)), (5, _STRUCT, dh)])
@@ -161,39 +171,95 @@ class _PageSink:
         self.chunk.num_pages += 1
 
 
-def _levels(validity: np.ndarray | None, start: int, stop: int) -> bytes:
-    """A page's definition levels: one RLE run when every row is valid,
-    else one bit-packed span (a run per stretch of rows between sparse
-    nulls would cost the reader a header each)."""
+class _FlatLevels:
+    """A flat column's pages: one entry per row, its definition level the
+    row's validity. An all-valid page's levels are one RLE run, others one
+    bit-packed span (a run per stretch of rows between sparse nulls would
+    cost the reader a header each)."""
+
+    def __init__(self, validity: np.ndarray | None, n: int):
+        self.validity, self.n = validity, n
+        if validity is None:
+            self.cidx = np.arange(n + 1, dtype=np.int64)
+        else:
+            self.cidx = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(validity, out=self.cidx[1:])
+
+    def spans(self, bytes_per_value: float, page_size: int) -> list:
+        step = max(1, int(page_size / max(bytes_per_value, 1e-9)))
+        return [(start, min(start + step, self.n)) for start in range(0, max(self.n, 1), step)]
+
+    def page(self, start: int, stop: int) -> tuple[bytes, bytes | None, int | None]:
+        """(definition levels, repetition levels, rows) of a page."""
+        out = bytearray()
+        if self.validity is None:  # all valid: one RLE run of level 1
+            append_uvarint(out, (stop - start) << 1)
+            out += b"\x01"
+            return bytes(out), None, None
+        append_uvarint(out, (((stop - start + 7) >> 3) << 1) | 1)
+        out += np.packbits(self.validity[start:stop], bitorder="little").tobytes()
+        return bytes(out), None, None
+
+
+class _NestedLevels:
+    """A nested leaf's pages: its level entries, cut only where a record
+    starts (repetition level 0), so that no record spans two pages."""
+
+    def __init__(self, rep: np.ndarray, def_: np.ndarray, max_def: int, max_rep: int):
+        self.rep, self.def_, self.max_def, self.max_rep = rep, def_, max_def, max_rep
+        self.n = len(def_)
+        self.cidx = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(def_ == max_def, out=self.cidx[1:])
+        self.records = np.flatnonzero(rep == 0)
+
+    def spans(self, bytes_per_value: float, page_size: int) -> list:
+        step = max(1, int(page_size / max(bytes_per_value, 1e-9)))
+        starts = np.append(self.records, self.n)
+        cuts = starts[np.searchsorted(starts, np.arange(step, self.n, step, dtype=np.int64))]
+        bounds = np.unique(np.concatenate([[0], cuts, [self.n]])).tolist()
+        return list(zip(bounds[:-1], bounds[1:])) or [(0, 0)]
+
+    def page(self, start: int, stop: int) -> tuple[bytes, bytes | None, int | None]:
+        def_b = _level_run(self.def_[start:stop], self.max_def)
+        rep_b = None  # a ROW's leaf outside every list has no repetition levels
+        if self.max_rep:
+            rep_b = _level_run(self.rep[start:stop], self.max_rep)
+        rows = int(np.count_nonzero(self.rep[start:stop] == 0))
+        return def_b, rep_b, rows
+
+
+def _level_run(levels: np.ndarray, max_level: int) -> bytes:
+    """A page's levels as one RLE run when they are all equal, else as one
+    bit-packed span: nested levels change every few entries, and each run
+    would cost the reader a header."""
     out = bytearray()
-    if validity is None:  # all valid: one RLE run of level 1
-        append_uvarint(out, (stop - start) << 1)
-        out += b"\x01"
+    if len(levels) and (levels == levels[0]).all():
+        append_uvarint(out, len(levels) << 1)
+        out += int(levels[0]).to_bytes((kernels.bit_width_for(max_level) + 7) >> 3, "little")
         return bytes(out)
-    append_uvarint(out, (((stop - start + 7) >> 3) << 1) | 1)
-    out += np.packbits(validity[start:stop], bitorder="little").tobytes()
+    groups = (len(levels) + 7) >> 3
+    append_uvarint(out, (groups << 1) | 1)
+    padded = np.zeros(groups * 8, dtype=np.int64)
+    padded[: len(levels)] = levels
+    out += kernels.pack_bits(padded, kernels.bit_width_for(max_level))
     return bytes(out)
 
 
-def _page_bounds(n: int, bytes_per_value: float, page_size: int) -> range:
-    return range(0, max(n, 1), max(1, int(page_size / max(bytes_per_value, 1e-9))))
-
-
-def _write_dictionary(sink, chunk, validity, cidx, n, pool_bytes: bytes, dict_size: int, codes, page_size, metrics):
+def _write_dictionary(sink, chunk, levels, pool_bytes: bytes, dict_size: int, codes, page_size, metrics):
     """The dictionary page, then the RLE_DICTIONARY data pages of `codes`
-    (the valid rows' codes)."""
+    (the valid entries' codes)."""
     sink.add_dict_page(pool_bytes, dict_size)
     if metrics is not None:
         metrics.counter("dict_pages").inc()
     width = kernels.bit_width_for(max(dict_size - 1, 0))
     if len(codes) > 50_000 and 0 < width < 32 and width % 8:
         width = (width + 7) & ~7  # byte-aligned widths pack without a bit matrix
-    bounds = _page_bounds(n, max(width, 1) / 8 + 0.125, page_size)
-    for start in bounds:
-        stop = min(start + bounds.step, n)
+    cidx = levels.cidx
+    for start, stop in levels.spans(max(width, 1) / 8 + 0.125, page_size):
         page_codes = codes[int(cidx[start]) : int(cidx[stop])]
         body = bytes([width]) + kernels.encode_rle_hybrid(page_codes, width)
-        sink.add_data_page(_levels(validity, start, stop), body, stop - start, len(page_codes), ENC_RLE_DICTIONARY)
+        def_b, rep_b, rows = levels.page(start, stop)
+        sink.add_data_page(def_b, body, stop - start, len(page_codes), ENC_RLE_DICTIONARY, rep_b, rows)
     chunk.encodings = (ENC_PLAIN, ENC_RLE, ENC_RLE_DICTIONARY)
 
 
@@ -225,20 +291,20 @@ def _dictionary_of(col: Column, validity, compact_fn, n_valid: int, physical: in
 
 
 def encode_chunk(col: Column, dtype: DataType, physical: int, *, page_size: int, page_v2: bool, enable_dict: bool,
-                 codec: int, metrics=None) -> EncodedChunk:
-    """Encode one column (one row group's rows) into an EncodedChunk."""
+                 codec: int, metrics=None, levels: "_NestedLevels | None" = None) -> EncodedChunk:
+    """Encode one column (one row group's rows) into an EncodedChunk. A
+    nested leaf passes its values (the entries at the maximum definition
+    level) as `col` and its levels as `levels`."""
     t0 = time.perf_counter()
-    n = len(col)
     validity = col.validity
-    n_valid = n if validity is None else int(validity.sum())
-    if validity is None:
-        cidx = np.arange(n + 1, dtype=np.int64)
-    else:
-        cidx = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(validity, out=cidx[1:])
+    if levels is None:
+        levels = _FlatLevels(validity, len(col))
+    n = levels.n
+    n_valid = len(col) if validity is None else int(validity.sum())
     chunk = EncodedChunk()
     sink = _PageSink(chunk, codec, page_v2)
     null_count = n - n_valid
+    cidx = levels.cidx
 
     def compact_values():
         v = col.values
@@ -263,7 +329,7 @@ def encode_chunk(col: Column, dtype: DataType, physical: int, *, page_size: int,
             pool_bytes = kernels.encode_plain_byte_array(lens, payload)
         else:
             pool_bytes = kernels.encode_plain(pool, physical)
-        _write_dictionary(sink, chunk, validity, cidx, n, pool_bytes, len(pool), codes, page_size, metrics)
+        _write_dictionary(sink, chunk, levels, pool_bytes, len(pool), codes, page_size, metrics)
     else:
         compact = compact_values()
         t_stats = time.perf_counter()
@@ -282,9 +348,7 @@ def encode_chunk(col: Column, dtype: DataType, physical: int, *, page_size: int,
                 if physical in (T_INT32, T_INT64) and n_valid >= 64 and bool(np.all(np.diff(compact) >= 0)):
                     enc = ENC_DELTA_BINARY_PACKED  # sorted ints: the delta stream
             bpv = 0.125 if physical == T_BOOLEAN else _ITEMSIZE[physical]
-        bounds = _page_bounds(n, bpv, page_size)
-        for start in bounds:
-            stop = min(start + bounds.step, n)
+        for start, stop in levels.spans(bpv, page_size):
             vs, ve = int(cidx[start]), int(cidx[stop])
             if physical == T_BYTE_ARRAY:
                 body = kernels.encode_plain_byte_array(lens[vs:ve], payload[offs[vs] : offs[ve]])
@@ -292,9 +356,16 @@ def encode_chunk(col: Column, dtype: DataType, physical: int, *, page_size: int,
                 body = kernels.encode_delta_binary_packed(compact[vs:ve], physical)
             else:
                 body = kernels.encode_plain(compact[vs:ve], physical)
-            sink.add_data_page(_levels(validity, start, stop), body, stop - start, ve - vs, enc)
+            def_b, rep_b, rows = levels.page(start, stop)
+            sink.add_data_page(def_b, body, stop - start, ve - vs, enc, rep_b, rows)
         chunk.encodings = tuple(sorted({ENC_RLE, enc}))
     if metrics is not None:
         metrics.counter("pages_written").inc(chunk.num_pages)
         metrics.histogram("stats_ms").update(stats_s * 1000)
     return chunk
+
+
+def encode_leaf(leaf, physical: int, **kwargs) -> EncodedChunk:
+    """One nested leaf (encode/nested.py NestedLeaf) of one row group."""
+    levels = _NestedLevels(leaf.rep, leaf.def_, leaf.max_def, leaf.max_rep)
+    return encode_chunk(Column(leaf.values), leaf.dtype, physical, levels=levels, **kwargs)

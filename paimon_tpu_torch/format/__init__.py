@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 
 from ..data.batch import ColumnBatch
+from ..types import NESTED_ROOTS
 
 __all__ = ["FieldStats", "collect_stats", "stats_to_json", "stats_from_json"]
 
@@ -68,13 +69,15 @@ def _coded(col) -> bool:
 def collect_stats(batch: ColumnBatch, truncate: int = _TRUNCATE_LEN) -> dict[str, FieldStats]:
     """Vectorized per-field min/max/null-count; strings truncated to
     `truncate` chars (metadata.stats-mode truncate(16)). A column carrying
-    dictionary codes reads min and max off its sorted pool."""
+    dictionary codes reads min and max off its sorted pool; a nested column
+    gets its null count alone."""
     out: dict[str, FieldStats] = {}
     n = batch.num_rows
     for f in batch.schema.fields:
         col = batch.column(f.name)
         nulls = col.null_count
-        if nulls >= n or n == 0:
+        if nulls >= n or n == 0 or f.type.root in NESTED_ROOTS:
+            # nested values have no total order: null-count-only stats
             out[f.name] = FieldStats(None, None, nulls, n)
             continue
         if col.dtype.kind != "f" and _coded(col):

@@ -9,9 +9,12 @@ code-backed columns. `write_parquet` encodes one batch through encode/,
 with the writer options parquet.page-size, parquet.row-group.rows,
 file.block-size, parquet.enable.dictionary and parquet.data-page-version.
 
-Envelope, both directions: flat schemas; physical types BOOLEAN, INT32,
-INT64, FLOAT, DOUBLE and BYTE_ARRAY (UTF8 or raw); REQUIRED or OPTIONAL
-leaves; PLAIN, dictionary (PLAIN dictionary page + RLE/bit-packed codes)
+Envelope, both directions: flat columns, and ARRAY, MAP and ROW columns in
+pyarrow's layout (three-level LIST, MAP key_value, plain groups), their
+leaves' repetition and definition levels RLE-hybrid; a nested column's
+leaves are never pruned on, and its records never split across pages or
+row groups; physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE and
+BYTE_ARRAY (UTF8 or raw); REQUIRED or OPTIONAL leaves; PLAIN, dictionary (PLAIN dictionary page + RLE/bit-packed codes)
 and DELTA_BINARY_PACKED integer encodings; data pages v1 and v2; codecs
 UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW (file.compression=lz4; the
 port's own snappy, zstd and lz4 codecs and zlib, utils/compression.py). It
@@ -45,6 +48,6 @@ def read_parquet(data: bytes, schema: RowType, projection, predicate=None, dict_
 
 def write_parquet(batch: ColumnBatch, compression: str = "none", format_options: dict | None = None) -> bytes:
     """One ColumnBatch -> complete parquet file bytes, every page compressed
-    by `compression` (a key of WRITE_CODECS). Every leaf is OPTIONAL, as the
-    JAX package's writers make them."""
+    by `compression` (a key of WRITE_CODECS). Every leaf is OPTIONAL but a
+    map's key, as the JAX package's writers make them."""
     return encode_parquet_bytes(batch, compression, format_options)

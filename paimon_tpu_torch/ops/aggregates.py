@@ -3,8 +3,9 @@ over a merge's sorted order, and the SQL GROUP BY segment-reduce (port of
 paimon_tpu/ops/aggregates.py).
 
 sum, count, max, min, bool_and, bool_or and the first/last picks run on the
-device as torch ops; product and listagg run on the host, as in the JAX
-package. Integer reductions are scatter-reduces by segment id, exact in any
+device as torch ops; product, listagg and the nested aggregates (collect,
+merge_map, nested_update) run on the host over the plan's sorted order,
+as in the JAX package. Integer reductions are scatter-reduces by segment id, exact in any
 order. Float sums go through the `segment_sum` kernel (ops/hopper_kernels.py),
 which adds each segment's rows in sorted order as XLA does on the CPU. Float
 max and min reduce an order-preserving integer image of the values, so that
@@ -20,10 +21,11 @@ row contributes (no sequence lanes, no retraction); each group also gets
 its minimum input position, so that SQL output keeps first-appearance
 order.
 
-Retract rows (-U/-D): sum and count subtract; ignore-retract drops them for
-a field; every other function raises ValueError, as in the JAX package.
-collect, merge_map and nested_update need ARRAY and MAP columns, which the
-port's types refuse, and raise NotImplementedError.
+Retract rows (-U/-D): sum and count subtract; collect removes the first
+matching element of each retracted one, merge_map the retracted keys and
+nested_update the retracted rows (by nested key when it has one);
+ignore-retract drops them for a field; every other function raises
+ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,12 +83,8 @@ class AggregateSpec:
     function: str
     ignore_retract: bool = False
     listagg_delimiter: str = ","
-
-
-def _nested_unsupported(fn: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"aggregate function {fn!r} needs ARRAY or MAP columns, which the torch port does not support yet"
-    )
+    collect_distinct: bool = False
+    nested_key: tuple[str, ...] = ()  # nested_update: the upsert key of its ARRAY<ROW>
 
 
 # ---------------------------------------------------------------------------
@@ -208,26 +206,114 @@ def _f64_on_device_unsupported() -> bool:
 
 
 def _host_aggregate(plan: MergePlan, values, valid, spec: AggregateSpec, row_kind) -> Column:
-    """listagg: a variable-length string per segment, joined on the host in
-    (key, seq) order."""
-    if spec.function != "listagg":
-        raise _nested_unsupported(spec.function)
+    """listagg, collect, merge_map and nested_update: a variable-length or
+    structured value per segment, built on the host in (key, seq) order."""
     k = plan.num_segments
     retract = np.isin(row_kind, (int(RowKind.UPDATE_BEFORE), int(RowKind.DELETE)))
     (v_sorted, ok_sorted, retract), bounds = _host_segments(plan, (values, valid, retract))
     if spec.ignore_retract:
         ok_sorted = ok_sorted & ~retract
-    elif retract.any():
+        retract = np.zeros_like(retract)
+    elif retract.any() and spec.function == "listagg":
         raise ValueError("listagg cannot retract; configure ignore-retract")
     out = np.empty(k, dtype=object)
     validity = np.zeros(k, dtype=np.bool_)
     for s in range(k):
         lo, hi = bounds[s], bounds[s + 1] if s + 1 < k else len(v_sorted)
-        vals = [v_sorted[i] for i in range(lo, hi) if ok_sorted[i]]
-        if vals:
-            out[s] = spec.listagg_delimiter.join(str(x) for x in vals)
-            validity[s] = True
+        if spec.function == "merge_map":
+            out[s], validity[s] = _merge_map_segment(v_sorted, ok_sorted, retract, lo, hi)
+        elif spec.function == "nested_update":
+            out[s], validity[s] = _nested_update_segment(v_sorted, ok_sorted, retract, lo, hi, spec.nested_key)
+        elif spec.function == "listagg":
+            vals = [v_sorted[i] for i in range(lo, hi) if ok_sorted[i]]
+            if vals:
+                out[s] = spec.listagg_delimiter.join(str(x) for x in vals)
+                validity[s] = True
+        else:
+            out[s], validity[s] = _collect_segment(v_sorted, ok_sorted, retract, lo, hi, spec.collect_distinct), True
     return Column(out, validity if not validity.all() else None)
+
+
+def _collect_segment(v_sorted, ok_sorted, retract, lo, hi, distinct: bool) -> list:
+    """The segment's elements in order; an input may be a scalar or an
+    already collected list (a stored row merged again), which is
+    flattened; a retracted element removes its first match."""
+    vals = []
+    for i in range(lo, hi):
+        if not ok_sorted[i]:
+            continue
+        x = v_sorted[i]
+        items = list(x) if isinstance(x, (list, tuple)) else [x]
+        if retract[i]:
+            for item in items:
+                if item in vals:
+                    vals.remove(item)
+        else:
+            vals.extend(items)
+    if distinct:
+        seen = []
+        for x in vals:
+            if x not in seen:
+                seen.append(x)
+        vals = seen
+    return vals
+
+
+def _merge_map_segment(v_sorted, ok_sorted, retract, lo, hi):
+    """Dict union in (key, seq) order; a null input keeps the accumulator;
+    a retracted map removes its keys."""
+    acc = None
+    for i in range(lo, hi):
+        if not ok_sorted[i]:
+            continue
+        m = v_sorted[i]
+        if retract[i]:
+            if acc:
+                for key in dict(m):
+                    acc.pop(key, None)
+            continue
+        if acc is None:
+            acc = dict(m)
+        else:
+            acc.update(m)
+    return acc, acc is not None
+
+
+def _row_key(row, nested_key):
+    if isinstance(row, dict):
+        return tuple(row.get(f) for f in nested_key)
+    return tuple(row)  # the whole row when no key is configured
+
+
+def _nested_update_segment(v_sorted, ok_sorted, retract, lo, hi, nested_key):
+    """ARRAY<ROW> upsert: the rows concatenated in order; under a nested
+    key a key keeps its first position and its last row; a retracted row
+    removes its key's rows (or, without a key, its first equal row)."""
+    acc = None
+    for i in range(lo, hi):
+        if not ok_sorted[i]:
+            continue
+        rows = v_sorted[i] or []
+        if retract[i]:
+            if acc:
+                if nested_key:
+                    dead = {_row_key(r, nested_key) for r in rows}
+                    acc = [r for r in acc if _row_key(r, nested_key) not in dead]
+                else:
+                    for r in rows:
+                        if r in acc:
+                            acc.remove(r)
+            continue
+        if acc is None:
+            acc = list(rows)
+        else:
+            acc.extend(rows)
+    if acc is not None and nested_key:
+        by_key = {}
+        for r in acc:
+            by_key[_row_key(r, nested_key)] = r  # the last row, at the key's first position
+        acc = list(by_key.values())
+    return acc, acc is not None
 
 
 # ---------------------------------------------------------------------------

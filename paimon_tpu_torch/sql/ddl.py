@@ -13,8 +13,9 @@ DESCRIBE, ALTER TABLE and ANALYZE (port of paimon_tpu/sql/ddl.py).
         | MODIFY c BIGINT | SET ('k' = 'v') | RESET ('k')
     ANALYZE TABLE db.t COMPUTE STATISTICS [FOR ALL COLUMNS]
 
-Types take the SQL names of types.parse_type. ARRAY and MAP columns raise
-NotImplementedError, as the port's types do (ROADMAP Queue 1 item 11).
+Types take the SQL names of types.parse_type, and ARRAY<T> and MAP<K, V>
+nested to any depth; SHOW CREATE TABLE renders them back (a ROW column has
+no DDL text and raises DdlError, as in the JAX package).
 ALTER lowers onto core/schema.py SchemaChange and the catalog's
 alter_table; ANALYZE onto table/statistics.py.
 """
@@ -24,7 +25,7 @@ from __future__ import annotations
 import re
 from typing import TYPE_CHECKING, Any
 
-from ..types import DataField, RowType, parse_type
+from ..types import ArrayType, DataField, MapType, RowType, TypeRoot, parse_type
 
 if TYPE_CHECKING:
     from ..catalog import FileSystemCatalog as Catalog
@@ -114,15 +115,21 @@ def _split_top(body: str) -> list[str]:
 
 
 def _parse_sql_type(text: str):
-    """SQL type text -> DataType. ARRAY<T> and MAP<K, V> raise
-    NotImplementedError: the port's types are flat."""
+    """SQL type text -> DataType, ARRAY<T> and MAP<K, V> nested to any depth."""
     t = text.strip()
     nullable = True
     if re.search(r"\s+NOT\s+NULL$", t, re.I):
         nullable = False
         t = re.sub(r"\s+NOT\s+NULL$", "", t, flags=re.I).strip()
-    if re.match(r"^(ARRAY|MAP)\s*<", t, re.I):
-        raise NotImplementedError(f"nested column type {text!r} is not supported by the torch port yet")
+    m = re.match(r"^ARRAY\s*<(?P<inner>.*)>$", t, re.I | re.S)
+    if m:
+        return ArrayType(_parse_sql_type(m.group("inner")), nullable)
+    m = re.match(r"^MAP\s*<(?P<inner>.*)>$", t, re.I | re.S)
+    if m:
+        parts = _split_top(m.group("inner"))
+        if len(parts) != 2:
+            raise DdlError(f"MAP needs exactly key and value types: {text!r}")
+        return MapType(_parse_sql_type(parts[0]), _parse_sql_type(parts[1]), nullable)
     try:
         return parse_type(re.sub(r"\s+", "", t).upper() + ("" if nullable else " NOT NULL"))
     except ValueError as e:
@@ -130,9 +137,17 @@ def _parse_sql_type(text: str):
 
 
 def _sql_type_text(dtype) -> str:
-    """DataType -> DDL type text (inverse of _parse_sql_type); serialize()
-    carries NOT NULL."""
-    return dtype.serialize()
+    """DataType -> DDL type text (inverse of _parse_sql_type); a flat
+    type's serialize() carries NOT NULL. A ROW has no DDL text."""
+    if isinstance(dtype, ArrayType):
+        base = f"ARRAY<{_sql_type_text(dtype.element)}>"
+    elif isinstance(dtype, MapType):
+        base = f"MAP<{_sql_type_text(dtype.key)}, {_sql_type_text(dtype.value)}>"
+    elif dtype.root == TypeRoot.ROW:
+        raise DdlError("ROW column types are not expressible in DDL text")
+    else:
+        return dtype.serialize()
+    return base if dtype.nullable else base + " NOT NULL"
 
 
 def _parse_columns(body: str) -> tuple[list[DataField], list[str]]:

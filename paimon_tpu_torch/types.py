@@ -1,16 +1,20 @@
 """SQL-style types with field-id based schemas (port of paimon_tpu/types.py).
 
-The flat types: the fixed-width roots stored as dense numpy vectors
-(DATE as int32 days, TIMESTAMP as int64 micros, DECIMAL as its unscaled
-int64), the string and bytes roots as object vectors, and RowKind. Type
-strings serialize exactly as the JAX package writes them into the schema
-JSON ("BIGINT NOT NULL", "STRING", ...), so each package reads the other's
-warehouse.
+The fixed-width roots are stored as dense numpy vectors (DATE as int32
+days, TIMESTAMP as int64 micros, DECIMAL as its unscaled int64), the
+string and bytes roots as object vectors, and the nested roots (ARRAY,
+MAP, ROW) as object vectors of Python lists and dicts. A flat type
+serializes as the JAX package writes it into the schema JSON ("BIGINT NOT
+NULL", "STRING", ...), a nested one as its JSON object ({"type": "ARRAY",
+"element": ...}; a ROW's fields keep their ids), so each package reads the
+other's warehouse. RowType is both a batch's schema and a nullable ROW
+field type.
 """
 
 from __future__ import annotations
 
 import enum
+import json
 import re
 from dataclasses import dataclass, replace
 from typing import Any, Iterable
@@ -22,6 +26,9 @@ __all__ = [
     "DataType",
     "DataField",
     "RowType",
+    "ArrayType",
+    "MapType",
+    "NESTED_ROOTS",
     "RowKind",
     "TINYINT",
     "SMALLINT",
@@ -65,6 +72,7 @@ class TypeRoot(str, enum.Enum):
 
 
 STRING_ROOTS = (TypeRoot.CHAR, TypeRoot.VARCHAR, TypeRoot.BINARY, TypeRoot.VARBINARY)
+NESTED_ROOTS = (TypeRoot.ARRAY, TypeRoot.MAP, TypeRoot.ROW)
 
 _FIXED_NUMPY = {
     TypeRoot.BOOLEAN: np.dtype(np.bool_),
@@ -115,7 +123,40 @@ class DataType:
         return base if self.nullable else base + " NOT NULL"
 
     def __str__(self) -> str:
-        return self.serialize()
+        s = self.serialize()
+        return s if isinstance(s, str) else json.dumps(s)
+
+
+def _nested_init(obj, root: TypeRoot, nullable: bool) -> None:
+    for name, value in (("root", root), ("nullable", nullable), ("length", None), ("precision", None), ("scale", None)):
+        object.__setattr__(obj, name, value)
+
+
+@dataclass(frozen=True)
+class ArrayType(DataType):
+    element: DataType = None  # type: ignore[assignment]
+
+    def __init__(self, element: DataType, nullable: bool = True):
+        _nested_init(self, TypeRoot.ARRAY, nullable)
+        object.__setattr__(self, "element", element)
+
+    def serialize(self) -> Any:
+        return {"type": "ARRAY" if self.nullable else "ARRAY NOT NULL", "element": self.element.serialize()}
+
+
+@dataclass(frozen=True)
+class MapType(DataType):
+    key: DataType = None  # type: ignore[assignment]
+    value: DataType = None  # type: ignore[assignment]
+
+    def __init__(self, key: DataType, value: DataType, nullable: bool = True):
+        _nested_init(self, TypeRoot.MAP, nullable)
+        object.__setattr__(self, "key", key)
+        object.__setattr__(self, "value", value)
+
+    def serialize(self) -> Any:
+        return {"type": "MAP" if self.nullable else "MAP NOT NULL", "key": self.key.serialize(),
+                "value": self.value.serialize()}
 
 
 def TINYINT(nullable: bool = True) -> DataType:
@@ -186,10 +227,18 @@ _TYPE_RE = re.compile(r"^([A-Z_]+)(?:\((\d+)(?:,\s*(\d+))?\))?( NOT NULL)?$")
 
 
 def parse_type(s: Any) -> DataType:
-    """Inverse of DataType.serialize() for the flat types of this slice;
-    nested types raise NotImplementedError."""
+    """Inverse of DataType.serialize()."""
     if isinstance(s, dict):
-        raise NotImplementedError(f"nested type {s.get('type')!r} is not supported by the torch port yet")
+        t = s["type"]
+        nullable = not t.endswith("NOT NULL")
+        base = t.replace(" NOT NULL", "")
+        if base == "ARRAY":
+            return ArrayType(parse_type(s["element"]), nullable)
+        if base == "MAP":
+            return MapType(parse_type(s["key"]), parse_type(s["value"]), nullable)
+        if base == "ROW":
+            return RowType([DataField.from_dict(f) for f in s["fields"]], nullable)
+        raise ValueError(f"unknown structured type {t}")
     m = _TYPE_RE.match(s.strip())
     if not m:
         raise ValueError(f"cannot parse type {s!r}")
@@ -227,15 +276,20 @@ class DataField:
         return DataField(d["id"], d["name"], parse_type(d["type"]), d.get("description"))
 
 
-class RowType:
-    """An ordered tuple of DataFields: the schema of every batch."""
+class RowType(DataType):
+    """An ordered tuple of DataFields: the schema of every batch, and the
+    type of a ROW field (nullable unless declared NOT NULL)."""
 
-    def __init__(self, fields: Iterable[DataField]):
-        self.fields = tuple(fields)
+    fields: tuple[DataField, ...]
+    _index: dict
+
+    def __init__(self, fields: Iterable[DataField], nullable: bool = True):
+        _nested_init(self, TypeRoot.ROW, nullable)
+        object.__setattr__(self, "fields", tuple(fields))
         names = [f.name for f in self.fields]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate field names in {names}")
-        self._index = {f.name: i for i, f in enumerate(self.fields)}
+        object.__setattr__(self, "_index", {f.name: i for i, f in enumerate(self.fields)})
 
     @staticmethod
     def of(*spec: tuple[str, DataType]) -> "RowType":
@@ -253,7 +307,10 @@ class RowType:
         return name in self._index
 
     def project(self, names: Iterable[str]) -> "RowType":
-        return RowType([self.field(n) for n in names])
+        return RowType([self.field(n) for n in names], self.nullable)
+
+    def serialize(self) -> Any:
+        return {"type": "ROW" if self.nullable else "ROW NOT NULL", "fields": [f.to_dict() for f in self.fields]}
 
     def __eq__(self, other: object) -> bool:
         return isinstance(other, RowType) and self.fields == other.fields

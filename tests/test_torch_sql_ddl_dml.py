@@ -16,9 +16,8 @@ NULL checks), INSERT ... SELECT, INSERT OVERWRITE, UPDATE with
 self-referencing and table-qualified SET expressions (on primary-key and
 append tables, and a string literal holding WHERE), DELETE FROM, TRUNCATE
 (of a partitioned table too, and time travel before it), ANALYZE and
-$statistics, execute_script and split_statements. Nested column types are
-pinned to NotImplementedError (the port's types are flat, ROADMAP Queue 1
-item 11).
+$statistics, execute_script and split_statements. Nested column types
+(ARRAY and MAP) give the JAX package's schema and SHOW CREATE TABLE.
 
 Tolerance: exact. Rows are compared as multisets where the order of an
 append table's copy-on-write rewrite is not defined (ROADMAP Queue 3 item
@@ -324,16 +323,27 @@ def test_ddl_review_fixes(twin):
     twin("FROBNICATE TABLE db.q")
 
 
-def test_nested_types_are_refused():
+def test_nested_types_are_refused(tmp_path):
+    """Once refused, now ported: both statements give the JAX package's
+    schema, and SHOW CREATE TABLE db.n renders it as the JAX package does
+    (and raises its DdlError before the table exists)."""
+    from paimon_tpu.sql.ddl import ddl as jax_ddl
     from paimon_tpu_torch.sql.ddl import ddl
 
-    cat = PortCatalog("/nonexistent-warehouse", device="cpu")
-    for text in ("CREATE TABLE db.n (k INT NOT NULL, tags ARRAY<STRING>)",
-                 "CREATE TABLE db.n (k INT NOT NULL, attrs MAP<STRING, INT>)"):
-        with pytest.raises(NotImplementedError, match="nested"):
-            ddl(cat, text)
-    with pytest.raises(DdlError):
-        ddl(cat, "SHOW CREATE TABLE db.n")
+    for i, text in enumerate(("CREATE TABLE db.n (k INT NOT NULL, tags ARRAY<STRING>)",
+                              "CREATE TABLE db.n (k INT NOT NULL, attrs MAP<STRING, INT>)")):
+        jcat = JaxCatalog(str(tmp_path / f"jax{i}"))
+        cat = PortCatalog(str(tmp_path / f"port{i}"), device="cpu")
+        with pytest.raises(DdlError) as got:
+            ddl(cat, "SHOW CREATE TABLE db.n")
+        with pytest.raises(Exception) as want:
+            jax_ddl(jcat, "SHOW CREATE TABLE db.n")
+        assert str(got.value) == str(want.value)
+        assert ddl(cat, text) == jax_ddl(jcat, text) == {"created": "db.n"}
+        fields = [f.to_dict() for f in cat.get_table("db.n").row_type.fields]
+        assert fields == [f.to_dict() for f in jcat.get_table("db.n").row_type.fields]
+        assert fields[1]["type"]["type"] in ("ARRAY", "MAP")
+        assert ddl(cat, "SHOW CREATE TABLE db.n") == jax_ddl(jcat, "SHOW CREATE TABLE db.n")
 
 
 def test_execute_script_and_split(twin):
