@@ -476,6 +476,7 @@ P_OPTIONS = {"sort-engine": "pallas", "dynamic-bucket.target-row-num": str(P_TAR
 # ids, so that every flush and read merges fewer than 2^18 rows (K1)
 SMALL_ROWS, SMALL_COMMITS = 20_000, 5
 READ_REPEATS = 5
+BIG_READ_REPEATS = 3  # timed reads of the 10M-row tables (config 2, the sequence groups)
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 << 20  # H100 SXM L2 cache
@@ -1477,7 +1478,7 @@ def pu_read_stages(table) -> dict:
 
 
 def config2_phase(pt, hk, cat) -> dict:
-    """BASELINE config 2 at C2_ROWS: write, 5 timed reads checked against
+    """BASELINE config 2 at C2_ROWS: write, 3 timed reads checked against
     the numpy and xla-segmented engines and the oracle, a staged read, and
     one read under the profiler."""
     schema = pt.RowType.of(("id", pt.BIGINT(False)), ("a", pt.BIGINT()), ("b", pt.BIGINT()),
@@ -1497,7 +1498,7 @@ def config2_phase(pt, hk, cat) -> dict:
     write_s = time.perf_counter() - t0
     write_launches = dict(hk.launches)
     del batches
-    out, samples = timed_reads(table, READ_REPEATS)
+    out, samples = timed_reads(table, BIG_READ_REPEATS)
     read_launches = {k: hk.launches[k] - write_launches[k] for k in hk.launches}
     assert out.num_rows == per, f"config 2: {out.num_rows} rows, the oracle has {per}"
     oracle = {"id": ids, "a": ids % 1000, "b": ids % 777, "d0": ids * 0.5 + 3, "d1": ids * 1.5, "s0": S0_POOL[ids % 97]}
@@ -2849,7 +2850,7 @@ def sg_read_stages(table) -> dict:
 
 def sequence_group_part(pt, hk, cat) -> dict:
     """The sequence-group table of Apache Paimon's partial-update docs at
-    config 2's size: write, 5 timed reads, each checked against the numpy
+    config 2's size: write, 3 timed reads, each checked against the numpy
     and xla-segmented engines and the oracle, and a staged read."""
     schema = pt.RowType.of(("k", pt.BIGINT(False)), ("a", pt.INT()), ("b", pt.INT()), ("g_1", pt.BIGINT()),
                            ("c", pt.INT()), ("d", pt.INT()), ("g_2", pt.BIGINT()))
@@ -2870,7 +2871,7 @@ def sequence_group_part(pt, hk, cat) -> dict:
     write_s = time.perf_counter() - t0
     write_launches = dict(hk.launches)
     del batches
-    out, samples = timed_reads(table, READ_REPEATS)
+    out, samples = timed_reads(table, BIG_READ_REPEATS)
     read_launches = {k: hk.launches[k] - write_launches[k] for k in hk.launches}
     check_sg_read(out, oracle, "sequence groups")
     for engine in ("numpy", "xla-segmented"):
@@ -5712,6 +5713,14 @@ def ns_agg_batches() -> list:
              "spend": rng.integers(0, 4000, NS_KEYS) / 4.0} for _ in range(NS_COMMITS)]
 
 
+def ns_dedup_options() -> dict:
+    """BENCH_OPTIONS (a copy: other phases share the dict) with ORC for the
+    level the full compaction writes, num-levels - 1."""
+    from paimon_tpu_torch.options import CoreOptions
+
+    return {**BENCH_OPTIONS, "file.format.per.level": f"{CoreOptions(BENCH_OPTIONS).num_levels - 1}:orc"}
+
+
 def ns_dedup_batches() -> list:
     """build_table's four runs and upsert, with tags and attrs from seed 22."""
     rng = np.random.default_rng(22)
@@ -5773,13 +5782,41 @@ def ns_stages(table, agg: bool) -> dict:
             "ms": {k: round(v, 3) for k, v in ms.items()}}
 
 
+def ns_mixed_reads(hk, table, upsert: dict, reference, rows: int) -> dict:
+    """The dedup table after its full compaction into ORC: the bench upsert
+    committed again (parquet, level 0), then read at the default tile (K2)
+    and at K1_TILE_ROWS (K1). Each read merges the ORC run with the parquet
+    run and must equal the numpy engine's read of the same table, which
+    equals `reference` (the same upsert again changes no row)."""
+    orc_bytes = sum(f.file_size for f in live_files(table) if f.file_name.endswith(".orc"))
+    write_s = ns_write(table, [upsert])
+    formats = sorted(f.file_name.rsplit(".", 1)[1] for f in live_files(table))
+    assert formats == ["orc", "parquet"], f"the mixed read's runs: {formats}"
+    numpy_out, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
+    same_rows(numpy_out, reference, "nested dedup, ORC + parquet runs by the numpy engine, against the first read")
+    reads = {}
+    for label, opts in (("pallas_default_tile", {}), (f"pallas_tile_{K1_TILE_ROWS}",
+                                                      {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        before = dict(hk.launches)
+        out, samples = timed_reads(table.copy(opts), 1)
+        same_rows(out, numpy_out, f"nested dedup, ORC + parquet runs, {label} against the numpy engine")
+        reads[label] = read_stats(samples, launch_diff(hk, before), rows, rows + len(upsert["id"]))
+    assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched in the mixed read"
+    assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched in the mixed read"
+    return {"orc_bytes": orc_bytes, "runs": formats, "upsert_write_s": round(write_s, 3),
+            "numpy_read_s": round(numpy_s[0], 4), "reads": reads, "equal_to_numpy_engine": True}
+
+
 def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
     """One nested table: written, read at both tiles, staged, compacted and
-    read again, every read against the numpy engine's."""
+    read again, every read against the numpy engine's. The dedup table's
+    full compaction writes ORC; its upsert is then committed again and the
+    ORC and parquet runs read merged (ns_mixed_reads)."""
     batches = ns_agg_batches() if agg else ns_dedup_batches()
-    options = NS_AGG_OPTIONS if agg else BENCH_OPTIONS
+    options = NS_AGG_OPTIONS if agg else ns_dedup_options()
     table = cat.create_table(f"nested.{name}", ns_schema(pt, agg), primary_keys=["id"], options=options)
     write_s = ns_write(table, batches)
+    upsert = None if agg else batches[-1]
     del batches
     rows, input_rows = (NS_KEYS, NS_KEYS * NS_COMMITS) if agg else (N_ROWS, N_ROWS + N_UPSERT)
     reference, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
@@ -5808,6 +5845,9 @@ def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
     same_rows(after, reference, f"nested {name} after the full compaction, against the numpy engine before it")
     same_rows(after, read_all(table.copy({"sort-engine": "numpy"})),
               f"nested {name} after the full compaction, against the numpy engine")
+    formats = sorted({f.file_name.rsplit(".", 1)[1] for f in live_files(table)})
+    assert formats == (["parquet"] if agg else ["orc"]), f"nested {name} compacted into {formats}"
+    mixed = None if agg else ns_mixed_reads(hk, table, upsert, reference, rows)
     return {"options": options, "rows_written": input_rows, "output_rows": rows,
             "commits": NS_COMMITS if agg else N_RUNS + 1, "write_s": round(write_s, 3),
             "bytes_on_disk": bytes_before, "null_values": nulls, "empty_values": empties,
@@ -5815,12 +5855,13 @@ def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
             "compact_s": round(compact_s, 3), "files_after_compaction": len(live_files(table)),
             "bytes_after_compaction": table_bytes(table)["data_bytes"],
             "read_after_compaction": read_stats(after_samples, rows=rows, input_rows=rows),
-            "equal_to_numpy_engine": True}
+            "format_after_compaction": formats[0], "orc_and_parquet_runs": mixed, "equal_to_numpy_engine": True}
 
 
 def nested_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
     """ARRAY, MAP and ROW columns and the nested aggregates: the aggregation
-    table and the dedup table, one line each. K1 (the flushes, the 131072
+    table and the dedup table, one line each; the dedup table compacts into
+    ORC and is read merged with a parquet run. K1 (the flushes, the 131072
     tile), K2 (the default tile, the compactions) and segment_sum (the
     spend sum) must launch; then K1 and K2 are held exactly to their plain
     versions at the phase's shapes no earlier check covered. Launch counts
@@ -5842,7 +5883,13 @@ def nested_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
     for k in K1_K2 + ("segment_sum",):
         assert launches[k] > 0, f"{k} never launched in the nested phase: {launches}"
     assert parts["aggregation"]["part_launches"]["segment_sum"] > 0, "the spend sum never launched segment_sum"
+    dedup = parts["dedup"]
+    mixed = dedup["orc_and_parquet_runs"]
+    orc = {"orc_bytes": mixed["orc_bytes"], "compact_s": dedup["compact_s"],
+           "mixed_read_s": {label: r["median_s"] for label, r in mixed["reads"].items()},
+           "mixed_read_launches": {label: r["launches"] for label, r in mixed["reads"].items()}}
     return {"launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
+            "dedup_orc": orc,
             "seconds_by_part": seconds, "stages_ms": {n: p["stages"]["ms"] for n, p in parts.items()},
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2036, checked)}
 

@@ -189,10 +189,10 @@ class KeyValueFileWriterFactory:
         for option, fmt in [("file.format", self.file_format)] + [
             ("file.format.per.level", f) for f in self.per_level_format.values()
         ]:
-            if nested and fmt != "parquet":
+            if nested and fmt == "avro":  # the JAX package's Avro files are flat only
                 raise NotImplementedError(
                     f"{option}={fmt}: column {nested[0]!r} is nested, and the torch port writes nested columns "
-                    f"in parquet only"
+                    f"in parquet and orc only"
                 )
         self.per_level_compression = dict(per_level_compression or {})
         lacking = {lv: c for lv, c in self.per_level_compression.items() if c.lower() not in WRITE_CODECS}

@@ -20,16 +20,31 @@ column's encoding. The reader:
   DECIMAL (precision 18 at most, unscaled at the file type's scale),
   DATE (days) and TIMESTAMP (micros; seconds count from 2015-01-01 in the
   writer's timezone, which must be GMT or UTC, nanos carry a trailing-zero
-  count in their low 3 bits).
+  count in their low 3 bits);
+- reads LIST, MAP and STRUCT columns (ARRAY, MAP and ROW fields) as
+  PRESENT, then a LIST's or MAP's LENGTH, then the children at the counts
+  those give: a child holds entries only where its parent is present, a
+  LIST's element and a MAP's key and value one per entry of the present
+  lists and maps, a STRUCT's fields one per present struct. Only these
+  counts and index arrays are built per column; the Python values are
+  built once per element, bottom up, as decode/nested.py builds them from
+  Parquet: an ARRAY is a list, a MAP a dict in the file's entry order, a
+  ROW a dict by field name in the type's field order (matched by name
+  against the file's STRUCT: a field the file lacks reads as None, one
+  the type lacks is not read). UNION raises NotImplementedError.
 
 The writer writes what pyarrow writes for the JAX package's
 `ColumnBatch.to_arrow` of the same batch, so that package reads the file
 back into the same batch: the ORC kind follows the column's numpy dtype
 (bool BOOLEAN, int8 BYTE, int16 SHORT, int32 INT, int64 LONG, float32
-FLOAT, float64 DOUBLE; strings STRING, bytes BINARY), integers and string
-lengths as RLE v2 (DIRECT_V2), a PRESENT stream only for a column with
+FLOAT, float64 DOUBLE; strings STRING, bytes BINARY), inside nested
+columns too (a DATE element is an INT), an ARRAY is a LIST, a MAP a MAP
+and a ROW a STRUCT with its field names, column ids in pre-order over the
+type tree; integers, string lengths and list and map lengths as RLE v2
+(DIRECT_V2; a STRUCT is DIRECT), a PRESENT stream only for a column with
 nulls, no row index (rowIndexStride 0), the writer timezone GMT, and the
-stripe and file statistics the JAX package's `read_tail` prunes by. One
+stripe and file statistics the JAX package's `read_tail` prunes by (a
+LIST, MAP or STRUCT column counts its present values and nulls only). One
 choice is the reference's (Java) writer's, not pyarrow's: a STRING column
 whose distinct values are at most 80% of its present ones
 (orc.dictionary.key.threshold's default) is written DICTIONARY_V2, a
@@ -46,20 +61,23 @@ ValueError, as pyarrow's writer does.
 from __future__ import annotations
 
 import ctypes
+import itertools
+import operator
 import time
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
 
 from ..data.batch import Column, ColumnBatch
 from ..data.keys import _pool_and_ranks
+from ..decode.nested import _objects, _row_maker, _runs
 from ..encode.kernels import byte_array_parts
 from ..metrics import registry
 from ..native import orc_library
 from ..ops.dicts import cache_usable, prune_pool
-from ..types import RowType, TypeRoot
+from ..types import NESTED_ROOTS, DataType, RowType, TypeRoot
 from ..utils.compression import lz4_compress, snappy_compress, zstd_compress
 from .avro import strings_from_offsets
 from .orc_meta import OrcTail, decompress_stream, fields_of, message, read_tail, zigzag_encode
@@ -72,6 +90,8 @@ ORC_MAGIC = b"ORC"
 K_BOOLEAN, K_BYTE, K_SHORT, K_INT, K_LONG, K_FLOAT, K_DOUBLE, K_STRING, K_BINARY, K_TIMESTAMP = range(10)
 K_LIST, K_MAP, K_STRUCT, K_UNION, K_DECIMAL, K_DATE, K_VARCHAR, K_CHAR, K_TIMESTAMP_INSTANT = range(10, 19)
 _INT_KINDS = (K_SHORT, K_INT, K_LONG, K_DATE)
+_COMPOUND_KINDS = (K_LIST, K_MAP, K_STRUCT, K_UNION)
+_NESTED_KINDS = {TypeRoot.ARRAY: K_LIST, TypeRoot.MAP: K_MAP, TypeRoot.ROW: K_STRUCT}
 _STRING_KINDS = (K_STRING, K_VARCHAR, K_CHAR, K_BINARY)
 # orc_proto.Stream.Kind
 S_PRESENT, S_DATA, S_LENGTH, S_DICTIONARY_DATA, S_DICTIONARY_COUNT, S_SECONDARY, S_ROW_INDEX = range(7)
@@ -91,6 +111,7 @@ _NUMPY_KINDS = {np.dtype(np.bool_): K_BOOLEAN, np.dtype(np.int8): K_BYTE, np.dty
                 np.dtype(np.int32): K_INT, np.dtype(np.int64): K_LONG, np.dtype(np.float32): K_FLOAT,
                 np.dtype(np.float64): K_DOUBLE}
 _POW10 = np.array([10**i for i in range(19)], dtype=np.int64)
+_OBJ = np.dtype(object)
 
 
 # ---------------------------------------------------------------------------
@@ -230,8 +251,8 @@ def _strings(lengths: np.ndarray, body, utf8: bool) -> np.ndarray:
     return strings_from_offsets(offsets, data, np.ones(len(lengths), dtype=np.bool_), utf8)
 
 
-def _decode_present(kind: int, otype, enc: tuple[int, int], streams: _Streams, count: int, zone: str):
-    """The values of the `count` present slots."""
+def _decode_present(kind: int, otype, enc: tuple[int, int], streams: _Streams, count: int, zone: str, name: str):
+    """The values of the `count` present slots of the flat column `name`."""
     version = 2 if enc[0] in (E_DIRECT_V2, E_DICTIONARY_V2) else 1
     if kind == K_BOOLEAN:
         return decode_bools(streams.get(S_DATA), count)
@@ -275,28 +296,94 @@ def _decode_present(kind: int, otype, enc: tuple[int, int], streams: _Streams, c
         nanos = (raw >> 3) * np.where(zeros > 0, _POW10[np.minimum(zeros + 1, 18)], 1)
         secs -= (secs < 0) & (nanos > 999_999)  # the writer moved these one second up
         return secs * 1_000_000 + nanos // 1000
-    raise NotImplementedError(f"ORC type kind {kind} is not supported by the torch port (nested types are not ported)")
+    raise NotImplementedError(f"ORC type kind {kind} of column {name!r} is not supported by the torch port")
 
 
-def _decode_column(data, tail: OrcTail, stripe: _Stripe, cid: int, target) -> Column:
+def _present_mask(streams: _Streams, count: int) -> np.ndarray | None:
+    raw = streams.get(S_PRESENT, required=False)
+    return None if raw is None else decode_bools(raw, count)
+
+
+def _nested_values(data, tail: OrcTail, stripe: _Stripe, cid: int, target: DataType, count: int,
+                   name: str) -> tuple[np.ndarray, np.ndarray | None]:
+    """(object vector of the `count` entries of column `cid`, None where
+    null; the present mask, or None when every entry is present), read as
+    `target`. A child's counts follow from its parent's PRESENT and LENGTH."""
     otype = tail.types[cid]
+    if otype.kind == K_UNION:
+        raise NotImplementedError(f"ORC type kind {K_UNION} (UNION) of column {name!r} is not supported by the "
+                                  "torch port")
+    expect = _NESTED_KINDS.get(target.root)
+    if (otype.kind if otype.kind in _COMPOUND_KINDS else None) != expect:
+        raise ValueError(f"ORC column {name!r} of kind {otype.kind} read into a {target} field")
+    if count == 0:
+        return np.empty(0, dtype=_OBJ), None
+    streams = _Streams(data, tail, stripe, cid)
+    enc = stripe.encodings[cid] if cid < len(stripe.encodings) else (E_DIRECT, 0)
+    valid = _present_mask(streams, count)
+    k = count if valid is None else int(valid.sum())
+    if k == 0:  # every entry null: the value streams may be absent
+        built = np.empty(0, dtype=_OBJ)
+    elif expect is None:
+        got = _decode_present(otype.kind, otype, enc, streams, k, stripe.timezone, name)
+        np_dtype = target.numpy_dtype()
+        if (got.dtype == _OBJ) != (np_dtype == _OBJ):
+            raise ValueError(f"ORC column {name!r} of kind {otype.kind} read into a {target} field")
+        built = got if got.dtype == _OBJ else _objects(got.astype(np_dtype, copy=False).tolist(), k)
+    elif expect == K_STRUCT:
+        by_name = dict(zip(otype.names, otype.subtypes))
+        columns = []
+        for f in target.fields:
+            sub = by_name.get(f.name)
+            if sub is None:
+                columns.append(itertools.repeat(None, k))
+            else:
+                columns.append(_nested_values(data, tail, stripe, sub, f.type, k, f"{name}.{f.name}")[0].tolist())
+        built = _objects(_row_maker(tuple(target.field_names))(*columns), k)
+    else:
+        version = 2 if enc[0] in (E_DIRECT_V2, E_DICTIONARY_V2) else 1
+        lengths = decode_ints(streams.get(S_LENGTH), k, version, False)
+        if lengths.min() < 0:
+            raise ValueError(f"ORC column {name!r}: a LENGTH past int64")
+        offsets = np.zeros(k + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        m = int(offsets[-1])
+        if expect == K_LIST:
+            elems = _nested_values(data, tail, stripe, otype.subtypes[0], target.element, m, f"{name}.element")[0]
+            built = _objects(_runs(elems.tolist(), offsets), k)
+        else:
+            key_id, value_id = otype.subtypes
+            keys = _nested_values(data, tail, stripe, key_id, target.key, m, f"{name}.key")[0]
+            vals = _nested_values(data, tail, stripe, value_id, target.value, m, f"{name}.value")[0]
+            built = _objects(map(dict, _runs(list(zip(keys.tolist(), vals.tolist())), offsets)), k)
+    if valid is None:
+        return built, None
+    out = np.full(count, None, dtype=_OBJ)
+    out[valid] = built
+    return out, valid
+
+
+def _decode_column(data, tail: OrcTail, stripe: _Stripe, cid: int, target, name: str) -> Column:
+    otype = tail.types[cid]
+    rows = stripe.rows
+    if otype.kind in _COMPOUND_KINDS or target.root in NESTED_ROOTS:
+        values, valid = _nested_values(data, tail, stripe, cid, target, rows, name)
+        return Column(values, valid)
     enc = stripe.encodings[cid] if cid < len(stripe.encodings) else (E_DIRECT, 0)
     streams = _Streams(data, tail, stripe, cid)
-    rows = stripe.rows
-    present_raw = streams.get(S_PRESENT, required=False)
-    valid = None if present_raw is None else decode_bools(present_raw, rows)
+    valid = _present_mask(streams, rows)
     count = rows if valid is None else int(valid.sum())
-    got = _decode_present(otype.kind, otype, enc, streams, count, stripe.timezone)
+    got = _decode_present(otype.kind, otype, enc, streams, count, stripe.timezone, name)
     np_dtype = target.numpy_dtype()
-    if np_dtype == np.dtype(object):
-        if got.dtype != np.dtype(object):
+    if np_dtype == _OBJ:
+        if got.dtype != _OBJ:
             raise ValueError(f"ORC column of kind {otype.kind} read into a {target.root.value} field")
         if valid is None:
             return Column(got)
         values = np.full(rows, None, dtype=object)
         values[valid] = got
         return Column(values, valid.copy())
-    if got.dtype == np.dtype(object):
+    if got.dtype == _OBJ:
         raise ValueError(f"ORC string column read into a {target.root.value} field")
     if valid is None:
         return Column(got.astype(np_dtype, copy=False))
@@ -328,22 +415,22 @@ def read_orc(data, schema: RowType, projection: Sequence[str] | None = None, pre
         if stripe.rows == 0:
             continue
         out.append(ColumnBatch(read_schema, {
-            n: _decode_column(data, tail, stripe, tail.field_columns[n], read_schema.field(n).type) for n in names}))
+            n: _decode_column(data, tail, stripe, tail.field_columns[n], read_schema.field(n).type, n) for n in names}))
     return out
 
 
 def decompress_column_streams(data, columns: Sequence[str]) -> int:
-    """Decompress every stream of `columns` in every stripe, as the reader
-    does, without decoding values; returns the bytes decompressed."""
+    """Decompress every stream of `columns` in every stripe (a nested
+    column's whole subtree), as the reader does, without decoding values;
+    returns the bytes decompressed."""
     tail = read_tail(data)
+    ids = {c for name in columns for c in tail.subtree(tail.field_columns[name])}
     total = 0
     for s in range(tail.nstripes):
         stripe = _stripe_footer(data, tail, s)
-        for name in columns:
-            cid = tail.field_columns[name]
-            for (col, kind), (off, length) in stripe.streams.items():
-                if col == cid and kind != S_ROW_INDEX:
-                    total += len(decompress_stream(data[off : off + length], tail.compression, tail.block_size))
+        for (col, kind), (off, length) in stripe.streams.items():
+            if col in ids and kind != S_ROW_INDEX:
+                total += len(decompress_stream(data[off : off + length], tail.compression, tail.block_size))
     return total
 
 
@@ -383,16 +470,51 @@ def _chunked(raw: bytes, compress) -> bytes:
     return bytes(out)
 
 
-def _kind_of(field, col: Column) -> int:
-    root = field.type.root
+def _kind_of(name: str, dtype: DataType) -> int:
+    root = dtype.root
+    if root in _NESTED_KINDS:
+        return _NESTED_KINDS[root]
     if root in (TypeRoot.BINARY, TypeRoot.VARBINARY):
         return K_BINARY
-    np_dtype = field.type.numpy_dtype()
-    if np_dtype == np.dtype(object):
+    np_dtype = dtype.numpy_dtype()
+    if np_dtype == _OBJ:
         if root not in (TypeRoot.CHAR, TypeRoot.VARCHAR):
-            raise NotImplementedError(f"type {root} has no ORC mapping in the torch port")
+            raise NotImplementedError(f"column {name!r}: type {root} has no ORC mapping in the torch port")
         return K_STRING
     return _NUMPY_KINDS[np_dtype]
+
+
+@dataclass
+class _Node:
+    """One column of the written type tree: its id, kind and type, and its
+    children (a LIST's element, a MAP's key and value, a STRUCT's fields)."""
+
+    cid: int
+    kind: int
+    dtype: DataType
+    children: list = field(default_factory=list)
+
+    def type_message(self) -> bytes:
+        if self.kind not in _COMPOUND_KINDS:
+            return message([(1, self.kind)])
+        names = [(3, f.name) for f in self.dtype.fields] if self.kind == K_STRUCT else []
+        return message([(1, self.kind), (2, [c.cid for c in self.children])] + names)
+
+
+def _type_tree(name: str, dtype: DataType, nodes: list) -> _Node:
+    """The node of one field, its subtree numbered in pre-order after the
+    ids already in `nodes` (the root struct is id 0), as ORC and pyarrow
+    number them; every node is appended to `nodes`."""
+    node = _Node(len(nodes) + 1, _kind_of(name, dtype), dtype)
+    nodes.append(node)
+    if node.kind == K_LIST:
+        node.children = [_type_tree(name, dtype.element, nodes)]
+    elif node.kind == K_MAP:
+        node.children = [_type_tree(name, dtype.key, nodes)]
+        node.children.append(_type_tree(name, dtype.value, nodes))
+    elif node.kind == K_STRUCT:
+        node.children = [_type_tree(f"{name}.{f.name}", f.type, nodes) for f in dtype.fields]
+    return node
 
 
 def _plain_strings(values: np.ndarray, binary: bool) -> np.ndarray:
@@ -458,9 +580,10 @@ class _Stats:
         self.count += other.count
 
     def encode(self) -> bytes:
-        """The ColumnStatistics message."""
+        """The ColumnStatistics message; a LIST, MAP or STRUCT column's
+        holds its count and hasNull only."""
         typed, kind = None, self.kind
-        if self.count:
+        if self.count and kind not in _COMPOUND_KINDS:
             if kind == K_BOOLEAN:
                 typed = (5, message([(1, [self.total])]))
             elif kind in (K_FLOAT, K_DOUBLE):
@@ -541,6 +664,58 @@ def _column_streams(kind: int, col: Column) -> tuple[list[tuple[int, bytes]], tu
     return streams, encoding, _Stats.of(kind, values, valid is not None, lengths)
 
 
+def _nested_streams(node: _Node, values: np.ndarray, out: list) -> None:
+    """Append (streams, encoding, statistics) of `node` and then of its
+    subtree, in pre-order, for the entries `values` (an object vector,
+    None = null). A child holds entries only where its parent is present:
+    a LIST's element and a MAP's key and value one per entry of the
+    present lists and maps, a STRUCT's fields one per present struct."""
+    n = len(values)
+    present = values != None  # noqa: E711 - elementwise
+    has_null = not present.all()
+    if node.kind not in _COMPOUND_KINDS:  # a leaf: a flat column of its present entries
+        np_dtype = node.dtype.numpy_dtype()
+        if np_dtype != _OBJ:
+            typed = np.zeros(n, dtype=np_dtype)
+            typed[present] = np.array(values[present].tolist(), dtype=np_dtype)
+            values = typed
+        out.append(_column_streams(node.kind, Column(values, present if has_null else None)))
+        return
+    live = values[present].tolist() if has_null else values.tolist()
+    k = len(live)
+    streams = [(S_PRESENT, encode_bools(present))] if has_null else []
+    stats = _Stats(node.kind, count=k, has_null=has_null)
+    if node.kind == K_STRUCT:
+        out.append((streams, (E_DIRECT, 0), stats))
+        for f, child in zip(node.dtype.fields, node.children):
+            _nested_streams(child, _objects(map(operator.methodcaller("get", f.name), live), k), out)
+        return
+    lengths = np.fromiter(map(len, live), dtype=np.int64, count=k)
+    streams.append((S_LENGTH, encode_ints(lengths, False)))
+    out.append((streams, (E_DIRECT_V2, 0), stats))
+    m = int(lengths.sum())
+    if node.kind == K_LIST:
+        _nested_streams(node.children[0], _objects(itertools.chain.from_iterable(live), m), out)
+        return
+    if not all(isinstance(x, dict) for x in live):
+        live = [dict(x) for x in live]
+    _nested_streams(node.children[0], _objects(itertools.chain.from_iterable(map(dict.keys, live)), m), out)
+    _nested_streams(node.children[1], _objects(itertools.chain.from_iterable(map(dict.values, live)), m), out)
+
+
+def _field_streams(node: _Node, col: Column) -> list:
+    """[(streams, encoding, statistics)] of one field's columns, in id order."""
+    if node.kind not in _COMPOUND_KINDS:
+        return [_column_streams(node.kind, col)]
+    values = col.values
+    if col.validity is not None:
+        values = values.copy()
+        values[~col.validity] = None
+    out = []
+    _nested_streams(node, values, out)
+    return out
+
+
 def _stripe_rows(batch: ColumnBatch, opts: dict) -> int:
     from ..options import MemorySize
 
@@ -560,18 +735,19 @@ def write_orc(batch: ColumnBatch, compression: str = "zstd", format_options: dic
     name, compress = _compressor(compression)
     opts = {k: v for k, v in (format_options or {}).items() if v is not None}
     fields = batch.schema.fields
-    kinds = [_kind_of(f, batch.column(f.name)) for f in fields]
+    nodes: list[_Node] = []
+    tops = [_type_tree(f.name, f.type, nodes) for f in fields]
     body = bytearray(ORC_MAGIC)
     stripes, stripe_stats = [], []
-    file_stats = [_Stats(k) for k in kinds]
+    file_stats = [_Stats(node.kind) for node in nodes]
     n = batch.num_rows
     per_stripe = _stripe_rows(batch, opts)
     for start in range(0, n, per_stripe):
         part = batch if per_stripe >= n else batch.slice(start, min(start + per_stripe, n))
         offset = len(body)
         stream_entries, col_stats, encodings = [], [message([(1, part.num_rows), (10, 0)])], []
-        for cid, (f, kind) in enumerate(zip(fields, kinds), start=1):
-            streams, encoding, stats = _column_streams(kind, part.column(f.name))
+        columns = [c for f, top in zip(fields, tops) for c in _field_streams(top, part.column(f.name))]
+        for cid, (streams, encoding, stats) in enumerate(columns, start=1):
             encodings.append(message([(1, encoding[0]), (2, encoding[1] or None)]))
             col_stats.append(stats.encode())
             file_stats[cid - 1].merge(stats)
@@ -588,8 +764,8 @@ def write_orc(batch: ColumnBatch, compression: str = "zstd", format_options: dic
         body += footer
         stripes.append(message([(1, offset), (2, 0), (3, data_length), (4, len(footer)), (5, part.num_rows)]))
         stripe_stats.append(message([(1, s) for s in col_stats]))
-    types = [message([(1, K_STRUCT), (2, list(range(1, len(fields) + 1)))] + [(3, f.name) for f in fields])]
-    types += [message([(1, k)]) for k in kinds]
+    types = [message([(1, K_STRUCT), (2, [top.cid for top in tops])] + [(3, f.name) for f in fields])]
+    types += [node.type_message() for node in nodes]
     metadata = _chunked(message([(1, s) for s in stripe_stats]), compress)
     footer = _chunked(message([(1, 3), (2, len(body) - 3)] + [(3, s) for s in stripes] + [(4, t) for t in types]
                               + [(6, n), (7, message([(1, n), (10, 0)]))] + [(7, s.encode()) for s in file_stats]

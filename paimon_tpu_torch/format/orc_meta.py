@@ -7,7 +7,10 @@ minimal wire-format reader below and written by its writer half. The
 shapes the pruning sees are the JAX module's: `OrcTail.stripe_stats`
 gives one FieldStats per top-level field, from the integer, double,
 string, boolean (true-count) and date statistics; other kinds give none,
-so the stripe is read.
+so the stripe is read. A LIST, MAP or STRUCT field gives its null count
+alone: a stripe is never pruned on a nested column. Column ids are
+pre-order over the type tree, so a field's id is its field index only
+while no nested field comes before it; `field_columns` maps the names.
 
 Compressed sections (footer, metadata, stripe footers and streams) are
 chunked: a 3-byte little-endian header (length << 1 | is_original), then
@@ -133,6 +136,7 @@ def message(items) -> bytes:
 _COMPRESSION = {0: "none", 1: "zlib", 2: "snappy", 3: "lzo", 4: "lz4", 5: "zstd"}
 
 _KIND_STRUCT = 12  # orc_proto.Type.Kind.STRUCT
+_COMPOUND_KINDS = (10, 11, 12, 13)  # LIST, MAP, STRUCT, UNION
 
 
 def decompress_stream(raw, kind: str, block_size: int | None = None) -> bytes:
@@ -254,6 +258,18 @@ class OrcTail:
     def nstripes(self) -> int:
         return len(self.stripe_rows)
 
+    def subtree(self, cid: int) -> list[int]:
+        """Column `cid` and every column under it, in pre-order."""
+        out, todo = [], [cid]
+        while todo:
+            c = todo.pop()
+            out.append(c)
+            subtypes = self.types[c].subtypes
+            if any(not c < s < len(self.types) for s in subtypes):
+                raise ValueError(f"ORC type {c} lists subtypes {list(subtypes)} outside the pre-order numbering")
+            todo.extend(reversed(subtypes))
+        return out
+
     def stripe_stats(self, stripe: int) -> dict[str, FieldStats]:
         """FieldStats per top-level field for one stripe — the same shape the
         scan layer feeds Predicate.test_stats, so file- and stripe-level
@@ -269,7 +285,9 @@ class OrcTail:
             cs = cols[cid]
             null_count = rows - cs.values if cs.values <= rows else (0 if not cs.has_null else None)
             mn, mx = cs.min, cs.max
-            if cs.true_count is not None:  # boolean column
+            if cid < len(self.types) and self.types[cid].kind in _COMPOUND_KINDS:
+                mn = mx = None  # nested values have no order to prune by
+            elif cs.true_count is not None:  # boolean column
                 mn = cs.true_count >= cs.values  # min True iff NO False rows
                 mx = cs.true_count > 0
             out[name] = FieldStats(mn, mx, null_count, rows)

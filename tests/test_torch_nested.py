@@ -30,9 +30,12 @@ statistics, nested keys, partitions and casts, and the leaf predicates
 other than IS NULL, each against the JAX package; a spilled append buffer
 with nested columns.
 
-Guards: a nested column under file.format=orc or avro, or a per-level
-format naming either, raises NotImplementedError naming the format and the
-column; a JAX-written ORC file with a LIST column raises as before.
+Guards: a nested column under file.format=avro, or a per-level format
+naming it, raises NotImplementedError naming the format and the column;
+under orc (or a per-level orc) it is written and read equal to the JAX
+package's read, and a JAX-written ORC file with a LIST column reads as the
+JAX package reads it (tests/test_torch_orc_nested.py holds nested ORC
+against the JAX package in full).
 
 Tolerance: exact. Values compare as Python objects, floats bit for bit
 (the test values are sums of eighths, exact in float32 and float64).
@@ -647,18 +650,39 @@ GUARDS = [("file.format", {"file.format": "orc"}), ("file.format", {"file.format
 
 @pytest.mark.parametrize("key, options", GUARDS, ids=[json.dumps(o) for _, o in GUARDS])
 def test_nested_columns_in_orc_or_avro_raise_naming_the_format(tmp_path, key, options):
+    """Avro: a nested column raises NotImplementedError naming the format
+    and the column. ORC: the port writes the nested column (num-levels 2,
+    so the full compaction writes level 1) and reads it equal to the JAX
+    package's read of the same table."""
     cat = PortCatalog(str(tmp_path), device="cpu")
-    table = cat.create_table("db.g", _row_type(tt, {"tags": SHAPES["tags"]}), primary_keys=["id"],
-                             options={"bucket": "1", **options})
     fmt = list(options.values())[0].split(":")[-1]
-    with pytest.raises(NotImplementedError, match=rf"{key.replace('.', '[.]')}={fmt}: column 'tags' is nested"):
-        _write(table, {"id": [1], "tags": [["a"]]})
+    levels = {"num-levels": "2"} if fmt == "orc" else {}
+    table = cat.create_table("db.g", _row_type(tt, {"tags": SHAPES["tags"]}), primary_keys=["id"],
+                             options={"bucket": "1", **levels, **options})
+    if fmt == "avro":
+        with pytest.raises(NotImplementedError, match=rf"{key.replace('.', '[.]')}={fmt}: column 'tags' is nested"):
+            _write(table, {"id": [1], "tags": [["a"]]})
+        return
+    data = _data({"tags": SHAPES["tags"]}, 30, seed=2)
+    _write(table, data)
+    wb = table.copy({"write-only": "false"}).new_batch_write_builder()
+    w = wb.new_write()
+    w.compact(full=True)
+    wb.new_commit().commit(w.prepare_commit())
+    assert [e.file.file_name.rsplit(".", 1)[1] for e in table.store.new_scan().plan().entries] == ["orc"]
+    want = canon([[i, v] for i, v in zip(data["id"].tolist(), data["tags"])])
+    assert _read(table) == want
+    assert _read(JaxCatalog(str(tmp_path)).get_table("db.g")) == want
 
 
 def test_a_jax_written_orc_list_column_raises_as_before(tmp_path):
+    """A JAX-written ORC file with a LIST column: the port reads it as the
+    JAX package does."""
     shapes = {"tags": SHAPES["tags"]}
     path = str(tmp_path / "f.orc")
-    jax_format("orc").write(JaxIO(), path, JaxBatch.from_pydict(_row_type(jt, shapes), _data(shapes, 10, seed=2)),
-                            "zstd", {})
-    with pytest.raises(NotImplementedError, match="nested types are not ported"):
-        read_orc(open(path, "rb").read(), _row_type(tt, shapes), ["id", "tags"])
+    data = _data(shapes, 10, seed=2)
+    jax_format("orc").write(JaxIO(), path, JaxBatch.from_pydict(_row_type(jt, shapes), data), "zstd", {})
+    with open(path, "rb") as f:
+        got = _columns(read_orc(f.read(), _row_type(tt, shapes), ["id", "tags"]), ["id", "tags"])
+    want = _columns(jax_format("orc").read(JaxIO(), path, _row_type(jt, shapes), ["id", "tags"]), ["id", "tags"])
+    assert got == want == {"id": data["id"].tolist(), "tags": canon(data["tags"])}
