@@ -64,7 +64,7 @@ Phases, one JSON line each on stdout:
 7. engines  - the partial-update, aggregation and first-row merge engines,
               one line per part. BASELINE config 2 at 10M rows (4 commits
               of 2.5M, partial-update, write-only, default codecs,
-              sort-engine=pallas): write seconds, 5 read samples with input
+              sort-engine=pallas): write seconds, 2 read samples with input
               rows/s, one read under the benchmark's predicate (a >= 100
               AND b < 500) held to the oracle, a staged read (decode, lane
               encode, merge, gather) and one read under torch.profiler;
@@ -101,7 +101,7 @@ Phases, one JSON line each on stdout:
               100,000 keys: 4 runs and the 100k upsert (write seconds with the
               assigner's host seconds apart, buckets per partition; the upsert
               must leave the hash index as it was and every row must sit in
-              the bucket whose index holds its key), 5 reads and a traced one,
+              the bucket whose index holds its key), 2 reads and a traced one,
               and one read filtered to the first partition (dt = its value),
               which must plan only that partition's splits and return its
               rows of the unfiltered read.
@@ -112,7 +112,7 @@ Phases, one JSON line each on stdout:
               id STRING NOT NULL: the seed-7 ids in TPC-DS's business-key
               form (16 characters over A-P, one per 4-bit digit, least
               significant first, as dsdgen writes c_customer_id), the same
-              runs, upsert and options; write seconds, 5 reads at each tier
+              runs, upsert and options; write seconds, 2 reads at each tier
               (the default tile, stock sort + K2; 131072, K1), each equal to
               a sort-engine=numpy read and to the generator's rows in
               business-key order, with the BIGINT table's rows/s of the main
@@ -170,7 +170,7 @@ Phases, one JSON line each on stdout:
               c summed) at config 2's size: 10M rows in 4 commits of 2.5M,
               two streams alternating, each filling one group, 5% of a
               stream's second commit with an older group sequence and 1%
-              with none; write seconds, 5 reads with input rows/s, each equal
+              with none; write seconds, 2 reads with input rows/s, each equal
               to the numpy and xla-segmented engines and the oracle, and a
               staged read with the group plans a stage of their own. K1 and
               K2 are then held exactly to their plain versions at every
@@ -180,7 +180,7 @@ Phases, one JSON line each on stdout:
               with seed 9 (an erasure by key), then DELETE WHERE c2 = 13
               (upserted keys whose older version has c2 = 13 must stay, with
               their newest values); seconds, rows deleted, vector positions,
-              containers and bytes. 5 reads at each tier and two filtered
+              containers and bytes. 2 reads at each tier and two filtered
               reads (id BETWEEN 400,000 AND 449,999; d1 > 250,000), each equal
               to the numpy engine and to an oracle kept from the ids written,
               upserted and deleted, with rows/s and splits and files pruned;
@@ -405,7 +405,31 @@ Phases, one JSON line each on stdout:
               column. K1, K2 and segment_sum must launch in the phase; then
               K1 and K2 are held exactly to their plain versions at the
               phase's shapes no earlier check covered.
-21. timing  - each kernel at its main-path shape against its plain version,
+21. resilience - the bench table (4 runs and the 100k upsert, bench.py's
+              options) in a fail-s3:// warehouse: the port's object store
+              (conditional PUT, copy + delete rename, flat namespace; no
+              atomic rename, so every commit holds the file-based catalog
+              lock) under FailingFileIO faults of seed 27 (each read, PUT
+              and conditional PUT fails with probability 1/20, at most 32
+              in all). Written (each commit seen holding the lock) and read
+              at the default tile (K2) and at 131072 (K1) under the faults,
+              each read equal to the numpy engine's and the generator;
+              faults injected and retried by fs.retry.max-attempts' default
+              of 3, none given up. Then, healed, the crash matrix: the
+              upsert committed again as streaming commit 1..5 with one of
+              commit:before-manifests, commit:manifests-written,
+              commit:snapshot-committed, flush:before-dispatch and
+              flush:files-written armed (it must fire), recovered by a
+              restarted writer through filter_and_commit (the commit lands
+              exactly once), read at the default tile against the numpy
+              engine and the generator, swept by remove_orphan_files
+              (older_than_millis=0; the store then holds exactly
+              reachable_files and the metadata; removals counted by
+              directory) and read again. Then a full compaction on the
+              store and a read at both tiles. K1 and K2 must launch; then
+              they are held exactly to their plain versions at the phase's
+              shapes no earlier check covered.
+22. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -420,7 +444,7 @@ Then a summary line (each phase's wall seconds, its launches of each kernel
 and the first rate it reports), one JSON line with every kernel's numbers
 (its launches summed over the main, compact, engines, buckets, strings,
 maintenance, cdc, deletes, history, writes, services, lookups, sql,
-dict_domain, buffers_formats and nested paths, and by path), the card line, and last
+dict_domain, buffers_formats, nested and resilience paths, and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -476,7 +500,11 @@ P_OPTIONS = {"sort-engine": "pallas", "dynamic-bucket.target-row-num": str(P_TAR
 # ids, so that every flush and read merges fewer than 2^18 rows (K1)
 SMALL_ROWS, SMALL_COMMITS = 20_000, 5
 READ_REPEATS = 5
-BIG_READ_REPEATS = 3  # timed reads of the 10M-row tables (config 2, the sequence groups)
+# the timed reads of the string-key bench table, the partitioned table and
+# the deletion-vector table, and of the 10M-row tables (config 2, the
+# sequence groups): cut from 5 (and 3) to make room for the resilience phase
+CUT_READ_REPEATS = 2
+BIG_READ_REPEATS = 2
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 << 20  # H100 SXM L2 cache
@@ -676,15 +704,19 @@ def build_schema(pt, id_type=None):
     )
 
 
-def build_table(pt, warehouse: str, name: str, extra_options: dict, values=table_values, id_type=None):
+def build_table(pt, warehouse: str, name: str, extra_options: dict, values=table_values, id_type=None,
+                arm=None):
     """bench.py's table (bench.py:54-96) with bench.py's options plus
     sort-engine=pallas and extra_options, and the upsert commit; `values`
-    makes the rows of given ids (and `id_type` types their key)."""
+    makes the rows of given ids (and `id_type` types their key). `arm()`
+    runs once the table exists, before the first write."""
     from paimon_tpu_torch.catalog import FileSystemCatalog
 
     cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
     table = cat.create_table(f"bench.{name}", build_schema(pt, id_type), primary_keys=["id"],
                              options={**BENCH_OPTIONS, **extra_options})
+    if arm is not None:
+        arm()
     rng = np.random.default_rng(7)
     ids = rng.permutation(N_ROWS).astype(np.int64)
     per = N_ROWS // N_RUNS
@@ -727,6 +759,21 @@ def read_stats(samples: list, launches: dict | None = None, rows: int = N_ROWS, 
     return out if launches is None else {**out, "launches": launches}
 
 
+_EXPECTED: dict = {}
+
+
+def expected_rows(up: np.ndarray) -> tuple:
+    """The generator's view of the table after the upsert `up`: (the
+    upserted ids sorted, their values, the other ids, theirs), made once
+    per upsert set (the string columns take a second to format)."""
+    key = (N_ROWS, up.tobytes())
+    if key not in _EXPECTED:
+        _EXPECTED.clear()
+        ups, old_ids = np.sort(up), np.setdiff1d(np.arange(N_ROWS), up)
+        _EXPECTED[key] = (ups, table_values(ups, upsert=True), old_ids, table_values(old_ids, upsert=False))
+    return _EXPECTED[key]
+
+
 def check_output(out, reference, up: np.ndarray, what: str) -> None:
     assert out.num_rows == N_ROWS, f"{what}: {out.num_rows} rows"
     for name in out.schema.field_names:
@@ -735,12 +782,10 @@ def check_output(out, reference, up: np.ndarray, what: str) -> None:
         assert np.array_equal(a.valid_mask(), b.valid_mask()), f"{what}: validity of {name} differs"
     ids = out.column("id").values
     assert np.array_equal(ids, np.arange(N_ROWS)), f"{what}: ids are not the sorted key range"
-    new = table_values(np.sort(up), upsert=True)
-    old_ids = np.setdiff1d(np.arange(N_ROWS), up)
-    old = table_values(old_ids, upsert=False)
+    ups, new, old_ids, old = expected_rows(up)
     for name in ("c1", "c2", "c3", "d1", "d2", "s1", "s2"):
         vals = out.column(name).values
-        assert np.array_equal(vals[np.sort(up)], new[name]), f"{what}: upserted {name} lost"
+        assert np.array_equal(vals[ups], new[name]), f"{what}: upserted {name} lost"
         assert np.array_equal(vals[old_ids], old[name]), f"{what}: untouched {name} changed"
 
 
@@ -1088,7 +1133,15 @@ def main() -> int:
         emit({"phase": "nested", "part": "summary", **nested, "exact_checks_all_phases": checks})
         lap("nested", nested)
 
-    # 21. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 21. resilience and storage: the bench table on a fault-injecting object store
+        checked = tuple(list(checked[i]) + [tuple(s) for s in nested["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        resilience = resilience_phase(pt, hk, warehouse, checked)
+        checks += resilience["shape_checks"]["exact_checks"]
+        emit({"phase": "resilience", "part": "summary", **resilience, "exact_checks_all_phases": checks})
+        lap("resilience", resilience)
+
+    # 22. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -1105,7 +1158,8 @@ def main() -> int:
                       "history": history["launches"][name], "writes": writes["launches"][name],
                       "services": services["launches"][name], "lookups": lookups["launches"][name],
                       "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name],
-                      "buffers_formats": buffers["launches"][name], "nested": nested["launches"][name]}
+                      "buffers_formats": buffers["launches"][name], "nested": nested["launches"][name],
+                      "resilience": resilience["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -2051,7 +2105,7 @@ def partitioned_part(pt, hk, cat) -> dict:
         batch = table.store.read_bucket(split.partition, split.bucket, split.files, projection=["dt", "id"])
         assert np.isin(key_hashes(batch, ["id"]), index[(split.partition, split.bucket)]).all(), (
             f"a row of {split.partition}/{split.bucket} whose key the bucket's hash index lacks")
-    out_read, samples = timed_reads(table, READ_REPEATS)
+    out_read, samples = timed_reads(table, CUT_READ_REPEATS)
     read_launches = launch_diff(hk, write_launches)
     check_partitioned_read(out_read, up, "partitioned")
     same_rows(out_read, read_all(table.copy({"sort-engine": "numpy"})), "partitioned, pallas against numpy")
@@ -2143,7 +2197,7 @@ def check_string_output(out, reference, up: np.ndarray, what: str) -> None:
 
 
 def string_bench_part(pt, hk, warehouse: str, bigint_reads: dict) -> dict:
-    """The bench table keyed by business keys (id STRING): write, 5 reads at
+    """The bench table keyed by business keys (id STRING): write, 2 reads at
     each tier, each checked; then a staged read per tier (the pool and ranks
     a stage of their own) and one traced read."""
     hk.reset_launches()
@@ -2154,7 +2208,7 @@ def string_bench_part(pt, hk, warehouse: str, bigint_reads: dict) -> dict:
     for label, tile in (("pallas_default_tile", None), (f"pallas_tile_{K1_TILE_ROWS}", K1_TILE_ROWS)):
         before = dict(hk.launches)
         out, samples = timed_reads(table if tile is None else table.copy({"merge.read-batch-rows": str(tile)}),
-                                   READ_REPEATS)
+                                   CUT_READ_REPEATS)
         check_string_output(out, reference, up, f"string key, {label}")
         reads[label] = read_stats(samples, launch_diff(hk, before))
     launches = dict(hk.launches)
@@ -3057,7 +3111,7 @@ def dv_bench_part(pt, hk, warehouse: str) -> dict:
     for label, opts in (("pallas_default_tile", {}),
                         (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
         b = dict(hk.launches)
-        out, samples = timed_reads(table.copy(opts), READ_REPEATS)
+        out, samples = timed_reads(table.copy(opts), CUT_READ_REPEATS)
         check_dv_rows(out, reference, alive, current, label)
         median = float(np.median(samples))
         reads[label] = {"samples_s": [round(x, 4) for x in samples], "median_s": round(median, 4),
@@ -5892,6 +5946,235 @@ def nested_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
             "dedup_orc": orc,
             "seconds_by_part": seconds, "stages_ms": {n: p["stages"]["ms"] for n, p in parts.items()},
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2036, checked)}
+
+
+# ---------------------------------------------------------------------------
+# resilience and storage: the bench table on a fault-injecting object store
+# ---------------------------------------------------------------------------
+
+RS_DOMAIN = "chip_smoke"
+# while the table is written and read, each read, PUT and conditional PUT of
+# the domain fails with probability 1/RS_POSSIBILITY (at most RS_MAX_FAILS
+# in all, drawn from RS_SEED): transient faults for fs.retry.max-attempts'
+# default of 3 to absorb
+RS_POSSIBILITY = 20
+RS_MAX_FAILS = 32
+RS_SEED = 27
+RS_POINTS = ("commit:before-manifests", "commit:manifests-written", "commit:snapshot-committed",
+             "flush:before-dispatch", "flush:files-written")
+IO_COUNTERS = ("retries", "giveups", "timeouts", "cleanup_failures", "orphans_removed")
+
+
+def io_counts() -> dict:
+    from paimon_tpu_torch.metrics import io_metrics
+
+    return {k: io_metrics().counter(k).count for k in IO_COUNTERS}
+
+
+def rs_local(path: str) -> str:
+    """The local path behind fail-s3://<domain>/abs/path."""
+    return "/" + path.split("://", 1)[1].partition("/")[2]
+
+
+def store_files(root: str) -> set:
+    return {os.path.join(d, f) for d, _, names in os.walk(root) for f in names}
+
+
+def rs_closure(table) -> set:
+    """What the store must hold after a sweep: reachable_files of the
+    table, and its metadata (schemas, snapshot files and hints)."""
+    from paimon_tpu_torch.resilience.orphan import reachable_files
+
+    live = reachable_files(table)
+    out = {f"{rs_local(r)}/manifest/{n}" for r, names in live["meta"].items() for n in names}
+    out |= {f"{rs_local(r)}/index/{n}" for r, names in live["index"].items() for n in names}
+    out |= {f"{rs_local(d)}/{f}" for d, f in live["data"]}
+    root = rs_local(table.path)
+    out |= {os.path.join(root, "schema", f) for f in os.listdir(os.path.join(root, "schema")) if f.startswith("schema-")}
+    out |= {os.path.join(root, "snapshot", f) for f in os.listdir(os.path.join(root, "snapshot"))
+            if f.startswith("snapshot-") or f in ("LATEST", "EARLIEST")}
+    return out
+
+
+def crash_case(hk, table, up: np.ndarray, ident: int, point: str) -> dict:
+    """The upsert committed again as streaming commit `ident` with `point`
+    armed: it must fire (CrashError, in-process); then a restarted writer
+    replays the committable through filter_and_commit (a crashed flush
+    made none, so the batch is written again). The crashed commit lands
+    exactly once. A read at the default tile, held to the numpy engine's
+    and to the generator, then remove_orphan_files(older_than_millis=0):
+    the store must hold exactly the reachable closure and the metadata;
+    then the read again."""
+    from paimon_tpu_torch.core.manifest import ManifestCommittable
+    from paimon_tpu_torch.resilience import faults
+    from paimon_tpu_torch.resilience.orphan import remove_orphan_files
+
+    sm = table.store.snapshot_manager
+    ids_before = [s.id for s in sm.snapshots()]
+    values = table_values(up, upsert=True)
+    before = dict(hk.launches)
+    t0 = time.perf_counter()
+    w = table.new_stream_write_builder().new_write()
+    msgs, fired = None, None
+    faults.arm_crash_point(point)
+    try:
+        w.write(values)
+        msgs = w.prepare_commit()
+        table.new_stream_write_builder().new_commit().commit_messages(ident, msgs)
+    except faults.CrashError as crash:
+        fired = crash.point
+    finally:
+        faults.disarm_crash_points()
+        w.close()
+    assert fired == point, f"{point} never fired"
+    landed_before = [s.id for s in sm.snapshots() if s.commit_identifier == ident]
+    assert len(landed_before) == (1 if point == "commit:snapshot-committed" else 0), f"{point}: landed {landed_before}"
+    if point.startswith("flush:"):
+        w = table.new_stream_write_builder().new_write()
+        w.write(values)
+        msgs = w.prepare_commit()
+        w.close()
+    replayed = table.new_stream_write_builder().new_commit().filter_and_commit([ManifestCommittable(ident, messages=msgs)])
+    assert replayed == (0 if landed_before else 1), f"{point}: {replayed} committables replayed"
+    ids_after = [s.id for s in sm.snapshots()]
+    landed = [s.id for s in sm.snapshots() if s.commit_identifier == ident]
+    assert ids_after == ids_before + [ids_before[-1] + 1] and landed == [ids_after[-1]], (
+        f"{point}: snapshots {ids_before} -> {ids_after}, commit {ident} in {landed}")
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = read_all(table)
+    read_s = time.perf_counter() - t0
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    check_output(out, reference, up, f"resilience, after {point}")
+    root = rs_local(table.path)
+    t0 = time.perf_counter()
+    removed = remove_orphan_files(table, older_than_millis=0)
+    sweep_s = time.perf_counter() - t0
+    files, closure = store_files(root), rs_closure(table)
+    assert files == closure, (f"{point}: after the sweep the store holds {sorted(files - closure)[:5]} beyond "
+                              f"the closure and lacks {sorted(closure - files)[:5]}")
+    by_dir = {}
+    for path in removed:
+        d = os.path.relpath(os.path.dirname(rs_local(path)), root)
+        by_dir[d] = by_dir.get(d, 0) + 1
+    check_output(read_all(table), reference, up, f"resilience, after {point} and the sweep")
+    return {"fired": True, "landed_before_replay": bool(landed_before), "committables_replayed": replayed,
+            "snapshot": ids_after[-1], "commit_s": round(commit_s, 4), "read_s": round(read_s, 4),
+            "sweep_s": round(sweep_s, 4), "orphans_removed": by_dir, "store_equals_closure": True,
+            "launches": launch_diff(hk, before)}
+
+
+def resilience_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
+    """The bench table (4 runs and the 100k upsert, bench.py's options) in a
+    fail-s3:// warehouse: object-store semantics (conditional PUT, no
+    atomic rename, so every commit under the file-based catalog lock) with
+    seeded transient faults under them. Written and read (default tile,
+    131072) under faults, each read held to the numpy engine's and the
+    generator; faults injected, retried and never given up. Then, healed,
+    the crash matrix on the upsert commit (one case per commit and flush
+    crash point, crash_case) and a full compaction on the store, read at
+    both tiles. K1 and K2 must launch; then they are held exactly to their
+    plain versions at the phase's shapes no earlier check covered. Launch
+    counts are zeroed before it."""
+    from paimon_tpu_torch.catalog.lock import FileBasedCatalogLock
+    from paimon_tpu_torch.fs.testing import FailingFileIO
+    from paimon_tpu_torch.options import CoreOptions
+    from paimon_tpu_torch.resilience import faults
+
+    root_dir = os.path.join(warehouse, "object_store")
+    os.makedirs(root_dir)
+    lock_path = os.path.join(root_dir, "bench.db", "t", ".catalog-lock")
+    io_start = io_counts()
+    FailingFileIO.reset(RS_DOMAIN, 0, 0)
+    hk.reset_launches()
+    seconds, launches, lock_held = {}, {}, []
+
+    def arm():
+        FailingFileIO.reset(RS_DOMAIN, RS_MAX_FAILS, RS_POSSIBILITY, RS_SEED)
+        faults.arm_crash_point("commit:manifests-written", count=0,
+                               action=lambda: lock_held.append(os.path.exists(lock_path)))
+
+    with ShapeRecorder(hk) as recorder:
+        # 1. the table written under faults
+        try:
+            table, up, write_s = build_table(pt, f"fail-s3://{RS_DOMAIN}{root_dir}", "t", {}, arm=arm)
+        finally:
+            faults.disarm_crash_points()
+        seconds["write"] = write_s
+        launches["write"] = dict(hk.launches)
+        assert isinstance(table.store.new_commit()._lock, FileBasedCatalogLock), "no file lock on the object store"
+        assert lock_held == [True] * (N_RUNS + 1), f"commits outside the lock: {lock_held}"
+        io_write = {k: v - io_start[k] for k, v in io_counts().items()}
+        fails_write = FailingFileIO.fails_injected(RS_DOMAIN)
+
+        # 2. read under faults at both tiers
+        t0 = time.perf_counter()
+        reference = read_all(table.copy({"sort-engine": "numpy"}))
+        reads = {}
+        for label, opts in (("pallas_default_tile", {}),
+                            (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+            before = dict(hk.launches)
+            out, samples = timed_reads(table.copy(opts), 1)
+            check_output(out, reference, up, f"resilience, {label} under faults")
+            reads[label] = {"s": round(samples[0], 4), "launches": launch_diff(hk, before)}
+        seconds["read"] = time.perf_counter() - t0
+        assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched on the store"
+        assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched on the store"
+        fails = FailingFileIO.fails_injected(RS_DOMAIN)
+        io_faulted = {k: v - io_start[k] for k, v in io_counts().items()}
+        assert fails > 0 and io_faulted["retries"] > 0, f"no fault injected or retried: {fails}, {io_faulted}"
+        assert io_faulted["giveups"] == 0 and io_faulted["timeouts"] == 0, f"an IO gave up: {io_faulted}"
+        # the sweeps read through the table's own FileIO, which does not retry
+        FailingFileIO.reset(RS_DOMAIN, 0, 0)
+
+        # 3. the crash matrix on the upsert commit
+        t0 = time.perf_counter()
+        cases = {point: crash_case(hk, table, up, ident, point) for ident, point in enumerate(RS_POINTS, start=1)}
+        seconds["crash_matrix"] = time.perf_counter() - t0
+
+        # 4. a full compaction on the store
+        before = dict(hk.launches)
+        t0 = time.perf_counter()
+        wb = table.copy({"write-only": "false"}).new_batch_write_builder()
+        w = wb.new_write()
+        w.compact(full=True)
+        wb.new_commit().commit(w.prepare_commit())
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        launches["compaction"] = launch_diff(hk, before)
+        files_after = len(table.store.new_scan().plan().entries)
+        reference = read_all(table.copy({"sort-engine": "numpy"}))
+        compacted_reads = {}
+        for label, opts in (("pallas_default_tile", {}),
+                            (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+            before = dict(hk.launches)
+            out, samples = timed_reads(table.copy(opts), 1)
+            check_output(out, reference, up, f"resilience, {label} after the full compaction")
+            compacted_reads[label] = {"s": round(samples[0], 4), "launches": launch_diff(hk, before)}
+        seconds["compaction_and_reads"] = time.perf_counter() - t0
+    phase_launches = dict(hk.launches)
+    for k in K1_K2:
+        assert phase_launches[k] > 0, f"{k} never launched in the resilience phase: {phase_launches}"
+    return {
+        "table": "bench.py's table (bench.py:54-96), its options, in a fail-s3:// warehouse (object-store "
+                 "semantics: conditional PUT, copy + delete rename; seeded transient faults under them)",
+        "options": BENCH_OPTIONS, "rows_written": N_ROWS + N_UPSERT, "commits": N_RUNS + 1,
+        "faults": {"possibility": f"1/{RS_POSSIBILITY}", "max_fails": RS_MAX_FAILS, "seed": RS_SEED,
+                   "injected_in_writes": fails_write, "injected": fails},
+        "fs_retry_max_attempts": table.options.options.get(CoreOptions.FS_RETRY_MAX_ATTEMPTS),
+        "io": {"writes": io_write, "writes_and_reads": io_faulted,
+               "phase": {k: v - io_start[k] for k, v in io_counts().items()}},
+        "lock": {"type": "FileBasedCatalogLock", "commits_holding_it": len(lock_held)},
+        "reads_under_faults": reads, "crash_cases": cases,
+        "orphans_removed": {p: c["orphans_removed"] for p, c in cases.items()},
+        "compaction": {"s": round(compact_s, 4), "files_after": files_after, "launches": launches["compaction"],
+                       "reads": compacted_reads},
+        "seconds": {k: round(v, 3) for k, v in seconds.items()},
+        "equal_to_numpy_engine": True, "equal_to_oracle": True,
+        "launches": phase_launches,
+        "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2037, checked),
+    }
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

@@ -13,6 +13,13 @@ Layout: warehouse/<db>.db/<table>/{schema,snapshot,manifest,bucket-N}, the
 JAX package's. The catalog's `device` ("cuda" by default) threads through
 every table it opens down to the merge kernels; without a CUDA device the
 default raises RuntimeError, and device="cpu" runs the plain versions.
+
+The warehouse's scheme picks the FileIO (fs `get_file_io`: a local path,
+s3://, oss://, s3-legacy://, or a fault-injecting scheme of fs/testing.py).
+Tables get that FileIO raw and wrap it by their own fs.retry.* options;
+the catalog's own metadata probes (listings, schema reads) go through
+`_meta_io`, the default retry budget, as in the JAX package
+(paimon_tpu/catalog/__init__.py:65-79).
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ from typing import Sequence
 import torch
 
 from ..core.schema import SchemaManager, TableSchema
-from ..fs import LocalFileIO
+from ..fs import FileIO, get_file_io
+from ..options import CoreOptions
+from ..resilience.fileio import wrap_file_io
 from ..table import FileStoreTable
 from ..types import RowType
 from ..utils import resolve_device
@@ -54,8 +63,11 @@ class FileSystemCatalog:
     def __init__(self, warehouse: str, commit_user: str = "anonymous", device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         self.warehouse = warehouse.rstrip("/")
-        self.file_io = LocalFileIO()
+        self.file_io: FileIO = get_file_io(self.warehouse)
         self.commit_user = commit_user
+        # probes run before any table's store exists to give its retry
+        # budget: they take the default one
+        self._meta_io: FileIO = wrap_file_io(self.file_io, CoreOptions())
 
     def _db_path(self, name: str) -> str:
         return f"{self.warehouse}/{name}{self.DB_SUFFIX}"
@@ -63,7 +75,7 @@ class FileSystemCatalog:
     def list_databases(self) -> list[str]:
         return sorted(
             st.path.rsplit("/", 1)[-1][: -len(self.DB_SUFFIX)]
-            for st in self.file_io.list_status(self.warehouse)
+            for st in self._meta_io.list_status(self.warehouse)
             if st.is_dir and st.path.endswith(self.DB_SUFFIX)
         )
 
@@ -84,11 +96,11 @@ class FileSystemCatalog:
         invalidate_table_path(self._db_path(name))
 
     def list_tables(self, database: str) -> list[str]:
-        return sorted(
-            st.path.rsplit("/", 1)[-1]
-            for st in self.file_io.list_status(self._db_path(database))
-            if st.is_dir and self.file_io.exists(f"{st.path}/schema")
-        )
+        # the path is rebuilt from the directory and the base name: a
+        # wrapper's FileStatus may carry its inner path
+        db = self._db_path(database)
+        names = (st.path.rsplit("/", 1)[-1] for st in self._meta_io.list_status(db) if st.is_dir)
+        return sorted(n for n in names if self._meta_io.exists(f"{db}/{n}/schema"))
 
     def drop_table(self, identifier: "Identifier | str") -> None:
         self.file_io.delete(self.table_path(identifier), recursive=True)
@@ -135,7 +147,7 @@ class FileSystemCatalog:
             base, _, sys_name = ident.table.partition(self.SYSTEM_SEP)
             return system_table(self.get_table(Identifier(ident.database, base)), sys_name)
         path = self.table_path(identifier)
-        schema = SchemaManager(self.file_io, path).latest()
+        schema = SchemaManager(self._meta_io, path).latest()
         if schema is None:
             raise FileNotFoundError(f"table {identifier} does not exist")
         return FileStoreTable(self.file_io, path, schema, self.commit_user, self.device)

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..utils import new_file_name
 from ..utils.compression import zstd_compress, zstd_decompress
 from .deletionvectors import IndexFileEntry
@@ -27,7 +27,7 @@ class HashIndexFile:
     """One file per (partition, bucket): a zstd frame of the sorted uint64
     key hashes living in that bucket."""
 
-    def __init__(self, file_io: LocalFileIO, table_path: str):
+    def __init__(self, file_io: FileIO, table_path: str):
         self.file_io = file_io
         self.index_dir = f"{table_path}/index"
 

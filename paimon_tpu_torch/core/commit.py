@@ -28,15 +28,30 @@ manifest.full-compaction-threshold-size. Changelog files become ADD
 entries of a snapshot's changelog manifest list: the flushes' (input and
 lookup producers) on the APPEND snapshot, which is then made even when a
 commit holds only changelog, and the compactions' on the COMPACT one.
+
+Resilience, as in the JAX package (core/commit.py:55-99, :320-606): a store
+whose rename is not atomic, or commit.catalog-lock.enabled, runs every
+round under the catalog lock (catalog/lock.py); the three commit:* crash
+points sit at the protocol's steps; a lost CAS first asks whether the
+landed snapshot is this commit's own (a retried write whose first attempt
+landed) and adopts it; a round that raised cleans its manifests and their
+torn temp siblings, a lost round its manifests, never fatally; a simulated
+crash (CrashError, a BaseException) cleans nothing, as a killed process
+would not; lost rounds back off with jitter outside the lock.
 """
 
 from __future__ import annotations
 
+import random
+import time
+from contextlib import nullcontext
 from dataclasses import replace
 from typing import Callable, Sequence
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
+from ..metrics import io_metrics, registry
 from ..options import CoreOptions
+from ..resilience.faults import crash_point
 from ..utils import now_millis
 from .deletionvectors import DeletionVectorsIndexFile, IndexFileEntry
 from .indexmanifest import read_index_manifest, write_index_manifest
@@ -71,18 +86,19 @@ class CommitGiveUpError(RuntimeError):
 class FileStoreCommit:
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         table_path: str,
         commit_user: str,
         schema_id: int,
-        options: CoreOptions,
+        options: CoreOptions | None = None,
         cache=None,
     ):
         self.file_io = file_io
         self.table_path = table_path
         self.commit_user = commit_user
         self.schema_id = schema_id
-        self.options = options
+        self.options = options = options or CoreOptions()
+        self._lock = self._catalog_lock()
         fmt = options.options.get(CoreOptions.MANIFEST_FORMAT)
         # every commit re-reads the latest snapshot's manifests: through the
         # manifest cache (utils/cache.py)
@@ -92,6 +108,39 @@ class FileStoreCommit:
         )
         self.manifest_list = ManifestList(
             file_io, f"{table_path}/manifest", options.manifest_compression, fmt, cache=cache
+        )
+
+    def _catalog_lock(self):
+        """The lock every commit round runs under, or None: engaged by
+        commit.catalog-lock.enabled or a store without atomic write. 'file'
+        needs exclusive create; 'jdbc' is not ported."""
+        opts = self.options.options
+        if not opts.get(CoreOptions.COMMIT_CATALOG_LOCK) and getattr(self.file_io, "atomic_write_supported", True):
+            return None
+        lock_type = opts.get(CoreOptions.COMMIT_CATALOG_LOCK_TYPE)
+        if lock_type == "jdbc":
+            raise NotImplementedError(
+                "commit.catalog-lock.type=jdbc needs catalog/jdbc.py, which the torch port does not have yet "
+                "(ROADMAP Queue 1 item 15 (c))"
+            )
+        if lock_type != "file":
+            raise ValueError(f"unknown commit.catalog-lock.type: {lock_type!r} (expected 'file' or 'jdbc')")
+        if not getattr(self.file_io, "exclusive_create_supported", True):
+            # a lock file on a store without exclusive create is
+            # check-then-put: two holders would both win
+            raise ValueError(
+                "this store has no exclusive create (no conditional PUT); "
+                "the file-based catalog lock cannot provide mutual exclusion — "
+                "configure commit.catalog-lock.type=jdbc with "
+                "commit.catalog-lock.jdbc-path"
+            )
+        from ..catalog.lock import FileBasedCatalogLock
+
+        return FileBasedCatalogLock(
+            self.file_io,
+            self.table_path,
+            timeout=opts.get(CoreOptions.COMMIT_CATALOG_LOCK_TIMEOUT),
+            stale_ttl=opts.get(CoreOptions.COMMIT_CATALOG_LOCK_STALE_TTL),
         )
 
     def filter_committed(self, committables: Sequence[ManifestCommittable]) -> list[ManifestCommittable]:
@@ -283,77 +332,201 @@ class FileStoreCommit:
         if kind == CommitKind.COMPACT:
             added_names = {e.file.file_name for e in entries if e.kind == FileKind.ADD}
             removed = [e for e in entries if e.kind == FileKind.DELETE and e.file.file_name not in added_names]
-        max_retries = self.options.options.get(CoreOptions.COMMIT_MAX_RETRIES)
+        opts = self.options.options
+        max_retries = opts.get(CoreOptions.COMMIT_MAX_RETRIES)
+        backoff_base = float(opts.get(CoreOptions.COMMIT_RETRY_BACKOFF))
+        g = registry.group("commit")
+        prev_backoff: float | None = None
         retries = 0
+        t_start = time.perf_counter()
         while True:
-            latest = self.snapshot_manager.latest_snapshot()
-            if check_conflicts and latest is not None:
-                conflicted = self._conflicted_buckets(latest, entries)
-                if conflicted == {(e.partition, e.bucket) for e in entries}:
-                    raise CommitConflictError(
-                        f"files of bucket(s) {sorted(conflicted)} were removed by a concurrent commit; "
-                        f"giving up this {kind.value} commit"
+            with self._lock.lock() if self._lock is not None else nullcontext():
+                latest = self.snapshot_manager.latest_snapshot()
+                if check_conflicts and latest is not None:
+                    conflicted = self._conflicted_buckets(latest, entries)
+                    if conflicted:
+                        g.counter("conflicts").inc()
+                        if conflicted == {(e.partition, e.bucket) for e in entries}:
+                            raise CommitConflictError(
+                                f"files of bucket(s) {sorted(conflicted)} were removed by a concurrent commit; "
+                                f"giving up this {kind.value} commit"
+                            )
+                        # the buckets that lost their inputs are abandoned
+                        # (their rewritten files become orphans); the others
+                        # commit
+                        g.counter("buckets_abandoned").inc(len(conflicted))
+                        entries = [e for e in entries if (e.partition, e.bucket) not in conflicted]
+                        index_entries = [e for e in index_entries if (e.partition, e.bucket) not in conflicted]
+                        removed = [e for e in removed if (e.partition, e.bucket) not in conflicted]
+                        changelog = [e for e in changelog if (e.partition, e.bucket) not in conflicted]
+                crash_point("commit:before-manifests")
+                tmp_files: list[str] = []
+                try:
+                    snapshot_id = latest.id + 1 if latest else 1
+                    base_metas = (
+                        self.manifest_list.read(latest.base_manifest_list)
+                        + self.manifest_list.read(latest.delta_manifest_list)
+                        if latest
+                        else []
                     )
-                # the buckets that lost their inputs are abandoned (their
-                # rewritten files become orphans); the others commit
-                entries = [e for e in entries if (e.partition, e.bucket) not in conflicted]
-                index_entries = [e for e in index_entries if (e.partition, e.bucket) not in conflicted]
-                removed = [e for e in removed if (e.partition, e.bucket) not in conflicted]
-                changelog = [e for e in changelog if (e.partition, e.bucket) not in conflicted]
-            tmp_files: list[str] = []
+                    base_metas = self._maybe_merge_manifests(base_metas, tmp_files)
+                    delta_meta = self.manifest_file.write(entries, self.schema_id, track=tmp_files)
+                    base_name = self.manifest_list.write(base_metas, track=tmp_files)
+                    delta_name = self.manifest_list.write([delta_meta], track=tmp_files)
+                    changelog_list = changelog_rows = None
+                    if changelog:
+                        changelog_meta = self.manifest_file.write(changelog, self.schema_id, track=tmp_files)
+                        changelog_list = self.manifest_list.write([changelog_meta], track=tmp_files)
+                        changelog_rows = sum(e.file.row_count for e in changelog)
+                    index_manifest = self._index_manifest(latest, index_entries, removed)
+                    if index_manifest and index_manifest != (latest.index_manifest if latest else None):
+                        tmp_files.append(index_manifest)
+                    added = sum(e.file.row_count for e in entries if e.kind == FileKind.ADD)
+                    deleted = sum(e.file.row_count for e in entries if e.kind == FileKind.DELETE)
+                    prev_total = (latest.total_record_count or 0) if latest else 0
+                    snapshot = Snapshot(
+                        id=snapshot_id,
+                        schema_id=self.schema_id,
+                        base_manifest_list=base_name,
+                        delta_manifest_list=delta_name,
+                        changelog_manifest_list=changelog_list,
+                        commit_user=self.commit_user,
+                        commit_identifier=committable.commit_identifier,
+                        commit_kind=kind,
+                        time_millis=now_millis(),
+                        index_manifest=index_manifest,
+                        total_record_count=prev_total + added - deleted,
+                        delta_record_count=added - deleted,
+                        changelog_record_count=changelog_rows,
+                        watermark=committable.watermark,
+                        log_offsets=dict(committable.log_offsets),
+                        statistics=statistics,
+                    )
+                    crash_point("commit:manifests-written")
+                    path = self.snapshot_manager.snapshot_path(snapshot_id)
+                    if self.file_io.try_atomic_write(path, snapshot.to_json().encode()):
+                        g.counter("commits").inc()
+                        g.counter("retries").inc(retries)
+                        g.histogram("duration_ms").update((time.perf_counter() - t_start) * 1000)
+                        # the snapshot references this round's manifests now
+                        tmp_files.clear()
+                        crash_point("commit:snapshot-committed")
+                        try:
+                            self.snapshot_manager.commit_latest_hint(snapshot_id)
+                            if snapshot_id == 1:
+                                self.snapshot_manager.commit_earliest_hint(1)
+                        except Exception:  # noqa: BLE001 - hints are best effort; listing is authoritative
+                            pass
+                        return snapshot_id
+                    # lost the CAS: first, did this commit land already (a
+                    # retried write whose first attempt landed)? Adopting it
+                    # keeps it from being applied twice
+                    own = self._find_own_commit(snapshot_id, committable, kind, delta_name)
+                    if own is not None:
+                        self._cleanup_after_adopt(own, tmp_files)
+                        return own
+                    self._cleanup(tmp_files)
+                    retries += 1
+                    if retries > max_retries:
+                        raise CommitGiveUpError(
+                            f"commit lost the snapshot race {retries} times "
+                            f"(commit.max-retries={max_retries}); giving up"
+                        )
+                except Exception:
+                    # a write may have died half-way: the one path where
+                    # torn temp siblings can exist
+                    self._cleanup(tmp_files, sweep_torn=True)
+                    raise
+                # a CrashError (BaseException) passes the cleanup on purpose:
+                # a killed process cleans nothing; remove_orphan_files does
+            # jittered backoff outside the lock, so racing committers progress
+            if backoff_base > 0:
+                hi = min(backoff_base * 100.0, max(backoff_base, (prev_backoff or backoff_base) * 3.0))
+                prev_backoff = random.uniform(backoff_base, hi)
+                time.sleep(prev_backoff / 1000.0)
+
+    def _find_own_commit(
+        self, from_id: int, committable: ManifestCommittable, kind: CommitKind, delta_name: str
+    ) -> int | None:
+        """After a lost CAS at `from_id`: the id of a landed snapshot that is
+        this commit's own, or None. Content proof: the snapshot at
+        `from_id` names this round's uuid-named delta manifest list, which
+        only this commit's own write can have published (batch commits
+        too, whose identifier proves nothing). Identity proof: a snapshot
+        with this (user, identifier, kind), a replay racing its own earlier
+        attempt; the batch sentinels are excluded."""
+        if self.snapshot_manager.snapshot_exists(from_id):
             try:
-                snapshot_id = latest.id + 1 if latest else 1
-                base_metas = (
-                    self.manifest_list.read(latest.base_manifest_list) + self.manifest_list.read(latest.delta_manifest_list)
-                    if latest
-                    else []
-                )
-                base_metas = self._maybe_merge_manifests(base_metas, tmp_files)
-                delta_meta = self.manifest_file.write(entries, self.schema_id, track=tmp_files)
-                base_name = self.manifest_list.write(base_metas, track=tmp_files)
-                delta_name = self.manifest_list.write([delta_meta], track=tmp_files)
-                changelog_list = changelog_rows = None
-                if changelog:
-                    changelog_meta = self.manifest_file.write(changelog, self.schema_id, track=tmp_files)
-                    changelog_list = self.manifest_list.write([changelog_meta], track=tmp_files)
-                    changelog_rows = sum(e.file.row_count for e in changelog)
-                index_manifest = self._index_manifest(latest, index_entries, removed)
-                if index_manifest and index_manifest != (latest.index_manifest if latest else None):
-                    tmp_files.append(index_manifest)
-                added = sum(e.file.row_count for e in entries if e.kind == FileKind.ADD)
-                deleted = sum(e.file.row_count for e in entries if e.kind == FileKind.DELETE)
-                prev_total = (latest.total_record_count or 0) if latest else 0
-                snapshot = Snapshot(
-                    id=snapshot_id,
-                    schema_id=self.schema_id,
-                    base_manifest_list=base_name,
-                    delta_manifest_list=delta_name,
-                    changelog_manifest_list=changelog_list,
-                    commit_user=self.commit_user,
-                    commit_identifier=committable.commit_identifier,
-                    commit_kind=kind,
-                    time_millis=now_millis(),
-                    index_manifest=index_manifest,
-                    total_record_count=prev_total + added - deleted,
-                    delta_record_count=added - deleted,
-                    changelog_record_count=changelog_rows,
-                    watermark=committable.watermark,
-                    log_offsets=dict(committable.log_offsets),
-                    statistics=statistics,
-                )
-                if self.file_io.try_atomic_write(self.snapshot_manager.snapshot_path(snapshot_id), snapshot.to_json().encode()):
-                    tmp_files.clear()
-                    self.snapshot_manager.commit_latest_hint(snapshot_id)
-                    if snapshot_id == 1:
-                        self.snapshot_manager.commit_earliest_hint(1)
-                    return snapshot_id
-            finally:
-                # lost the CAS (or failed mid-round): this round's manifests
-                # are referenced by no snapshot
-                for name in tmp_files:
-                    self.manifest_file.delete(name)
-            retries += 1
-            if retries > max_retries:
-                raise CommitGiveUpError(
-                    f"commit lost the snapshot race {retries} times (commit.max-retries={max_retries}); giving up"
-                )
+                snap = self.snapshot_manager.snapshot(from_id)
+            except Exception:  # noqa: BLE001 - a racing expiry: fall through to identity
+                snap = None
+            if snap is not None and snap.delta_manifest_list == delta_name:
+                return from_id
+        ident = committable.commit_identifier
+        if ident >= BATCH_COMMIT_IDENTIFIER - 16:
+            return None
+        latest_id = self.snapshot_manager.latest_snapshot_id()
+        if latest_id is None:
+            return None
+        for sid in range(from_id, latest_id + 1):
+            if not self.snapshot_manager.snapshot_exists(sid):
+                continue
+            snap = self.snapshot_manager.snapshot(sid)
+            if snap.commit_user == self.commit_user and snap.commit_identifier == ident and snap.commit_kind == kind:
+                return sid
+        return None
+
+    def _cleanup_after_adopt(self, own_id: int, tmp_files: list[str]) -> None:
+        """After adopting a landed snapshot: where it is this round's own
+        bytes, every manifest it references is live and stays; a rival
+        replay wrote copies of its own, so this round's go. If the adopted
+        snapshot cannot be read, nothing is deleted (the orphan sweep
+        reclaims what is truly orphaned; a wrong delete here is for good)."""
+        try:
+            snap = self.snapshot_manager.snapshot(own_id)
+            lists = (snap.base_manifest_list, snap.delta_manifest_list, snap.changelog_manifest_list)
+            live = {n for n in (*lists, snap.index_manifest) if n}
+            for lst in lists:
+                if lst:
+                    live.update(m.file_name for m in self.manifest_list.read(lst))
+        except Exception:  # noqa: BLE001 - leak rather than delete
+            tmp_files.clear()
+            return
+        tmp_files[:] = [n for n in tmp_files if n not in live]
+        self._cleanup(tmp_files)
+
+    def _cleanup(self, names: list[str], sweep_torn: bool = False) -> None:
+        """Best-effort removal of this round's metadata after an abort or a
+        lost CAS: the tracked names and, only with `sweep_torn`, their torn
+        `.<name>.<hex>.tmp` siblings (a lost round completed every write and
+        skips the directory listing). Failures are never fatal (the first
+        error must win; leftovers are orphans for remove_orphan_files) and
+        count in io{cleanup_failures}, except a manifest directory that
+        does not exist yet."""
+        if not names:
+            return
+        g = io_metrics()
+        mdir = f"{self.table_path}/manifest"
+        siblings: dict[str, list[str]] = {}
+        if sweep_torn:
+            try:
+                for st in self.file_io.list_files(mdir):
+                    base = st.path.rsplit("/", 1)[-1]
+                    if base.startswith(".") and base.endswith(".tmp"):
+                        # only this round's names: a concurrent committer's
+                        # temp file must live. The path is rebuilt from mdir:
+                        # wrappers list their inner paths
+                        siblings.setdefault(base[1:].rsplit(".", 2)[0], []).append(f"{mdir}/{base}")
+            except FileNotFoundError:
+                pass
+            except Exception:  # noqa: BLE001 - counted, never fatal
+                g.counter("cleanup_failures").inc()
+        for name in names:
+            for target in (f"{mdir}/{name}", *siblings.get(name, ())):
+                try:
+                    self.file_io.delete(target)
+                    if self.manifest_file.cache is not None:
+                        self.manifest_file.cache.invalidate_file(target)
+                except Exception:  # noqa: BLE001 - counted, never fatal
+                    g.counter("cleanup_failures").inc()
+        names.clear()

@@ -51,7 +51,7 @@ from ..format import FieldStats, collect_stats, stats_from_json, stats_to_json
 from ..format.avro import read_avro, write_avro
 from ..format.orc import read_orc, write_orc
 from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..types import NESTED_ROOTS, DataField, RowKind, RowType
 from ..utils import new_file_name, now_millis
 from .kv import SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME, KVBatch, kv_disk_schema
@@ -157,7 +157,7 @@ class KeyValueFileWriterFactory:
 
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         bucket_dir: str,
         value_schema: RowType,
         key_names: Sequence[str],
@@ -326,7 +326,7 @@ class KeyValueFileReaderFactory:
 
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         bucket_dir: str,
         read_schema: RowType,
         schemas_by_id: dict[int, RowType],

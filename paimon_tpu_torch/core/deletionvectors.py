@@ -26,7 +26,7 @@ from typing import Mapping
 
 import numpy as np
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..utils import new_file_name
 from ..utils.compression import zstd_compress, zstd_decompress
 
@@ -95,7 +95,7 @@ class IndexFileEntry:
 class DeletionVectorsIndexFile:
     """Reads and writes the packed containers in the table's index/ dir."""
 
-    def __init__(self, file_io: LocalFileIO, table_path: str, target_size: int = 2 << 20):
+    def __init__(self, file_io: FileIO, table_path: str, target_size: int = 2 << 20):
         self.file_io = file_io
         self.index_dir = f"{table_path}/index"
         self.target_size = max(1, target_size)

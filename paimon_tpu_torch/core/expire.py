@@ -16,7 +16,8 @@ from __future__ import annotations
 
 from typing import Callable, Iterable
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
+from ..metrics import io_metrics
 from ..options import CoreOptions
 from ..utils import now_millis, partition_path
 from ..utils.cache import invalidate_data_file, invalidate_manifest_path, invalidate_snapshot, table_caches
@@ -29,7 +30,7 @@ __all__ = ["SnapshotExpire"]
 class SnapshotExpire:
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         table_path: str,
         options: CoreOptions,
         protected_ids: Callable[[], Iterable[int]] | None = None,
@@ -52,12 +53,15 @@ class SnapshotExpire:
 
     def _safe_delete(self, path: str) -> bool:
         """Deletion is best effort per file: one failed delete must not stop
-        the run half-way. It is counted in cleanup_failures."""
+        the run half-way. The file it leaves is unreachable, for
+        remove_orphan_files to reclaim; it is counted in cleanup_failures
+        and in io{cleanup_failures}, as in the JAX package."""
         try:
             self.file_io.delete(path)
             return True
-        except OSError:
+        except Exception:  # noqa: BLE001 - counted, never fatal
             self.cleanup_failures += 1
+            io_metrics().counter("cleanup_failures").inc()
             return False
 
     def _changelog_decoupled(self) -> bool:

@@ -18,7 +18,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Iterable, Sequence
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..interop.manifest_codec import (
     StatsContext,
     read_entries_avro,
@@ -101,7 +101,7 @@ class ManifestFileMeta:
 
 class _JsonLines:
     def __init__(
-        self, file_io: LocalFileIO, directory: str, compression: str = "default", fmt: str = "jsonl", cache=None
+        self, file_io: FileIO, directory: str, compression: str = "default", fmt: str = "jsonl", cache=None
     ):
         self.file_io = file_io
         self.directory = directory

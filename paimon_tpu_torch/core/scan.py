@@ -27,7 +27,7 @@ from typing import Callable
 
 from ..data.casting import stats_comparable
 from ..data.predicate import Predicate
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..options import CoreOptions
 from ..types import RowType
 from .datafile import DataFileMeta
@@ -73,7 +73,7 @@ class ScanPlan:
 class FileStoreScan:
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         table_path: str,
         options: CoreOptions,
         value_schema: RowType | None = None,

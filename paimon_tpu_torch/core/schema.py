@@ -21,7 +21,7 @@ from dataclasses import dataclass, replace
 from typing import Sequence
 
 from ..data.casting import can_cast, stats_comparable
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..options import CoreOptions
 from ..types import DataField, DataType, RowType
 from ..utils import dumps, loads, now_millis
@@ -117,7 +117,7 @@ class SchemaChange:
 
 
 class SchemaManager:
-    def __init__(self, file_io: LocalFileIO, table_path: str):
+    def __init__(self, file_io: FileIO, table_path: str):
         self.file_io = file_io
         self.table_path = table_path
         self.schema_dir = f"{table_path}/schema"

@@ -12,7 +12,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Iterator
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..utils import dumps, loads
 
 __all__ = ["CommitKind", "Snapshot", "SnapshotManager"]
@@ -94,7 +94,7 @@ class SnapshotManager:
     LATEST = "LATEST"
     EARLIEST = "EARLIEST"
 
-    def __init__(self, file_io: LocalFileIO, table_path: str, cache=None):
+    def __init__(self, file_io: FileIO, table_path: str, cache=None):
         self.file_io = file_io
         self.table_path = table_path
         self.snapshot_dir = f"{table_path}/snapshot"

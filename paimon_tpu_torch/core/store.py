@@ -27,8 +27,9 @@ import torch
 from ..data.batch import ColumnBatch, concat_batches
 from ..data.predicate import Predicate, and_, greater_than, is_null, or_
 from ..format.fileindex import resolve_key_bloom
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..options import ChangelogProducer, CoreOptions
+from ..resilience.fileio import wrap_file_io
 from ..types import RowType
 from ..utils import now_millis, partition_path
 from ..utils.cache import table_caches
@@ -56,24 +57,27 @@ class KeyValueFileStore:
 
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         table_path: str,
         schema: TableSchema,
         commit_user: str = "anonymous",
         device: "str | torch.device" = "cuda",
     ):
-        self.file_io = file_io
         self.table_path = table_path
         self.schema = schema
         self.commit_user = commit_user
         self.device = torch.device(device)
         self.options = schema.core_options()
+        # every store path (scan, merge read, commit, compaction, expiry)
+        # does its IO through the retrying wrapper of fs.retry.*, or through
+        # `file_io` itself when retries are off
+        self.file_io = wrap_file_io(file_io, self.options)
         self.value_schema = RowType(schema.fields)
         self.key_names = schema.trimmed_primary_keys
         self.partition_keys = list(schema.partition_keys)
-        self.schema_manager = SchemaManager(file_io, table_path)
+        self.schema_manager = SchemaManager(self.file_io, table_path)
         self.manifest_obj_cache, self.data_file_obj_cache = table_caches(self.options)
-        self.snapshot_manager = SnapshotManager(file_io, table_path, cache=self.manifest_obj_cache)
+        self.snapshot_manager = SnapshotManager(self.file_io, table_path, cache=self.manifest_obj_cache)
         # when a commit last swept expired partitions (table/write.py): the
         # store lives as long as the table, a TableCommit only for a commit
         self.last_partition_expire_check = 0

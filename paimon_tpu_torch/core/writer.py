@@ -38,7 +38,10 @@ write-only writer under compaction.adaptive.ingest-gate resolves the
 adaptive compactor's debt gate at each flush (table/compactor.py): it
 admits the flush's sorted run against the read-amplification ceiling,
 blocking up to compaction.adaptive.ingest-gate-timeout, and settles it
-once the files are written (or the flush failed).
+once the files are written (or the flush failed). The crash points
+flush:before-dispatch (the memtable drains next) and flush:files-written
+(the level-0 files landed, no commit names them) are the JAX package's
+(core/writer.py:306, :383).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from .datafile import DataFileMeta, KeyValueFileWriterFactory
 from .kv import KVBatch
 from .manifest import CommitMessage
 from .mergefn import MergeExecutor
+from ..resilience.faults import crash_point
 
 __all__ = ["MergeTreeWriter"]
 
@@ -248,6 +252,9 @@ class MergeTreeWriter:
         self._drain_flushes()
         if not self._buffer:
             return None
+        # the memtable is full and nothing drained: a kill here loses only
+        # rows no commit acknowledged
+        crash_point("flush:before-dispatch")
         gate = self.debt_gate() if self.debt_gate is not None else None
         if gate is not None:
             # a timeout proceeds: the gate bounds the runs, it never wedges ingest
@@ -304,6 +311,9 @@ class MergeTreeWriter:
         ):
             self._write_changelog(self._lookup_changelog(merged))
         files = self.writer_factory.write(merged, level=0)
+        # the level-0 files are durable and no snapshot names them: a kill
+        # here leaves orphan data files for remove_orphan_files
+        crash_point("flush:files-written")
         self._new_files.extend(files)
         if self.compact_manager is not None:
             for f in files:

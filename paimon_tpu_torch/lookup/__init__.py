@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
+from dataclasses import replace
 from typing import Sequence
 
 import numpy as np
@@ -201,8 +202,10 @@ class LookupLevels:
         if not (self.local_store_dir and self.file_io):
             return
         try:
+            # paths rebuilt from the directory and the base name: a
+            # wrapper's FileStatus may carry its inner path
             stats = [
-                s
+                replace(s, path=f"{self.local_store_dir}/{s.path.rsplit('/', 1)[-1]}")
                 for s in self.file_io.list_status(self.local_store_dir)
                 if s.path.endswith(".lookup") or s.path.endswith(".hidx")
             ]

@@ -1,9 +1,9 @@
 """Metric primitives and the compaction, join, get, sql, decode, dict and
 encode groups (port of paimon_tpu/metrics.py: Counter, Gauge, Histogram,
 MetricGroup, MetricRegistry, the module's registry, compaction_metrics,
-join_metrics, get_metrics, sql_metrics, decode_metrics, dict_metrics and
-encode_metrics, with the JAX package's member names; the other groups are
-not ported). The cache{cache=manifest|data-file} groups are filled by
+join_metrics, get_metrics, sql_metrics, decode_metrics, dict_metrics,
+encode_metrics and io_metrics, with the JAX package's member names; the
+other groups are not ported). The cache{cache=manifest|data-file} groups are filled by
 utils/cache.py.
 """
 
@@ -26,6 +26,7 @@ __all__ = [
     "decode_metrics",
     "dict_metrics",
     "encode_metrics",
+    "io_metrics",
     "soak_metrics",
     "pipeline_metrics",
 ]
@@ -237,3 +238,13 @@ def pipeline_metrics() -> MetricGroup:
     pipeline's members come with parallel/pipeline.py's SplitPipeline,
     which is not ported. Resolved per call."""
     return registry.group("pipeline")
+
+
+def io_metrics() -> MetricGroup:
+    """The io{...} group (resilience/). Counters: retries (transient faults
+    RetryingFileIO absorbed), giveups (ops that used up
+    fs.retry.max-attempts), timeouts (ops past the fs.io.timeout deadline),
+    cleanup_failures (deletes that failed, non-fatally, in a commit's
+    cleanup, expiry or the orphan sweep), orphans_removed; histogram:
+    backoff_ms (one retry's sleep). Resolved per call."""
+    return registry.group("io")

@@ -288,6 +288,27 @@ class CoreOptions:
     SOURCE_SPLIT_TARGET_SIZE = ConfigOption.memory("source.split.target-size", "128 mb")
     SOURCE_SPLIT_OPEN_FILE_COST = ConfigOption.memory("source.split.open-file-cost", "4 mb")
     COMMIT_MAX_RETRIES = ConfigOption.int_("commit.max-retries", 10)
+    # base of the jittered backoff between lost commit rounds (decorrelated,
+    # capped at 100x base), slept outside the catalog lock
+    COMMIT_RETRY_BACKOFF = ConfigOption.duration("commit.retry-backoff", "10 ms")
+    # the resilience layer (resilience/): total tries per FileIO op (1 turns
+    # the retrying wrapper off), the jittered backoff between them, and a
+    # per-op deadline across the tries (None: unbounded)
+    FS_RETRY_MAX_ATTEMPTS = ConfigOption.int_("fs.retry.max-attempts", 3)
+    FS_RETRY_INITIAL_BACKOFF = ConfigOption.duration("fs.retry.initial-backoff", "10 ms")
+    FS_RETRY_MAX_BACKOFF = ConfigOption.duration("fs.retry.max-backoff", "2 s")
+    FS_IO_TIMEOUT = ConfigOption.duration("fs.io.timeout", None)
+    # remove_orphan_files touches only files older than this
+    ORPHAN_CLEAN_OLDER_THAN = ConfigOption.duration("orphan.clean.older-than", "1 d")
+    # commits under a catalog lock: engaged by this option or by a store
+    # whose rename is not atomic; 'file' is a lock file in the table
+    # directory (exclusive create needed), 'jdbc' an external database
+    COMMIT_CATALOG_LOCK = ConfigOption.bool_("commit.catalog-lock.enabled", False)
+    COMMIT_CATALOG_LOCK_TYPE = ConfigOption.string("commit.catalog-lock.type", "file")
+    COMMIT_CATALOG_LOCK_JDBC_PATH = ConfigOption.string("commit.catalog-lock.jdbc-path", None)
+    COMMIT_CATALOG_LOCK_TIMEOUT = ConfigOption.float_("commit.catalog-lock.acquire-timeout", 60.0)
+    # seconds after which a holder that stopped heartbeating counts as crashed
+    COMMIT_CATALOG_LOCK_STALE_TTL = ConfigOption.float_("commit.catalog-lock.check-max-sleep", 300.0)
     COMMIT_FORCE_COMPACT = ConfigOption.bool_("commit.force-compact", False)
     NUM_SORTED_RUNS_COMPACTION_TRIGGER = ConfigOption.int_("num-sorted-run.compaction-trigger", 5)
     NUM_SORTED_RUNS_STOP_TRIGGER = ConfigOption.int_("num-sorted-run.stop-trigger", None)  # default trigger+3

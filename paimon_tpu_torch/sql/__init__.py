@@ -13,9 +13,8 @@ same table-API paths.
 
 Procedures return plain dicts, as in the JAX package. Every procedure keeps
 the JAX package's name; those whose modules are not ported yet raise
-NotImplementedError naming their ROADMAP item: remove_orphan_files
-(resilience/orphan.py), migrate_table / migrate_database / migrate_file
-(table/migrate.py), query_service (service/), the privilege procedures
+NotImplementedError naming their ROADMAP item: migrate_table /
+migrate_database / migrate_file (table/migrate.py), query_service (service/), the privilege procedures
 (catalog/privilege.py) and cluster_query (sql/cluster.py). `repair` raises
 ProcedureError on a FileSystemCatalog, as in the JAX package.
 """
@@ -279,6 +278,18 @@ def _proc_mark_partition_done(cat, table: str, partitions: str):
 
     paths = mark_partition_done(_t(cat, table), _parse_partition_specs(partitions))
     return {"markers": paths}
+
+
+def _proc_remove_orphan_files(cat, table: str, older_than_hours: float = 24.0,
+                              dry_run: bool = False):
+    from ..table.maintenance import remove_orphan_files
+
+    removed = remove_orphan_files(
+        _t(cat, table),
+        older_than_millis=int(float(older_than_hours) * 3600_000),
+        dry_run=dry_run,
+    )
+    return {"orphans": removed, "dry_run": dry_run}
 
 
 def _proc_reset_consumer(cat, table: str, consumer_id: str,
@@ -605,7 +616,7 @@ procedures: dict[str, Callable[..., Any]] = {
     "expire_partitions": _proc_expire_partitions,
     "drop_partition": _proc_drop_partition,
     "mark_partition_done": _proc_mark_partition_done,
-    "remove_orphan_files": _not_ported("remove_orphan_files", "resilience/orphan.py", 15),
+    "remove_orphan_files": _proc_remove_orphan_files,
     "reset_consumer": _proc_reset_consumer,
     "delete": _proc_delete,
     "merge_into": _merge_into_dispatch,

@@ -1,7 +1,8 @@
 """The Table API (port of paimon_tpu/table/__init__.py):
 new_read_builder / new_batch_write_builder / new_stream_write_builder,
 copy, with_user, delete_where, update_where, merge_into, tags, rollback_to,
-snapshot expiry, and load_table.
+snapshot expiry, remove_orphan_files, and load_table (whose path's scheme
+picks the FileIO, fs `get_file_io`).
 
 A table with a primary key is served by the key-value store, one without
 by the append-only store (core/append.py). bucket_mode is the JAX
@@ -25,7 +26,7 @@ import torch
 
 from ..core.schema import SchemaManager, TableSchema
 from ..core.store import AppendOnlyFileStore, KeyValueFileStore
-from ..fs import LocalFileIO
+from ..fs import FileIO, get_file_io
 from ..options import CoreOptions
 from ..types import RowType
 from ..utils import resolve_device
@@ -40,7 +41,7 @@ __all__ = ["FileStoreTable", "load_table"]
 class FileStoreTable:
     def __init__(
         self,
-        file_io: LocalFileIO,
+        file_io: FileIO,
         path: str,
         schema: TableSchema,
         commit_user: str = "anonymous",
@@ -153,6 +154,14 @@ class FileStoreTable:
 
         rollback_to(self, target)
 
+    def remove_orphan_files(self, older_than_millis: int | None = None, dry_run: bool = False) -> list[str]:
+        """Delete the files no live snapshot, changelog, tag or branch
+        reaches, and torn temp files, older than the threshold (default
+        orphan.clean.older-than); resilience/orphan.py."""
+        from .maintenance import remove_orphan_files
+
+        return remove_orphan_files(self, older_than_millis=older_than_millis, dry_run=dry_run)
+
     def expire_snapshots(self) -> int:
         """Expire snapshots by the table's retention options, keeping the
         tagged ones and those from the smallest consumer position to the
@@ -201,7 +210,7 @@ def load_table(
     'partition' options, the scan.*, consumer*, incremental-between* and
     streaming-read* options applied to the view and not persisted."""
     dev = resolve_device(device)
-    file_io = LocalFileIO()
+    file_io = get_file_io(path)
     schema = SchemaManager(file_io, path).latest()
     if schema is None:
         opts = dict(dynamic_options or {})

@@ -19,7 +19,7 @@ from ..core.indexmanifest import read_index_manifest
 from ..core.manifest import ManifestList
 from ..core.schema import SchemaManager
 from ..core.snapshot import Snapshot, SnapshotManager
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..utils.cache import invalidate_table_path
 from .tags import TagManager
 
@@ -30,7 +30,7 @@ __all__ = ["BranchManager", "branch_table"]
 
 
 class BranchManager:
-    def __init__(self, file_io: LocalFileIO, table_path: str):
+    def __init__(self, file_io: FileIO, table_path: str):
         self.file_io = file_io
         self.table_path = table_path
         self.branch_root = f"{table_path}/branch"

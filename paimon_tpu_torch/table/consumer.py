@@ -8,14 +8,14 @@ smallest such n to the latest.
 
 from __future__ import annotations
 
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..utils import dumps, loads, now_millis
 
 __all__ = ["ConsumerManager"]
 
 
 class ConsumerManager:
-    def __init__(self, file_io: LocalFileIO, table_path: str):
+    def __init__(self, file_io: FileIO, table_path: str):
         self.file_io = file_io
         self.consumer_dir = f"{table_path}/consumer"
 

@@ -1,7 +1,9 @@
-"""Partition expiry, drop and done markers (port of
-paimon_tpu/table/maintenance.py: expire_partitions, drop_partition and
-mark_partition_done; remove_orphan_files needs resilience/orphan.py and is
-not ported yet, ROADMAP Queue 1 item 15).
+"""Orphan files, partition expiry, drop and done markers (port of
+paimon_tpu/table/maintenance.py: remove_orphan_files, expire_partitions,
+drop_partition and mark_partition_done).
+
+remove_orphan_files deletes what no live root reaches, torn temp files
+included; the walk and the sweep live in resilience/orphan.py.
 
 Expiry and drop write one OVERWRITE snapshot that deletes the live files of
 the chosen partitions, under the maintenance commit identifier. The files
@@ -21,11 +23,29 @@ from ..utils import dumps, loads, now_millis, partition_path
 if TYPE_CHECKING:
     from . import FileStoreTable
 
-__all__ = ["expire_partitions", "drop_partition", "mark_partition_done", "MAINTENANCE_COMMIT_IDENTIFIER"]
+__all__ = [
+    "remove_orphan_files",
+    "expire_partitions",
+    "drop_partition",
+    "mark_partition_done",
+    "MAINTENANCE_COMMIT_IDENTIFIER",
+]
 
 # the JAX package's identifier for maintenance commits, one of the batch
 # sentinels near the batch identifier, outside any streaming sequence
 MAINTENANCE_COMMIT_IDENTIFIER = (1 << 63) - 4
+
+
+def remove_orphan_files(
+    table: "FileStoreTable", older_than_millis: int | None = None, dry_run: bool = False
+) -> list[str]:
+    """Delete the files no snapshot, changelog, tag or branch references,
+    and torn `.tmp` residue, older than the threshold (default
+    orphan.clean.older-than, 1 day: an in-flight commit's fresh files must
+    survive). Returns the removed (with `dry_run`, the removable) paths."""
+    from ..resilience.orphan import remove_orphan_files as _impl
+
+    return _impl(table, older_than_millis=older_than_millis, dry_run=dry_run)
 
 
 def expire_partitions(

@@ -11,7 +11,7 @@ import datetime
 from typing import TYPE_CHECKING
 
 from ..core.snapshot import Snapshot, SnapshotManager
-from ..fs import LocalFileIO
+from ..fs import FileIO
 from ..options import CoreOptions
 from ..utils import now_millis
 
@@ -22,7 +22,7 @@ __all__ = ["TagManager", "TagAutoCreation"]
 
 
 class TagManager:
-    def __init__(self, file_io: LocalFileIO, table_path: str):
+    def __init__(self, file_io: FileIO, table_path: str):
         self.file_io = file_io
         self.table_path = table_path
         self.tag_dir = f"{table_path}/tag"

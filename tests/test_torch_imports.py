@@ -137,6 +137,29 @@ def test_load_table_default_device_without_cuda_raises(monkeypatch, tmp_path):
     assert load_table(table.path, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("module", ["fs/__init__.py", "fs/object_store.py", "fs/testing.py", "resilience/__init__.py",
+                                    "resilience/retry.py", "resilience/fileio.py", "resilience/faults.py",
+                                    "resilience/orphan.py", "catalog/lock.py"])
+def test_resilience_and_storage_modules_are_scanned(module):
+    """The FileIO registry, the object store, the fault-injecting stores, the
+    resilience layer and the catalog lock are in the scanned sources (and
+    so in the child process's import closure)."""
+    path = REPO / "paimon_tpu_torch" / module
+    assert path in SOURCES
+    test_no_forbidden_import_in_source(path)
+
+
+def test_the_catalog_opens_a_warehouse_by_its_scheme(tmp_path):
+    """The catalog's FileIO comes from the warehouse's scheme; an unknown
+    scheme raises ValueError, as in the JAX package."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.fs.object_store import ObjectStoreFileIO
+
+    assert isinstance(FileSystemCatalog(f"s3://{tmp_path}", device="cpu").file_io, ObjectStoreFileIO)
+    with pytest.raises(ValueError, match="no FileIO registered"):
+        FileSystemCatalog("nope://x", device="cpu")
+
+
 def test_merge_ops_default_device_without_cuda_raises(monkeypatch):
     import numpy as np
 

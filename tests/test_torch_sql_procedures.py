@@ -378,8 +378,20 @@ def test_repair_and_not_ported_procedures(tmp_path):
     cat = PortCatalog(str(tmp_path), device="cpu")
     with pytest.raises(ProcedureError, match="does not support repair"):
         call(cat, "CALL sys.repair()")
+    # remove_orphan_files is ported: it sweeps the test's table
+    port_execute(cat, "CREATE TABLE db.t (k BIGINT NOT NULL, v DOUBLE, PRIMARY KEY (k) NOT ENFORCED) "
+                      "WITH ('bucket' = '1')")
+    port_execute(cat, "INSERT INTO db.t VALUES (1, 1.0), (2, 2.0)")
+    assert call(cat, "CALL sys.remove_orphan_files('db.t')") == {"orphans": [], "dry_run": False}
+    debris = f"{tmp_path}/db.db/t/bucket-0/data-orphan.parquet"
+    with open(debris, "wb") as f:
+        f.write(b"junk")
+    assert call(cat, "CALL sys.remove_orphan_files('db.t', -1, true)") == {"orphans": [debris], "dry_run": True}
+    assert call(cat, "CALL sys.remove_orphan_files(`table` => 'db.t', older_than_hours => -1)") == {
+        "orphans": [debris], "dry_run": False}
+    assert not os.path.exists(debris) and port_execute(cat, "SELECT count(*) FROM db.t").to_pylist() == [(2,)]
     not_ported = {
-        "remove_orphan_files": "resilience/orphan.py", "migrate_table": "table/migrate.py",
+        "migrate_table": "table/migrate.py",
         "migrate_database": "table/migrate.py", "migrate_file": "table/migrate.py", "query_service": "service/",
         "init_file_based_privilege": "catalog/privilege.py", "create_privileged_user": "catalog/privilege.py",
         "drop_privileged_user": "catalog/privilege.py", "grant_privilege_to_user": "catalog/privilege.py",
