@@ -397,8 +397,9 @@ Phases, one JSON line each on stdout:
               DOUBLE sum (segment_sum); 5% of the nested values null and 5%
               empty. dedup: the bench table's rows (4 runs and the 100k
               upsert) with tags and attrs added. Each table written (s,
-              bytes on disk), read at the default tile (K2) and at 131072,
-              fully compacted and read again; every read equal row for row
+              bytes on disk), read at the default tile (K2) and (the dedup
+              table, whose merge tiles there) at 131072, fully compacted
+              and read again; every read equal row for row
               to the numpy engine's. A staged read per table: the leaves'
               levels, the assembly, the merge (plan, upload, kernel,
               download) and, for the aggregation, the host aggregate per
@@ -429,7 +430,34 @@ Phases, one JSON line each on stdout:
               store and a read at both tiles. K1 and K2 must launch; then
               they are held exactly to their plain versions at the phase's
               shapes no earlier check covered.
-22. timing  - each kernel at its main-path shape against its plain version,
+22. tools   - the table tools and the CLI, one line per part. sync: 1M
+              debezium messages (seed 28) over 500,000 BIGINT keys in 10
+              ingests of 100,000 through CdcStream into a primary-key table
+              (bucket 1, zstd, write-only): inserts, -U/+U updates and
+              deletes of earlier keys; a STRING column appears from the
+              fourth ingest on and a BIGINT one turns DOUBLE from the
+              seventh, so the schema evolves twice. Seconds to generate,
+              parse, and flush and commit; a merged read at the default
+              tile (K2) and at 131072 (K1), each equal to the dict replay of
+              the stream and the numpy engine; then 100,000 canal messages
+              through `python -m paimon_tpu_torch sync-table` in a child
+              process on the card, which runs beside the clone and migrate
+              parts, read again after them (sync_cli). clone: the bench table
+              cloned into a second warehouse at its latest snapshot
+              (clone_table) and at a tag (the CLI's clone in a child
+              process, started before the sync part and running beside
+              it): every copied file byte-identical, each clone read
+              at both tiles equal to the source's rows at that snapshot.
+              migrate: 1M rows written by the port's own writers outside
+              any table, 8 Parquet files (snappy) in 4 dt= directories and
+              2 ORC files (uncompressed); migrate_files with the dt
+              partition key, CALL sys.migrate_table for each ORC file and
+              CALL sys.migrate_file of one ORC table into the other; row
+              counts, rows and each file's statistics checked, and
+              remove_orphan_files then removes nothing. K1 and K2 must
+              launch; then they are held exactly to their plain versions
+              at the phase's shapes no earlier check covered.
+23. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -444,7 +472,8 @@ Then a summary line (each phase's wall seconds, its launches of each kernel
 and the first rate it reports), one JSON line with every kernel's numbers
 (its launches summed over the main, compact, engines, buckets, strings,
 maintenance, cdc, deletes, history, writes, services, lookups, sql,
-dict_domain, buffers_formats, nested and resilience paths, and by path), the card line, and last
+dict_domain, buffers_formats, nested, resilience and tools paths, and by
+path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -1141,7 +1170,15 @@ def main() -> int:
         emit({"phase": "resilience", "part": "summary", **resilience, "exact_checks_all_phases": checks})
         lap("resilience", resilience)
 
-    # 22. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 22. the table tools and the CLI: CDC sync, clone, migrate
+        checked = tuple(list(checked[i]) + [tuple(s) for s in resilience["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        tools = tools_phase(pt, hk, warehouse, table.path, checked)
+        checks += tools["shape_checks"]["exact_checks"]
+        emit({"phase": "tools", "part": "summary", **tools, "exact_checks_all_phases": checks})
+        lap("tools", tools)
+
+    # 23. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -1159,7 +1196,7 @@ def main() -> int:
                       "services": services["launches"][name], "lookups": lookups["launches"][name],
                       "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name],
                       "buffers_formats": buffers["launches"][name], "nested": nested["launches"][name],
-                      "resilience": resilience["launches"][name]}
+                      "resilience": resilience["launches"][name], "tools": tools["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -5876,8 +5913,10 @@ def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
     reference, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
     assert reference.num_rows == rows, reference.num_rows
     reads = {}
-    for label, opts in (("pallas_default_tile", {}), (f"pallas_tile_{K1_TILE_ROWS}",
-                                                      {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+    tiles = (("pallas_default_tile", {}), (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)}))
+    # the aggregation table merges untiled at 131072 too (one K2 launch, as
+    # at the default tile): it is read at the default tile alone
+    for label, opts in tiles[:1] if agg else tiles:
         before = dict(hk.launches)
         # one sample a tile: the phase runs near the end of the call's time
         out, samples = timed_reads(table.copy(opts), 1)
@@ -6175,6 +6214,461 @@ def resilience_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
         "launches": phase_launches,
         "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2037, checked),
     }
+
+
+TL_KEYS = 500_000  # the CDC table's key space
+TL_INGESTS = 10
+TL_PER_INGEST = 100_000  # debezium messages per ingest
+TL_CITY_FROM = 3  # a new STRING column, city, appears from the fourth ingest on
+TL_DOUBLE_FROM = 6  # amount's values turn DOUBLE from the seventh ingest on
+TL_SHARES = (0.4, 0.45, 0.15)  # inserts, updates (-U/+U), deletes after the first ingest (all inserts)
+TL_CANAL = 100_000  # canal messages through the CLI child
+TL_CDC_OPTIONS = {"bucket": "1", "write-only": "true", "sort-engine": "pallas"}
+TL_FILE_ROWS = 100_000  # rows of each file to migrate: 8 Parquet in 4 dt= directories, 2 ORC
+TL_DTS = ("2024-03-01", "2024-03-02", "2024-03-03", "2024-03-04")
+
+
+class CdcSource:
+    """A seeded change stream over TL_KEYS keys, as JSON messages, and its
+    oracle: the state a plain dict replay of the stream leaves (key ->
+    (amount, name, city)). Inserts take unused keys or deleted ones,
+    updates and deletes take live ones, each message one change."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.unused = [int(k) for k in self.rng.permutation(TL_KEYS)]
+        self.state: dict[int, tuple] = {}
+        self.live: list[int] = []
+        self.slot: dict[int, int] = {}
+        self.version = 0
+
+    def _pick_live(self, draw: float) -> int:
+        return self.live[int(draw * len(self.live))]
+
+    def _drop(self, key: int) -> None:
+        i, last = self.slot.pop(key), self.live.pop()
+        if last != key:
+            self.live[i] = last
+            self.slot[last] = i
+        self.unused.append(key)
+
+    def _add(self, key: int) -> None:
+        self.slot[key] = len(self.live)
+        self.live.append(key)
+
+    def changes(self, n: int, ingest: int, first: bool):
+        """(op, key, before, after) for n changes of one ingest."""
+        ops = np.zeros(n, np.int8) if first else self.rng.choice(3, n, p=TL_SHARES)
+        draws = self.rng.random(n)
+        amounts = self.rng.integers(0, 1_000_000, n)
+        with_city = ingest >= TL_CITY_FROM
+        for op, draw, amount in zip(ops.tolist(), draws.tolist(), amounts.tolist()):
+            self.version += 1
+            if op == 0 and not self.unused:
+                op = 1
+            if op != 0 and not self.live:
+                op = 0
+            if op == 0:
+                # unused is a permutation with the deleted keys at its end
+                key = self.unused.pop()
+                before = None
+                self._add(key)
+            else:
+                key = self._pick_live(draw)
+                before = self.state[key]
+            if op == 2:
+                del self.state[key]
+                self._drop(key)
+                yield "d", key, before, None
+                continue
+            value = amount + 0.5 if ingest >= TL_DOUBLE_FROM else amount
+            city = f"c{key % 97}" if with_city and self.version % 11 else None
+            after = (value, f"n{key}.{self.version}", city)
+            self.state[key] = after
+            yield ("c" if op == 0 else "u"), key, before, after
+
+    @staticmethod
+    def row_json(key: int, row: tuple) -> str:
+        amount, name, city = row
+        tail = "" if city is None else f', "city": "{city}"'
+        return f'{{"id": {key}, "amount": {amount!r}, "name": "{name}"{tail}}}'
+
+    def debezium(self, n: int, ingest: int) -> list:
+        out = []
+        for op, key, before, after in self.changes(n, ingest, ingest == 0):
+            b = "null" if before is None else self.row_json(key, before)
+            a = "null" if after is None else self.row_json(key, after)
+            out.append(f'{{"schema": {{}}, "payload": {{"op": "{op}", "before": {b}, "after": {a}}}}}')
+        return out
+
+    def canal(self, n: int, ingest: int) -> list:
+        out = []
+        kinds = {"c": "INSERT", "u": "UPDATE", "d": "DELETE"}
+        for op, key, before, after in self.changes(n, ingest, False):
+            data = self.row_json(key, after if after is not None else before)
+            old = "null" if op != "u" else f"[{self.row_json(key, before)}]"
+            out.append(f'{{"type": "{kinds[op]}", "data": [{data}], "old": {old}}}')
+        return out
+
+    def check(self, out, what: str) -> None:
+        """The read equals the replay: rows in key order, amount as DOUBLE,
+        city null where no change carried it."""
+        keys = np.array(sorted(self.state), dtype=np.int64)
+        rows = [self.state[k] for k in keys.tolist()]
+        assert out.num_rows == len(keys), f"{what}: {out.num_rows} rows, the replay has {len(keys)}"
+        assert np.array_equal(out.column("id").values, keys), f"{what}: keys differ from the replay"
+        amount = out.column("amount")
+        assert amount.valid_mask().all() and same_values(
+            amount.values, np.array([r[0] for r in rows], dtype=np.float64)), f"{what}: amount differs"
+        assert out.column("name").values.tolist() == [r[1] for r in rows], f"{what}: name differs"
+        city = out.column("city")
+        want = [r[2] for r in rows]
+        assert city.valid_mask().tolist() == [c is not None for c in want], f"{what}: city validity differs"
+        got = city.values
+        assert all(got[i] == c for i, c in enumerate(want) if c is not None), f"{what}: city differs"
+
+
+class CliChild:
+    """`python -m paimon_tpu_torch <argv>` in a child process on this
+    script's device, started at once, so that it runs beside the parent's
+    next part; `result()` waits for it, which must exit 0 and print one
+    JSON object, and gives the seconds it ran; `kill()` ends it if it
+    still runs."""
+
+    def __init__(self, log_dir: str, *argv):
+        root = os.path.dirname(os.path.abspath(__file__))
+        device = "cpu" if str(DEVICE) == "cpu" else "cuda"
+        self.action = argv[0]
+        self.out = open(os.path.join(log_dir, f"cli_{self.action}.out"), "w+")
+        self.err = open(os.path.join(log_dir, f"cli_{self.action}.err"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "paimon_tpu_torch", *argv, "--device", device],
+                                     stdout=self.out, stderr=self.err, env=dict(os.environ, PYTHONPATH=root),
+                                     cwd=root)
+        self.ran_s = None
+        self.reaper = threading.Thread(target=self._reap, daemon=True)
+        self.reaper.start()
+
+    def _reap(self) -> None:
+        self.proc.wait()
+        self.ran_s = time.perf_counter() - self.t0
+
+    def result(self) -> dict:
+        rc = self.proc.wait(timeout=600)
+        self.reaper.join()
+        s = self.ran_s
+        self.out.seek(0)
+        self.err.seek(0)
+        stdout, stderr = self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        assert rc == 0, f"the CLI child {self.action} exited {rc}: {stderr[-2000:]}"
+        return {"out": json.loads(stdout.strip().splitlines()[-1]), "s": round(s, 3)}
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def tiered_reads(hk, table, reference, what: str) -> dict:
+    """Merged reads at the default tile (K2) and at K1_TILE_ROWS (K1), each
+    equal row for row to `reference`."""
+    out = {}
+    for label, opts in (("pallas_default_tile", {}),
+                        (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        before = dict(hk.launches)
+        got, samples = timed_reads(table.copy(opts), 1)
+        same_rows(got, reference, f"{what}, {label} against the numpy engine")
+        out[label] = {"s": round(samples[0], 4), "rows_per_s": round(got.num_rows / samples[0], 1),
+                      "launches": launch_diff(hk, before)}
+    assert out["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, f"{what}: K2 never launched"
+    assert out[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, f"{what}: K1 never launched"
+    return out
+
+
+def sync_part(pt, hk, warehouse: str, started: dict) -> dict:
+    """1M debezium messages in 10 ingests of 100,000 through CdcStream into
+    a primary-key table (bucket 1, zstd, write-only), evolving its schema
+    (city added, amount widened to DOUBLE); merged reads at both tiers
+    against the replay and the numpy engine; then 100,000 canal messages
+    through the CLI's sync-table in a child process, started into
+    `started` (sync_cli_part collects it)."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.table.cdc_format import CdcStream
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    schema = pt.RowType.of(("id", pt.BIGINT(False)), ("amount", pt.BIGINT()), ("name", pt.STRING()))
+    table = cat.create_table("tools.cdc", schema, primary_keys=["id"], options=TL_CDC_OPTIONS)
+    source = CdcSource(28)
+    stream = CdcStream(table, "debezium-json")
+    parse_s = [0.0]
+    parser = stream.parser
+
+    def timed_parser(message):
+        t0 = time.perf_counter()
+        try:
+            return parser(message)
+        finally:
+            parse_s[0] += time.perf_counter() - t0
+
+    stream.parser = timed_parser
+    seconds = {"generate": 0.0, "ingest": 0.0}
+    applied, schemas = [], []
+    for ingest in range(TL_INGESTS):
+        t0 = time.perf_counter()
+        messages = source.debezium(TL_PER_INGEST, ingest)
+        t1 = time.perf_counter()
+        applied.append(stream.ingest(messages))
+        torch.cuda.synchronize()
+        seconds["generate"] += t1 - t0
+        seconds["ingest"] += time.perf_counter() - t1
+        schemas.append(stream.table.schema.id)
+    seconds["parse"] = parse_s[0]
+    seconds["flush_and_commit"] = seconds["ingest"] - parse_s[0]
+    table = stream.table
+    fields = [(f.id, f.name, repr(f.type)) for f in table.schema.fields]
+    want = [(0, "id", repr(pt.BIGINT(False))), (1, "amount", repr(pt.DOUBLE())), (2, "name", repr(pt.STRING())),
+            (3, "city", repr(pt.STRING()))]
+    assert fields == want, f"the evolved schema: {fields}"
+    assert schemas[TL_CITY_FROM - 1] < schemas[TL_CITY_FROM] < schemas[TL_DOUBLE_FROM], schemas
+    # the numpy engine's read equals the replay, and each merged read it
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    source.check(reference, "sync, the numpy engine")
+    reads = tiered_reads(hk, table, reference, "sync")
+
+    # the CLI: canal messages from a file, in a child process that runs
+    # beside the clone and migrate parts
+    path = os.path.join(warehouse, "tools_canal.jsonl")
+    with open(path, "w") as f:
+        f.write("\n".join(source.canal(TL_CANAL, TL_INGESTS)) + "\n")
+    started["sync_child"] = CliChild(warehouse, "sync-table", "--warehouse", warehouse, "--table", "tools.cdc",
+                                     "--format", "canal-json", "--input", path)
+    started["sync_source"] = source
+    return {
+        "messages": TL_INGESTS * TL_PER_INGEST, "ingests": TL_INGESTS, "keys": TL_KEYS,
+        "records_applied": applied, "live_keys": len(source.state), "options": TL_CDC_OPTIONS,
+        "schema_ids_per_ingest": schemas, "evolved_fields": fields,
+        "seconds": {k: round(v, 3) for k, v in seconds.items()},
+        "messages_per_s": round(TL_INGESTS * TL_PER_INGEST / seconds["ingest"], 1), "reads": reads,
+        "equal_to_replay": True, "equal_to_numpy_engine": True,
+    }
+
+
+def sync_cli_part(hk, warehouse: str, started: dict) -> dict:
+    """The sync-table child of sync_part collected, and the table read
+    again: the numpy engine's read equals the replay of both streams, and
+    the merged read at the default tile equals it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+
+    child = started["sync_child"].result()
+    assert child["out"]["records_applied"] >= TL_CANAL, child
+    table = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE).get_table("tools.cdc")
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    started["sync_source"].check(reference, "sync after the CLI, the numpy engine")
+    before = dict(hk.launches)
+    out, samples = timed_reads(table, 1)
+    same_rows(out, reference, "sync after the CLI, default tile")
+    return {"cli_sync_table": {**child, "messages": TL_CANAL},
+            "read_after_cli": {"s": round(samples[0], 4), "rows": out.num_rows, "launches": launch_diff(hk, before)},
+            "equal_to_replay": True, "equal_to_numpy_engine": True}
+
+
+def clone_start(warehouse: str, bench_path: str) -> dict:
+    """The bench table cloned into a second warehouse at its latest
+    snapshot (clone_table), and the CLI's clone of it at a tag started in a
+    child process, which runs while the sync part does."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.table import clone as C
+
+    src_cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    source = src_cat.get_table("bench.t")
+    assert source.path == bench_path
+    sm = source.store.snapshot_manager
+    latest = sm.latest_snapshot_id()
+    tag_sid = max(sm.earliest_snapshot_id(), latest - 1)
+    source.create_tag("tools", snapshot_id=tag_sid)
+    target = os.path.join(warehouse, "clone_warehouse")
+    dst = FileSystemCatalog(target, commit_user="chip_smoke", device=DEVICE)
+    t0 = time.perf_counter()
+    cloned = C.clone_table(source, dst, "bench.t")
+    clone_s = time.perf_counter() - t0
+    child = CliChild(warehouse, "clone", "--warehouse", warehouse, "--database", "bench", "--table", "t", "--tag",
+                     "tools", "--target-warehouse", target, "--target-table", "t_tag")
+    return {"source": source, "dst": dst, "cloned": cloned, "latest": latest, "tag_sid": tag_sid,
+            "clone_s": clone_s, "child": child}
+
+
+def clone_part(hk, started: dict) -> dict:
+    """The clones of clone_start: every copied file byte-identical, each
+    clone's merged reads at both tiers equal to the source's rows at that
+    snapshot."""
+    from paimon_tpu_torch.table import clone as C
+
+    source, dst, cloned, latest, tag_sid = (started[k] for k in ("source", "dst", "cloned", "latest", "tag_sid"))
+    child = started["child"].result()
+    assert child["out"] == {"cloned": ["bench.t_tag"]}, child
+    out = {"source_snapshots": {"latest": latest, "tag": tag_sid}, "clone_table_s": round(started["clone_s"], 3),
+           "cli_clone": child}
+    for label, sid, clone in (("latest", None, cloned), ("tag", tag_sid, dst.get_table("bench.t_tag"))):
+        snap, pairs = C.pick_files(source, sid)
+        nbytes = 0
+        for src, rel in pairs:
+            with open(src, "rb") as a, open(f"{clone.path}/{rel}", "rb") as b:
+                data = a.read()
+                assert data == b.read(), f"clone {label}: {rel} differs from its source"
+                nbytes += len(data)
+        assert clone.store.snapshot_manager.latest_snapshot_id() == snap.id
+        view = source if sid is None else source.copy({"scan.snapshot-id": str(sid)})
+        reference = read_all(view.copy({"sort-engine": "numpy"}))
+        out[label] = {"snapshot": snap.id, "files": len(pairs), "bytes": nbytes, "byte_identical": True,
+                      "rows": reference.num_rows, "reads": tiered_reads(hk, clone, reference, f"clone {label}")}
+    return out
+
+
+def lake_rows(n: int, offset: int, dt: str | None) -> dict:
+    """The rows of one foreign file: ids offset..offset+n, a nullable INT,
+    a DOUBLE, a low-cardinality STRING, a nullable STRING and a BOOLEAN."""
+    ids = np.arange(offset, offset + n, dtype=np.int64)
+    out = {"id": ids}
+    if dt is not None:
+        out = {"dt": np.full(n, dt, dtype=object), **out}
+    note = np.array([f"note-{i}" for i in ids.tolist()], dtype=object)
+    note[ids % 3 == 0] = None
+    return {**out, "qty": (ids % 7).astype(np.int32), "qty_valid": ids % 5 != 0, "price": ids * 0.25,
+            "cat": S0_POOL[ids % len(S0_POOL)], "note": note, "ok": ids % 2 == 0}
+
+
+def lake_batch(pt, rows: dict):
+    t = pt
+    fields = [("id", t.BIGINT()), ("qty", t.INT()), ("price", t.DOUBLE()), ("cat", t.STRING()),
+              ("note", t.STRING()), ("ok", t.BOOLEAN())]
+    if "dt" in rows:
+        fields = [("dt", t.STRING())] + fields
+    cols = {name: pt.Column(rows[name]) for name, _ in fields if name not in ("qty", "note")}
+    cols["qty"] = pt.Column(rows["qty"], rows["qty_valid"])
+    cols["note"] = pt.Column(rows["note"], rows["note"] != None)  # noqa: E711 - elementwise
+    schema = t.RowType.of(*fields)
+    return pt.ColumnBatch(schema, {f.name: cols[f.name] for f in schema.fields})
+
+
+def check_lake_table(table, files: dict, what: str) -> dict:
+    """Row count, rows (by id) and each file's statistics against the rows
+    written into it; the orphan sweep then removes nothing."""
+    from paimon_tpu_torch.table.maintenance import remove_orphan_files
+
+    entries = table.store.new_scan().plan().entries
+    want_rows = sum(len(r["id"]) for r in files.values())
+    assert sum(e.file.row_count for e in entries) == want_rows, f"{what}: row count"
+    by_min = {int(r["id"][0]): r for r in files.values()}
+    for e in entries:
+        rows = by_min[e.file.value_stats["id"].min]
+        st = e.file.value_stats
+        assert (st["id"].min, st["id"].max, st["id"].null_count) == (rows["id"][0], rows["id"][-1], 0), what
+        assert st["qty"].null_count == int((~rows["qty_valid"]).sum()), f"{what}: qty nulls"
+        assert st["note"].null_count == int((rows["note"] == None).sum()), f"{what}: note nulls"  # noqa: E711
+        assert (st["price"].min, st["price"].max) == (rows["price"].min(), rows["price"].max()), f"{what}: price"
+    out = read_all(table)
+    order = np.argsort(out.column("id").values, kind="stable")
+    ids = np.concatenate([r["id"] for r in files.values()])
+    assert np.array_equal(out.column("id").values[order], np.sort(ids)), f"{what}: ids"
+    want = {k: np.concatenate([r[k] for r in files.values()])[np.argsort(ids, kind="stable")]
+            for k in ("price", "qty_valid", "note")}
+    assert same_values(out.column("price").values[order], want["price"]), f"{what}: price"
+    assert np.array_equal(out.column("qty").valid_mask()[order], want["qty_valid"]), f"{what}: qty validity"
+    note = out.column("note")
+    got = [v if ok else None for v, ok in zip(note.values[order].tolist(), note.valid_mask()[order].tolist())]
+    assert got == want["note"].tolist(), f"{what}: note"
+    orphans = remove_orphan_files(table, older_than_millis=-1)
+    assert orphans == [], f"{what}: the orphan sweep removed {orphans}"
+    return {"files": len(entries), "rows": want_rows, "orphans_removed": 0}
+
+
+def migrate_part(pt, hk, warehouse: str) -> dict:
+    """1M rows that the port's own writers put outside any table: 8 Parquet
+    files (snappy, pyarrow's default codec) in 4 dt= directories and 2 ORC
+    files (uncompressed, pyarrow's ORC default). migrate_files with the dt
+    partition key adopts the Parquet ones, CALL sys.migrate_table each ORC
+    one, CALL sys.migrate_file the first ORC table into the second."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.format.orc import write_orc
+    from paimon_tpu_torch.format.parquet import write_parquet
+    from paimon_tpu_torch.sql import call
+    from paimon_tpu_torch.table.migrate import infer_row_type, migrate_files
+
+    lake = os.path.join(warehouse, "tools_lake")
+    files, seconds = {}, {}
+    t0 = time.perf_counter()
+    for k, dt in enumerate(TL_DTS):
+        for j in range(2):
+            path = os.path.join(lake, "parquet", f"dt={dt}", f"part-{j}.parquet")
+            rows = lake_rows(TL_FILE_ROWS, (2 * k + j) * TL_FILE_ROWS, dt)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(write_parquet(lake_batch(pt, rows), "snappy"))
+            files[path] = rows
+    orc = {}
+    for j, name in enumerate(("orc_a", "orc_b")):
+        path = os.path.join(lake, name, "part-0.orc")
+        rows = lake_rows(TL_FILE_ROWS, (8 + j) * TL_FILE_ROWS, None)
+        os.makedirs(os.path.dirname(path))
+        with open(path, "wb") as f:
+            f.write(write_orc(lake_batch(pt, rows), "uncompressed"))
+        orc[name] = {path: rows}
+    seconds["write_files"] = time.perf_counter() - t0
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    t0 = time.perf_counter()
+    first = sorted(files)[0]
+    row_type = infer_row_type(first, "parquet")
+    parquet_table = migrate_files(cat, "tools.lake", os.path.join(lake, "parquet"), row_type, "parquet",
+                                  partition_keys=("dt",))
+    orc_calls = [call(cat, f"CALL sys.migrate_table('tools.{name}', '{os.path.join(lake, name)}', 'orc')")
+                 for name in ("orc_a", "orc_b")]
+    adopted = call(cat, "CALL sys.migrate_file('tools.orc_a', 'tools.orc_b')")
+    seconds["migrate"] = time.perf_counter() - t0
+    assert adopted == {"migrated_into": "tools.orc_b", "files": 1, "origin_deleted": True}, adopted
+    assert [f.name for f in row_type.fields] == ["dt", "id", "qty", "price", "cat", "note", "ok"]
+    t0 = time.perf_counter()
+    checks = {"parquet": check_lake_table(parquet_table, files, "migrate parquet"),
+              "orc": check_lake_table(cat.get_table("tools.orc_b"), {**orc["orc_a"], **orc["orc_b"]}, "migrate orc")}
+    seconds["check"] = time.perf_counter() - t0
+    parts = sorted(e.partition for e in parquet_table.store.new_scan().plan().entries)
+    assert sorted(set(parts)) == [(dt,) for dt in TL_DTS], parts
+    return {"rows": 10 * TL_FILE_ROWS, "parquet_files": len(files), "orc_files": 2,
+            "inferred": [(f.name, repr(f.type)) for f in row_type.fields], "orc_calls": orc_calls,
+            "migrate_file": adopted, "tables": checks, "seconds": {k: round(v, 3) for k, v in seconds.items()}}
+
+
+def tools_phase(pt, hk, warehouse: str, bench_path: str, checked: tuple) -> dict:
+    """The table tools and the CLI: the CDC sync (sync_part), the clone of
+    the bench table (clone_part) and the migration of foreign files
+    (migrate_part). K1 and K2 must launch in its merged reads; then they are
+    held exactly to their plain versions at the phase's shapes no earlier
+    check covered. Launch counts are zeroed before it."""
+    hk.reset_launches()
+    seconds = {}
+    started = clone_start(warehouse, bench_path)
+    try:
+        with ShapeRecorder(hk) as recorder:
+            for name, part in (("sync", lambda: sync_part(pt, hk, warehouse, started)),
+                               ("clone", lambda: clone_part(hk, started)),
+                               ("migrate", lambda: migrate_part(pt, hk, warehouse)),
+                               ("sync_cli", lambda: sync_cli_part(hk, warehouse, started))):
+                before = dict(hk.launches)
+                t0 = time.perf_counter()
+                result = part()
+                seconds[name] = time.perf_counter() - t0
+                emit({"phase": "tools", "part": name, **result, "s": round(seconds[name], 3),
+                      "launches": launch_diff(hk, before)})
+    finally:
+        for key in ("child", "sync_child"):
+            if key in started:
+                started[key].kill()
+    phase_launches = dict(hk.launches)
+    for k in K1_K2:
+        assert phase_launches[k] > 0, f"{k} never launched in the tools phase: {phase_launches}"
+    return {"seconds": {k: round(v, 3) for k, v in seconds.items()}, "launches": phase_launches,
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2038, checked)}
 
 
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)

@@ -67,10 +67,21 @@ from .manifest import (
 )
 from .snapshot import CommitKind, Snapshot, SnapshotManager
 
-# batch jobs commit once with this identifier (reference Long.MAX_VALUE)
+# batch jobs commit once with this identifier (reference Long.MAX_VALUE);
+# DELETE, sort-compact, partition maintenance and ANALYZE commit under the
+# sentinels just below it, the JAX package's values. None of them is a
+# streaming identifier: every identifier from SENTINEL_IDENTIFIERS_FROM up
+# is a sentinel.
 BATCH_COMMIT_IDENTIFIER = (1 << 63) - 1
+DELETE_COMMIT_IDENTIFIER = BATCH_COMMIT_IDENTIFIER - 1
+SORT_COMPACT_IDENTIFIER = BATCH_COMMIT_IDENTIFIER - 2
+MAINTENANCE_COMMIT_IDENTIFIER = BATCH_COMMIT_IDENTIFIER - 3
+ANALYZE_COMMIT_IDENTIFIER = BATCH_COMMIT_IDENTIFIER - 4
+SENTINEL_IDENTIFIERS_FROM = ANALYZE_COMMIT_IDENTIFIER
 
-__all__ = ["FileStoreCommit", "CommitConflictError", "CommitGiveUpError", "BATCH_COMMIT_IDENTIFIER"]
+__all__ = ["FileStoreCommit", "CommitConflictError", "CommitGiveUpError", "BATCH_COMMIT_IDENTIFIER",
+           "DELETE_COMMIT_IDENTIFIER", "SORT_COMPACT_IDENTIFIER", "MAINTENANCE_COMMIT_IDENTIFIER",
+           "ANALYZE_COMMIT_IDENTIFIER", "SENTINEL_IDENTIFIERS_FROM"]
 
 
 class CommitConflictError(RuntimeError):
@@ -146,14 +157,17 @@ class FileStoreCommit:
     def filter_committed(self, committables: Sequence[ManifestCommittable]) -> list[ManifestCommittable]:
         """Drop the committables whose identifier this user already committed
         (crash replay). Only streaming identifiers come here; the user's
-        latest snapshot with another identifier than the batch one marks
-        what is done. A committable at that identifier whose COMPACT half
-        is missing comes back flagged to skip its APPEND half."""
+        latest snapshot with a streaming identifier (below every sentinel)
+        marks what is done. The JAX package skips the batch identifier
+        alone, so a DELETE or maintenance commit by the same user makes it
+        drop every later streaming commit of that user (ROADMAP Queue 3
+        item 13). A committable at that identifier whose COMPACT half is
+        missing comes back flagged to skip its APPEND half."""
         done = next(
             (
                 s.commit_identifier
                 for s in self.snapshot_manager.snapshots_of_user(self.commit_user)
-                if s.commit_identifier != BATCH_COMMIT_IDENTIFIER
+                if s.commit_identifier < SENTINEL_IDENTIFIERS_FROM
             ),
             None,
         )
@@ -463,7 +477,7 @@ class FileStoreCommit:
             if snap is not None and snap.delta_manifest_list == delta_name:
                 return from_id
         ident = committable.commit_identifier
-        if ident >= BATCH_COMMIT_IDENTIFIER - 16:
+        if ident >= SENTINEL_IDENTIFIERS_FROM:
             return None
         latest_id = self.snapshot_manager.latest_snapshot_id()
         if latest_id is None:

@@ -54,6 +54,7 @@ from ..format.parquet import WRITE_CODECS, read_parquet, write_parquet
 from ..fs import FileIO
 from ..types import NESTED_ROOTS, DataField, RowKind, RowType
 from ..utils import new_file_name, now_millis
+from ..utils.cache import data_file_key
 from .kv import SEQUENCE_FIELD_NAME, VALUE_KIND_FIELD_NAME, KVBatch, kv_disk_schema
 
 __all__ = ["DataFileMeta", "KeyValueFileWriterFactory", "KeyValueFileReaderFactory"]
@@ -370,11 +371,14 @@ class KeyValueFileReaderFactory:
         if predicate is None and self.cache is not None:
             read_names = self.read_schema.field_names if fields is None else list(fields)
             # the read-field signature pins the projection and the schema
-            # evolution; the key holds the file name, not its path, so a
-            # branch view or a table copy reading the same file hits
+            # evolution; the key holds the file's path (a branch view or a
+            # table copy resolves the same one), not its name alone: a
+            # migrated table keeps foreign names such as part-0.parquet in
+            # every partition, where the JAX package's name-keyed cache
+            # returns one file's rows for another (ROADMAP Queue 3 item 28)
             sig = tuple((f.id, f.name, repr(f.type)) for f in (self.read_schema.field(n) for n in read_names))
             decoder = _DECODER_ID + ("+dict" if self.dict_domain else "")
-            key = ("data", meta.file_name, system_columns, sig, fields is None, decoder)
+            key = data_file_key(f"{self.bucket_dir}/{meta.file_name}", system_columns, sig, fields is None, decoder)
             return self.cache.get_or_load(
                 key,
                 lambda: self._decode(meta, fields, system_columns, None),

@@ -133,6 +133,10 @@ class SchemaNode:
 class Footer:
     row_groups: list  # [(row count, {column name or leaf path: ChunkInfo})]
     nested: dict  # {top-level group name: SchemaNode}
+    # the top-level columns in file order: (name, SchemaElement as thrift
+    # fields), the element None for a group
+    columns: list = field(default_factory=list)
+    key_value_metadata: dict = field(default_factory=dict)  # {key: value bytes}
 
 
 def _annotation(elem: dict) -> str | None:
@@ -183,11 +187,14 @@ def read_footer(data: bytes) -> Footer:
         raise ParquetFormatError("no schema elements")
     levels: dict[str, tuple[int, int]] = {}  # column name or leaf path -> (max def, max rep)
     nested: dict[str, SchemaNode] = {}
+    columns: list[tuple[str, dict | None]] = []
     i = 1
     for _ in range(elems[0].get(5) or 0):
         if i >= len(elems):
             raise ParquetFormatError("schema elements end inside the root")
+        elem = elems[i]
         node, i = _schema_node(elems, i, None)
+        columns.append((node.name, elem if node.is_leaf else None))
         if node.is_leaf:
             if node.repetition == REPEATED:
                 raise ParquetFormatError(f"column {node.name!r}: a repeated primitive (legacy list) layout")
@@ -213,7 +220,8 @@ def read_footer(data: bytes) -> Footer:
             cols[name] = ChunkInfo(name, md[1], md.get(4, 0), md[5], max_def, start, md[7], has_dict, md.get(12),
                                    max_rep)
         groups.append((rg[3], cols))
-    return Footer(groups, nested)
+    kv = {e[1].decode("utf-8", "replace"): e.get(2, b"") for e in fmd.get(5) or [] if 1 in e}
+    return Footer(groups, nested, columns, kv)
 
 
 def parse_footer(data: bytes) -> list[tuple[int, dict[str, ChunkInfo]]]:

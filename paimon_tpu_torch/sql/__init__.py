@@ -13,10 +13,12 @@ same table-API paths.
 
 Procedures return plain dicts, as in the JAX package. Every procedure keeps
 the JAX package's name; those whose modules are not ported yet raise
-NotImplementedError naming their ROADMAP item: migrate_table /
-migrate_database / migrate_file (table/migrate.py), query_service (service/), the privilege procedures
-(catalog/privilege.py) and cluster_query (sql/cluster.py). `repair` raises
-ProcedureError on a FileSystemCatalog, as in the JAX package.
+NotImplementedError naming their ROADMAP item: query_service (service/),
+the privilege procedures (catalog/privilege.py) and cluster_query
+(sql/cluster.py). `repair` raises ProcedureError on a FileSystemCatalog, as
+in the JAX package. migrate_table, migrate_database and migrate_file run
+table/migrate.py, inferring the schema from the first file's own footer
+(migrate.infer_row_type), as the JAX package does through pyarrow.
 """
 
 from __future__ import annotations
@@ -493,6 +495,54 @@ def _merge_into_dispatch(cat, *args, **kwargs):
     return _proc_merge_into(cat, *args, **kwargs)
 
 
+def _proc_migrate_table(cat, table: str, source_dir: str, file_format: str = "parquet",
+                        options: str = ""):
+    """Adopt a directory of Parquet or ORC files as an append table without
+    rewriting them; the schema is the first file's."""
+    import glob as _glob
+
+    from ..table.migrate import infer_row_type, migrate_files
+
+    candidates = sorted(_glob.glob(f"{_glob.escape(source_dir)}/*.{file_format}"))
+    if not candidates:
+        raise ProcedureError(f"no *.{file_format} files found in {source_dir}")
+    if file_format not in ("parquet", "orc"):
+        raise ProcedureError(f"cannot infer schema from format {file_format!r}")
+    row_type = infer_row_type(candidates[0], file_format)
+    t = migrate_files(cat, table, source_dir, row_type, file_format=file_format)
+    return {"migrated": table, "snapshot": t.store.snapshot_manager.latest_snapshot_id()}
+
+
+def _proc_migrate_database(cat, database: str, source_dir: str, file_format: str = "parquet"):
+    """One migrate_table per subdirectory that holds such files."""
+    import os as _os
+
+    migrated = []
+    for entry in sorted(_os.listdir(source_dir)):
+        sub = _os.path.join(source_dir, entry)
+        if _os.path.isdir(sub) and any(f.endswith(f".{file_format}") for f in _os.listdir(sub)):
+            _proc_migrate_table(cat, f"{database}.{entry}", sub, file_format)
+            migrated.append(f"{database}.{entry}")
+    return {"migrated": migrated}
+
+
+def _proc_migrate_file(cat, source_table: str, target_table: str,
+                       delete_origin: bool = True):
+    """Adopt the data files of one append table into another with the same
+    schema, in one commit; then drop the source unless delete_origin is
+    false."""
+    from ..table.migrate import adopt_table_files
+
+    try:
+        moved = adopt_table_files(cat, source_table, target_table)
+    except ValueError as e:
+        raise ProcedureError(str(e)) from e
+    if delete_origin:
+        cat.drop_table(source_table)
+    return {"migrated_into": target_table, "files": moved,
+            "origin_deleted": bool(delete_origin)}
+
+
 def _not_ported(name: str, module: str, item: int):
     def proc(cat, *args, **kwargs):
         raise NotImplementedError(
@@ -620,9 +670,9 @@ procedures: dict[str, Callable[..., Any]] = {
     "reset_consumer": _proc_reset_consumer,
     "delete": _proc_delete,
     "merge_into": _merge_into_dispatch,
-    "migrate_table": _not_ported("migrate_table", "table/migrate.py", 15),
-    "migrate_database": _not_ported("migrate_database", "table/migrate.py", 15),
-    "migrate_file": _not_ported("migrate_file", "table/migrate.py", 15),
+    "migrate_table": _proc_migrate_table,
+    "migrate_database": _proc_migrate_database,
+    "migrate_file": _proc_migrate_file,
     "repair": _proc_repair,
     "query_service": _not_ported("query_service", "service/", 15),
     "rewrite_file_index": _proc_rewrite_file_index,

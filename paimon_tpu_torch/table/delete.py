@@ -29,6 +29,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
+from ..core.commit import DELETE_COMMIT_IDENTIFIER
 from ..core.deletionvectors import DeletionVectorsIndexFile, DeletionVectorsMaintainer
 from ..core.kv import KVBatch
 from ..core.manifest import CommitMessage, ManifestCommittable
@@ -40,10 +41,6 @@ if TYPE_CHECKING:
     from . import FileStoreTable
 
 __all__ = ["delete_where", "copy_on_write_rewrite"]
-
-# a DELETE commits under this identifier (the JAX package's
-# Long.MAX_VALUE - 1)
-DELETE_COMMIT_IDENTIFIER = (1 << 63) - 2
 
 
 def delete_where(table: "FileStoreTable", predicate: Predicate) -> int:

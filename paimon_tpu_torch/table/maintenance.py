@@ -17,6 +17,7 @@ from __future__ import annotations
 import datetime
 from typing import TYPE_CHECKING
 
+from ..core.commit import MAINTENANCE_COMMIT_IDENTIFIER
 from ..core.manifest import ManifestCommittable
 from ..utils import dumps, loads, now_millis, partition_path
 
@@ -30,10 +31,6 @@ __all__ = [
     "mark_partition_done",
     "MAINTENANCE_COMMIT_IDENTIFIER",
 ]
-
-# the JAX package's identifier for maintenance commits, one of the batch
-# sentinels near the batch identifier, outside any streaming sequence
-MAINTENANCE_COMMIT_IDENTIFIER = (1 << 63) - 4
 
 
 def remove_orphan_files(

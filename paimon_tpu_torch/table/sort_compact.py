@@ -23,6 +23,7 @@ from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
+from ..core.commit import SORT_COMPACT_IDENTIFIER
 from ..core.deletionvectors import DeletionVectorsIndexFile
 from ..core.kv import KVBatch
 from ..core.manifest import CommitMessage, ManifestCommittable
@@ -37,8 +38,6 @@ if TYPE_CHECKING:
     from . import FileStoreTable
 
 __all__ = ["sort_compact", "SORT_COMPACT_IDENTIFIER"]
-
-SORT_COMPACT_IDENTIFIER = (1 << 63) - 3
 
 
 def _spread_var_length(lanes: np.ndarray, columns: Sequence[str], pools: dict, contrib: int, kv: KVBatch) -> None:

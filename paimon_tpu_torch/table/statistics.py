@@ -74,12 +74,13 @@ def analyze_table(table: "FileStoreTable", with_columns: bool = True) -> Statist
     name = new_file_name("stats")
     table.file_io.write_bytes(f"{table.path}/statistics/{name}", stats.to_json().encode())
     # register on a fresh ANALYZE snapshot
+    from ..core.commit import ANALYZE_COMMIT_IDENTIFIER
     from ..core.manifest import ManifestCommittable
     from ..core.snapshot import CommitKind
 
     commit = table.store.new_commit()
     commit._try_commit(
-        CommitKind.ANALYZE, [], ManifestCommittable((1 << 63) - 5), check_conflicts=False, statistics=name
+        CommitKind.ANALYZE, [], ManifestCommittable(ANALYZE_COMMIT_IDENTIFIER), check_conflicts=False, statistics=name
     )
     return stats
 

@@ -7,10 +7,16 @@ Two caches, as in the JAX package:
     manifest-list metas, parsed snapshots and the validated
     latest-snapshot pointer;
   * the data-file cache holds the KVBatches of predicate-free
-    `KeyValueFileReaderFactory.read` calls, keyed by (file name, system
+    `KeyValueFileReaderFactory.read` calls, keyed by (file path, system
     columns mode, read-field signature, whether the read was projected,
-    decoder) and weighed by `KVBatch.byte_size()`. The port has one
-    decoder, so its decoder field is constant.
+    decoder; `data_file_key`) and weighed by `KVBatch.byte_size()`. The
+    port has one decoder, so its decoder field is constant. The JAX
+    package keys by the file's name, which a migrated table repeats
+    across partitions. Entries are filed under the file's name for the
+    invalidators that know a file by its name (expiry, compaction,
+    rollback, the orphan sweep; a name that repeats drops every file of
+    that name, a miss more and never a stale hit), and a dropped table's
+    go by path (`invalidate_table_path`).
 
 Budgets come from the table options cache.manifest.max-memory-size (256
 mb) and cache.data-file.max-memory-size (128 mb); '0 b' opts a table out,
@@ -41,6 +47,7 @@ __all__ = [
     "table_caches",
     "configure",
     "clear_all",
+    "data_file_key",
     "invalidate_data_file",
     "invalidate_manifest_path",
     "invalidate_snapshot",
@@ -181,6 +188,15 @@ class ByteBudgetLRU:
                     n += 1
             return n
 
+    def invalidate_where(self, match: Callable[[Any], bool]) -> int:
+        """Drop every entry whose key `match` accepts."""
+        with self._lock:
+            victims = [key for key in self._entries if match(key)]
+            for key in victims:
+                self._drop(key)
+                self._metrics().counter("invalidations").inc()
+        return len(victims)
+
     def invalidate_prefix(self, path_prefix: str) -> int:
         """Drop every entry whose file_id lies under path_prefix (a dropped
         table or branch: its file names can be minted again)."""
@@ -291,10 +307,21 @@ def invalidate_latest_pointer(table_path: str) -> None:
     manifest_cache().invalidate(("latest", table_path))
 
 
+def data_file_key(path: str, *variant) -> tuple:
+    """The data-file cache's key of one read of the file at `path`."""
+    return ("data", path, *variant)
+
+
+def data_file_path(key: tuple) -> str:
+    return key[1]
+
+
 def invalidate_table_path(table_path: str) -> None:
     """A table or branch directory was deleted: its snapshot ids can be
     minted again with other content, so every metadata entry under it goes,
-    with its latest pointer. Data-file entries are keyed by uuid names that
-    are never minted again, and are left to the LRU."""
-    manifest_cache().invalidate_prefix(table_path.rstrip("/") + "/")
+    with its latest pointer, and so do its data files' entries (a table
+    migrated again there brings the same foreign names)."""
+    prefix = table_path.rstrip("/") + "/"
+    manifest_cache().invalidate_prefix(prefix)
     manifest_cache().invalidate(("latest", table_path))
+    data_file_cache().invalidate_where(lambda key: data_file_path(key).startswith(prefix))

@@ -149,6 +149,17 @@ def test_resilience_and_storage_modules_are_scanned(module):
     test_no_forbidden_import_in_source(path)
 
 
+@pytest.mark.parametrize("module", ["table/cdc.py", "table/cdc_format.py", "table/clone.py", "table/migrate.py",
+                                    "__main__.py", "docs_gen.py"])
+def test_table_tools_and_cli_modules_are_scanned(module):
+    """The CDC sink and formats, clone, migrate, the actions CLI and the
+    options documentation are in the scanned sources (and so in the child
+    process's import closure)."""
+    path = REPO / "paimon_tpu_torch" / module
+    assert path in SOURCES
+    test_no_forbidden_import_in_source(path)
+
+
 def test_the_catalog_opens_a_warehouse_by_its_scheme(tmp_path):
     """The catalog's FileIO comes from the warehouse's scheme; an unknown
     scheme raises ValueError, as in the JAX package."""

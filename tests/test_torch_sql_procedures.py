@@ -11,13 +11,14 @@ package reading the other's warehouse to those rows. The scripts are the
 counterparts of tests/test_sql_procedures.py (parse_call, the tag,
 rollback, branch and fast-forward procedures, compact and
 compact_database, expire_snapshots, delete by the JSON and the SQL form,
-reset_consumer), of tests/test_sql_round5.py less its migrate, privilege
-and query-service cases (merge_into in its named, positional, short delete
+reset_consumer), of tests/test_sql_round5.py less its privilege and
+query-service cases (merge_into in its named, positional, short delete
 and '*' forms and its refusals, rewrite_file_index with pruning after it,
-repair on a FileSystemCatalog) and of tests/test_sql_grand_tour.py, plus
+repair on a FileSystemCatalog; its migrate cases are in
+tests/test_torch_migrate.py) and of tests/test_sql_grand_tour.py, plus
 expire_partitions, drop_partition and mark_partition_done. The procedures
 that wait for later slices are pinned to NotImplementedError naming their
-ROADMAP item.
+ROADMAP item; the migrate procedures raise what the JAX package raises.
 
 Tolerance: exact.
 """
@@ -391,8 +392,7 @@ def test_repair_and_not_ported_procedures(tmp_path):
         "orphans": [debris], "dry_run": False}
     assert not os.path.exists(debris) and port_execute(cat, "SELECT count(*) FROM db.t").to_pylist() == [(2,)]
     not_ported = {
-        "migrate_table": "table/migrate.py",
-        "migrate_database": "table/migrate.py", "migrate_file": "table/migrate.py", "query_service": "service/",
+        "query_service": "service/",
         "init_file_based_privilege": "catalog/privilege.py", "create_privileged_user": "catalog/privilege.py",
         "drop_privileged_user": "catalog/privilege.py", "grant_privilege_to_user": "catalog/privilege.py",
         "revoke_privilege_from_user": "catalog/privilege.py",
@@ -400,6 +400,21 @@ def test_repair_and_not_ported_procedures(tmp_path):
     for name, module in not_ported.items():
         with pytest.raises(NotImplementedError, match=f"{module}.*ROADMAP Queue 1 item 15"):
             call(cat, f"CALL sys.{name}('db.t', 'x')")
+    # the migrate procedures are ported: the same call raises what the JAX
+    # package raises on the same warehouse (no files in 'x', no directory
+    # 'x', no table 'x')
+    jcat = JaxCatalog(str(tmp_path / "jax"))
+    jax_execute(jcat, "CREATE TABLE db.t (k BIGINT NOT NULL, v DOUBLE, PRIMARY KEY (k) NOT ENFORCED) "
+                      "WITH ('bucket' = '1')")
+    for name, error in (("migrate_table", ProcedureError), ("migrate_database", FileNotFoundError),
+                        ("migrate_file", ProcedureError)):
+        statement = f"CALL sys.{name}('db.t', 'x')"
+        with pytest.raises(Exception) as jax_err:
+            jax_execute(jcat, statement)
+        with pytest.raises(error) as port_err:
+            call(cat, statement)
+        assert type(jax_err.value).__name__ == type(port_err.value).__name__
+        assert str(port_err.value) == str(jax_err.value)
     with pytest.raises(NotImplementedError, match="sql/cluster.py"):
         cluster_query(cat, "SELECT 1 FROM db.t", client=None)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
