@@ -337,14 +337,14 @@ Phases, one JSON line each on stdout:
               never engages the code domain). Per schema, with the option
               on and off: the merge read of one physical table flipped with
               table.copy at the default tile (stock sort + K2) and at
-              131072 (K1), 3 reads each, and a staged read split into key
+              131072 (K1), 2 reads each, and a staged read split into key
               decode, key lanes, plan/upload/kernel/download, value decode
               and gather; the full-compaction rewrite of a copy of the
               table; sort_compact(order="order") of a copy of an append
               table at n / 2 rows in 2 commits. Every result equals the
               option-off result and a sort-engine=numpy read (outside the
               timed region); the rewritten files re-read with the option
-              off. Seconds, rows/s, the dict counters (rows_code_domain > 0
+              off equal that numpy read. Seconds, rows/s, the dict counters (rows_code_domain > 0
               on dict_heavy and mixed, 0 on non_dict and off) and K1/K2
               launches per workload. star_join: the lookups phase's tables
               read with the option on, one auto join per skew beside the
@@ -397,13 +397,12 @@ Phases, one JSON line each on stdout:
               DOUBLE sum (segment_sum); 5% of the nested values null and 5%
               empty. dedup: the bench table's rows (4 runs and the 100k
               upsert) with tags and attrs added. Each table written (s,
-              bytes on disk), read at the default tile (K2) and (the dedup
-              table, whose merge tiles there) at 131072, fully compacted
-              and read again; every read equal row for row
-              to the numpy engine's. A staged read per table: the leaves'
-              levels, the assembly, the merge (plan, upload, kernel,
-              download) and, for the aggregation, the host aggregate per
-              column. K1, K2 and segment_sum must launch in the phase; then
+              bytes on disk), read at the default tile (K2), fully
+              compacted and read again; every read equal row for row to
+              the numpy engine's read before the compaction. The dedup
+              table, compacted into ORC, then takes the upsert again and
+              is read merged (an ORC and a Parquet run) at the default
+              tile and at 131072 (K1). K1, K2 and segment_sum must launch in the phase; then
               K1 and K2 are held exactly to their plain versions at the
               phase's shapes no earlier check covered.
 21. resilience - the bench table (4 runs and the 100k upsert, bench.py's
@@ -457,7 +456,49 @@ Phases, one JSON line each on stdout:
               remove_orphan_files then removes nothing. K1 and K2 must
               launch; then they are held exactly to their plain versions
               at the phase's shapes no earlier check covered.
-23. timing  - each kernel at its main-path shape against its plain version,
+23. serving - catalogs and the serving plane, one line per part, with
+              three child processes (`chip_smoke.py --child <role>`)
+              started first so that they start beside the parent's parts;
+              each prints its own kernel launches, added under the phase.
+              subscribe: a SubscriptionHub on a primary-key table with
+              changelog-producer=input (bucket 1, write-only), 32
+              subscribers here (subscribe_bench.py's BASELINE_N), a
+              follow()ing LocalTableQuery and the subscriber child
+              (`paimon_tpu_torch.service.subscription`), while 16 commits
+              of 62,500 upserts over 500,000 keys land; every subscriber
+              gets the same (snapshot, rows) sequence, the same batch
+              objects, and decode_reuse_hits = (subscribers - 1) x batches;
+              a subscriber's fold equals the merged reads at both tiles
+              and the numpy engine; a subscriber held on a private hub
+              (queue depth 2, shed-timeout 500 ms) is shed with its
+              restart offset and resumes to subscriber 0's batches, so to
+              its fold; the child is SIGKILLed after its 5th batch; the
+              follower serves the last commit within 5 s; seconds, rows/s
+              delivered, p50/p99 lag. kv: CALL sys.query_service, started
+              with the phase, on the lookups phase's 1M-row table with a
+              TableWrite attached; 4 client threads and the
+              kv-client child send 5 get_batch requests of 10,000 keys,
+              each answer equal to the in-process get_batch (and, on 50
+              keys, to the scalar lookup); a server at
+              lookup.get.max-inflight 1 answers a request meeting another
+              in flight with the typed BUSY; 10,000 buffered upserts are
+              served before and after their commit; keys/s over the wire.
+              catalog: a JdbcCatalog (sqlite) table under
+              commit.catalog-lock.type=jdbc, written by this process (even
+              keys) and the jdbc-writer child (odd keys), 10 streaming
+              commits of 50,000 rows each, concurrently: all 20 commits
+              land once; reads at both tiles equal a numpy last-writer-wins
+              replay and the numpy engine; CALL sys.repair registers a
+              table made behind the catalog's back; a reader granted
+              SELECT reads the same rows and is denied INSERT with no
+              snapshot left; sys.all_table_options lists every table;
+              commits/s under the lock. subscribe_child: the subscriber
+              child respawned with its consumer id after the writes; its
+              journal's fold equals the merged read at the last snapshot.
+              K1 and K2 launches by part and by thread role (tailer,
+              follower, flush, main, other), then the exact checks at the
+              phase's new shapes.
+24. timing  - each kernel at its main-path shape against its plain version,
               one PyTorch library computation of the same function, and its
               bound, all with CUDA events, and the wrapper's host time per
               call. K1 also at the write-flush shape and at (8, 2^18), and
@@ -472,8 +513,8 @@ Then a summary line (each phase's wall seconds, its launches of each kernel
 and the first rate it reports), one JSON line with every kernel's numbers
 (its launches summed over the main, compact, engines, buckets, strings,
 maintenance, cdc, deletes, history, writes, services, lookups, sql,
-dict_domain, buffers_formats, nested, resilience and tools paths, and by
-path), the card line, and last
+dict_domain, buffers_formats, nested, resilience, tools and serving paths,
+and by path), the card line, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a CUDA device the script
 exits 2 before doing anything.
@@ -486,6 +527,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -531,7 +573,9 @@ SMALL_ROWS, SMALL_COMMITS = 20_000, 5
 READ_REPEATS = 5
 # the timed reads of the string-key bench table, the partitioned table and
 # the deletion-vector table, and of the 10M-row tables (config 2, the
-# sequence groups): cut from 5 (and 3) to make room for the resilience phase
+# sequence groups): cut from 5 (and 3) to make room for the resilience
+# phase; and the main path's xla-segmented and uncompressed control reads,
+# cut from 5 for the serving phase
 CUT_READ_REPEATS = 2
 BIG_READ_REPEATS = 2
 DEVICE = "cuda:0"
@@ -1029,7 +1073,7 @@ def main() -> int:
         assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched on small tiles"
         assert all(main_launches[k] > 0 for k in K1_K2), main_launches
         main_shapes = dict(hk.last_shape)
-        plain_out, plain_samples = timed_reads(table.copy({"sort-engine": "xla-segmented"}), READ_REPEATS)
+        plain_out, plain_samples = timed_reads(table.copy({"sort-engine": "xla-segmented"}), CUT_READ_REPEATS)
         check_output(plain_out, reference, up, "xla-segmented")
         reads["xla_segmented_plain_torch"] = read_stats(plain_samples)
         reads["numpy_host_oracle"] = {"samples_s": [round(s, 4) for s in numpy_s]}
@@ -1037,7 +1081,7 @@ def main() -> int:
         # the uncompressed variant, at the default tile
         hk.reset_launches()
         plain_table, plain_up, plain_write_s = build_table(pt, warehouse, "t_uncompressed", UNCOMPRESSED)
-        out, samples = timed_reads(plain_table, READ_REPEATS)
+        out, samples = timed_reads(plain_table, CUT_READ_REPEATS)
         uncompressed_launches = dict(hk.launches)
         assert uncompressed_launches["keep_last_mask"] > 0, "K2 never launched on the uncompressed table"
         check_output(out, timed_reads(plain_table.copy({"sort-engine": "numpy"}), 1)[0], plain_up, "uncompressed")
@@ -1178,7 +1222,15 @@ def main() -> int:
         emit({"phase": "tools", "part": "summary", **tools, "exact_checks_all_phases": checks})
         lap("tools", tools)
 
-    # 23. timing at the main path's shapes, after 0.2 s of K1 calls so that
+        # 23. catalogs and the serving plane: the JDBC catalog, the KV service, the subscription hub
+        checked = tuple(list(checked[i]) + [tuple(s) for s in tools["shape_checks"][key]]
+                        for i, key in enumerate(("k1_new_shapes", "k2_new_shapes")))
+        serving = serving_phase(pt, hk, warehouse, checked)
+        checks += serving["shape_checks"]["exact_checks"]
+        emit({"phase": "serving", "part": "summary", **serving, "exact_checks_all_phases": checks})
+        lap("serving", serving)
+
+    # 24. timing at the main path's shapes, after 0.2 s of K1 calls so that
     # the card leaves the idle clocks of the host-bound phases before it
     kernels = []
     read_shape = main_shapes["sort_segments"]
@@ -1196,7 +1248,8 @@ def main() -> int:
                       "services": services["launches"][name], "lookups": lookups["launches"][name],
                       "sql": sql["launches"][name], "dict_domain": dict_domain["launches"][name],
                       "buffers_formats": buffers["launches"][name], "nested": nested["launches"][name],
-                      "resilience": resilience["launches"][name], "tools": tools["launches"][name]}
+                      "resilience": resilience["launches"][name], "tools": tools["launches"][name],
+                      "serving": serving["launches"][name]}
               for name in hk.launches}
     k1_rows = [k1_timing(hk, rng, dev, sum(by_path["sort_segments"].values()), shape)
                for shape in (read_shape, write_shape, widest)]
@@ -5117,7 +5170,7 @@ def sql_phase(pt, hk, warehouse: str, table, up, checked: tuple) -> dict:
 DD_HEAVY_ROWS = 1_000_000  # dict_heavy at the bench table's size
 DD_ROWS = 400_000  # mixed and non_dict at the bench's own N_ROWS
 DD_RUNS = 4
-DD_REPEATS = 3
+DD_REPEATS = 2
 DD_BASE = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", "cache.data-file.max-memory-size": "0 b"}
 DD_COUNTERS = ("pools_unified", "codes_remapped", "rows_code_domain", "fallback_expanded")
 DD_WIDTHS = range(1, 33)
@@ -5257,7 +5310,6 @@ def dd_schema_part(pt, hk, cat, kind: str) -> dict:
         after = cat.get_table(name).copy({"merge.dict-domain": "false"})
         assert len(after.store.restore_files((), 0)) >= 1
         dd_same(read_all(after), reference, f"{kind} compaction {dd}, re-read off")
-        dd_same(read_all(after.copy({"sort-engine": "numpy"})), reference, f"{kind} compaction {dd}, numpy")
     # sort-compact of an append table at n / 2 rows in 2 commits
     append = cat.create_table(f"dd.{kind}_append", schema, options=DD_BASE)
     dd_write(append, kind, n // 2, 2)
@@ -5426,7 +5478,9 @@ def dict_domain_phase(pt, hk, warehouse: str, value_path_ms: dict, checked: tupl
     heavy = parts["dict_heavy"]["merge_read"]
     return {"dict_heavy_read_rows_per_s": {k: v["rows_per_s_median"] for k, v in heavy.items()},
             "launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
-            "seconds_by_part": seconds, "cuts": [],
+            "seconds_by_part": seconds,
+            "cuts": ["2 timed reads per workload, not 3", "no numpy-engine re-read of the compacted copies "
+                     "(the option-off re-read equals the numpy read before the compaction)"],
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2034, checked)}
 
 
@@ -5820,86 +5874,31 @@ def ns_dedup_batches() -> list:
             for r, ids in enumerate(runs + [up])]
 
 
-def ns_stages(table, agg: bool) -> dict:
-    """One merge read of the table's single section, stage by stage (host
-    clock, device synchronised at each boundary), without the data-file
-    cache: file decode with its nested part split into the leaves' levels
-    and the assembly, lane encode, merge (plan, upload, kernel, download),
-    then the aggregates column by column (agg) or the winners' gather."""
-    from paimon_tpu_torch.core.kv import KVBatch
-    from paimon_tpu_torch.core.levels import IntervalPartition
-    from paimon_tpu_torch.core.read import order_runs_for_merge
-    from paimon_tpu_torch.metrics import decode_metrics
-    from paimon_tpu_torch.ops.aggregates import aggregate_merge
-    from paimon_tpu_torch.ops.merge import merge_plan
-
-    t = table.copy({"cache.data-file.max-memory-size": "0 b"})
-    store = t.store
-    (split,) = t.new_read_builder().new_scan().plan()
-    rf = store.reader_factory(split.partition, split.bucket)
-    (section,) = IntervalPartition(split.files).partition()
-    runs, seq_ascending = order_runs_for_merge(section)
-    files = [f for run in runs for f in run.files]
-    g = decode_metrics()
-    levels0, assembly0 = g.counter("levels_us").count, g.counter("assembly_us").count
-    ms = {}
-    t0 = time.perf_counter()
-    kv = KVBatch.concat([rf.read(f, system_columns="kind" if seq_ascending else True) for f in files])
-    ms["decode"] = (time.perf_counter() - t0) * 1e3
-    ms["decode_nested_levels"] = (g.counter("levels_us").count - levels0) / 1e3
-    ms["decode_nested_assembly"] = (g.counter("assembly_us").count - assembly0) / 1e3
-    mx = store.merge_executor()
-    t0 = time.perf_counter()
-    lanes, seq = mx._key_lanes(kv), mx._seq_lanes(kv, seq_ascending)
-    ms["encode_lanes"] = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plan = merge_plan(lanes, seq, compress=mx._compress, engine="pallas", device=DEVICE)
-    torch.cuda.synchronize()
-    ms["plan_upload_kernel_download"] = (time.perf_counter() - t0) * 1e3
-    if agg:
-        for f in mx._value_fields():
-            t0 = time.perf_counter()
-            aggregate_merge(plan, kv.data.column(f.name), mx._agg_spec(f.name), kv.kind, DEVICE)
-            torch.cuda.synchronize()
-            ms[f"aggregate_{f.name}"] = (time.perf_counter() - t0) * 1e3
-        host = sum(ms[f"aggregate_{n}"] for n in ("tags", "attrs", "items"))
-        ms["host_aggregate_share_of_read"] = host / sum(v for k, v in ms.items() if not k.startswith("decode_nested"))
-    else:
-        t0 = time.perf_counter()
-        kv.take(plan.perm[plan.keep_last & plan.valid_sorted])
-        ms["gather"] = (time.perf_counter() - t0) * 1e3
-    return {"files": len(files), "input_rows": kv.num_rows, "m": plan.m,
-            "ms": {k: round(v, 3) for k, v in ms.items()}}
-
-
 def ns_mixed_reads(hk, table, upsert: dict, reference, rows: int) -> dict:
     """The dedup table after its full compaction into ORC: the bench upsert
     committed again (parquet, level 0), then read at the default tile (K2)
     and at K1_TILE_ROWS (K1). Each read merges the ORC run with the parquet
-    run and must equal the numpy engine's read of the same table, which
-    equals `reference` (the same upsert again changes no row)."""
+    run and must equal `reference`, the numpy engine's read before the
+    compaction (the same upsert again changes no row)."""
     orc_bytes = sum(f.file_size for f in live_files(table) if f.file_name.endswith(".orc"))
     write_s = ns_write(table, [upsert])
     formats = sorted(f.file_name.rsplit(".", 1)[1] for f in live_files(table))
     assert formats == ["orc", "parquet"], f"the mixed read's runs: {formats}"
-    numpy_out, numpy_s = timed_reads(table.copy({"sort-engine": "numpy"}), 1)
-    same_rows(numpy_out, reference, "nested dedup, ORC + parquet runs by the numpy engine, against the first read")
     reads = {}
     for label, opts in (("pallas_default_tile", {}), (f"pallas_tile_{K1_TILE_ROWS}",
                                                       {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
         before = dict(hk.launches)
         out, samples = timed_reads(table.copy(opts), 1)
-        same_rows(out, numpy_out, f"nested dedup, ORC + parquet runs, {label} against the numpy engine")
+        same_rows(out, reference, f"nested dedup, ORC + parquet runs, {label} against the numpy engine")
         reads[label] = read_stats(samples, launch_diff(hk, before), rows, rows + len(upsert["id"]))
     assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "K2 never launched in the mixed read"
     assert reads[f"pallas_tile_{K1_TILE_ROWS}"]["launches"]["sort_segments"] > 0, "K1 never launched in the mixed read"
     return {"orc_bytes": orc_bytes, "runs": formats, "upsert_write_s": round(write_s, 3),
-            "numpy_read_s": round(numpy_s[0], 4), "reads": reads, "equal_to_numpy_engine": True}
+            "reads": reads, "equal_to_numpy_engine": True}
 
 
 def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
-    """One nested table: written, read at both tiles, staged, compacted and
+    """One nested table: written, read at the default tile, compacted and
     read again, every read against the numpy engine's. The dedup table's
     full compaction writes ORC; its upsert is then committed again and the
     ORC and parquet runs read merged (ns_mixed_reads)."""
@@ -5914,15 +5913,15 @@ def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
     assert reference.num_rows == rows, reference.num_rows
     reads = {}
     tiles = (("pallas_default_tile", {}), (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)}))
-    # the aggregation table merges untiled at 131072 too (one K2 launch, as
-    # at the default tile): it is read at the default tile alone
-    for label, opts in tiles[:1] if agg else tiles:
+    # read at the default tile alone: the aggregation table merges untiled
+    # at 131072 too (one K2 launch, as at the default tile), and the dedup
+    # table's 131072 read comes after its compaction (ns_mixed_reads)
+    for label, opts in tiles[:1]:
         before = dict(hk.launches)
         # one sample a tile: the phase runs near the end of the call's time
         out, samples = timed_reads(table.copy(opts), 1)
         same_rows(out, reference, f"nested {name}, {label} against the numpy engine")
         reads[label] = read_stats(samples, launch_diff(hk, before), rows, input_rows)
-    stages = ns_stages(table, agg)
     nulls = {n: int(reference.column(n).null_count) for n in ("tags", "attrs")}
     empties = {n: int(sum(1 for v in reference.column(n).values if v is not None and len(v) == 0))
                for n in ("tags", "attrs")}
@@ -5936,15 +5935,13 @@ def ns_part(pt, hk, cat, warehouse: str, name: str, agg: bool) -> dict:
     compact_s = time.perf_counter() - t0
     after, after_samples = timed_reads(table, 1)
     same_rows(after, reference, f"nested {name} after the full compaction, against the numpy engine before it")
-    same_rows(after, read_all(table.copy({"sort-engine": "numpy"})),
-              f"nested {name} after the full compaction, against the numpy engine")
     formats = sorted({f.file_name.rsplit(".", 1)[1] for f in live_files(table)})
     assert formats == (["parquet"] if agg else ["orc"]), f"nested {name} compacted into {formats}"
     mixed = None if agg else ns_mixed_reads(hk, table, upsert, reference, rows)
     return {"options": options, "rows_written": input_rows, "output_rows": rows,
             "commits": NS_COMMITS if agg else N_RUNS + 1, "write_s": round(write_s, 3),
             "bytes_on_disk": bytes_before, "null_values": nulls, "empty_values": empties,
-            "numpy_read_s": round(numpy_s[0], 4), "reads": reads, "stages": stages,
+            "numpy_read_s": round(numpy_s[0], 4), "reads": reads,
             "compact_s": round(compact_s, 3), "files_after_compaction": len(live_files(table)),
             "bytes_after_compaction": table_bytes(table)["data_bytes"],
             "read_after_compaction": read_stats(after_samples, rows=rows, input_rows=rows),
@@ -5983,7 +5980,11 @@ def nested_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
            "mixed_read_launches": {label: r["launches"] for label, r in mixed["reads"].items()}}
     return {"launches": launches, "launches_by_part": {n: p["part_launches"] for n, p in parts.items()},
             "dedup_orc": orc,
-            "seconds_by_part": seconds, "stages_ms": {n: p["stages"]["ms"] for n, p in parts.items()},
+            "cuts": ["the dedup table's 131072 read before its compaction (the ORC + Parquet read takes K1 at "
+                     "131072)", "the numpy-engine re-read after each compaction and of the ORC + Parquet runs "
+                     "(each read equals the numpy read before the compaction)", "the staged reads of both tables (the "
+                     "default-tile read's work split by stage)"],
+            "seconds_by_part": seconds,
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2036, checked)}
 
 
@@ -6329,20 +6330,23 @@ class CdcSource:
 
 
 class CliChild:
-    """`python -m paimon_tpu_torch <argv>` in a child process on this
-    script's device, started at once, so that it runs beside the parent's
-    next part; `result()` waits for it, which must exit 0 and print one
-    JSON object, and gives the seconds it ran; `kill()` ends it if it
-    still runs."""
+    """`python -m paimon_tpu_torch <argv>` (or, with `script`, `python3
+    chip_smoke.py --child <argv>`, the serving phase's children) in a child
+    process on this script's device, started at once, so that it runs
+    beside the parent's next part; `result()` waits for it, which must exit
+    0 and print one JSON object last, and gives the seconds it ran;
+    `kill()` ends it if it still runs."""
 
-    def __init__(self, log_dir: str, *argv):
+    def __init__(self, log_dir: str, *argv, script: bool = False):
         root = os.path.dirname(os.path.abspath(__file__))
         device = "cpu" if str(DEVICE) == "cpu" else "cuda"
         self.action = argv[0]
-        self.out = open(os.path.join(log_dir, f"cli_{self.action}.out"), "w+")
-        self.err = open(os.path.join(log_dir, f"cli_{self.action}.err"), "w+")
+        name = f"child_{self.action}" if script else f"cli_{self.action}"
+        self.out = open(os.path.join(log_dir, f"{name}.out"), "w+")
+        self.err = open(os.path.join(log_dir, f"{name}.err"), "w+")
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen([sys.executable, "-m", "paimon_tpu_torch", *argv, "--device", device],
+        command = [os.path.abspath(__file__), "--child"] if script else ["-m", "paimon_tpu_torch"]
+        self.proc = subprocess.Popen([sys.executable, *command, *argv, "--device", device],
                                      stdout=self.out, stderr=self.err, env=dict(os.environ, PYTHONPATH=root),
                                      cwd=root)
         self.ran_s = None
@@ -6362,13 +6366,13 @@ class CliChild:
         stdout, stderr = self.out.read(), self.err.read()
         self.out.close()
         self.err.close()
-        assert rc == 0, f"the CLI child {self.action} exited {rc}: {stderr[-2000:]}"
+        assert rc == 0, f"the child {self.action} exited {rc}: {stderr[-2000:]}"
         return {"out": json.loads(stdout.strip().splitlines()[-1]), "s": round(s, 3)}
 
     def kill(self) -> None:
         if self.proc.poll() is None:
             self.proc.kill()
-            self.proc.wait()
+            self.proc.wait(timeout=60)
 
 
 def tiered_reads(hk, table, reference, what: str) -> dict:
@@ -6671,6 +6675,753 @@ def tools_phase(pt, hk, warehouse: str, bench_path: str, checked: tuple) -> dict
             "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2038, checked)}
 
 
+# ---------------------------------------------------------------------------
+# catalogs and the serving plane: the JDBC catalog under two committers, the
+# KV query service, the decode-once subscription hub
+# ---------------------------------------------------------------------------
+
+SV_KEYS = 500_000  # the catalog table's keys: even ones the parent's, odd ones the child's
+SV_COMMITS = 10  # streaming commits of each committer
+SV_COMMIT_ROWS = 50_000
+SV_SEED = 29
+SV_BASE = {"bucket": "1", "write-only": "true", "sort-engine": "pallas"}
+SV_OPTIONS = {**SV_BASE, "commit.catalog-lock.enabled": "true", "commit.catalog-lock.type": "jdbc"}
+SV_CLIENTS = 4  # client threads of the parent; the child is a fifth client
+SV_SUBSCRIBERS = 32  # benchmarks/subscribe_bench.py BASELINE_N
+SV_SUB_KEYS = 500_000
+SV_SUB_COMMITS = 16
+SV_SUB_ROWS = 62_500
+SV_SUB_KILL_AFTER = 5  # the subscriber child is killed after this many batches
+SV_FOLLOW_KEYS = 10_000
+SV_CATS = np.array(["alpha", "beta", "gamma", "delta"], dtype=object)
+# subscribe_bench.py's queue depth and poll backoff; the backoff doubles up
+# to continuous.discovery-interval; the fan-out budget counts each queued
+# batch once per subscriber: 33 subscribers x a 62,500-row batch of ~4 MB
+SV_SUB_OPTIONS = {"bucket": "1", "write-only": "true", "sort-engine": "pallas", "changelog-producer": "input",
+                  "subscription.queue-depth": "64", "subscription.poll-backoff": "5 ms",
+                  "continuous.discovery-interval": "500 ms", "subscription.buffer.max-memory": "4 gb"}
+SV_HELD_OPTIONS = {"subscription.queue-depth": "2", "subscription.shed-timeout": "500 ms"}
+THREAD_ROLES = (("paimon-subtail", "tailer"), ("paimon-qryref", "follower"), ("paimon-flush", "flush"),
+                ("MainThread", "main"))
+
+
+class ThreadLaunches:
+    """Counts K1 and K2 wrapper calls (one launch each on the card) by the
+    role of the calling thread: the tailer, the follower's refresh, a flush
+    worker, the main thread, or another (a KV handler), while installed."""
+
+    def __init__(self, hk):
+        self.hk = hk
+        self.counts: dict = {}
+        self.lock = threading.Lock()
+
+    def _add(self, kernel: str) -> None:
+        name = threading.current_thread().name
+        role = next((r for prefix, r in THREAD_ROLES if name.startswith(prefix)), "other")
+        with self.lock:
+            per = self.counts.setdefault(role, {k: 0 for k in K1_K2})
+            per[kernel] += 1
+
+    def __enter__(self):
+        self.saved = (self.hk.sort_segments, self.hk.keep_last_mask)
+        k1, k2 = self.saved
+
+        def sort_segments(stacked, num_boundary):
+            self._add("sort_segments")
+            return k1(stacked, num_boundary)
+
+        def keep_last_mask(stacked, mask_pad=True):
+            self._add("keep_last_mask")
+            return k2(stacked, mask_pad)
+
+        self.hk.sort_segments, self.hk.keep_last_mask = sort_segments, keep_last_mask
+        return self
+
+    def __exit__(self, *exc):
+        self.hk.sort_segments, self.hk.keep_last_mask = self.saved
+
+
+def sv_schema(pt):
+    return pt.RowType.of(("id", pt.BIGINT(False)), ("v", pt.DOUBLE()), ("w", pt.BIGINT()), ("c", pt.BIGINT()))
+
+
+def sv_commit_keys(writer: int) -> list:
+    """The keys of each of a committer's commits, in arrival order (so that
+    the flush sorts them, through K1): 50,000 of its own 250,000 keys (even
+    for writer 0, odd for writer 1), drawn anew for each commit, so that it
+    upserts its keys again across its commits."""
+    rng = np.random.default_rng(SV_SEED + writer)
+    own = np.arange(writer, SV_KEYS, 2, dtype=np.int64)
+    return [rng.choice(own, SV_COMMIT_ROWS, replace=False) for _ in range(SV_COMMITS)]
+
+
+def sv_values(keys: np.ndarray, writer: int, commit: int) -> dict:
+    return {"id": keys, "v": keys.astype(np.float64) * 0.5 + commit, "w": np.full(len(keys), writer, np.int64),
+            "c": np.full(len(keys), commit, np.int64)}
+
+
+def sv_write(table, writer: int, commits: int | None = None) -> dict:
+    """One committer's streaming commits (identifiers 1..10, or the first
+    `commits`); the snapshot ids each commit produced and its seconds."""
+    wb = table.new_stream_write_builder()
+    w, c = wb.new_write(), wb.new_commit()
+    sids, seconds = [], []
+    for i, keys in enumerate(sv_commit_keys(writer)[:commits]):
+        t0 = time.perf_counter()
+        w.write(sv_values(keys, writer, i))
+        sids += c.commit_messages(i + 1, w.prepare_commit())
+        seconds.append(time.perf_counter() - t0)
+    w.close()
+    return {"sids": [int(s) for s in sids], "commit_s": [round(s, 4) for s in seconds]}
+
+
+def sv_oracle() -> dict:
+    """Last writer wins over both committers' journals, replayed with numpy:
+    {column: values} of every written key in key order."""
+    v = np.full(SV_KEYS, np.nan)
+    w = np.full(SV_KEYS, -1, np.int64)
+    c = np.full(SV_KEYS, -1, np.int64)
+    for writer in (0, 1):
+        for i, keys in enumerate(sv_commit_keys(writer)):
+            vals = sv_values(keys, writer, i)
+            v[keys], w[keys], c[keys] = vals["v"], vals["w"], vals["c"]
+    ids = np.flatnonzero(w >= 0).astype(np.int64)
+    return {"id": ids, "v": v[ids], "w": w[ids], "c": c[ids]}
+
+
+def check_columns(out, columns: dict, what: str) -> None:
+    assert out.num_rows == len(columns["id"]), f"{what}: {out.num_rows} rows against {len(columns['id'])}"
+    for name, values in columns.items():
+        col = out.column(name)
+        assert col.validity is None or col.validity.all(), f"{what}: nulls in {name}"
+        assert same_values(col.values, values), f"{what}: column {name} differs"
+
+
+def catalog_part(pt, hk, warehouse: str, started: dict) -> dict:
+    """The JDBC catalog: two committers (this process, even keys; the
+    writer child, odd keys) each make 10 streaming commits of 50,000 rows
+    into one table under the jdbc commit lock; every commit lands once; the
+    merged reads at both tiles equal the numpy replay and the numpy engine.
+    The two committers' sequence ranges overlap, so the read at 131072
+    merges untiled like the default tile's (K2); the flushes launch K1.
+    Then repair registers a table added behind the catalog's back, a
+    reader granted SELECT reads the same rows and cannot write, and
+    sys.all_table_options lists every table."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.catalog.privilege import AccessDeniedError, PrivilegedCatalog, PrivilegeManager
+    from paimon_tpu_torch.core.levels import IntervalPartition
+    from paimon_tpu_torch.core.read import order_runs_for_merge
+    from paimon_tpu_torch.core.snapshot import CommitKind
+    from paimon_tpu_torch.sql import call
+
+    jc, table = started["jdbc"], started["jdbc_table"]
+    child = started["writer"]
+    deadline = time.monotonic() + 300
+    while not os.path.exists(started["ready"]):
+        assert child.proc.poll() is None, f"the writer child exited early: {child.result()}"
+        assert time.monotonic() < deadline, "the writer child never became ready"
+        time.sleep(0.02)
+    open(started["go"], "w").close()
+    before = dict(hk.launches)
+    t0 = time.perf_counter()
+    mine = sv_write(table, 0)
+    parent_s = time.perf_counter() - t0
+    flush_launches = launch_diff(hk, before)
+    result = child.result()
+    theirs = {**result["out"], "s": result["s"]}
+    both_s = time.perf_counter() - t0
+    assert flush_launches["sort_segments"] > 0, f"the parent's flushes never launched K1: {flush_launches}"
+    sm = table.store.snapshot_manager
+    snaps = [sm.snapshot(i) for i in range(1, sm.latest_snapshot_id() + 1)]
+    assert sorted(mine["sids"] + theirs["sids"]) == list(range(1, 2 * SV_COMMITS + 1)), (mine, theirs)
+    assert all(s.commit_kind == CommitKind.APPEND for s in snaps), [s.commit_kind for s in snaps]
+    by_user = {}
+    for s in snaps:
+        by_user.setdefault(s.commit_user, []).append(s.commit_identifier)
+    assert sorted(by_user) == ["chip_smoke", "chip_smoke_child"], by_user
+    assert all(sorted(ids) == list(range(1, SV_COMMITS + 1)) for ids in by_user.values()), by_user
+    interleaved = sum(1 for a, b in zip(snaps, snaps[1:]) if a.commit_user != b.commit_user)
+    assert interleaved >= 2, f"the two committers' commits did not interleave: {by_user}"
+    oracle = sv_oracle()
+    reference = read_all(table.copy({"sort-engine": "numpy"}))
+    check_columns(reference, oracle, "the jdbc table by the numpy engine against the replay")
+    # the two committers number their rows independently, so the runs'
+    # sequence ranges overlap: the merge carries sequence lanes and is not
+    # tiled at any merge.read-batch-rows (K2 at both tiles)
+    (section,) = IntervalPartition(table.store.restore_files((), 0)).partition()
+    disjoint = order_runs_for_merge(section)[1]
+    reads = {}
+    for label, opts in (("pallas_default_tile", {}),
+                        (f"pallas_tile_{K1_TILE_ROWS}", {"merge.read-batch-rows": str(K1_TILE_ROWS)})):
+        before = dict(hk.launches)
+        got, samples = timed_reads(table.copy(opts), 1)
+        same_rows(got, reference, f"the jdbc table, {label} against the numpy engine")
+        reads[label] = {"s": round(samples[0], 4), "rows_per_s": round(got.num_rows / samples[0], 1),
+                        "launches": launch_diff(hk, before)}
+    assert reads["pallas_default_tile"]["launches"]["keep_last_mask"] > 0, "the jdbc table: K2 never launched"
+    # a table directory made behind the catalog's back, then repaired in
+    fs = FileSystemCatalog(jc.warehouse, commit_user="behind", device=DEVICE)
+    fs.create_table("serving.extra", sv_schema(pt), primary_keys=["id"], options={"bucket": "1"})
+    repaired = call(jc, "CALL sys.repair()")
+    assert repaired == {"registered": ["serving.extra"], "removed": [], "removed_databases": []}, repaired
+    assert jc.list_tables("serving") == ["extra", "kv"], jc.list_tables("serving")
+    # file-based privileges over the same warehouse
+    pm = PrivilegeManager(jc.warehouse)
+    pm.init("root-pw")
+    pm.create_user("reader", "reader-pw")
+    pm.grant("reader", "serving.kv", "SELECT")
+    reader = PrivilegedCatalog(jc.warehouse, "reader", "reader-pw", device=DEVICE)
+    before = dict(hk.launches)
+    t1 = time.perf_counter()
+    granted = read_all(reader.get_table("serving.kv"))
+    granted_s = time.perf_counter() - t1
+    same_rows(granted, reference, "the granted reader's read against the numpy engine")
+    latest = sm.latest_snapshot_id()
+    try:
+        reader.writable_table("serving.kv")
+        raise AssertionError("a reader without INSERT got a writable table")
+    except AccessDeniedError as e:
+        denied = str(e)
+    assert sm.latest_snapshot_id() == latest, "the denied INSERT left a snapshot"
+    options = fs.get_table("sys.all_table_options").to_pylist()
+    listed = sorted({(db, t) for db, t, _, _ in options})
+    assert listed == sorted((db, t) for db in jc.list_databases() for t in jc.list_tables(db)), listed
+    assert ("serving", "kv", "commit.catalog-lock.type", "jdbc") in options
+    return {"rows": oracle["id"].size, "committers": 2, "commits": len(snaps), "interleavings": interleaved,
+            "parent_write_s": round(parent_s, 3), "flush_launches": flush_launches, "child": theirs,
+            "sequence_ranges_disjoint": disjoint, "both_committers_s": round(both_s, 3),
+            "commits_per_s_under_lock": round(len(snaps) / both_s, 2), "reads": reads, "repair": repaired,
+            "granted_read": {"s": round(granted_s, 4), "launches": launch_diff(hk, before)},
+            "denied_insert": denied, "all_table_options": [f"{db}.{t}" for db, t in listed],
+            "equal_to_replay_and_numpy_engine": True}
+
+
+def kv_batches(seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 2 * LK_ROWS, LK_BATCH).astype(np.int64) for _ in range(LK_BATCHES)]
+
+
+def kv_start(warehouse: str, started: dict) -> None:
+    """CALL sys.query_service on the lookups phase's 1M-row table, with a
+    TableWrite attached, at the start of the phase: the client child sends
+    its gets as soon as it is up, beside the parent's parts."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.sql import call
+
+    cat = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE)
+    table = cat.get_table("lookups.kv")
+    t0 = time.perf_counter()
+    got = call(cat, "CALL sys.query_service('lookups.kv')")
+    server = got.pop("server")
+    started["kv_open_s"] = time.perf_counter() - t0
+    tw = table.new_batch_write_builder().new_write()
+    started["kv_server"], started["kv_address"], started["kv_write"] = server, got, tw
+    with server._lock:
+        server.query.attach_write(tw)
+
+
+def kv_stop(started: dict) -> None:
+    """Stop kv_start's server and close its write, once."""
+    server = started.pop("kv_server", None)
+    if server is not None:
+        server.shutdown()
+        started["kv_write"].close()
+
+
+def kv_part(pt, hk, warehouse: str, started: dict) -> dict:
+    """The KV query service kv_start began: 4 client threads here and the
+    client child send 5 get_batch requests of 10,000 keys each (about half
+    absent), every answer equal to the in-process get_batch and, on a
+    sample, to the scalar lookup; a second server at
+    lookup.get.max-inflight 1 answers a request that meets another in
+    flight with the typed BUSY; 10,000 upserts in the attached write are
+    served before their commit, and after it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.service import KvBusyError, KvQueryClient, KvQueryServer
+    from paimon_tpu_torch.table.query import LocalTableQuery
+
+    table = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE).get_table("lookups.kv")
+    server, got, tw, open_s = started["kv_server"], started["kv_address"], started["kv_write"], started["kv_open_s"]
+    local = LocalTableQuery(table, device=DEVICE)
+    answers: dict = {}
+    errors: list = []
+
+    def client(i: int) -> None:
+        try:
+            c = KvQueryClient(got["host"], got["port"], timeout=120)
+            rows, seconds = [], []
+            for keys in kv_batches(300 + i):
+                t1 = time.perf_counter()
+                rows.append(c.get_batch(keys.tolist()))
+                seconds.append(time.perf_counter() - t1)
+            scalar = [c.lookup((), int(k)) for k in kv_batches(300 + i)[0][:50]]
+            c.close()
+            answers[i] = {"rows": rows, "s": seconds, "scalar": scalar}
+        except Exception as e:  # noqa: BLE001 - reported below, the part fails
+            errors.append(repr(e))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SV_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wire_s = time.perf_counter() - t0
+        result = started["kv"].result()
+        child = {**result["out"], "s": result["s"]}
+        assert not errors and len(answers) == SV_CLIENTS, errors
+        checked_keys = 0
+        for i, batches in [(i, kv_batches(300 + i)) for i in range(SV_CLIENTS)] + [(SV_CLIENTS, kv_batches(400))]:
+            rows = answers[i]["rows"] if i < SV_CLIENTS else child["rows"]
+            for keys, wire in zip(batches, rows):
+                want = local.get_batch(keys).to_pylist()
+                assert [None if r is None else tuple(r) for r in wire] == want, f"client {i}: wire != get_batch"
+                checked_keys += len(keys)
+            if i < SV_CLIENTS:
+                sample = batches[0][:50]
+                scalar = [local.lookup((), int(k)) for k in sample]
+                assert answers[i]["scalar"] == [None if r is None else r.to_pylist()[0] for r in scalar]
+                assert answers[i]["scalar"] == local.get_batch(sample).to_pylist(), f"client {i}: lookup != get_batch"
+        # the typed BUSY: a second server admitting one get at a time; its
+        # get is held inside the query until the second request is answered
+        busy = KvQueryServer(table.copy({"lookup.get.max-inflight": "1"}))
+        entered, release = threading.Event(), threading.Event()
+        inner = busy.query.get_batch
+
+        def held(keys, partition=()):
+            entered.set()
+            release.wait(60)
+            return inner(keys, partition)
+
+        busy.query.get_batch = held
+        busy.start()
+        first: dict = {}
+        a, b = KvQueryClient(busy.host, busy.port, timeout=120), KvQueryClient(busy.host, busy.port, timeout=120)
+        keys = kv_batches(500)[0]
+        holder = threading.Thread(target=lambda: first.setdefault("rows", a.get_batch(keys.tolist())))
+        holder.start()
+        assert entered.wait(60), "the first get never reached the query"
+        try:
+            b.get_batch(keys[:10].tolist())
+            raise AssertionError("a get past lookup.get.max-inflight was not shed")
+        except KvBusyError as e:
+            shed = e.payload
+        release.set()
+        holder.join(timeout=120)
+        assert shed["state"] == "busy-reads" and shed["kind"] == "get_batch" and shed["retry_after_ms"] > 0, shed
+        assert first["rows"] == local.get_batch(keys).to_pylist(), "the admitted get's rows"
+        a.close()
+        b.close()
+        busy.shutdown()
+        # read-your-writes through the attached write, then committed
+        c = KvQueryClient(got["host"], got["port"], timeout=120)
+        upd = np.sort(np.random.default_rng(17).choice(LK_ROWS, LK_RYW_ROWS, replace=False).astype(np.int64) * 2)
+        with server._lock:
+            tw.write(lk_values(upd, tag="-serving"))
+        t1 = time.perf_counter()
+        ryw = c.get_batch(upd.tolist())
+        ryw_ms = (time.perf_counter() - t1) * 1e3
+        want = lk_values(upd, tag="-serving")
+        assert [r[2] for r in ryw] == list(want["s1"]), "a buffered upsert was not served"
+        with server._lock:
+            server.query.attach_write(None)
+            wb = table.new_batch_write_builder()
+            wb.new_commit().commit(tw.prepare_commit())
+        c.refresh()
+        assert [r[2] for r in c.get_batch(upd.tolist())] == list(want["s1"]), "a committed upsert was not served"
+        c.close()
+    finally:
+        kv_stop(started)
+        local.close()
+    keys_wire = SV_CLIENTS * LK_BATCHES * LK_BATCH
+    return {"rows": LK_ROWS, "server_open_s": round(open_s, 4), "clients": SV_CLIENTS + 1,
+            "batch_keys": LK_BATCH, "wire_s": round(wire_s, 3),
+            "keys_per_s_over_wire": round(keys_wire / wire_s, 1),
+            "batch_ms": [round(s * 1e3, 3) for i in sorted(answers) for s in answers[i]["s"]],
+            "child": {k: child[k] for k in ("s", "launches", "batch_ms")}, "keys_checked": checked_keys,
+            "busy": shed, "read_your_writes_ms": round(ryw_ms, 3), "equal_to_get_batch_and_lookup": True}
+
+
+def sv_sub_batch(rng, commit: int) -> dict:
+    """One commit of the subscribed table: 62,500 distinct keys in arrival
+    order (the flush sorts them, through K1)."""
+    keys = rng.choice(SV_SUB_KEYS, SV_SUB_ROWS, replace=False).astype(np.int64)
+    return {"k": keys, "cat": SV_CATS[rng.integers(0, len(SV_CATS), SV_SUB_ROWS)],
+            "v": rng.random(SV_SUB_ROWS) + commit}
+
+
+def merged_state(out) -> dict:
+    return {row[0]: tuple(row) for row in out.to_pylist()}
+
+
+def journal_fold(path: str) -> tuple:
+    """The subscriber child's journal folded by snapshot id (a replayed
+    snapshot overwrites its first copy): ({key: row}, batches, checkpoint)."""
+    by_sid, checkpoint = {}, None
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            if line.strip():
+                rec = json.loads(line)
+                if "sid" in rec:
+                    by_sid[rec["sid"]] = rec
+                elif rec.get("done"):
+                    checkpoint = rec["checkpoint"]
+    state = {}
+    for sid in sorted(by_sid):
+        for row, kind in zip(by_sid[sid]["rows"], by_sid[sid]["kinds"]):
+            if kind in (0, 2):
+                state[row[0]] = tuple(row)
+            elif kind == 3:
+                state.pop(row[0], None)
+    return state, sorted(by_sid), checkpoint
+
+
+def journaled(path: str) -> int:
+    if not os.path.exists(path):
+        return 0
+    with open(path, encoding="utf-8") as f:
+        return sum(1 for line in f if line.startswith('{"sid"'))
+
+
+def subscribe_part(pt, hk, warehouse: str, started: dict) -> dict:
+    """The subscription hub on a primary-key table with
+    changelog-producer=input: 32 subscribers here, the subscriber child and
+    a follow()ing LocalTableQuery, while 16 commits of 62,500 upserts over
+    500,000 keys land. Every subscriber gets the same (snapshot, rows)
+    sequence, decode-once holds (decode_reuse_hits = (subscribers - 1) x
+    batches), one subscriber's fold equals the merged reads at both tiles;
+    a subscriber held on a private hub is shed with its restart offset and
+    resumes to the same batches, so to the same fold; the child is killed
+    after its 5th batch and respawned (watch_subscriber_child, collected by
+    subscribe_child_part); the follower serves the last commit within 5 s."""
+    from paimon_tpu_torch.metrics import registry, sub_metrics
+    from paimon_tpu_torch.service.subscription import SubscriberShedError, SubscriptionHub, fold_changelog
+    from paimon_tpu_torch.table.query import LocalTableQuery
+
+    table = started["sub_table"]
+    registry.groups.pop(("sub", ()), None)
+    hub = SubscriptionHub.for_table(table)
+    held_hub = SubscriptionHub(table.copy(SV_HELD_OPTIONS))
+    follower = LocalTableQuery(table, device=DEVICE)
+    follow_lock = threading.Lock()
+    subs = [hub.subscribe(consumer_id=f"serving-{i}") for i in range(SV_SUBSCRIBERS)]
+    follower.follow(hub=hub, lock=follow_lock)
+    held = held_hub.subscribe(consumer_id="serving-held")
+    received = [[] for _ in subs]
+    stop = threading.Event()
+    commit_at: dict = {}
+
+    def consume(i: int) -> None:
+        while not stop.is_set():
+            b = subs[i].poll(timeout=0.2)
+            if b is not None:
+                received[i].append((b.snapshot_id, b.num_rows, time.perf_counter(), b))
+
+    threads = [threading.Thread(target=consume, args=(i,), name=f"serving-sub-{i}") for i in range(len(subs))]
+    started["watcher"] = threading.Thread(target=watch_subscriber_child, args=(started,), name="serving-kill")
+    try:
+        for th in threads:
+            th.start()
+        started["watcher"].start()
+        rng = np.random.default_rng(SV_SEED + 10)
+        wb = table.new_stream_write_builder()
+        w, c = wb.new_write(), wb.new_commit()
+        first_held = None
+        t_start = time.perf_counter()
+        for i in range(SV_SUB_COMMITS):
+            w.write(sv_sub_batch(rng, i))
+            for sid in c.commit_messages(i + 1, w.prepare_commit()):
+                commit_at[sid] = time.perf_counter()
+            if first_held is None:
+                first_held = held.poll(timeout=30)  # then held: it polls no more
+        w.close()
+        write_s = time.perf_counter() - t_start
+        started["written"].set()
+        sids = sorted(commit_at)
+        assert len(sids) == SV_SUB_COMMITS, sids
+        deadline = time.monotonic() + 120
+        while any(len(r) < len(sids) for r in received) or hub.health_dict()["frontier"] <= sids[-1]:
+            assert time.monotonic() < deadline, [len(r) for r in received]
+            time.sleep(0.01)
+        delivered_s = max(r[-1][2] for r in received) - t_start
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+        g = sub_metrics()
+        hits, fanned = g.counter("decode_reuse_hits").count, g.counter("batches_fanned").count
+        seqs = {tuple((sid, n) for sid, n, _, _ in r) for r in received}
+        assert seqs == {tuple((sid, SV_SUB_ROWS) for sid in sids)}, "the subscribers' sequences differ"
+        assert all(r[k][3] is received[0][k][3] for r in received for k in range(len(sids))), "a batch decoded twice"
+        live = SV_SUBSCRIBERS + 1  # the follower is a subscriber of the hub too
+        assert hits == (live - 1) * len(sids), f"decode_reuse_hits {hits} != {(live - 1) * len(sids)}"
+        lags = np.array([(t - commit_at[sid]) * 1e3 for r in received for sid, _, t, _ in r])
+        reference = read_all(table.copy({"sort-engine": "numpy"}))
+        state = started["sub_state"] = merged_state(reference)
+        reads = tiered_reads(hk, table, reference, "the subscribed table")
+        t1 = time.perf_counter()
+        fold: dict = {}
+        for _, _, _, b in received[0]:
+            fold_changelog(fold, b, ["k"])
+        fold_s = time.perf_counter() - t1
+        assert {k[0]: v for k, v in fold.items()} == state, "subscriber 0's fold != the merged read"
+        # the follower: the last commit served within 5 s
+        probe = np.random.default_rng(SV_SEED + 11).integers(0, SV_SUB_KEYS, SV_FOLLOW_KEYS).astype(np.int64)
+        want = [state.get(int(k)) for k in probe]
+        t1 = time.perf_counter()
+        while True:
+            with follow_lock:
+                got = follower.get_batch(probe).to_pylist()
+            if got == want:
+                break
+            assert time.perf_counter() - t1 < 5.0, "the follower did not serve the last commit within 5 s"
+            time.sleep(0.05)
+        follow_s = time.perf_counter() - t1
+        # the held subscriber: shed with its restart offset, then resumed
+        deadline = time.monotonic() + 30
+        while not held.is_shed:
+            assert time.monotonic() < deadline, "the held subscriber was never shed"
+            time.sleep(0.05)
+        try:
+            held.poll(timeout=1)
+            raise AssertionError("a shed subscriber's poll did not raise")
+        except SubscriberShedError as e:
+            shed = e.payload
+        assert shed["consumer_id"] == "serving-held" and shed["next_snapshot"] is not None, shed
+        resumed = held_hub.subscribe(consumer_id="serving-held")
+        again = [first_held]
+        while resumed.checkpoint <= sids[-1]:
+            b = resumed.poll(timeout=30)
+            assert b is not None, "the resumed subscriber stalled"
+            again.append(b)
+        resumed.close()
+        # batch for batch subscriber 0's, whose fold equals the merged read:
+        # so does the held subscriber's (a replayed snapshot folds again)
+        by_sid = {b.snapshot_id: b for b in again}
+        assert sorted(by_sid) == sids, sorted(by_sid)
+        for _, _, _, b in received[0]:
+            same_rows(by_sid[b.snapshot_id].data, b.data, f"the resumed subscriber's snapshot {b.snapshot_id}")
+            assert np.array_equal(by_sid[b.snapshot_id].kinds, b.kinds), b.snapshot_id
+        sub_counters = {k: g.counter(k).count for k in ("batches_fanned", "rows_fanned", "decode_reuse_hits",
+                                                        "shed_subscribers")}
+    finally:
+        stop.set()
+        started["written"].set()
+        for th in threads:
+            th.join(timeout=30)
+        follower.unfollow()
+        for s in subs:
+            s.close()
+        held.close()
+        held_hub.close()
+        hub.close()
+    rows_delivered = SV_SUBSCRIBERS * len(sids) * SV_SUB_ROWS
+    return {"commits": len(sids), "rows_per_commit": SV_SUB_ROWS, "keys": SV_SUB_KEYS, "subscribers": live,
+            "write_s": round(write_s, 3), "delivered_s": round(delivered_s, 3),
+            "rows_per_s_delivered": round(rows_delivered / delivered_s, 1),
+            "lag_ms": {"p50": round(float(np.percentile(lags, 50)), 3), "p99": round(float(np.percentile(lags, 99)), 3),
+                       "max": round(float(lags.max()), 3)},
+            "decode_reuse_hits": hits, "batches_fanned_live": fanned, "decode_once": True,
+            "reads": reads, "fold_s": round(fold_s, 3), "follower_s": round(follow_s, 4),
+            "held": {"shed": shed, "resumed_batches": len(again) - 1,
+                     "catchup_batches": sum(1 for b in again[1:] if b.is_catchup)},
+            "sub_counters": sub_counters, "state": len(state),
+            "equal_to_merged_reads": True}
+
+
+def watch_subscriber_child(started: dict) -> None:
+    """SIGKILL the subscriber child once it journaled its 5th batch, then,
+    once the subscribed table's writes are done, start it again with the
+    same consumer id (collected by subscribe_child_part)."""
+    child, path = started["subscriber"], started["journal"]
+    deadline = time.monotonic() + 300
+    while journaled(path) < SV_SUB_KILL_AFTER:
+        if child.proc.poll() is not None or time.monotonic() > deadline:
+            return  # the missing kill fails subscribe_child_part
+        time.sleep(0.02)
+    child.proc.send_signal(signal.SIGKILL)
+    started["kill"] = {"rc": child.proc.wait(timeout=60), "journaled": journaled(path),
+                       "at_s": round(time.perf_counter() - started["t0"], 3)}
+    started["written"].wait(300)
+    started["respawn"] = CliChild(started["root"], "subscriber-respawn", *started["sub_args"], "--duration", "0",
+                                  "--idle-exit", "1", script=True)
+
+
+def subscribe_child_part(started: dict) -> dict:
+    """The subscriber child, killed after its 5th batch and respawned with
+    the same consumer id once the writes were done: it resumes from its
+    durable position, catches up and exits idle; its journal's fold equals
+    the merged read at the last snapshot."""
+    started["watcher"].join(timeout=300)
+    kill = started.get("kill", {})
+    assert kill.get("rc") == -signal.SIGKILL and "respawn" in started, f"the subscriber child's kill: {kill}"
+    assert SV_SUB_KILL_AFTER <= kill["journaled"] < SV_SUB_COMMITS, f"the kill missed the stream's middle: {kill}"
+    result = started["respawn"].result()
+    child = {**result["out"], "s": result["s"]}
+    state, sids, checkpoint = journal_fold(started["journal"])
+    last = started["sub_table"].store.snapshot_manager.latest_snapshot_id()
+    assert checkpoint == last and sids[-1] == last, (checkpoint, sids, last)
+    # the table is as subscribe_part read it, merged at both tiles
+    assert state == started["sub_state"], "the respawned child's journal fold != the merged read"
+    return {"kill": kill, "respawn": child, "journal_batches": len(sids), "checkpoint": checkpoint,
+            "equal_to_merged_read": True}
+
+
+def serving_phase(pt, hk, warehouse: str, checked: tuple) -> dict:
+    """Catalogs and the serving plane (catalog_part, kv_part,
+    subscribe_part, subscribe_child_part), with three child processes
+    started first so that their start-up runs beside the parent's parts.
+    K1 and K2 launch in the flushes and the merged reads; the children's
+    launches are added under the phase. Launch counts are zeroed before
+    it."""
+    from paimon_tpu_torch.catalog import FileSystemCatalog
+    from paimon_tpu_torch.catalog.jdbc import JdbcCatalog
+
+    hk.reset_launches()
+    root = os.path.join(warehouse, "serving")
+    os.makedirs(root)
+    db = os.path.join(root, "catalog.sqlite")
+    jc = JdbcCatalog(db, os.path.join(root, "jdbc_wh"), commit_user="chip_smoke", device=DEVICE)
+    jdbc_table = jc.create_table("serving.kv", sv_schema(pt), primary_keys=["id"],
+                                 options={**SV_OPTIONS, "commit.catalog-lock.jdbc-path": db})
+    sub_table = FileSystemCatalog(warehouse, commit_user="chip_smoke", device=DEVICE).create_table(
+        "serving.sub", pt.RowType.of(("k", pt.BIGINT(False)), ("cat", pt.STRING()), ("v", pt.DOUBLE())),
+        primary_keys=["k"], options=SV_SUB_OPTIONS)
+    started = {"t0": time.perf_counter(), "jdbc": jc, "jdbc_table": jdbc_table, "sub_table": sub_table,
+               "ready": os.path.join(root, "writer.ready"), "go": os.path.join(root, "writer.go"),
+               "journal": os.path.join(root, "subscriber.journal"), "root": root, "written": threading.Event()}
+    sub_args = started["sub_args"] = ("--table", sub_table.path, "--consumer", "serving-child", "--journal",
+                                      started["journal"])
+    # 200 ms a batch, so that the kill lands right after the 5th
+    started["subscriber"] = CliChild(root, "subscriber", *sub_args, "--duration", "600", "--idle-exit", "600",
+                                     "--slow-ms", "200", script=True)
+    # the children take this process's sizes, so that both sides draw the same keys
+    sizes = json.dumps({k: globals()[k] for k in CHILD_SIZES})
+    started["writer"] = CliChild(root, "jdbc-writer", "--db", db, "--warehouse", jc.warehouse, "--ready",
+                                 started["ready"], "--go", started["go"], "--sizes", sizes, script=True)
+    started["kv"] = CliChild(root, "kv-client", "--table", cat_table_path(warehouse, "lookups.kv"), "--sizes", sizes,
+                             script=True)
+    seconds, results = {}, {}
+    try:
+        with ShapeRecorder(hk) as recorder, ThreadLaunches(hk) as by_thread:
+            kv_start(warehouse, started)
+            for name, part in (("subscribe", lambda: subscribe_part(pt, hk, warehouse, started)),
+                               ("kv", lambda: kv_part(pt, hk, warehouse, started)),
+                               ("catalog", lambda: catalog_part(pt, hk, warehouse, started)),
+                               ("subscribe_child", lambda: subscribe_child_part(started))):
+                before = dict(hk.launches)
+                t0 = time.perf_counter()
+                results[name] = part()
+                seconds[name] = time.perf_counter() - t0
+                emit({"phase": "serving", "part": name, **results[name], "s": round(seconds[name], 3),
+                      "launches": launch_diff(hk, before)})
+    finally:
+        kv_stop(started)
+        started["written"].set()
+        for key in ("subscriber", "writer", "kv"):
+            started[key].kill()
+        if "watcher" in started:
+            started["watcher"].join(timeout=120)
+        if "respawn" in started:
+            started["respawn"].kill()
+    children = {"jdbc-writer": results["catalog"]["child"]["launches"], "kv-client": results["kv"]["child"]["launches"],
+                "subscriber-respawn": results["subscribe_child"]["respawn"]["launches"]}
+    phase_launches = {k: hk.launches[k] + sum(c.get(k, 0) for c in children.values()) for k in hk.launches}
+    for k in K1_K2:
+        assert phase_launches[k] > 0, f"{k} never launched in the serving phase: {phase_launches}"
+    return {"seconds": {k: round(v, 3) for k, v in seconds.items()}, "launches": phase_launches,
+            "launches_by_thread": by_thread.counts, "children_launches": children,
+            "commits_per_s_under_lock": results["catalog"]["commits_per_s_under_lock"],
+            "keys_per_s_over_wire": results["kv"]["keys_per_s_over_wire"],
+            "rows_per_s_delivered": results["subscribe"]["rows_per_s_delivered"],
+            "lag_ms_p99": results["subscribe"]["lag_ms"]["p99"],
+            "shape_checks": path_shape_checks(hk, recorder, torch.device(DEVICE), 2039, checked)}
+
+
+def cat_table_path(warehouse: str, ident: str) -> str:
+    db, table = ident.split(".")
+    return f"{warehouse}/{db}.db/{table}"
+
+
+CHILD_SIZES = ("SV_KEYS", "SV_COMMITS", "SV_COMMIT_ROWS", "LK_ROWS", "LK_BATCH", "LK_BATCHES")
+
+
+def child_main(argv: list) -> int:
+    """The serving phase's child processes: `--child jdbc-writer` (the
+    catalog table's second committer, odd keys), `--child kv-client` (a
+    port KvQueryClient sending 5 get_batch requests of 10,000 keys), and
+    `--child subscriber` / `subscriber-respawn` (the subscriber process of
+    paimon_tpu_torch.service.subscription). Each prints its kernel launches
+    in one JSON object last."""
+    import argparse
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paimon_tpu_torch.ops import hopper_kernels as hk
+
+    role, rest = argv[0], argv[1:]
+    if role.startswith("subscriber"):
+        from paimon_tpu_torch.service.subscription import _run_subscriber_process
+
+        rc = _run_subscriber_process(rest)
+        print(json.dumps({"launches": dict(hk.launches)}))
+        return rc
+    ap = argparse.ArgumentParser(prog=f"chip_smoke.py --child {role}")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--db")
+    ap.add_argument("--warehouse")
+    ap.add_argument("--ready")
+    ap.add_argument("--go")
+    ap.add_argument("--table")
+    ap.add_argument("--sizes", default="{}")
+    args = ap.parse_args(rest)
+    global DEVICE
+    DEVICE = "cpu" if args.device == "cpu" else "cuda:0"
+    globals().update({k: v for k, v in json.loads(args.sizes).items() if k in CHILD_SIZES})
+    if role == "jdbc-writer":
+        from paimon_tpu_torch.catalog.jdbc import JdbcCatalog
+
+        import paimon_tpu_torch as pt
+        from paimon_tpu_torch.catalog import FileSystemCatalog
+
+        table = JdbcCatalog(args.db, args.warehouse, commit_user="chip_smoke_child",
+                            device=DEVICE).get_table("serving.kv")
+        # one commit into a table of its own first, so that the device, the
+        # kernel and the codecs are loaded before the two committers start
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(args.ready)) as scratch:
+            t0 = time.perf_counter()
+            warm = FileSystemCatalog(scratch, device=DEVICE).create_table(
+                "warm.kv", sv_schema(pt), primary_keys=["id"], options=SV_BASE)
+            sv_write(warm, 1, commits=1)
+            warmup = {"s": round(time.perf_counter() - t0, 3), "launches": dict(hk.launches)}
+        open(args.ready, "w").close()
+        deadline = time.monotonic() + 300
+        while not os.path.exists(args.go):
+            assert time.monotonic() < deadline, "no go from the parent"
+            time.sleep(0.005)
+        out = {**sv_write(table, 1), "warmup": warmup}
+    elif role == "kv-client":
+        from paimon_tpu_torch.fs import get_file_io
+        from paimon_tpu_torch.service import KvQueryClient, ServiceManager
+
+        services = ServiceManager(get_file_io(args.table), args.table)
+        deadline = time.monotonic() + 300
+        while (addr := services.address(ServiceManager.PRIMARY_KEY_LOOKUP)) is None:
+            assert time.monotonic() < deadline, "no KV server registered"
+            time.sleep(0.02)
+        c = KvQueryClient(*addr, timeout=120)
+        rows, ms = [], []
+        for keys in kv_batches(400):
+            t0 = time.perf_counter()
+            rows.append(c.get_batch(keys.tolist()))
+            ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+        c.close()
+        out = {"rows": rows, "batch_ms": ms}
+    else:
+        raise SystemExit(f"unknown child role {role!r}")
+    print(json.dumps({**out, "launches": dict(hk.launches)}))
+    return 0
+
+
 SEG_SUM_SIZES = (1, 2, 127, 128, 4096, 1 << 17, 1 << 20)
 SEG_SUM_PATTERNS = ("short", "singletons", "one_segment", "long", "specials")
 
@@ -6843,4 +7594,4 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(child_main(sys.argv[2:]) if sys.argv[1:2] == ["--child"] else main())

@@ -8,11 +8,13 @@ partition expiry, orphan cleanup, migration, clone, CDC sync, queries, and
 one JSON object (query and SELECT: one JSON row per line), with the JAX
 package's arguments and output.
 
+repair syncs a JdbcCatalog (catalog/jdbc.py, --jdbc-path) with its
+warehouse; query-service runs the KV query service (service/) for a table
+for --serve-seconds, or until interrupted.
+
 Every action takes --device {cuda,cpu} (default cuda), the device of each
 catalog it opens; without a CUDA device the default raises RuntimeError. A
 usage mistake exits with argparse's code 2 before the device is resolved.
-repair and query-service need modules that are not ported yet and raise
-NotImplementedError naming them.
 """
 
 from __future__ import annotations
@@ -46,10 +48,6 @@ _ACTIONS = (
     "repair",
     "migrate_database",
 )
-
-# the actions whose modules wait for a later slice: (module, ROADMAP item)
-_NOT_PORTED = {"repair": ("catalog/jdbc.py", "15 (c)"), "query_service": ("service/", "15 (d)")}
-
 
 def _add_common(p):
     p.add_argument("--warehouse", required=True, help="warehouse directory")
@@ -184,12 +182,6 @@ def main(argv=None) -> int:
     from .utils import resolve_device
 
     device = resolve_device(args.device)
-    if action in _NOT_PORTED:
-        module, item = _NOT_PORTED[action]
-        raise NotImplementedError(
-            f"the {args.action} action needs {module}, which the torch port does not have yet "
-            f"(ROADMAP Queue 1 item {item})"
-        )
 
     def catalog(warehouse: str) -> FileSystemCatalog:
         return FileSystemCatalog(warehouse, commit_user=args.user, device=device)
@@ -258,6 +250,13 @@ def main(argv=None) -> int:
             full=args.full,
         )
         print(json.dumps({**out, "full": args.full}))
+        return 0
+
+    if action == "repair":
+        from .catalog.jdbc import JdbcCatalog
+
+        cat = JdbcCatalog(args.jdbc_path, args.warehouse, commit_user=args.user, device=device)
+        print(json.dumps(cat.repair()))
         return 0
 
     if action in ("migrate_table", "migrate_database"):
@@ -359,6 +358,24 @@ def main(argv=None) -> int:
 
         specs = [dict(kv.split("=", 1) for kv in s.split(",")) for s in args.partition]
         print(json.dumps({"markers": mark_partition_done(t, specs)}))
+    elif action == "query_service":
+        import time
+
+        from .service import KvQueryServer
+
+        server = KvQueryServer(t, host=args.host, port=args.port)
+        host, port = server.start()
+        print(json.dumps({"service": "kv-query", "host": host, "port": port}), flush=True)
+        try:
+            if args.serve_seconds is not None:
+                time.sleep(args.serve_seconds)
+            else:
+                while True:
+                    time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
     elif action == "create_branch":
         from .table.branch import BranchManager
 

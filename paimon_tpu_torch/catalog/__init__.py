@@ -6,8 +6,12 @@ mints its snapshot ids again.
 
 `get_table("db.t$snapshots")` opens a system table of db.t
 (table/system.py). The database name 'sys' is reserved for the
-catalog-scope system tables, which are not ported yet (ROADMAP Queue 1
-item 15).
+catalog-scope system tables: `get_table("sys.all_table_options")` opens
+one of catalog/globals.py (all_table_options, catalog_options and the
+four lineage tables over `lineage_meta()`).
+
+`Catalog` is the interface FileSystemCatalog, catalog/jdbc.py's
+JdbcCatalog and catalog/privilege.py's PrivilegedCatalog share.
 
 Layout: warehouse/<db>.db/<table>/{schema,snapshot,manifest,bucket-N}, the
 JAX package's. The catalog's `device` ("cuda" by default) threads through
@@ -37,7 +41,7 @@ from ..types import RowType
 from ..utils import resolve_device
 from ..utils.cache import invalidate_table_path
 
-__all__ = ["FileSystemCatalog", "Identifier"]
+__all__ = ["Catalog", "FileSystemCatalog", "Identifier"]
 
 
 class Identifier:
@@ -56,7 +60,30 @@ class Identifier:
         return f"{self.database}.{self.table}"
 
 
-class FileSystemCatalog:
+class Catalog:
+    def list_databases(self) -> list[str]:
+        raise NotImplementedError
+
+    def create_database(self, name: str, ignore_if_exists: bool = True) -> None:
+        raise NotImplementedError
+
+    def drop_database(self, name: str, cascade: bool = False) -> None:
+        raise NotImplementedError
+
+    def list_tables(self, database: str) -> list[str]:
+        raise NotImplementedError
+
+    def create_table(self, identifier, row_type, **kw) -> FileStoreTable:
+        raise NotImplementedError
+
+    def get_table(self, identifier):
+        raise NotImplementedError
+
+    def drop_table(self, identifier) -> None:
+        raise NotImplementedError
+
+
+class FileSystemCatalog(Catalog):
     DB_SUFFIX = ".db"
     SYSTEM_SEP = "$"
 
@@ -133,14 +160,25 @@ class FileSystemCatalog:
         schema = sm.create_table(row_type, partition_keys, primary_keys, options)
         return FileStoreTable(self.file_io, path, schema, self.commit_user, self.device)
 
+    def system_table(self, name: str):
+        """A catalog-scope system table: all_table_options, catalog_options
+        or one of the four lineage tables (catalog/globals.py)."""
+        from .globals import global_system_table
+
+        return global_system_table(self, name)
+
+    def lineage_meta(self):
+        """The catalog's lineage store (catalog/globals.py FsLineageMeta)."""
+        from .globals import FsLineageMeta
+
+        return FsLineageMeta(self)
+
     def get_table(self, identifier: "Identifier | str"):
-        """The data table, or for "db.t$name" the system table `name` of
-        db.t (table/system.py)."""
+        """The data table, for "db.t$name" the system table `name` of db.t
+        (table/system.py), and for "sys.name" a catalog-scope one."""
         ident = Identifier.parse(identifier) if isinstance(identifier, str) else identifier
         if ident.database == "sys":
-            raise NotImplementedError(
-                f"catalog system table sys.{ident.table} is not ported yet (ROADMAP Queue 1 item 15)"
-            )
+            return self.system_table(ident.table)
         if self.SYSTEM_SEP in ident.table:
             from ..table.system import system_table
 

@@ -5,7 +5,8 @@ On object stores without an atomic rename the snapshot CAS degrades, so
 commits run under a lock. FileBasedCatalogLock claims an exclusively
 created lock file in the table directory (holder id and timestamp inside,
 a heartbeat refreshing it) and takes over a holder's lock once it is
-older than the stale TTL. The jdbc lock (catalog/jdbc.py) is not ported.
+older than the stale TTL. The jdbc lock is catalog/jdbc.py's
+JdbcCatalogLock.
 """
 
 from __future__ import annotations

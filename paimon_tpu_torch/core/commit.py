@@ -124,16 +124,22 @@ class FileStoreCommit:
     def _catalog_lock(self):
         """The lock every commit round runs under, or None: engaged by
         commit.catalog-lock.enabled or a store without atomic write. 'file'
-        needs exclusive create; 'jdbc' is not ported."""
+        needs exclusive create; 'jdbc' takes a row in the database at
+        commit.catalog-lock.jdbc-path, keyed by the table path as the JAX
+        package keys it, so that committers of both packages serialise."""
         opts = self.options.options
         if not opts.get(CoreOptions.COMMIT_CATALOG_LOCK) and getattr(self.file_io, "atomic_write_supported", True):
             return None
         lock_type = opts.get(CoreOptions.COMMIT_CATALOG_LOCK_TYPE)
+        timeout = opts.get(CoreOptions.COMMIT_CATALOG_LOCK_TIMEOUT)
+        stale_ttl = opts.get(CoreOptions.COMMIT_CATALOG_LOCK_STALE_TTL)
         if lock_type == "jdbc":
-            raise NotImplementedError(
-                "commit.catalog-lock.type=jdbc needs catalog/jdbc.py, which the torch port does not have yet "
-                "(ROADMAP Queue 1 item 15 (c))"
-            )
+            from ..catalog.jdbc import JdbcCatalogLock
+
+            db = opts.get(CoreOptions.COMMIT_CATALOG_LOCK_JDBC_PATH)
+            if not db:
+                raise ValueError("commit.catalog-lock.type=jdbc needs commit.catalog-lock.jdbc-path")
+            return JdbcCatalogLock(db, lock_id=self.table_path, timeout=timeout, stale_ttl=stale_ttl)
         if lock_type != "file":
             raise ValueError(f"unknown commit.catalog-lock.type: {lock_type!r} (expected 'file' or 'jdbc')")
         if not getattr(self.file_io, "exclusive_create_supported", True):
@@ -147,12 +153,7 @@ class FileStoreCommit:
             )
         from ..catalog.lock import FileBasedCatalogLock
 
-        return FileBasedCatalogLock(
-            self.file_io,
-            self.table_path,
-            timeout=opts.get(CoreOptions.COMMIT_CATALOG_LOCK_TIMEOUT),
-            stale_ttl=opts.get(CoreOptions.COMMIT_CATALOG_LOCK_STALE_TTL),
-        )
+        return FileBasedCatalogLock(self.file_io, self.table_path, timeout=timeout, stale_ttl=stale_ttl)
 
     def filter_committed(self, committables: Sequence[ManifestCommittable]) -> list[ManifestCommittable]:
         """Drop the committables whose identifier this user already committed

@@ -2,8 +2,8 @@
 encode groups (port of paimon_tpu/metrics.py: Counter, Gauge, Histogram,
 MetricGroup, MetricRegistry, the module's registry, compaction_metrics,
 join_metrics, get_metrics, sql_metrics, decode_metrics, dict_metrics,
-encode_metrics and io_metrics, with the JAX package's member names; the
-other groups are not ported). The cache{cache=manifest|data-file} groups are filled by
+encode_metrics, io_metrics and sub_metrics, with the JAX package's member
+names; the other groups are not ported). The cache{cache=manifest|data-file} groups are filled by
 utils/cache.py.
 """
 
@@ -29,6 +29,7 @@ __all__ = [
     "io_metrics",
     "soak_metrics",
     "pipeline_metrics",
+    "sub_metrics",
 ]
 
 
@@ -248,3 +249,17 @@ def io_metrics() -> MetricGroup:
     cleanup, expiry or the orphan sweep), orphans_removed; histogram:
     backoff_ms (one retry's sleep). Resolved per call."""
     return registry.group("io")
+
+
+def sub_metrics() -> MetricGroup:
+    """The sub{...} group (service/subscription.py). Gauges: subscribers
+    (live subscribers across hubs), lag_snapshots (the most any live
+    subscriber trails the hub's frontier, in snapshots), queue_high_water
+    (the most batches seen in one subscriber queue). Counters:
+    batches_fanned (deliveries of a ChangelogBatch, one per subscriber and
+    snapshot, live or caught up), rows_fanned (rows times subscribers),
+    decode_reuse_hits (deliveries that reused a batch already decoded: live
+    fan-out past the first subscriber, and catch-up reads served by the
+    replay cache or the data-file cache), shed_subscribers (consumers shed
+    with SubscriberShedError). Resolved per call."""
+    return registry.group("sub")

@@ -631,6 +631,74 @@ class CoreOptions:
             'Start from the startup mode, ignoring saved consumer progress.'
         ),
     )
+    # the subscription hub of service/subscription.py
+    SUBSCRIPTION_QUEUE_DEPTH = ConfigOption.int_(
+        "subscription.queue-depth",
+        16,
+        description=(
+            "CDC subscription service: max decoded changelog batches buffered "
+            "per subscriber. A queue full past subscription.shed-timeout sheds "
+            "that subscriber (typed BUSY) — it never stalls the tailer."
+        ),
+    )
+    SUBSCRIPTION_POLL_BACKOFF = ConfigOption.duration(
+        "subscription.poll-backoff",
+        "20 ms",
+        description=(
+            "CDC subscription service: initial tailer backoff when no new "
+            "snapshot is available, doubling up to "
+            "continuous.discovery-interval (blocking poll, no busy loop)."
+        ),
+    )
+    SUBSCRIPTION_SHED_TIMEOUT = ConfigOption.duration(
+        "subscription.shed-timeout",
+        "2 s",
+        description=(
+            "CDC subscription service: how long the tailer waits on one "
+            "subscriber's full queue (or the shared buffer budget) before "
+            "shedding that subscriber with a typed SubscriberShedError carrying "
+            "its durable restart offset."
+        ),
+    )
+    SUBSCRIPTION_HEARTBEAT_INTERVAL = ConfigOption.duration(
+        "subscription.heartbeat-interval",
+        "5 s",
+        description=(
+            "CDC subscription service: cadence of durable consumer-position "
+            "re-records. Each record refreshes the consumer file's mtime, so "
+            "consumer.expiration-time only collects readers that stopped "
+            "heartbeating."
+        ),
+    )
+    SUBSCRIPTION_MAX_SUBSCRIBERS = ConfigOption.int_(
+        "subscription.max-subscribers",
+        1024,
+        description=(
+            "CDC subscription service: subscriber cap per table hub; subscribe() "
+            "past it answers a typed BUSY immediately."
+        ),
+    )
+    SUBSCRIPTION_REPLAY_CACHE_MAX_MEMORY = ConfigOption.memory(
+        "subscription.replay-cache.max-memory",
+        "32 mb",
+        description=(
+            "CDC subscription service: byte budget for the hub's replay cache of "
+            "decoded ChangelogBatches (LRU by snapshot). The data-file cache "
+            "already makes PAGE decode once-per-process; this extends decode-once "
+            "to the merged batch, so catch-up replay and shed-resume reuse the "
+            "tailer's decode+merge instead of re-merging per subscriber. "
+            "0 b = off."
+        ),
+    )
+    SUBSCRIPTION_BUFFER_MAX_MEMORY = ConfigOption.memory(
+        "subscription.buffer.max-memory",
+        "64 mb",
+        description=(
+            "CDC subscription service: shared byte budget for queued decoded "
+            "batches across ALL subscribers of a table (the "
+            "WriteBufferController riding the fan-out path). 0 b = unbounded."
+        ),
+    )
     # exactly-once: progress recorded on checkpoint completion;
     # at-least-once: on every plan
     CONSUMER_MODE = ConfigOption.string(
@@ -1342,6 +1410,15 @@ class CoreOptions:
         description=(
             'Batched gets consult per-file key blooms (and key ranges) to prune files before any data IO. Off ='
             ' every candidate file is probed.'
+        ),
+    )
+    LOOKUP_GET_MAX_INFLIGHT = ConfigOption.int_(
+        "lookup.get.max-inflight",
+        64,
+        description=(
+            "Concurrent get_batch requests a serving endpoint (KV server / "
+            "Flight do_action) admits before answering a typed BUSY instead of "
+            "queueing into a timeout."
         ),
     )
 

@@ -11,12 +11,13 @@ same table-API paths.
     >>> execute(cat, "SELECT s, count(*) FROM db.t GROUP BY s")
     >>> execute(cat, "CALL sys.create_tag('db.t', 'v1')")
 
-Procedures return plain dicts, as in the JAX package. Every procedure keeps
-the JAX package's name; those whose modules are not ported yet raise
-NotImplementedError naming their ROADMAP item: query_service (service/),
-the privilege procedures (catalog/privilege.py) and cluster_query
-(sql/cluster.py). `repair` raises ProcedureError on a FileSystemCatalog, as
-in the JAX package. migrate_table, migrate_database and migrate_file run
+Procedures return plain dicts, as in the JAX package, and keep its names.
+`repair` runs on a catalog that keeps metadata of its own (catalog/jdbc.py)
+and raises ProcedureError on a FileSystemCatalog; the five privilege
+procedures need a PrivilegedCatalog (catalog/privilege.py); query_service
+starts a service/ KvQueryServer for a table. cluster_query needs
+sql/cluster.py, which is not ported, and raises NotImplementedError naming
+its ROADMAP items. migrate_table, migrate_database and migrate_file run
 table/migrate.py, inferring the schema from the first file's own footer
 (migrate.infer_row_type), as the JAX package does through pyarrow.
 """
@@ -543,16 +544,6 @@ def _proc_migrate_file(cat, source_table: str, target_table: str,
             "origin_deleted": bool(delete_origin)}
 
 
-def _not_ported(name: str, module: str, item: int):
-    def proc(cat, *args, **kwargs):
-        raise NotImplementedError(
-            f"CALL sys.{name} needs {module}, which the torch port does not have yet (ROADMAP Queue 1 item {item})"
-        )
-
-    proc.__name__ = f"_proc_{name}"
-    return proc
-
-
 def _proc_repair(cat, identifier: str | None = None):
     """Sync catalog metadata with the filesystem: only catalogs that keep
     metadata of their own support it, not a FileSystemCatalog."""
@@ -560,6 +551,25 @@ def _proc_repair(cat, identifier: str | None = None):
     if repair is None:
         raise ProcedureError(f"catalog {type(cat).__name__} does not support repair")
     return repair() if identifier is None else repair(identifier)
+
+
+def _proc_query_service(cat, table: str, serve_seconds: float | None = None,
+                        host: str = "127.0.0.1", port: int = 0):
+    """Start the KV query service (service/ KvQueryServer) for a table on
+    the table's device. With `serve_seconds` it serves that long, stops and
+    returns; without, it returns at once with the running server under
+    "server"."""
+    import time
+
+    from ..service import KvQueryServer
+
+    server = KvQueryServer(_t(cat, table), host=host, port=port)
+    h, p = server.start()
+    if serve_seconds:
+        time.sleep(float(serve_seconds))
+        server.shutdown()
+        return {"service": "kv-query", "host": h, "port": p, "stopped": True}
+    return {"service": "kv-query", "host": h, "port": p, "server": server}
 
 
 def _proc_rewrite_file_index(cat, table: str, partitions: str | None = None):
@@ -653,6 +663,48 @@ def _proc_rewrite_file_index(cat, table: str, partitions: str | None = None):
     return {"rewritten": rewritten, "columns": bloom_cols}
 
 
+def _priv(cat):
+    from ..catalog.privilege import PrivilegeManager
+
+    mgr = getattr(cat, "manager", None)
+    if not isinstance(mgr, PrivilegeManager):
+        raise ProcedureError("catalog has no privilege support; open it as a PrivilegedCatalog")
+    return mgr
+
+
+def _grant_object(database: str | None, table: str | None) -> str:
+    return f"{database}.{table}" if database and table else (database or "*")
+
+
+def _proc_init_file_based_privilege(cat, root_password: str):
+    _priv(cat).init(root_password)
+    return {"initialized": True}
+
+
+def _proc_create_privileged_user(cat, user: str, password: str):
+    _priv(cat).create_user(user, password)
+    return {"user": user}
+
+
+def _proc_drop_privileged_user(cat, user: str):
+    _priv(cat).drop_user(user)
+    return {"dropped_user": user}
+
+
+def _proc_grant_privilege_to_user(cat, user: str, privilege: str, database: str | None = None,
+                                  table: str | None = None):
+    obj = _grant_object(database, table)
+    _priv(cat).grant(user, obj, privilege)
+    return {"user": user, "granted": privilege, "on": obj}
+
+
+def _proc_revoke_privilege_from_user(cat, user: str, privilege: str, database: str | None = None,
+                                     table: str | None = None):
+    obj = _grant_object(database, table)
+    _priv(cat).revoke(user, obj, privilege)
+    return {"user": user, "revoked": privilege, "on": obj}
+
+
 procedures: dict[str, Callable[..., Any]] = {
     "compact": _proc_compact,
     "compact_database": _proc_compact_database,
@@ -674,13 +726,13 @@ procedures: dict[str, Callable[..., Any]] = {
     "migrate_database": _proc_migrate_database,
     "migrate_file": _proc_migrate_file,
     "repair": _proc_repair,
-    "query_service": _not_ported("query_service", "service/", 15),
+    "query_service": _proc_query_service,
     "rewrite_file_index": _proc_rewrite_file_index,
-    **{
-        name: _not_ported(name, "catalog/privilege.py", 15)
-        for name in ("init_file_based_privilege", "create_privileged_user", "drop_privileged_user",
-                     "grant_privilege_to_user", "revoke_privilege_from_user")
-    },
+    "init_file_based_privilege": _proc_init_file_based_privilege,
+    "create_privileged_user": _proc_create_privileged_user,
+    "drop_privileged_user": _proc_drop_privileged_user,
+    "grant_privilege_to_user": _proc_grant_privilege_to_user,
+    "revoke_privilege_from_user": _proc_revoke_privilege_from_user,
 }
 
 

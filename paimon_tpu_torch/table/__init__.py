@@ -1,7 +1,8 @@
 """The Table API (port of paimon_tpu/table/__init__.py):
 new_read_builder / new_batch_write_builder / new_stream_write_builder,
 copy, with_user, delete_where, update_where, merge_into, tags, rollback_to,
-snapshot expiry, remove_orphan_files, and load_table (whose path's scheme
+snapshot expiry, remove_orphan_files, subscribe (service/subscription.py),
+and load_table (whose path's scheme
 picks the FileIO, fs `get_file_io`).
 
 A table with a primary key is served by the key-value store, one without
@@ -153,6 +154,15 @@ class FileStoreTable:
         from .rollback import rollback_to
 
         rollback_to(self, target)
+
+    def subscribe(self, consumer_id: str | None = None, from_snapshot: int | None = None):
+        """A live changelog subscription on the table's shared hub
+        (service/subscription.py): an iterator of ChangelogBatch.
+        `consumer_id` makes the progress durable (resume and expiry pin);
+        `from_snapshot` replays history before going live."""
+        from ..service.subscription import SubscriptionHub
+
+        return SubscriptionHub.for_table(self).subscribe(consumer_id=consumer_id, from_snapshot=from_snapshot)
 
     def remove_orphan_files(self, older_than_millis: int | None = None, dry_run: bool = False) -> list[str]:
         """Delete the files no live snapshot, changelog, tag or branch

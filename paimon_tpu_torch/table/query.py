@@ -16,8 +16,14 @@ built and warmed outside the lock and swapped in under it, so gets keep
 serving the previous snapshot meanwhile. Deletion vectors are applied
 when a bucket's files are indexed.
 
-Not ported: follow/unfollow (they need service/subscription.py), and the
-SQL cluster's execute_scan_fragment and partition_agg_partial.
+`follow()` refreshes on a subscription instead of per request: a
+paimon-qryref-* thread polls a SubscriptionHub subscription
+(service/subscription.py) and, on each new batch or a moved latest
+snapshot id (a compaction carries no changelog), refreshes with a swap
+lock. `unfollow()` (and `close()`) stops it and deletes its consumer.
+
+Not ported: the SQL cluster's execute_scan_fragment and
+partition_agg_partial.
 """
 
 from __future__ import annotations
@@ -82,6 +88,9 @@ class LocalTableQuery:
         # layout while the table object still holds the old options
         self._probe_buckets: int = max(self.store.options.bucket, 0)
         self._schemas = SchemaManager(self.table.file_io, str(self.table.path))
+        self._follow_thread: threading.Thread | None = None
+        self._follow_stop: threading.Event | None = None
+        self._follow_sub = None
         self.refresh()
 
     def attach_write(self, table_write: "TableWrite | None") -> "LocalTableQuery":
@@ -163,8 +172,59 @@ class LocalTableQuery:
             self._snapshot_id = sid
             self._probe_buckets = probe_buckets
 
+    def follow(self, hub=None, lock: "threading.Lock | None" = None) -> "LocalTableQuery":
+        """Refresh on every new snapshot that `hub` (the table's shared hub
+        by default) signals, and on every moved latest snapshot id; each
+        refresh builds outside `lock` and swaps under it. Pass the lock the
+        gets run under. Stop with unfollow()."""
+        if self._follow_thread is not None:
+            return self
+        from ..service.subscription import SubscriptionHub
+        from ..utils import new_file_name
+
+        hub = hub if hub is not None else SubscriptionHub.for_table(self.table)
+        flock = lock if lock is not None else threading.Lock()
+        stop = self._follow_stop = threading.Event()
+        # an ephemeral consumer, deleted on unfollow: a refresher must not
+        # pin snapshot expiry once it is gone
+        sub = self._follow_sub = hub.subscribe(consumer_id=f"qryref-{new_file_name('c')}")
+
+        def loop():
+            while not stop.is_set():
+                advanced = False
+                try:
+                    advanced = sub.poll(timeout=0.2) is not None
+                except Exception:  # noqa: BLE001 - shed or hub closed: poll snapshot ids instead
+                    stop.wait(0.2)
+                try:
+                    if advanced or self.store.snapshot_manager.latest_snapshot_id() != self._snapshot_id:
+                        self.refresh(swap_lock=flock)
+                except Exception:  # noqa: BLE001 - a failed plan or read: the next poll tries again
+                    pass
+
+        self._follow_thread = threading.Thread(target=loop, name=f"paimon-qryref-{id(self) & 0xFFFF:x}",
+                                               daemon=False)
+        self._follow_thread.start()
+        return self
+
+    def unfollow(self) -> None:
+        """Stop follow()'s refresher and delete its consumer; a no-op when
+        it was never started."""
+        t, self._follow_thread = self._follow_thread, None
+        if self._follow_stop is not None:
+            self._follow_stop.set()
+        if t is not None:
+            t.join(timeout=30.0)
+        sub, self._follow_sub = self._follow_sub, None
+        if sub is not None:
+            try:
+                sub.close(delete_consumer=True)
+            except OSError:
+                pass
+
     def close(self) -> None:
-        """Release the attached writer and the built state."""
+        """Stop following, release the attached writer and the built state."""
+        self.unfollow()
         self._write = None
         self._levels.clear()
         self._get_indexes.clear()

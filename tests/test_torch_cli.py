@@ -3,16 +3,17 @@ paimon_tpu_torch/__main__.py) and docs_gen against the JAX package's, on
 the CPU.
 
 Every action of tests/test_cli_actions.py and tests/test_clone_actions.py
-but repair and query-service runs in-process through both CLIs, the JAX
-package's (`paimon_tpu.__main__.main`) on one warehouse and the port's
-(with --device cpu) on a twin written with the same rows, and prints the
-same JSON (warehouse paths replaced by a placeholder); each package then
-reads the other's warehouse to the same rows. The port's tables merge
-under sort-engine=pallas (the kernels' plain versions on the CPU), the
-JAX package's under its numpy engine. repair and query-service raise
-NotImplementedError naming their module and ROADMAP item; with the
-default device and no CUDA every action raises RuntimeError, after the
-usage checks, which still exit with code 2. Three child processes run
+runs in-process through both CLIs, the JAX package's
+(`paimon_tpu.__main__.main`) on one warehouse and the port's (with
+--device cpu) on a twin written with the same rows, and prints the same
+JSON (warehouse paths replaced by a placeholder); each package then reads
+the other's warehouse to the same rows. The port's tables merge under
+sort-engine=pallas (the kernels' plain versions on the CPU), the JAX
+package's under its numpy engine. repair (a JdbcCatalog on --jdbc-path)
+registers the same table in both twins, and query-service prints the same
+JSON but for its host and port; with the default device and no CUDA every
+action raises RuntimeError, after the usage checks, which still exit with
+code 2. Three child processes run
 the CLI as an operator would: sync-table from stdin, clone, and docs_gen.
 docs_gen's table holds one row per option the port reads, each the JAX
 package's row for that key (the JAX keys the port does not read are listed
@@ -22,6 +23,7 @@ Tolerance: exact.
 """
 
 import datetime
+import importlib
 import io
 import json
 import os
@@ -352,9 +354,38 @@ def test_cli_drop_partition_and_mark_done(twin):
     ("repair", ["--warehouse", "w", "--jdbc-path", "m.db"], "catalog/jdbc.py", r"15 \(c\)"),
     ("query-service", ["--warehouse", "w", "--table", "db.t", "--serve-seconds", "0"], "service/", r"15 \(d\)"),
 ])
-def test_the_actions_not_ported_yet_raise(action, argv, module, item):
-    with pytest.raises(NotImplementedError, match=f"{module}.*ROADMAP Queue 1 item {item}"):
-        pcli.main([action, *argv, "--device", "cpu"])
+def test_the_actions_not_ported_yet_raise(action, argv, module, item, tmp_path, monkeypatch, capsys):
+    """repair and query-service waited for `module` (ROADMAP Queue 1 item
+    `item`); now ported, each prints what the JAX CLI prints for the same
+    arguments, run in a twin directory per package: repair the same
+    registrations, query-service the same JSON but for its host and port."""
+    importlib.import_module("paimon_tpu_torch." + module.rstrip("/").removesuffix(".py").replace("/", "."))
+    out = {}
+    for pkg in PKGS:
+        (tmp_path / pkg).mkdir()
+        monkeypatch.chdir(tmp_path / pkg)
+        if action == "repair":
+            jdbc = importlib.import_module(("paimon_tpu" if pkg == "jax" else "paimon_tpu_torch") + ".catalog.jdbc")
+            kw = {} if pkg == "jax" else {"device": "cpu"}
+            write(jdbc.JdbcCatalog("m.db", "w", **kw).create_table(
+                "db.kept", schema(pkg), primary_keys=["id"], options={"bucket": "1"}), [1], [1.0])
+            base_table(pkg, catalog(pkg, "w"), "db.behind")  # a table the sqlite catalog does not know
+        else:
+            write(catalog(pkg, "w").create_table("db.t", schema(pkg), primary_keys=["id"],
+                                                 options={"bucket": "1", **ENGINE[pkg]}), [1, 2], [1.0, 2.0])
+        capsys.readouterr()
+        assert CLI[pkg].main([action, *argv] + (["--device", "cpu"] if pkg == "port" else [])) == 0
+        printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        if action == "query-service":
+            assert isinstance(printed.pop("host"), str) and printed.pop("port") > 0
+            printed.update(host="<host>", port="<port>")
+            assert not os.path.exists("w/db.db/t/service/primary-key-lookup"), "the address file outlived the server"
+        out[pkg] = printed
+    assert out["port"] == out["jax"]
+    if action == "repair":
+        assert out["port"] == {"registered": ["db.behind"], "removed": [], "removed_databases": []}
+    else:
+        assert out["port"] == {"service": "kv-query", "host": "<host>", "port": "<port>"}
 
 
 ACTION_ARGS = {
@@ -438,13 +469,15 @@ def test_migrating_a_directory_without_files_exits_2(tmp_path, capsys):
 
 
 # the port's descriptions differ from the JAX package's only here: it reads
-# no PAIMON_TPU_* override, and it writes avro where the JAX package names lance
+# no PAIMON_TPU_* override, it writes avro where the JAX package names
+# lance, and it names its buffer controller without the JAX package's history
 DESCRIPTION_EDITS = {
     "merge.dict-domain": (" PAIMON_TPU_DICT_DOMAIN overrides.", ""),
     "merge.dict-domain.pool-limit": (" PAIMON_TPU_DICT_POOL_LIMIT overrides.", ""),
     "join.engine": (" PAIMON_TPU_JOIN_ENGINE overrides.", ""),
     "file-index.bloom-filter.primary-key.enabled": (" PAIMON_TPU_KEY_BLOOM=1/0 overrides.", ""),
     "file.format": ("parquet|orc|lance", "parquet|orc|avro"),
+    "subscription.buffer.max-memory": ("(the PR 8 WriteBufferController", "(the WriteBufferController"),
 }
 
 

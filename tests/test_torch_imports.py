@@ -160,6 +160,35 @@ def test_table_tools_and_cli_modules_are_scanned(module):
     test_no_forbidden_import_in_source(path)
 
 
+@pytest.mark.parametrize("module", ["catalog/__init__.py", "catalog/globals.py", "catalog/jdbc.py",
+                                    "catalog/privilege.py", "service/__init__.py", "service/shed.py",
+                                    "service/subscription.py"])
+def test_catalog_and_service_modules_are_scanned(module):
+    """The catalogs (the system tables, the JDBC catalog and its lock, the
+    privileges) and the serving plane (the KV service, the typed shed, the
+    subscription hub) are in the scanned sources (and so in the child
+    process's import closure)."""
+    path = REPO / "paimon_tpu_torch" / module
+    assert path in SOURCES
+    test_no_forbidden_import_in_source(path)
+
+
+@pytest.mark.parametrize("catalog", ["jdbc", "privileged"])
+def test_the_new_catalogs_default_device_without_cuda_raises(catalog, monkeypatch, tmp_path):
+    from paimon_tpu_torch.catalog.jdbc import JdbcCatalog
+    from paimon_tpu_torch.catalog.privilege import PrivilegedCatalog
+
+    def make(**kw):
+        if catalog == "jdbc":
+            return JdbcCatalog(str(tmp_path / "c.db"), str(tmp_path / "w"), **kw)
+        return PrivilegedCatalog(str(tmp_path / "w"), "root", "pw", **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu").device.type == "cpu"
+
+
 def test_the_catalog_opens_a_warehouse_by_its_scheme(tmp_path):
     """The catalog's FileIO comes from the warehouse's scheme; an unknown
     scheme raises ValueError, as in the JAX package."""

@@ -6,7 +6,8 @@ Held equal on the same inputs: the outcome of one scripted op sequence
 (conditional PUT, exclusive create, the legacy store's check-then-put,
 rename as copy and delete, the flat namespace) and the objects it leaves,
 with no `.os-staging/` leak; which lock a commit engages on each store and
-the error where none can work. Tables on s3://, oss:// and fail-s3:// are
+the error where none can work, the jdbc lock's row during a commit
+included. Tables on s3://, oss:// and fail-s3:// are
 written by one package and read by the other, row for row; a table
 renamed on the store stays readable by both. The port's own lock is held
 to mutual exclusion through a stale-lock takeover.
@@ -233,12 +234,44 @@ def test_the_same_lock_engages_on_each_store(tmp_path, scheme, options):
 
 
 def test_a_jdbc_lock_names_the_roadmap_item(tmp_path):
+    """commit.catalog-lock.type=jdbc waited for catalog/jdbc.py (ROADMAP
+    Queue 1 item 15 (c)). Now on each store (s3-legacy has no exclusive
+    create, s3 has) the port engages what the JAX package engages: a
+    JdbcCatalogLock on the same database, keyed by the table path, whose
+    row exists while a commit publishes its snapshot and is gone after; a
+    missing jdbc-path raises the JAX package's error."""
+    import sqlite3
+
+    import paimon_tpu.resilience.faults as jfaults
+
+    faults = {"jax": jfaults, "port": pfaults}
+    db = str(tmp_path / "locks.db")
     for scheme in ("s3-legacy", "s3"):
-        name, message = _lock_of("port", f"{scheme}://{tmp_path}/{scheme}",
-                                 {"commit.catalog-lock.type": "jdbc",
-                                  "commit.catalog-lock.jdbc-path": str(tmp_path / "locks.db")})
-        assert name == "NotImplementedError"
-        assert "catalog/jdbc.py" in message and "ROADMAP Queue 1 item 15 (c)" in message
+        out = {}
+        for pkg in ("jax", "port"):
+            path = f"{scheme}://{tmp_path}/{pkg}/{scheme}/db.db/l"
+            t = _catalog(pkg, f"{scheme}://{tmp_path}/{pkg}/{scheme}").create_table(
+                "db.l", _schema(pkg), primary_keys=["k"],
+                options={"bucket": "1", "commit.catalog-lock.type": "jdbc", "commit.catalog-lock.jdbc-path": db})
+            lock = t.store.new_commit()._lock
+            seen = []
+
+            def rows():
+                with sqlite3.connect(db) as c:
+                    return [r[0] for r in c.execute("SELECT lock_id FROM paimon_distributed_locks")]
+
+            faults[pkg].arm_crash_point("commit:manifests-written", count=0, action=lambda: seen.append(rows()))
+            try:
+                _write(t, [1, 2], [1.0, 2.0])
+            finally:
+                faults[pkg].disarm_crash_points()
+            held = [[lock_id.replace(f"/{pkg}/", "/<pkg>/") for lock_id in r] for r in seen]
+            out[pkg] = (type(lock).__name__, lock.lock_id == path, lock.db_path, held, rows(), _read(t))
+        assert out["port"] == out["jax"]
+        assert out["port"][:5] == ("JdbcCatalogLock", True, db, [[f"{scheme}://{tmp_path}/<pkg>/{scheme}/db.db/l"]], [])
+        errors = [_lock_of(pkg, f"{scheme}://{tmp_path}/{pkg}/{scheme}-nopath", {"commit.catalog-lock.type": "jdbc"})
+                  for pkg in ("jax", "port")]
+        assert errors[0] == errors[1] == ("ValueError", "commit.catalog-lock.type=jdbc needs commit.catalog-lock.jdbc-path")
 
 
 def test_commits_on_the_store_hold_the_lock_file(tmp_path):

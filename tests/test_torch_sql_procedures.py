@@ -11,14 +11,18 @@ package reading the other's warehouse to those rows. The scripts are the
 counterparts of tests/test_sql_procedures.py (parse_call, the tag,
 rollback, branch and fast-forward procedures, compact and
 compact_database, expire_snapshots, delete by the JSON and the SQL form,
-reset_consumer), of tests/test_sql_round5.py less its privilege and
-query-service cases (merge_into in its named, positional, short delete
-and '*' forms and its refusals, rewrite_file_index with pruning after it,
-repair on a FileSystemCatalog; its migrate cases are in
-tests/test_torch_migrate.py) and of tests/test_sql_grand_tour.py, plus
-expire_partitions, drop_partition and mark_partition_done. The procedures
-that wait for later slices are pinned to NotImplementedError naming their
-ROADMAP item; the migrate procedures raise what the JAX package raises.
+reset_consumer), of tests/test_sql_round5.py (merge_into in its named,
+positional, short delete and '*' forms and its refusals,
+rewrite_file_index with pruning after it, repair on a FileSystemCatalog,
+the privilege procedures and query_service; its migrate cases are in
+tests/test_torch_migrate.py, its JdbcCatalog repair in
+tests/test_torch_catalogs.py) and of tests/test_sql_grand_tour.py, plus
+expire_partitions, drop_partition and mark_partition_done. The privilege
+procedures and query_service return or raise what the JAX package's do on
+a twin warehouse (the servers' addresses aside, each package's client
+reading the other's server), and so do the migrate procedures;
+cluster_query, which waits for a later slice, is pinned to
+NotImplementedError naming its ROADMAP items.
 
 Tolerance: exact.
 """
@@ -391,21 +395,66 @@ def test_repair_and_not_ported_procedures(tmp_path):
     assert call(cat, "CALL sys.remove_orphan_files(`table` => 'db.t', older_than_hours => -1)") == {
         "orphans": [debris], "dry_run": False}
     assert not os.path.exists(debris) and port_execute(cat, "SELECT count(*) FROM db.t").to_pylist() == [(2,)]
-    not_ported = {
-        "query_service": "service/",
-        "init_file_based_privilege": "catalog/privilege.py", "create_privileged_user": "catalog/privilege.py",
-        "drop_privileged_user": "catalog/privilege.py", "grant_privilege_to_user": "catalog/privilege.py",
-        "revoke_privilege_from_user": "catalog/privilege.py",
-    }
-    for name, module in not_ported.items():
-        with pytest.raises(NotImplementedError, match=f"{module}.*ROADMAP Queue 1 item 15"):
-            call(cat, f"CALL sys.{name}('db.t', 'x')")
-    # the migrate procedures are ported: the same call raises what the JAX
-    # package raises on the same warehouse (no files in 'x', no directory
-    # 'x', no table 'x')
     jcat = JaxCatalog(str(tmp_path / "jax"))
     jax_execute(jcat, "CREATE TABLE db.t (k BIGINT NOT NULL, v DOUBLE, PRIMARY KEY (k) NOT ENFORCED) "
                       "WITH ('bucket' = '1')")
+    jax_execute(jcat, "INSERT INTO db.t VALUES (1, 1.0), (2, 2.0)")
+    # the privilege procedures are ported: on a FileSystemCatalog the same
+    # call raises what the JAX package raises (no privilege support, or the
+    # procedure's arity)
+    for name in ("init_file_based_privilege", "create_privileged_user", "drop_privileged_user",
+                 "grant_privilege_to_user", "revoke_privilege_from_user"):
+        statement = f"CALL sys.{name}('db.t', 'x')"
+        with pytest.raises(Exception) as jax_err:
+            jax_execute(jcat, statement)
+        with pytest.raises(ProcedureError) as port_err:
+            call(cat, statement)
+        assert type(jax_err.value).__name__ == type(port_err.value).__name__
+        assert str(port_err.value) == str(jax_err.value)
+    # on a PrivilegedCatalog each returns what the JAX package returns, and
+    # each package's grants hold in the other's manager
+    from paimon_tpu.catalog.privilege import PrivilegedCatalog as JaxPrivileged
+    from paimon_tpu.sql import call as jax_call
+    from paimon_tpu_torch.catalog.privilege import PrivilegedCatalog as PortPrivileged
+
+    privileged = {"jax": JaxPrivileged(str(tmp_path / "jax"), "root", "rootpw"),
+                  "port": PortPrivileged(str(tmp_path), "root", "rootpw", device="cpu")}
+    for statement in ("CALL sys.init_file_based_privilege('rootpw')", "CALL sys.create_privileged_user('alice', 'pw1')",
+                      "CALL sys.grant_privilege_to_user('alice', 'SELECT', 'db', 't')",
+                      "CALL sys.grant_privilege_to_user('alice', 'INSERT', 'db')",
+                      "CALL sys.revoke_privilege_from_user('alice', 'INSERT', 'db')"):
+        got = {"jax": jax_call(privileged["jax"], statement), "port": call(privileged["port"], statement)}
+        assert got["port"] == got["jax"], statement
+    from paimon_tpu.catalog.privilege import PrivilegeManager as JaxManager
+    from paimon_tpu_torch.catalog.privilege import PrivilegeManager as PortManager
+
+    for warehouse in (tmp_path / "jax", tmp_path):
+        for manager in (JaxManager, PortManager):
+            m = manager(str(warehouse))
+            assert m.has("alice", "db.t", "SELECT") and not m.has("alice", "db.t", "INSERT")
+            assert m.authenticate("alice", "pw1") and not m.authenticate("alice", "pw2")
+    assert call(privileged["port"], "CALL sys.drop_privileged_user('alice')") == {"dropped_user": "alice"}
+    # query_service is ported: the same call returns the JAX package's
+    # result but for the address, and each package's client reads the
+    # other's server
+    from paimon_tpu.service import KvQueryClient as JaxClient
+    from paimon_tpu_torch.service import KvQueryClient as PortClient
+
+    served = {"jax": jax_execute(jcat, "CALL sys.query_service('db.t')"),
+              "port": call(cat, "CALL sys.query_service('db.t')")}
+    try:
+        assert {k: v for k, v in served["port"].items() if k not in ("host", "port", "server")} == \
+            {k: v for k, v in served["jax"].items() if k not in ("host", "port", "server")} == {"service": "kv-query"}
+        for server, client in (("jax", PortClient), ("port", JaxClient)):
+            c = client(served[server]["host"], served[server]["port"])
+            assert c.get_batch([1, 2, 3]) == [(1, 1.0), (2, 2.0), None] and c.lookup((), 2) == (2, 2.0)
+            c.close()
+    finally:
+        for got in served.values():
+            got["server"].shutdown()
+    # the migrate procedures are ported: the same call raises what the JAX
+    # package raises on the same warehouse (no files in 'x', no directory
+    # 'x', no table 'x')
     for name, error in (("migrate_table", ProcedureError), ("migrate_database", FileNotFoundError),
                         ("migrate_file", ProcedureError)):
         statement = f"CALL sys.{name}('db.t', 'x')"
@@ -417,8 +466,8 @@ def test_repair_and_not_ported_procedures(tmp_path):
         assert str(port_err.value) == str(jax_err.value)
     with pytest.raises(NotImplementedError, match="sql/cluster.py"):
         cluster_query(cat, "SELECT 1 FROM db.t", client=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        cat.get_table("sys.all_table_options")
+    # the catalog-scope system tables are ported
+    assert cat.get_table("sys.all_table_options").to_pylist() == jcat.get_table("sys.all_table_options").to_pylist()
     from paimon_tpu.sql import procedures as jax_procedures
 
     assert set(procedures) == set(jax_procedures)
